@@ -1,0 +1,186 @@
+"""KVNAND engine: chunked prefill + decode over the paged KV stripe
+(port of `repro.core.engine`, single device, compact variant).
+
+`decode_step` runs one token per slot through every layer: QKV
+projection, an in-place append of the new K/V into the slot's stripe,
+decode attention over the stripe (the CUDA kernel on the card), output
+projection and MLP.  `prefill_chunk` runs one page-aligned chunk of one
+slot's prompt: a causal in-chunk partial over the chunk's own K/V and a
+past-page partial over the slot's already-written pages, merged by
+log-sum-exp, then the chunk's K/V are filled into the stripe.
+
+The layer loop is a Python loop (the reference's `lax.scan`), and the
+pools are mutated in place through `core/paged_kv.py`.  The private
+helpers carry names of their own (the reference's are cited in their
+docstrings): the repo's static analyzer resolves `self.<method>` calls
+by class and method name, and a shared name would let this eager code
+feed its call graph of the jitted reference engine.  Not ported yet,
+and refused here: the discrete/head-group-pipelined variant, the shared
+pool, kv8/kv4 pools, window rings, non-dense families, quantized weights,
+speculative verify, the one-shot prefill and a device mesh.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import EngineConfig, ModelConfig
+from repro_torch.core import paged_kv, seqpar
+from repro_torch.core.paged_kv import DecodeCache
+from repro_torch.kernels.paged_attention import (paged_attention_partial,
+                                                 paged_chunk_attention)
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import embed_lookup, layer_slice, mlp, rms_norm
+from repro_torch.models.transformer import (Runtime, check_supported,
+                                            embed_inputs, lm_head_logits)
+
+
+class KVNANDEngine:
+    def __init__(self, cfg: ModelConfig, eng: Optional[EngineConfig] = None,
+                 rt: Optional[Runtime] = None, mesh=None, device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a device mesh is not ported yet (ROADMAP A17, multiple "
+                "GPUs)")
+        self.cfg = cfg
+        self.eng = eng or EngineConfig()
+        self.rt = rt or Runtime()
+        self.device = torch.device(device)
+        check_supported(cfg)
+        paged_kv.check_supported(self.eng)
+        if self.eng.variant != "compact" or self.eng.hg_pipeline:
+            raise NotImplementedError(
+                "the discrete head-group-pipelined variant is not ported "
+                "yet (ROADMAP A15)")
+        if self.eng.quant != "none":
+            raise NotImplementedError(
+                f"quant={self.eng.quant!r} weights need quant_gemv, not "
+                "ported yet (ROADMAP B3)")
+
+    # ------------------------------------------------------------------
+    def init_cache(self, batch: int, max_context: int) -> DecodeCache:
+        return paged_kv.init_cache(self.cfg, self.eng, batch, max_context,
+                                   dtype=getattr(torch, self.eng.kv_dtype),
+                                   device=self.device)
+
+    def _page_bases(self, table: torch.Tensor) -> torch.Tensor:
+        """Per-physical-page base positions [B, NP] (the reference's
+        `_global_bases`): the stripe table permutes pages within the
+        stripe, so it is inverted here."""
+        B, NP = table.shape
+        T = self.eng.page_tokens
+        vals = (torch.arange(NP, dtype=torch.int32, device=table.device)
+                * T)[None].expand(B, NP)
+        return torch.zeros((B, NP), dtype=torch.int32,
+                           device=table.device).scatter_(1, table.long(), vals)
+
+    # ------------------------------------------------------------------
+    # decode
+    # ------------------------------------------------------------------
+    def _attend_heads(self, q, kp, vp, base, lengths):
+        """All heads at once (KVNAND-C, the reference's `_attend_compact`):
+        q [B, 1, H, dh] against the layer's already-appended pool slices
+        kp/vp."""
+        o, _, _ = paged_attention_partial(
+            q[:, 0], kp, vp, base, lengths + 1,
+            partitions=self.eng.attn_partitions)
+        return o
+
+    def _decode_attention(self, pl_, x, cache: DecodeCache, layer: int,
+                           lengths, base, active):
+        """One layer's decode attention (the reference's
+        `_decode_attn_layer`, stripe pool): append the token's K/V, attend,
+        project out."""
+        cfg = self.cfg
+        h = rms_norm(x, pl_["ln1"], cfg.norm_eps)
+        # one projection serves the append (k, v) and the attention (q);
+        # the reference projects twice with identical results
+        q, k_new, v_new = attn_mod.project_qkv(pl_["attn"], cfg, h,
+                                               lengths[:, None])
+        T = self.eng.page_tokens
+        NP = cache.page_table_g.shape[1]
+        logical = (lengths // T).long().clamp(max=NP - 1)
+        phys = torch.gather(cache.page_table_g, 1, logical[:, None])[:, 0]
+        slot = lengths % T
+        paged_kv.append_token_inplace(cache.k_pages_g, layer, phys, slot,
+                                      k_new[:, 0], active)
+        paged_kv.append_token_inplace(cache.v_pages_g, layer, phys, slot,
+                                      v_new[:, 0], active)
+        o = self._attend_heads(q, cache.k_pages_g[layer],
+                                 cache.v_pages_g[layer], base, lengths)
+        return attn_mod.project_out(pl_["attn"], cfg, o[:, None])
+
+    def decode_step(self, params, cache: DecodeCache, tokens: torch.Tensor,
+                    active: Optional[torch.Tensor] = None):
+        """tokens: [B, 1] -> (logits [B, V], cache updated in place).
+
+        active: optional [B] bool mask — inactive slots (empty, or mid
+        chunked prefill) get no KV append and no length advance; their
+        logits are computed and ignored by the caller."""
+        cfg = self.cfg
+        if active is not None and self.eng.uniform_lengths:
+            raise ValueError("active-mask decode requires the ragged "
+                             "(uniform_lengths=False) append path")
+        lengths = cache.lengths
+        base = self._page_bases(cache.page_table_g)
+        x = embed_lookup(params["embedding"], tokens, self.rt.activ_dtype)
+        for i in range(cfg.n_layers):
+            pl_ = layer_slice(params["layers"], i)
+            x = x + self._decode_attention(pl_, x, cache, i, lengths,
+                                            base, active)
+            h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
+            x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
+        cache.lengths += (1 if active is None
+                          else active.to(cache.lengths.dtype))
+        return lm_head_logits(params, cfg, x)[:, 0], cache
+
+    # ------------------------------------------------------------------
+    # chunked prefill
+    # ------------------------------------------------------------------
+    def prefill_chunk(self, params, cache: DecodeCache, batch, slot: int,
+                      start: int, chunk_len: int, *, first: bool = False):
+        """One page-aligned chunk of ONE slot's prompt, straight into the
+        slot's stripe.
+
+        batch["tokens"]: [1, C] (C = the scheduler's chunk bucket, the
+        tail is padding); start: absolute position of the chunk's first
+        token (a multiple of page_tokens); chunk_len: valid tokens.
+        first=True skips the past-page partial.  Returns (logits [1, V]
+        at the chunk's last valid token, cache updated in place)."""
+        cfg = self.cfg
+        if first:
+            x, _ = embed_inputs(params, cfg, batch, self.rt)
+        else:
+            x = embed_lookup(params["embedding"], batch["tokens"],
+                             self.rt.activ_dtype)
+        S = x.shape[1]
+        q_pos = start + torch.arange(S, device=x.device)
+        positions = q_pos[None]
+        page0 = start // self.eng.page_tokens
+        base = self._page_bases(cache.page_table_g[slot:slot + 1])
+        scale = cfg.d_head ** -0.5
+        for i in range(cfg.n_layers):
+            pl_ = layer_slice(params["layers"], i)
+            h = rms_norm(x, pl_["ln1"], cfg.norm_eps)
+            q, k, v = attn_mod.project_qkv(pl_["attn"], cfg, h, positions)
+            # in-chunk causal partial over the chunk's own full-precision K/V
+            o, m, l = seqpar._attn_block_partial(
+                q, k, v, q_pos, start, causal=True, window=None, scale=scale)
+            if not first:
+                # past-context partial from the slot's already-written pages
+                o2, m2, l2 = paged_chunk_attention(
+                    q, cache.k_pages_g[i, slot:slot + 1],
+                    cache.v_pages_g[i, slot:slot + 1], base, start, q_pos,
+                    partitions=self.eng.attn_partitions)
+                o, m, l = seqpar.merge_two(o, m, l, o2, m2, l2)
+            x = x + attn_mod.project_out(pl_["attn"], cfg, o.to(h.dtype))
+            paged_kv.fill_chunk_global_at(cache.k_pages_g, k, i, slot, page0,
+                                          chunk_len)
+            paged_kv.fill_chunk_global_at(cache.v_pages_g, v, i, slot, page0,
+                                          chunk_len)
+            h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
+            x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
+        cache.lengths[slot] = start + chunk_len
+        x_last = x[:, chunk_len - 1:chunk_len]
+        return lm_head_logits(params, cfg, x_last)[:, 0], cache

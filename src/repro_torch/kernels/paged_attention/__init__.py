@@ -1,0 +1,16 @@
+from repro_torch.kernels.paged_attention.kernel import (  # noqa: F401
+    launches,
+    paged_attention_cuda,
+)
+from repro_torch.kernels.paged_attention.merge import (  # noqa: F401
+    merge_partials,
+    resolve_partitions,
+)
+from repro_torch.kernels.paged_attention.ops import (  # noqa: F401
+    paged_attention_partial,
+    paged_chunk_attention,
+)
+from repro_torch.kernels.paged_attention.ref import (  # noqa: F401
+    paged_attention_partial_ref,
+    paged_chunk_attention_ref,
+)

@@ -1,0 +1,107 @@
+"""Public paged-attention entry points (port of
+`repro.kernels.paged_attention.ops`).
+
+`paged_attention_partial` dispatches by the tensors' device alone: a CPU
+tensor takes the plain torch version (`ref.py`), a CUDA tensor launches
+the CUDA kernel — there is no fallback between the two.  Both split the
+page walk into `partitions` contiguous ranges whose partials recombine in
+`merge.merge_partials` (0 resolves per `merge.resolve_partitions`).
+
+`paged_chunk_attention` (the past-context partial of chunked prefill)
+has no kernel in the reference either and stays plain torch on every
+device.  The reference's TPU-only `pages_per_block` blocking is not
+carried over.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
+from repro_torch.kernels.paged_attention.merge import (merge_partials,
+                                                      resolve_partitions)
+from repro_torch.kernels.paged_attention.ref import (
+    paged_attention_partial_ref, paged_chunk_attention_ref)
+
+
+def _partition_walk(num_pages: int, partitions: int, piece):
+    """Run `piece(page_lo, pages_per_partition)` over contiguous page
+    ranges, one at a time, and merge the stacked partials."""
+    npp = num_pages // partitions
+    parts = [piece(i * npp, npp) for i in range(partitions)]
+    o, m, l = (torch.stack(x) for x in zip(*parts))
+    return merge_partials(o, m, l, axis=0)
+
+
+def _slice_pages(lo: int, n: int, k_pages, v_pages, page_base, k_scale,
+                 v_scale):
+    sl = lambda a, axis: None if a is None else a.narrow(axis, lo, n)  # noqa
+    return (sl(k_pages, 2), sl(v_pages, 2), sl(page_base, 1),
+            sl(k_scale, 2), sl(v_scale, 2))
+
+
+def paged_chunk_attention(q, k_pages, v_pages, page_base, start, q_pos, *,
+                          window: Optional[int] = None,
+                          kv_quant: str = "none", k_scale=None, v_scale=None,
+                          partitions: int = 0):
+    """Past-context partial of a multi-token span (plain torch)."""
+    NP = k_pages.shape[2]
+    P = resolve_partitions(partitions, NP)
+
+    def piece(lo, npp):
+        kp, vp, base, ks, vs = _slice_pages(lo, npp, k_pages, v_pages,
+                                            page_base, k_scale, v_scale)
+        return paged_chunk_attention_ref(
+            q, kp, vp, base, start, q_pos, window=window, kv_quant=kv_quant,
+            k_scale=ks, v_scale=vs)
+
+    if P == 1:
+        return piece(0, NP)
+    return _partition_walk(NP, P, piece)
+
+
+def paged_attention_partial(
+    q: torch.Tensor,          # [B, H, dh]
+    k_pages: torch.Tensor,    # [B, K, NP, T, dh] (kv4: [B, K, NP, T/2, dh])
+    v_pages: torch.Tensor,
+    page_base: torch.Tensor,  # [B, NP]
+    length: torch.Tensor,     # [B]
+    *,
+    window: Optional[int] = None,
+    kv_quant: str = "none",
+    k_scale: Optional[torch.Tensor] = None,   # [B, K, NP]
+    v_scale: Optional[torch.Tensor] = None,
+    partitions: int = 0,      # 0 = auto from page count; must divide NP
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (o [B, H, dh] locally normalized, m [B, H], l [B, H])."""
+    B, H, dh = q.shape
+    K, NP = k_pages.shape[1], k_pages.shape[2]
+    G = H // K
+    P = resolve_partitions(partitions, NP)
+
+    if q.device.type == "cpu":
+        def piece(lo, npp):
+            kp, vp, base, ks, vs = _slice_pages(lo, npp, k_pages, v_pages,
+                                                page_base, k_scale, v_scale)
+            return paged_attention_partial_ref(
+                q, kp, vp, base, length, window=window, kv_quant=kv_quant,
+                k_scale=ks, v_scale=vs)
+
+        if P == 1:
+            return piece(0, NP)
+        return _partition_walk(NP, P, piece)
+
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_partial: no kernel for device "
+                         f"{q.device}")
+    o, m, l = paged_attention_cuda(
+        q.reshape(B, K, G, dh).float().contiguous(), k_pages, v_pages,
+        page_base.to(torch.int32), length.to(torch.int32), window=window,
+        kv_quant=kv_quant, k_scale=k_scale, v_scale=v_scale, partitions=P)
+    if P > 1:
+        o, m, l = merge_partials(o, m, l, axis=2)
+    else:
+        o, m, l = o[:, :, 0], m[:, :, 0], l[:, :, 0]
+    return (o.reshape(B, H, dh).to(q.dtype), m.reshape(B, H),
+            l.reshape(B, H))

@@ -1,0 +1,91 @@
+"""Dense decoder (port of the dense branch of `repro.models.transformer`).
+
+Layers are stacked (leading layer axis on every per-layer leaf, as in the
+reference) and run by a Python loop in place of `lax.scan`.  Families
+other than "dense" and sliding-window archs are not ported yet
+(ROADMAP A10, A15) and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (ParamInit, embed_lookup,
+                                       init_embedding, init_mlp, layer_slice,
+                                       mlp, rms_norm)
+
+
+@dataclasses.dataclass(frozen=True)
+class Runtime:
+    activ_dtype: Any = torch.float32
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for the configurations this slice of the port leaves out."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet "
+            "(ROADMAP A15, other families)")
+    if cfg.window is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: sliding-window layers are not ported yet "
+            "(ROADMAP A10, window rings)")
+
+
+def init_model(cfg: ModelConfig, generator: torch.Generator,
+               device) -> Dict[str, Any]:
+    """Fresh float32 parameters with the reference's tree, shapes and
+    scales."""
+    check_supported(cfg)
+    b = ParamInit(generator, device)
+    init_embedding(b, cfg.padded_vocab, cfg.d_model)
+    lb = ParamInit(generator, device, stack=cfg.n_layers)
+    lb.param("ln1", (cfg.d_model,), init="zeros")
+    attn_mod.init_attention(lb.scope("attn"), cfg)
+    lb.param("ln2", (cfg.d_model,), init="zeros")
+    init_mlp(lb.scope("mlp"), cfg.d_model, cfg.d_ff, cfg.gated_mlp)
+    b.params["layers"] = lb.params
+    b.param("final_norm", (cfg.d_model,), init="zeros")
+    if not cfg.tie_embeddings:
+        b.param("lm_head", (cfg.padded_vocab, cfg.d_model))
+    return b.params
+
+
+def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                 rt: Runtime) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Input activations [B, S, D] + positions [B, S] (dense: tokens
+    only — patch and meta-token prefixes belong to unported families)."""
+    tok = batch["tokens"]
+    x = embed_lookup(params["embedding"], tok, rt.activ_dtype)
+    B, S = tok.shape
+    positions = torch.arange(S, device=tok.device)[None].expand(B, S)
+    return x, positions
+
+
+def lm_head_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    table = params.get("lm_head", params["embedding"])
+    return torch.matmul(x, table.to(x.dtype).t())
+
+
+def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            rt: Runtime) -> torch.Tensor:
+    """Plain full forward with plain causal attention -> logits [B, S, V].
+
+    Kernel-free: the reference the engine and the served tokens are held
+    against, never the serving path."""
+    check_supported(cfg)
+    x, positions = embed_inputs(params, cfg, batch, rt)
+    for i in range(cfg.n_layers):
+        pl_ = layer_slice(params["layers"], i)
+        h = rms_norm(x, pl_["ln1"], cfg.norm_eps)
+        q, k, v = attn_mod.project_qkv(pl_["attn"], cfg, h, positions)
+        x = x + attn_mod.project_out(pl_["attn"], cfg,
+                                     attn_mod.causal_attention(q, k, v))
+        h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
+        x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
+    return lm_head_logits(params, cfg, x)

@@ -11,6 +11,10 @@ def pytest_configure(config):
         "markers",
         "allow_recompile: opt out of the jit-cache guard for tests that "
         "legitimately compile several signatures of one step callable")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card; skips where torch.cuda.is_available() "
+        "is False (tests/test_torch_cuda.py)")
 
 
 @pytest.fixture(scope="session")
