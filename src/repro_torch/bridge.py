@@ -9,9 +9,7 @@ torch tensors, so every leaf keeps the name it has in
 Input is a nested dict of numpy arrays (what `jax.tree.map(np.asarray,
 params)` gives); no jax import is needed.  bfloat16 leaves arrive as
 ml_dtypes arrays and are carried over bit-exactly through their uint16
-view (and leave again as float32, which holds them exactly: numpy has
-no bf16).  Quantized weight leaves (NamedTuples) are not part of this
-slice.
+view.  Quantized weight leaves (NamedTuples) are not part of this slice.
 """
 from __future__ import annotations
 
@@ -61,20 +59,7 @@ def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:      # numpy has no bf16: f32 is lossless
-        t = t.float()
-    return t.numpy()
-
-
 def params_from_numpy(tree, device="cuda") -> Dict[str, Any]:
     """Reference numpy params -> the port's params on `device`."""
     return unflatten({p: _to_tensor(a, device)
                       for p, a in flatten_with_paths(tree).items()})
-
-
-def params_to_numpy(params) -> Dict[str, Any]:
-    """The port's params -> a nested dict of host numpy arrays."""
-    return unflatten({p: _to_numpy(t)
-                      for p, t in flatten_with_paths(params).items()})

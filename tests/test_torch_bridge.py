@@ -19,6 +19,11 @@ torch.set_num_threads(2)
 ARCHS = ["qwen1.5-0.5b", "llama3.1-8b"]
 
 
+def _bits(t: torch.Tensor) -> np.ndarray:
+    """The tensor's bytes (bf16 included, which numpy cannot hold)."""
+    return t.detach().cpu().contiguous().view(torch.uint8).numpy()
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_every_leaf_round_trips_bit_exactly(arch):
     cfg = get_config(arch).reduced()
@@ -27,22 +32,24 @@ def test_every_leaf_round_trips_bit_exactly(arch):
     tp = bridge.params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
     assert all(isinstance(t, torch.Tensor) and t.device.type == "cpu"
                for t in bridge.flatten_with_paths(tp).values())
-    back = bridge.flatten_with_paths(bridge.params_to_numpy(tp))
-    assert sorted(back) == sorted(ref)
+    port = bridge.flatten_with_paths(tp)
+    assert sorted(port) == sorted(ref)
     for name, arr in ref.items():
-        assert back[name].dtype == arr.dtype, name
-        assert back[name].shape == arr.shape, name
-        assert np.array_equal(back[name].view(np.uint8),
-                              arr.view(np.uint8)), name
+        arr = np.asarray(arr)
+        t = port[name]
+        assert str(t.dtype).removeprefix("torch.") == arr.dtype.name, name
+        assert tuple(t.shape) == arr.shape, name
+        assert np.array_equal(_bits(t).reshape(-1),
+                              arr.reshape(-1).view(np.uint8)), name
 
 
 def test_bfloat16_leaves_carry_over_exactly():
     x = jax.random.normal(jax.random.PRNGKey(1), (7, 5)).astype(jnp.bfloat16)
     tp = bridge.params_from_numpy({"w": np.asarray(x)}, "cpu")
     assert tp["w"].dtype == torch.bfloat16
-    back = bridge.params_to_numpy(tp)["w"]
-    assert back.dtype == np.float32
-    assert np.array_equal(back, np.asarray(x, np.float32))
+    assert np.array_equal(tp["w"].float().numpy(), np.asarray(x, np.float32))
+    assert np.array_equal(_bits(tp["w"]).reshape(-1),
+                          np.asarray(x).reshape(-1).view(np.uint8))
 
 
 def test_quantized_leaves_are_refused():

@@ -10,7 +10,9 @@ suite's conftest:
 
 Tolerances: 2e-5 (atol and rtol) for f32 pools and for kv8/kv4 (codes are
 contracted in f32 on both sides), 3e-2 for bf16 pools, where the plain
-version rounds q and p to bf16 and the kernel keeps them in f32.
+version rounds q and p to bf16 and the kernel keeps them in f32.  A bf16
+pool is also held at 2e-5 against the plain version on the same pages
+upcast to f32, which is the kernel's own arithmetic.
 """
 import itertools
 
@@ -66,6 +68,12 @@ def test_kernel_matches_plain_version(cuda_device, fmt, G, dh, window,
                                            k_scale=ks, v_scale=vs)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=TOL[fmt], rtol=TOL[fmt])
+    if fmt == "bf16":
+        want32 = tpa.paged_attention_partial_ref(q, kp.float(), vp.float(),
+                                                 base, length, window=window)
+        for g, w in zip(got, want32):
+            torch.testing.assert_close(g, w, atol=TOL["f32"],
+                                       rtol=TOL["f32"])
     o, m, l = got                       # the all-masked row
     assert torch.all(o[3] == 0) and torch.all(l[3] == 0)
     assert torch.all(m[3] == -1e30)
