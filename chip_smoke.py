@@ -5,24 +5,40 @@
 
 Phases (each one fails the run when it fails):
 
-1. build    the paged decode-attention kernel from src/repro_torch/csrc
-            with nvcc (sm_90a), timed;
-2. kernel   hold the kernel against its plain torch version on the card:
+1. build    both paged decode-attention kernels from src/repro_torch/csrc
+            (B1 over per-slot stripes, B2 over the shared pool through page
+            tables), one nvcc process per source, started together, timed;
+2. kernel   hold each kernel against its plain torch version on the card,
             {f32, bf16, kv8, kv4} pools x partitions {1, 16} x window
-            {None, 64} x head shapes (K=16, G=1, dh=64) (qwen1.5-0.5b) and
-            (K=8, G=4, dh=128) (llama3.1-8b), with ragged lengths, a
-            length-1 row, a row with unwritten pages and an all-masked row;
+            {None, 64}.  B1: head shapes (K=16, G=1, dh=64) (qwen1.5-0.5b)
+            and (K=8, G=4, dh=128) (llama3.1-8b), ragged lengths, a
+            length-1 row, a row with unwritten pages, an all-masked row.
+            B2: head shapes G in {1, 4, 8} x dh in {64, 128}, tables that
+            permute a larger pool, a row whose entries past its length name
+            pages other rows own, an all-masked row;
 3. timing   kernel, plain version and a library yardstick
-            (scaled_dot_product_attention on pre-gathered K/V) at the
-            serving shape (B=4, 512 tokens, bf16) and a long shape (B=1,
-            100K tokens, bf16, 16 partitions), beside the HBM-byte bound;
+            (scaled_dot_product_attention on K/V gathered beforehand; for
+            B2 also gather + SDPA in one timed call) at the serving shape
+            (B=4, 512 tokens, bf16) and a long shape (B=1, 100K tokens,
+            bf16, 16 partitions), beside the HBM-byte bound; B2's tables
+            permute the pool;
 4. server   `KVNANDServer` at the full width of qwen1.5-0.5b (random
-            weights from a seed) answers 6 greedy requests of 5-200 prompt
-            tokens x 16 new tokens; the kernel's launch counter must equal
-            decode steps x 24 layers;
-5. check    every served token against a kernel-free reference on the
-            card: the port's plain full forward, teacher-forced on
-            prompt + output.
+            weights from a seed), stripe pool: 6 greedy requests of 5-200
+            prompt tokens x 16 new tokens; B1's launch counter must equal
+            decode steps x 24 layers and B2's must stay 0;
+5. shared   the same server on the shared pool (`shared_pool=True`): 6
+            greedy requests, 3 of them sharing a 32-token system prefix and
+            one an exact repeat, so the prefix cache hits and pages are
+            copied on write; B2's counter must equal decode steps x 24 and
+            B1's stay 0; the allocator's invariants hold after the drain.
+            Served from a bf16 pool and, on the same prompts, from an f32
+            pool;
+6. check    every served token of the server phases against a
+            kernel-free reference on the card: the port's plain full
+            forward, teacher-forced on prompt + output (logprobs within
+            LOGPROB_TOL; the token the reference argmax within
+            LOGIT_GAP_TOL, except on the shared bf16 run, which reports
+            its largest gap: see `shared_server_phase`).
 
 It needs a CUDA card (exits non-zero without one, printing no result),
 imports nothing of JAX, and prints the card's name and power limit, a
@@ -42,9 +58,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # tolerances: f32 and kv8/kv4 (codes contracted in f32 on both sides) are
 # held to the reference's f32 tolerance; bf16 pools to its bf16 one (the
-# plain version rounds q and p to bf16, the kernel keeps them in f32) and,
+# plain version rounds q and p to bf16, the kernels keep them in f32) and,
 # besides, to the f32 one against the plain version on the pools upcast to
-# f32, which is the kernel's own arithmetic
+# f32, which is the kernels' own arithmetic
 TOL = {"f32": 2e-5, "bf16": 3e-2, "kv8": 2e-5, "kv4": 2e-5}
 # served logprob vs the f32 teacher-forced reference: the served K/V pass
 # through the bf16 pool, the reference's do not
@@ -84,11 +100,22 @@ def hbm_rate(name: str) -> float:
 # inputs
 # ---------------------------------------------------------------------------
 
-def make_inputs(B, K, G, NP, T, dh, fmt, lengths, gen, unwritten_row=None):
-    """Random q and pools on the card; kv8/kv4 pools are the port's own
-    quantized pages (codes + per-page scales)."""
+def quantized(kd, vd, fmt):
+    """(k, v, k_scale, v_scale) in the pool format `fmt`; kv8/kv4 pools are
+    the port's own quantized pages (codes + per-page scales)."""
     import torch
     from repro_torch.core.quant import quantize_kv_page
+    if fmt in ("kv8", "kv4"):
+        kp, ks = quantize_kv_page(kd, fmt)
+        vp, vs = quantize_kv_page(vd, fmt)
+        return kp, vp, ks, vs
+    dt = torch.float32 if fmt == "f32" else torch.bfloat16
+    return kd.to(dt), vd.to(dt), None, None
+
+
+def make_inputs(B, K, G, NP, T, dh, fmt, lengths, gen, unwritten_row=None):
+    """Random q and stripe pools [B, K, NP, T, dh] on the card."""
+    import torch
     dev = "cuda"
     q = torch.randn(B, K * G, dh, generator=gen, device=dev)
     kd = torch.randn(B, K, NP, T, dh, generator=gen, device=dev)
@@ -98,14 +125,31 @@ def make_inputs(B, K, G, NP, T, dh, fmt, lengths, gen, unwritten_row=None):
     if unwritten_row is not None:
         base[unwritten_row, NP // 2:] = -1
     length = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    ks = vs = None
-    if fmt in ("kv8", "kv4"):
-        kp, ks = quantize_kv_page(kd, fmt)
-        vp, vs = quantize_kv_page(vd, fmt)
-    else:
-        dt = torch.float32 if fmt == "f32" else torch.bfloat16
-        kp, vp = kd.to(dt), vd.to(dt)
+    kp, vp, ks, vs = quantized(kd, vd, fmt)
     return q, kp, vp, base, length, ks, vs
+
+
+def make_shared_inputs(B, K, G, NP, T, dh, fmt, lengths, gen, P_total,
+                       alias_row=None):
+    """Random q and a shared pool [K, P_total, T, dh] on the card, with
+    tables that permute the pool (logical page j of row b on a random
+    physical page).  `alias_row`'s entries past its first page are
+    replaced by pages row 0 owns: stale entries a kernel must never read
+    as data."""
+    import torch
+    dev = "cuda"
+    q = torch.randn(B, K * G, dh, generator=gen, device=dev)
+    kd = torch.randn(K, P_total, T, dh, generator=gen, device=dev)
+    vd = torch.randn(K, P_total, T, dh, generator=gen, device=dev)
+    perm = torch.randperm(P_total, generator=gen, device=dev)[:B * NP]
+    table = perm.reshape(B, NP).to(torch.int32).contiguous()
+    if alias_row is not None:
+        table[alias_row, 1:] = table[0, 1:]
+    base = (torch.arange(NP, device=dev, dtype=torch.int32) * T)[None]
+    base = base.repeat(B, 1).contiguous()
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kp, vp, ks, vs = quantized(kd, vd, fmt)
+    return q, kp, vp, table, base, length, ks, vs
 
 
 def kv_quant_of(fmt: str) -> str:
@@ -119,10 +163,38 @@ def close_err(a, b, tol: float) -> float:
 
 
 # ---------------------------------------------------------------------------
-# phase 2: kernel vs plain
+# phase 2: kernels vs plain
 # ---------------------------------------------------------------------------
 
+def hold_case(label, got, want, fmt, want32=None, empty_row=None) -> float:
+    """Check one kernel call against its plain version; returns
+    max |o - plain o|."""
+    import torch
+    o, m, l = got
+    err = max(close_err(a, b, TOL[fmt]) for a, b in zip(got, want))
+    if want32 is not None:
+        err32 = max(close_err(a, b, TOL["f32"]) for a, b in zip(got, want32))
+        print(f"{label}: vs plain on f32-upcast pools rel_err={err32:.3e} "
+              f"tol={TOL['f32']:.0e}")
+        check(err32 <= TOL["f32"], f"{label}: bf16 kernel disagrees with "
+              f"its own arithmetic: {err32:.3e}")
+    abs_o = float((o - want[0]).abs().max())
+    finite = bool(torch.isfinite(o).all() and torch.isfinite(m).all()
+                  and torch.isfinite(l).all())
+    print(f"{label}: max_abs_err(o)={abs_o:.3e} rel_err={err:.3e} "
+          f"tol={TOL[fmt]:.0e}")
+    check(finite, f"{label}: kernel output not finite")
+    if empty_row is not None:
+        check(bool((o[empty_row] == 0).all() and (l[empty_row] == 0).all()
+                   and (m[empty_row] == -1e30).all()),
+              f"{label}: all-masked row is not o=0, m=-1e30, l=0")
+    check(err <= TOL[fmt], f"{label}: kernel disagrees with plain version: "
+          f"{err:.3e} > {TOL[fmt]:.0e}")
+    return abs_o
+
+
 def kernel_phase() -> float:
+    """B1 against `paged_attention_partial_ref`."""
     import torch
     from repro_torch.kernels.paged_attention import (
         paged_attention_partial, paged_attention_partial_ref)
@@ -139,45 +211,70 @@ def kernel_phase() -> float:
                         5, K, G, NP, T, dh, fmt, lengths, gen,
                         unwritten_row=3)
                     kvq = kv_quant_of(fmt)
-                    o, m, l = paged_attention_partial(
+                    got = paged_attention_partial(
                         q, kp, vp, base, length, window=window,
                         kv_quant=kvq, k_scale=ks, v_scale=vs, partitions=P)
                     torch.cuda.synchronize()
-                    ro, rm, rl = paged_attention_partial_ref(
+                    want = paged_attention_partial_ref(
                         q, kp, vp, base, length, window=window,
                         kv_quant=kvq, k_scale=ks, v_scale=vs)
-                    err = max(close_err(o, ro, TOL[fmt]),
-                              close_err(m, rm, TOL[fmt]),
-                              close_err(l, rl, TOL[fmt]))
+                    want32 = None
                     if fmt == "bf16":
-                        fo, fm, fl = paged_attention_partial_ref(
+                        want32 = paged_attention_partial_ref(
                             q, kp.float(), vp.float(), base, length,
                             window=window)
-                        err32 = max(close_err(o, fo, TOL["f32"]),
-                                    close_err(m, fm, TOL["f32"]),
-                                    close_err(l, fl, TOL["f32"]))
-                        print(f"kernel K={K} G={G} dh={dh} bf16 P={P:2d} "
-                              f"window={window}: vs plain on f32-upcast "
-                              f"pools rel_err={err32:.3e} "
-                              f"tol={TOL['f32']:.0e}")
-                        check(err32 <= TOL["f32"], "bf16 kernel disagrees "
-                              f"with its own arithmetic: {err32:.3e}")
-                    abs_o = float((o - ro).abs().max())
-                    finite = bool(torch.isfinite(o).all()
-                                  and torch.isfinite(m).all()
-                                  and torch.isfinite(l).all())
-                    empty_ok = bool((o[4] == 0).all() and (l[4] == 0).all()
-                                    and (m[4] == -1e30).all())
-                    print(f"kernel K={K} G={G} dh={dh} {fmt:4s} P={P:2d} "
-                          f"window={window}: max_abs_err(o)={abs_o:.3e} "
-                          f"rel_err={err:.3e} tol={TOL[fmt]:.0e}")
-                    check(finite, "kernel output not finite")
-                    check(empty_ok, "all-masked row is not o=0, m=-1e30, l=0")
-                    check(err <= TOL[fmt], f"kernel disagrees with plain "
-                          f"version: {err:.3e} > {TOL[fmt]:.0e}")
-                    max_abs = max(max_abs, abs_o)
+                    max_abs = max(max_abs, hold_case(
+                        f"B1 K={K} G={G} dh={dh} {fmt:4s} P={P:2d} "
+                        f"window={window}", got, want, fmt, want32,
+                        empty_row=4))
                     n += 1
-    print(f"kernel phase: {n} cases within tolerance, "
+    print(f"B1 kernel phase: {n} cases within tolerance, "
+          f"max_abs_err(o)={max_abs:.3e}")
+    return max_abs
+
+
+def shared_kernel_phase() -> float:
+    """B2 against `paged_attention_shared_ref` (the slot's pages gathered
+    through its table, then the stripe oracle)."""
+    import torch
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_partial, paged_attention_shared_ref)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    B, NP, T = 5, 32, 16
+    P_total = B * NP + 40
+    lengths = [512, 300, 1, 400, 0]    # row 2's entries past page 0 are
+    max_abs = 0.0                      # row 0's pages; row 4 attends nothing
+    n = 0
+    for G in (1, 4, 8):
+        K = 16 if G == 1 else 8
+        for dh in (64, 128):
+            for fmt in ("f32", "bf16", "kv8", "kv4"):
+                for P in (1, 16):
+                    for window in (None, 64):
+                        q, kp, vp, table, base, length, ks, vs = \
+                            make_shared_inputs(B, K, G, NP, T, dh, fmt,
+                                               lengths, gen, P_total,
+                                               alias_row=2)
+                        kvq = kv_quant_of(fmt)
+                        got = paged_attention_partial(
+                            q, kp, vp, base, length, window=window,
+                            kv_quant=kvq, k_scale=ks, v_scale=vs,
+                            page_table=table, partitions=P)
+                        torch.cuda.synchronize()
+                        want = paged_attention_shared_ref(
+                            q, kp, vp, table, base, length, window=window,
+                            kv_quant=kvq, k_scale=ks, v_scale=vs)
+                        want32 = None
+                        if fmt == "bf16":
+                            want32 = paged_attention_shared_ref(
+                                q, kp.float(), vp.float(), table, base,
+                                length, window=window)
+                        max_abs = max(max_abs, hold_case(
+                            f"B2 K={K} G={G} dh={dh:3d} {fmt:4s} P={P:2d} "
+                            f"window={window}", got, want, fmt, want32,
+                            empty_row=4))
+                        n += 1
+    print(f"B2 kernel phase: {n} cases within tolerance, "
           f"max_abs_err(o)={max_abs:.3e}")
     return max_abs
 
@@ -209,9 +306,50 @@ def time_ms(fn, reps: int, flush) -> list:
     return sorted(a.elapsed_time(b) for a, b in pairs)
 
 
+def summarize(label, times: dict, *, B, K, G, NP, T, dh, lengths, P, rate,
+              table_bytes=0) -> dict:
+    """Medians with [min, max], and the least time the card could take:
+    each valid token's K and V read once (bf16), q read, the partials
+    written, base/length (and the table) read; QK + PV multiply-adds in
+    f32."""
+    valid = sum(lengths)
+    kv_bytes = valid * K * dh * 2 * 2
+    io_bytes = (B * K * G * dh * 4 + B * K * P * G * (dh + 2) * 4
+                + B * NP * 4 + B * 4 + table_bytes)
+    flops = 4 * valid * K * G * dh
+    t_bytes = (kv_bytes + io_bytes) / rate * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    res = {"shape": label, "B": B, "K": K, "G": G, "dh": dh, "T": T,
+           "NP": NP, "tokens": lengths, "partitions": P, "pool": "bfloat16",
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": kv_bytes + io_bytes, "flops": flops}
+    for key, t in times.items():
+        res[key] = statistics.median(t)
+        res[f"{key}_min_max"] = [t[0], t[-1]]
+    print(f"timing {label} (median [min, max]): " + " ".join(
+        f"{k}={res[k]:.6f} [{t[0]:.6f}, {t[-1]:.6f}]"
+        for k, t in times.items())
+        + f" bound_ms={res['bound_ms']:.6f} ({res['bound_by']}, "
+        f"{res['bytes']} bytes)")
+    return res
+
+
+def sdpa_operands(q, k_stripe, v_stripe, B, K, G, NP, T, dh, L):
+    """q [B, H, 1, dh] bf16 and contiguous K/V [B, H, L, dh] for one SDPA
+    call (GQA groups repeated)."""
+    import torch
+    kc = k_stripe.reshape(B, K, NP * T, dh)[:, :, :L]
+    vc = v_stripe.reshape(B, K, NP * T, dh)[:, :, :L]
+    if G > 1:
+        kc = kc.repeat_interleave(G, dim=1)
+        vc = vc.repeat_interleave(G, dim=1)
+    return q.to(torch.bfloat16)[:, :, None], kc.contiguous(), vc.contiguous()
+
+
 def timing_shape(label, B, K, G, NP, T, dh, lengths, partitions, rate,
                  flush, gen):
-    import torch
+    """B1 at one shape."""
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import (
         paged_attention_cuda, paged_attention_partial_ref,
@@ -220,49 +358,61 @@ def timing_shape(label, B, K, G, NP, T, dh, lengths, partitions, rate,
                                                 lengths, gen)
     P = resolve_partitions(partitions, NP)
     q4 = q.reshape(B, K, G, dh).contiguous()
-    kernel_t = time_ms(lambda: paged_attention_cuda(
-        q4, kp, vp, base, length, partitions=P), 20, flush)
-    plain_t = time_ms(lambda: paged_attention_partial_ref(
-        q, kp, vp, base, length), 5, flush)
-    # library yardstick: one SDPA call on K/V pre-gathered to contiguous
-    # [B, H, L, dh] (every row here has the same length)
     L = lengths[0]
     check(all(x == L for x in lengths), "timing rows must share a length")
-    kc = kp.reshape(B, K, NP * T, dh)[:, :, :L]
-    vc = vp.reshape(B, K, NP * T, dh)[:, :, :L]
-    if G > 1:
-        kc = kc.repeat_interleave(G, dim=1)
-        vc = vc.repeat_interleave(G, dim=1)
-    kc, vc = kc.contiguous(), vc.contiguous()
-    qc = q.to(torch.bfloat16)[:, :, None]
-    library_t = time_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc),
-                        20, flush)
-    kernel_ms, plain_ms, library_ms = map(statistics.median,
-                                          (kernel_t, plain_t, library_t))
-    # least work: each valid token's K and V read once (bf16), q read, the
-    # partials written, base/length read; QK + PV multiply-adds in f32
-    valid = sum(lengths)
-    kv_bytes = valid * K * dh * 2 * 2
-    io_bytes = (B * K * G * dh * 4 + B * K * P * G * (dh + 2) * 4
-                + B * NP * 4 + B * 4)
-    flops = 4 * valid * K * G * dh
-    t_bytes = (kv_bytes + io_bytes) / rate * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    res = {"shape": label, "B": B, "K": K, "G": G, "dh": dh, "T": T,
-           "NP": NP, "tokens": lengths, "partitions": P, "pool": "bfloat16",
-           "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "ms_min_max": [kernel_t[0], kernel_t[-1]],
-           "plain_ms_min_max": [plain_t[0], plain_t[-1]],
-           "library_ms_min_max": [library_t[0], library_t[-1]],
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bytes": kv_bytes + io_bytes, "flops": flops}
-    print(f"timing {label} (median [min, max]): kernel_ms={kernel_ms:.4f} "
-          f"[{kernel_t[0]:.4f}, {kernel_t[-1]:.4f}] plain_ms={plain_ms:.4f} "
-          f"[{plain_t[0]:.4f}, {plain_t[-1]:.4f}] library_ms={library_ms:.4f} "
-          f"[{library_t[0]:.4f}, {library_t[-1]:.4f}] "
-          f"bound_ms={res['bound_ms']:.4f} "
-          f"({res['bound_by']}, {res['bytes']} bytes)")
+    qc, kc, vc = sdpa_operands(q, kp, vp, B, K, G, NP, T, dh, L)
+    times = {
+        "ms": time_ms(lambda: paged_attention_cuda(
+            q4, kp, vp, base, length, partitions=P), 20, flush),
+        "plain_ms": time_ms(lambda: paged_attention_partial_ref(
+            q, kp, vp, base, length), 5, flush),
+        "library_ms": time_ms(
+            lambda: F.scaled_dot_product_attention(qc, kc, vc), 20, flush),
+    }
+    return summarize(f"B1 {label}", times, B=B, K=K, G=G, NP=NP, T=T, dh=dh,
+                     lengths=lengths, P=P, rate=rate)
+
+
+def shared_timing_shape(label, B, K, G, NP, T, dh, lengths, P_total,
+                        partitions, rate, flush, gen):
+    """B2 at one shape: the tables permute a pool of P_total pages."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import (
+        gather_table_pages, paged_attention_shared_cuda,
+        paged_attention_shared_ref, resolve_partitions)
+    q, kp, vp, table, base, length, _, _ = make_shared_inputs(
+        B, K, G, NP, T, dh, "bf16", lengths, gen, P_total)
+    P = resolve_partitions(partitions, NP)
+    q4 = q.reshape(B, K, G, dh).contiguous()
+    L = lengths[0]
+    check(all(x == L for x in lengths), "timing rows must share a length")
+
+    def gathered():
+        return sdpa_operands(q, gather_table_pages(kp, table),
+                             gather_table_pages(vp, table), B, K, G, NP, T,
+                             dh, L)
+
+    qc, kc, vc = gathered()
+    # the same pages in table order (slot b's logical page j on physical
+    # page b·NP + j of the pool): what the page indirection itself costs
+    ident = torch.arange(B * NP, dtype=torch.int32,
+                         device="cuda").reshape(B, NP) % P_total
+    times = {
+        "ms": time_ms(lambda: paged_attention_shared_cuda(
+            q4, kp, vp, table, base, length, partitions=P), 20, flush),
+        "ms_table_in_order": time_ms(lambda: paged_attention_shared_cuda(
+            q4, kp, vp, ident, base, length, partitions=P), 20, flush),
+        "plain_ms": time_ms(lambda: paged_attention_shared_ref(
+            q, kp, vp, table, base, length), 5, flush),
+        "library_ms": time_ms(
+            lambda: F.scaled_dot_product_attention(qc, kc, vc), 20, flush),
+        "library_gather_ms": time_ms(
+            lambda: F.scaled_dot_product_attention(*gathered()), 10, flush),
+    }
+    res = summarize(f"B2 {label}", times, B=B, K=K, G=G, NP=NP, T=T, dh=dh,
+                    lengths=lengths, P=P, rate=rate, table_bytes=B * NP * 4)
+    res["P_total"] = P_total
     return res
 
 
@@ -270,61 +420,84 @@ def timing_phase(rate):
     import torch
     gen = torch.Generator(device="cuda").manual_seed(1)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    serving = timing_shape("serving", 4, 16, 1, 32, 16, 64, [512] * 4, 0,
-                           rate, flush, gen)
-    long = timing_shape("long", 1, 16, 1, 6400, 16, 64, [100_000], 0, rate,
-                        flush, gen)
-    check(long["partitions"] == 16, "long shape must take 16 partitions")
-    return serving, long
+    b1 = (timing_shape("serving", 4, 16, 1, 32, 16, 64, [512] * 4, 0, rate,
+                       flush, gen),
+          timing_shape("long", 1, 16, 1, 6400, 16, 64, [100_000], 0, rate,
+                       flush, gen))
+    # serving: 4 x 32 logical pages permuted over a 128-page pool; long:
+    # 100 000 tokens = 6250 logical pages of a 6400-entry table (16
+    # partitions, as B1), permuted over a 6400-page pool
+    b2 = (shared_timing_shape("serving", 4, 16, 1, 32, 16, 64, [512] * 4,
+                              128, 0, rate, flush, gen),
+          shared_timing_shape("long", 1, 16, 1, 6400, 16, 64, [100_000],
+                              6400, 0, rate, flush, gen))
+    check(b1[1]["partitions"] == 16 and b2[1]["partitions"] == 16,
+          "long shapes must take 16 partitions")
+    return b1, b2
 
 
 # ---------------------------------------------------------------------------
-# phases 4-5: server + teacher-forced reference
+# phases 4-6: servers + teacher-forced reference
 # ---------------------------------------------------------------------------
 
-def server_phase():
-    import numpy as np
+def build_server(**engine):
     import torch
-    from repro_torch.kernels.paged_attention import launches
-    from repro_torch.models.registry import Model
-    from repro_torch.serving.api import (KVNANDServer, SamplingParams,
-                                         ServerConfig)
+    from repro_torch.configs import EngineConfig
+    from repro_torch.serving.api import KVNANDServer, ServerConfig
     t0 = time.perf_counter()
+    eng = EngineConfig(page_tokens=16, uniform_lengths=False, **engine)
     srv = KVNANDServer(ServerConfig(
-        arch="qwen1.5-0.5b", reduced=False, batch_slots=4, max_context=512,
-        prefill_chunk_tokens=64, device="cuda"))
+        arch="qwen1.5-0.5b", reduced=False, engine=eng, batch_slots=4,
+        max_context=512, prefill_chunk_tokens=64, device="cuda"))
     cfg = srv.cfg
     check(cfg.n_layers == 24 and cfg.d_model == 1024 and cfg.n_heads == 16
           and cfg.padded_vocab == 152064, "not the full-width qwen1.5-0.5b")
+    check(srv._batcher.cache.k_pages_g.dtype == getattr(torch, eng.kv_dtype),
+          f"the KV pool is not {eng.kv_dtype}")
     torch.cuda.synchronize()
-    print(f"server: built {cfg.name} ({cfg.param_count() / 1e6:.1f}M params)"
-          f" in {time.perf_counter() - t0:.2f} s")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
-               for n in (5, 37, 64, 100, 150, 200)]
-    launches.reset()
+    print(f"server: built {cfg.name} ({cfg.param_count() / 1e6:.1f}M params,"
+          f" {eng}) in {time.perf_counter() - t0:.2f} s")
+    return srv
+
+
+def serve(label, srv, prompts):
+    """Drive the server's main path with both launch counters reset just
+    before and read just after; returns the outputs and the counts."""
+    import torch
+    from repro_torch.kernels.paged_attention import launches, launches_shared
+    from repro_torch.serving.api import SamplingParams
     steps0 = srv.stats["decode_steps"]
+    launches.reset()
+    launches_shared.reset()
     t0 = time.perf_counter()
     outs = srv.generate(prompts, SamplingParams(max_new_tokens=16,
                                                 logprobs=True))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n_launch = launches.value
+    counts = {"B1": launches.value, "B2": launches_shared.value}
     steps = srv.stats["decode_steps"] - steps0
     new_tokens = sum(len(o.token_ids) for o in outs)
-    print(f"server: {len(outs)} requests, {new_tokens} tokens in {wall:.3f} s"
-          f", {steps} decode steps, {srv.stats['prefill_chunks']} prefill "
-          f"chunks, kernel launches {n_launch}")
-    check(len(outs) == 6 and all(len(o.token_ids) == 16
-                                 and o.finish_reason == "length"
-                                 for o in outs), "not every request answered")
-    check(steps > 0 and n_launch == steps * cfg.n_layers,
-          f"launches {n_launch} != decode steps {steps} x {cfg.n_layers}")
+    print(f"{label}: {len(outs)} requests, {new_tokens} tokens in "
+          f"{wall:.3f} s, {steps} decode steps, "
+          f"{srv.stats['prefill_chunks']} prefill chunks, launches {counts}")
+    check(len(outs) == len(prompts)
+          and all(len(o.token_ids) == 16 and o.finish_reason == "length"
+                  for o in outs), f"{label}: not every request answered")
+    return outs, counts, steps, wall, new_tokens
 
+
+def teacher_forced_check(label, srv, outs, *, argmax=True):
+    """Every served token against the port's plain full forward on the
+    card (kernel-free), teacher-forced on prompt + output.  argmax=False
+    reports the largest reference-logit gap instead of failing on it."""
+    import torch
+    from repro_torch.models.registry import Model
+    cfg = srv.cfg
     model = Model(cfg)
     lp_err = gap = 0.0
+    worst = None
     with torch.no_grad():
-        for o in outs:
+        for r, o in enumerate(outs):
             toks = torch.tensor(o.prompt + o.token_ids, device="cuda")[None]
             logits = model.forward(srv.params, {"tokens": toks})[0].float()
             n = len(o.prompt)
@@ -335,15 +508,103 @@ def server_phase():
             served = torch.tensor(o.logprobs, device="cuda")
             check(bool(torch.isfinite(served).all()), "non-finite logprob")
             lp_err = max(lp_err, float((served - ref_lp).abs().max()))
-            gap = max(gap, float((rows.max(-1).values
-                                  - rows.gather(1, tok[:, None])[:, 0]).max()))
-    print(f"check: max |served logprob - reference| = {lp_err:.3e} "
+            gaps = rows.max(-1).values - rows.gather(1, tok[:, None])[:, 0]
+            j = int(gaps.argmax())
+            if float(gaps[j]) > gap:
+                gap = float(gaps[j])
+                top2 = rows[j].topk(2).values
+                worst = (r, j, float(top2[0] - top2[1]),
+                         float((served[j] - ref_lp[j]).abs()))
+    print(f"check {label}: max |served logprob - reference| = {lp_err:.3e} "
           f"(tol {LOGPROB_TOL:.0e}); max reference-logit gap of served "
           f"tokens = {gap:.3e} (tol {LOGIT_GAP_TOL:.0e})")
-    check(lp_err <= LOGPROB_TOL, "served logprobs disagree with reference")
-    check(gap <= LOGIT_GAP_TOL, "a served token is not the reference argmax")
-    return {"launches": n_launch, "decode_steps": steps, "wall_s": wall,
-            "tokens": new_tokens, "logprob_err": lp_err, "logit_gap": gap}
+    if worst is not None:
+        print(f"check {label}: largest gap at request {worst[0]} token "
+              f"{worst[1]}: reference top-2 margin {worst[2]:.3e}, "
+              f"|served logprob - reference| there {worst[3]:.3e}")
+    check(lp_err <= LOGPROB_TOL,
+          f"{label}: served logprobs disagree with reference")
+    check(gap <= LOGIT_GAP_TOL or not argmax,
+          f"{label}: a served token is not the reference argmax")
+    return lp_err, gap
+
+
+def server_phase():
+    """The stripe pool: every decode step goes through B1."""
+    import numpy as np
+    srv = build_server()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, srv.cfg.vocab_size, n).tolist()
+               for n in (5, 37, 64, 100, 150, 200)]
+    outs, counts, steps, wall, tokens = serve("server (stripe)", srv, prompts)
+    L = srv.cfg.n_layers
+    check(steps > 0 and counts["B1"] == steps * L and counts["B2"] == 0,
+          f"stripe launches {counts} != (decode steps {steps} x {L}, 0)")
+    lp_err, gap = teacher_forced_check("stripe", srv, outs)
+    return {"launches": counts["B1"], "launches_B2": counts["B2"],
+            "decode_steps": steps, "wall_s": wall, "tokens": tokens,
+            "logprob_err": lp_err, "logit_gap": gap}
+
+
+def shared_server_phase(kv_dtype: str):
+    """The shared pool: every decode step goes through B2, the prefix
+    cache hits and pages are copied on write.  Served twice on the same
+    prompts: with a bf16 pool (the serving default) and with an f32 pool.
+    At bf16 the served logits differ from the f32 reference by up to a
+    few 1e-3, so a token whose reference top-2 margin is smaller may
+    legitimately differ from the reference argmax: the bf16 run is held
+    to the logprob tolerance and reports its largest argmax gap, the f32
+    run (kernel arithmetic = reference arithmetic up to summation order)
+    is held to the argmax too."""
+    import numpy as np
+    srv = build_server(shared_pool=True, kv_dtype=kv_dtype)
+    V = srv.cfg.vocab_size
+    rng = np.random.default_rng(1)
+    system = rng.integers(0, V, 32).tolist()           # 2 pages of 16
+    a = system + rng.integers(0, V, 37).tolist()
+    prompts = [a] + [rng.integers(0, V, n).tolist() for n in (100, 150, 64)]
+    # admitted once slots free up, after `a` registered its pages: one
+    # shares its 2-page prefix, one repeats it exactly
+    prompts += [system + rng.integers(0, V, 50).tolist(), list(a)]
+    label = f"server (shared, {kv_dtype})"
+    outs, counts, steps, wall, tokens = serve(label, srv, prompts)
+    L = srv.cfg.n_layers
+    st = srv.stats
+    b = srv._batcher
+    print(f"{label}: prefix_hit_pages={st['prefix_hit_pages']} "
+          f"cow_copies={st['cow_copies']} prompt_pages={st['prompt_pages']} "
+          f"pool_peak_pages={st['pool_peak_pages']} of "
+          f"{st['pool_total_pages']}")
+    check(steps > 0 and counts["B2"] == steps * L and counts["B1"] == 0,
+          f"shared launches {counts} != (0, decode steps {steps} x {L})")
+    check(st["prefix_hit_pages"] > 0, "the prefix cache never hit")
+    check(st["cow_copies"] > 0, "no page was copied on write")
+    b.alloc.check()
+    check(b.alloc.live_count == b.prefix_cache.evictable_pages(),
+          "pages still mapped after the drain")
+    check(outs[5].token_ids == outs[0].token_ids,
+          "the exact repeat served other tokens than its original")
+    lp_err, gap = teacher_forced_check(f"shared {kv_dtype}", srv, outs,
+                                       argmax=kv_dtype == "float32")
+    return {"launches": counts["B2"], "launches_B1": counts["B1"],
+            "kv_dtype": kv_dtype, "decode_steps": steps, "wall_s": wall,
+            "tokens": tokens, "prefix_hit_pages": st["prefix_hit_pages"],
+            "cow_copies": st["cow_copies"],
+            "pool_peak_pages": st["pool_peak_pages"],
+            "pool_total_pages": st["pool_total_pages"],
+            "logprob_err": lp_err, "logit_gap": gap,
+            "token_ids": [o.token_ids for o in outs]}
+
+
+def kernel_entry(name, source, replaces, launches, max_abs, shapes, server):
+    serving = shapes[0]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs, "ms": serving["ms"],
+            "plain_ms": serving["plain_ms"], "bound_ms": serving["bound_ms"],
+            "bound_by": serving["bound_by"],
+            "library_ms": serving["library_ms"], "shapes": list(shapes),
+            "server": server}
 
 
 def main() -> int:
@@ -360,24 +621,36 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
 
     t0 = time.perf_counter()
-    lib = pa_kernel.build()
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
+    libs = pa_kernel.build()
+    print(f"build: {', '.join(p.name for p in libs.values())} in "
+          f"{time.perf_counter() - t0:.2f} s (parallel nvcc)")
 
-    max_abs = kernel_phase()
-    serving, long = timing_phase(hbm_rate(name))
-    srv = server_phase()
+    b1_err = kernel_phase()
+    b2_err = shared_kernel_phase()
+    b1_shapes, b2_shapes = timing_phase(hbm_rate(name))
+    stripe = server_phase()
+    shared = shared_server_phase("bfloat16")
+    shared32 = shared_server_phase("float32")
+    same = sum(x == y for x, y in zip(shared["token_ids"],
+                                      shared32["token_ids"]))
+    print(f"server (shared): {same} of 6 requests served the same tokens "
+          "from the bf16 and the f32 pool")
+    for r in (shared, shared32):
+        del r["token_ids"]
 
-    entry = {"name": "paged_attention", "route": "cuda",
-             "source": "src/repro_torch/csrc/paged_attention.cu",
-             "replaces": "src/repro/kernels/paged_attention/kernel.py:311",
-             "launches": srv["launches"], "max_abs_err": max_abs,
-             "ms": serving["ms"], "plain_ms": serving["plain_ms"],
-             "bound_ms": serving["bound_ms"],
-             "bound_by": serving["bound_by"],
-             "library_ms": serving["library_ms"],
-             "shapes": [serving, long], "server": srv}
+    kernels = [
+        kernel_entry("paged_attention", "src/repro_torch/csrc/"
+                     "paged_attention.cu",
+                     "src/repro/kernels/paged_attention/kernel.py:311",
+                     stripe["launches"], b1_err, b1_shapes, stripe),
+        kernel_entry("paged_attention_shared", "src/repro_torch/csrc/"
+                     "paged_attention_shared.cu",
+                     "src/repro/kernels/paged_attention/kernel.py:209",
+                     shared["launches"], b2_err, b2_shapes,
+                     [shared, shared32]),
+    ]
     print(card)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

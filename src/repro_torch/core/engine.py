@@ -1,13 +1,18 @@
-"""KVNAND engine: chunked prefill + decode over the paged KV stripe
+"""KVNAND engine: chunked prefill + decode over the paged KV pool
 (port of `repro.core.engine`, single device, compact variant).
 
 `decode_step` runs one token per slot through every layer: QKV
-projection, an in-place append of the new K/V into the slot's stripe,
-decode attention over the stripe (the CUDA kernel on the card), output
-projection and MLP.  `prefill_chunk` runs one page-aligned chunk of one
-slot's prompt: a causal in-chunk partial over the chunk's own K/V and a
-past-page partial over the slot's already-written pages, merged by
-log-sum-exp, then the chunk's K/V are filled into the stripe.
+projection, an in-place append of the new K/V into the slot's page,
+decode attention over the slot's pages (a CUDA kernel on the card),
+output projection and MLP.  `prefill_chunk` runs one page-aligned chunk
+of one slot's prompt: a causal in-chunk partial over the chunk's own K/V
+and a past-page partial over the slot's already-written pages, merged by
+log-sum-exp, then the chunk's K/V are filled into the slot's pages.
+
+Two pool layouts (`core/paged_kv.py`): the per-slot stripe, and the
+shared pool (`EngineConfig.shared_pool`), where every slot walks its
+LOGICAL pages through its row of `page_table_g` — appends, fills and
+attention all go through the table, and logical page j's base is j·T.
 
 The layer loop is a Python loop (the reference's `lax.scan`), and the
 pools are mutated in place through `core/paged_kv.py`.  The private
@@ -15,7 +20,7 @@ helpers carry names of their own (the reference's are cited in their
 docstrings): the repo's static analyzer resolves `self.<method>` calls
 by class and method name, and a shared name would let this eager code
 feed its call graph of the jitted reference engine.  Not ported yet,
-and refused here: the discrete/head-group-pipelined variant, the shared
+and refused here: the discrete/head-group-pipelined variant, the tiered
 pool, kv8/kv4 pools, window rings, non-dense families, quantized weights,
 speculative verify, the one-shot prefill and a device mesh.
 """
@@ -65,33 +70,38 @@ class KVNANDEngine:
                                    device=self.device)
 
     def _page_bases(self, table: torch.Tensor) -> torch.Tensor:
-        """Per-physical-page base positions [B, NP] (the reference's
-        `_global_bases`): the stripe table permutes pages within the
-        stripe, so it is inverted here."""
+        """Page base positions [B, NP] (the reference's `_global_bases`).
+        A shared pool walks LOGICAL pages through the table, so logical
+        page j's base is j·T and entries past `lengths` are masked by the
+        length alone; the stripe table permutes pages within the stripe,
+        so it is inverted here into physical-page-indexed bases."""
         B, NP = table.shape
         T = self.eng.page_tokens
         vals = (torch.arange(NP, dtype=torch.int32, device=table.device)
                 * T)[None].expand(B, NP)
+        if self.eng.shared_pool:
+            return vals.contiguous()
         return torch.zeros((B, NP), dtype=torch.int32,
                            device=table.device).scatter_(1, table.long(), vals)
 
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
-    def _attend_heads(self, q, kp, vp, base, lengths):
+    def _attend_heads(self, q, kp, vp, base, lengths, table=None):
         """All heads at once (KVNAND-C, the reference's `_attend_compact`):
         q [B, 1, H, dh] against the layer's already-appended pool slices
-        kp/vp."""
+        kp/vp (a shared pool's through `table`)."""
         o, _, _ = paged_attention_partial(
-            q[:, 0], kp, vp, base, lengths + 1,
+            q[:, 0], kp, vp, base, lengths + 1, page_table=table,
             partitions=self.eng.attn_partitions)
         return o
 
     def _decode_attention(self, pl_, x, cache: DecodeCache, layer: int,
-                           lengths, base, active):
+                           lengths, base, active, rows):
         """One layer's decode attention (the reference's
-        `_decode_attn_layer`, stripe pool): append the token's K/V, attend,
-        project out."""
+        `_decode_attn_layer`): append the token's K/V, attend, project
+        out.  Stripe pools mask inactive rows with `active`; a shared pool
+        writes only the active `rows` (see `core/paged_kv.py`)."""
         cfg = self.cfg
         h = rms_norm(x, pl_["ln1"], cfg.norm_eps)
         # one projection serves the append (k, v) and the attention (q);
@@ -103,12 +113,17 @@ class KVNANDEngine:
         logical = (lengths // T).long().clamp(max=NP - 1)
         phys = torch.gather(cache.page_table_g, 1, logical[:, None])[:, 0]
         slot = lengths % T
-        paged_kv.append_token_inplace(cache.k_pages_g, layer, phys, slot,
-                                      k_new[:, 0], active)
-        paged_kv.append_token_inplace(cache.v_pages_g, layer, phys, slot,
-                                      v_new[:, 0], active)
+        shared = self.eng.shared_pool
+        for pool, new in ((cache.k_pages_g, k_new), (cache.v_pages_g, v_new)):
+            if shared:
+                paged_kv.append_global_shared(pool, layer, phys, slot,
+                                              new[:, 0], rows)
+            else:
+                paged_kv.append_token_inplace(pool, layer, phys, slot,
+                                              new[:, 0], active)
+        table = cache.page_table_g if shared else None
         o = self._attend_heads(q, cache.k_pages_g[layer],
-                                 cache.v_pages_g[layer], base, lengths)
+                               cache.v_pages_g[layer], base, lengths, table)
         return attn_mod.project_out(pl_["attn"], cfg, o[:, None])
 
     def decode_step(self, params, cache: DecodeCache, tokens: torch.Tensor,
@@ -124,11 +139,15 @@ class KVNANDEngine:
                              "(uniform_lengths=False) append path")
         lengths = cache.lengths
         base = self._page_bases(cache.page_table_g)
+        # the shared pool's writing rows, read once per step (on a card
+        # this is one device-to-host sync)
+        rows = (active.nonzero()[:, 0]
+                if self.eng.shared_pool and active is not None else None)
         x = embed_lookup(params["embedding"], tokens, self.rt.activ_dtype)
         for i in range(cfg.n_layers):
             pl_ = layer_slice(params["layers"], i)
             x = x + self._decode_attention(pl_, x, cache, i, lengths,
-                                            base, active)
+                                            base, active, rows)
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
             x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
         cache.lengths += (1 if active is None
@@ -141,7 +160,8 @@ class KVNANDEngine:
     def prefill_chunk(self, params, cache: DecodeCache, batch, slot: int,
                       start: int, chunk_len: int, *, first: bool = False):
         """One page-aligned chunk of ONE slot's prompt, straight into the
-        slot's stripe.
+        slot's pages (its stripe, or the shared-pool pages its table row
+        names: the scheduler has allocated them before the call).
 
         batch["tokens"]: [1, C] (C = the scheduler's chunk bucket, the
         tail is padding); start: absolute position of the chunk's first
@@ -158,6 +178,8 @@ class KVNANDEngine:
         q_pos = start + torch.arange(S, device=x.device)
         positions = q_pos[None]
         page0 = start // self.eng.page_tokens
+        shared = self.eng.shared_pool
+        trow = cache.page_table_g[slot]     # the slot's row (shared pool)
         base = self._page_bases(cache.page_table_g[slot:slot + 1])
         scale = cfg.d_head ** -0.5
         for i in range(cfg.n_layers):
@@ -169,16 +191,24 @@ class KVNANDEngine:
                 q, k, v, q_pos, start, causal=True, window=None, scale=scale)
             if not first:
                 # past-context partial from the slot's already-written pages
+                if shared:
+                    kp, vp = cache.k_pages_g[i], cache.v_pages_g[i]
+                else:
+                    kp = cache.k_pages_g[i, slot:slot + 1]
+                    vp = cache.v_pages_g[i, slot:slot + 1]
                 o2, m2, l2 = paged_chunk_attention(
-                    q, cache.k_pages_g[i, slot:slot + 1],
-                    cache.v_pages_g[i, slot:slot + 1], base, start, q_pos,
+                    q, kp, vp, base, start, q_pos,
+                    page_table=trow[None] if shared else None,
                     partitions=self.eng.attn_partitions)
                 o, m, l = seqpar.merge_two(o, m, l, o2, m2, l2)
             x = x + attn_mod.project_out(pl_["attn"], cfg, o.to(h.dtype))
-            paged_kv.fill_chunk_global_at(cache.k_pages_g, k, i, slot, page0,
-                                          chunk_len)
-            paged_kv.fill_chunk_global_at(cache.v_pages_g, v, i, slot, page0,
-                                          chunk_len)
+            for pool, kv in ((cache.k_pages_g, k), (cache.v_pages_g, v)):
+                if shared:
+                    paged_kv.fill_chunk_global_at_shared(pool, kv, i, trow,
+                                                         page0, chunk_len)
+                else:
+                    paged_kv.fill_chunk_global_at(pool, kv, i, slot, page0,
+                                                  chunk_len)
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
             x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
         cache.lengths[slot] = start + chunk_len

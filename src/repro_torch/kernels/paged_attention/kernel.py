@@ -1,12 +1,20 @@
-"""CUDA paged decode-attention kernel: build, bind, launch.
+"""CUDA paged decode-attention kernels: build, bind, launch.
 
-The kernel (`csrc/paged_attention.cu`) replaces the TPU kernel
-`repro/kernels/paged_attention/kernel.py::paged_attention_pallas`.  It is
-compiled by nvcc for sm_90a into a shared library with a plain C entry
-point and bound with ctypes.  The build runs at first use, from the
-sources in this checkout only, into `build/` at the repository root,
-named by a hash of the source and flags so a changed source rebuilds.
-Importing this module builds nothing and needs neither nvcc nor a card.
+Two kernels share one body (`csrc/paged_attention.cuh`):
+
+  * B1 `paged_attention_cuda` (`csrc/paged_attention.cu`) replaces the
+    TPU kernel `repro/kernels/paged_attention/kernel.py::
+    paged_attention_pallas` (per-slot stripe pools);
+  * B2 `paged_attention_shared_cuda` (`csrc/paged_attention_shared.cu`)
+    replaces `paged_attention_pallas_shared` (one shared pool reached
+    through per-slot page tables).
+
+Each source is compiled by its own nvcc process for sm_90a into a shared
+library with a plain C entry point, bound with ctypes; the processes start
+together, at first use, from the sources in this checkout only, into
+`build/` at the repository root, each named by a hash of its source, the
+shared header and the flags so a changed source rebuilds.  Importing this
+module builds nothing and needs neither nvcc nor a card.
 """
 from __future__ import annotations
 
@@ -18,19 +26,30 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-_SRC = Path(__file__).resolve().parents[2] / "csrc" / "paged_attention.cu"
+_CSRC = Path(__file__).resolve().parents[2] / "csrc"
+_HEADER = _CSRC / "paged_attention.cuh"
 _BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# library -> (source, C entry point, ctypes argument types)
+_LIBS = {
+    "stripe": (_CSRC / "paged_attention.cu", "kvnand_paged_attention",
+               [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+               + [ctypes.c_void_p]),
+    "shared": (_CSRC / "paged_attention_shared.cu",
+               "kvnand_paged_attention_shared",
+               [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
+               + [ctypes.c_void_p]),
+}
 _FMT = {"none": None, "kv8": 2, "kv4": 3}
 _POOL_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_fns: Dict[str, ctypes._CFuncPtr] = {}
 
 
 class LaunchCount:
@@ -44,7 +63,8 @@ class LaunchCount:
         self.value = 0
 
 
-launches = LaunchCount()
+launches = LaunchCount()          # B1, the stripe kernel
+launches_shared = LaunchCount()   # B2, the shared-pool kernel
 
 
 def _nvcc() -> str:
@@ -56,51 +76,123 @@ def _nvcc() -> str:
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
-                       "toolkit is needed to build the paged-attention kernel")
+                       "toolkit is needed to build the paged-attention "
+                       "kernels")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes()
+def library_path(name: str) -> Path:
+    src = _LIBS[name][0]
+    digest = hashlib.sha256(src.read_bytes() + _HEADER.read_bytes()
                             + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    return _BUILD_DIR / f"paged_attention-{digest[:16]}.so"
+    return _BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernel library unless this source's build exists;
-    returns its path."""
-    out = library_path()
-    if out.exists():
-        return out
+def build() -> Dict[str, Path]:
+    """Compile every kernel library whose build is missing, one nvcc
+    process per source, all started together; returns their paths."""
+    outs = {name: library_path(name) for name in _LIBS}
+    todo = {name: out for name, out in outs.items() if not out.exists()}
+    if not todo:
+        return outs
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.Popen([_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SRC)],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, out)
-    return out
+    nvcc = _nvcc()
+    procs = {}
+    for name, out in todo.items():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *_NVCC_FLAGS, "-o", tmp, str(_LIBS[name][0])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{_LIBS[name][0].name} ({proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, todo[name])
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return outs
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
+def _entry(name: str):
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.kvnand_paged_attention
-            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+        if name not in _fns:
+            paths = build()
+            for lib_name, (_, symbol, argtypes) in _LIBS.items():
+                fn = getattr(ctypes.CDLL(str(paths[lib_name])), symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _fns[lib_name] = fn
+    return _fns[name]
 
 
 def _check(cond: bool, msg: str):
     if not cond:
         raise ValueError(f"paged_attention_cuda: {msg}")
+
+
+def _check_inputs(q, k_pages, v_pages, page_base, length, *, pool_shape,
+                  scale_shape, NP, window, kv_quant, k_scale, v_scale,
+                  partitions) -> int:
+    """The checks both kernels share; returns the C format code."""
+    B, K, G, dh = q.shape
+    dev = q.device
+    _check(dh in (32, 64, 128), f"head dim {dh} not in (32, 64, 128)")
+    _check(1 <= G <= 8, f"query group {G} not in 1..8")
+    _check(partitions >= 1 and NP % partitions == 0,
+           f"partitions={partitions} must divide the page count {NP}")
+    _check(window is None or window >= 0, f"bad window {window}")
+    _check(q.dtype == torch.float32, "q must be float32")
+    _check(q.is_contiguous(), "q must be contiguous")
+    if kv_quant == "none":
+        _check(k_pages.dtype in _POOL_DTYPE,
+               f"pool dtype {k_pages.dtype} not float32/bfloat16")
+        fmt = _POOL_DTYPE[k_pages.dtype]
+    else:
+        want = torch.int8 if kv_quant == "kv8" else torch.uint8
+        _check(k_pages.dtype == want, f"{kv_quant} pool must be {want}")
+        fmt = _FMT[kv_quant]
+        for s in (k_scale, v_scale):
+            _check(s is not None and s.dtype == torch.float32
+                   and tuple(s.shape) == scale_shape and s.is_contiguous()
+                   and s.device == dev,
+                   f"kv8/kv4 scales must be contiguous float32 "
+                   f"{list(scale_shape)}")
+    for t in (k_pages, v_pages):
+        _check(tuple(t.shape) == pool_shape and t.dtype == k_pages.dtype,
+               f"pool shape {tuple(t.shape)} != {pool_shape}")
+        _check(t.device == dev and t.is_contiguous()
+               and t.data_ptr() % 16 == 0,
+               "pools must be contiguous and 16-byte aligned on q's device")
+    _check(tuple(page_base.shape) == (B, NP)
+           and page_base.dtype == torch.int32
+           and page_base.is_contiguous() and page_base.device == dev,
+           "page_base must be contiguous int32 [B, NP]")
+    _check(tuple(length.shape) == (B,) and length.dtype == torch.int32
+           and length.is_contiguous() and length.device == dev,
+           "length must be contiguous int32 [B]")
+    return fmt
+
+
+def _partials(q, partitions):
+    B, K, G, dh = q.shape
+    P = partitions
+    dev = q.device
+    return (torch.empty((B, K, P, G, dh), dtype=torch.float32, device=dev),
+            torch.empty((B, K, P, G), dtype=torch.float32, device=dev),
+            torch.empty((B, K, P, G), dtype=torch.float32, device=dev))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(rc: int):
+    if rc != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
+                           f"error {rc}")
 
 
 def paged_attention_cuda(
@@ -116,64 +208,80 @@ def paged_attention_cuda(
     v_scale: Optional[torch.Tensor] = None,
     partitions: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the kernel; returns partials o [B, K, P, G, dh], m / l
-    [B, K, P, G] (float32).  Checks device, dtype, shape and contiguity
-    and raises on anything the kernel does not take."""
-    B, K, G, dh = q.shape
+    """Launch B1 (stripe pools); returns partials o [B, K, P, G, dh],
+    m / l [B, K, P, G] (float32).  Checks device, dtype, shape and
+    contiguity and raises on anything the kernel does not take."""
     _check(kv_quant in _FMT, f"unknown kv_quant {kv_quant!r}")
     _check(q.is_cuda, "tensors must be on a CUDA device")
-    dev = q.device
+    B, K, G, dh = q.shape
     NP, Ts = k_pages.shape[2], k_pages.shape[3]
     T = 2 * Ts if kv_quant == "kv4" else Ts
-    _check(dh in (32, 64, 128), f"head dim {dh} not in (32, 64, 128)")
-    _check(1 <= G <= 8, f"query group {G} not in 1..8")
-    _check(partitions >= 1 and NP % partitions == 0,
-           f"partitions={partitions} must divide the page count {NP}")
-    _check(window is None or window >= 0, f"bad window {window}")
-    _check(q.dtype == torch.float32, "q must be float32")
-    if kv_quant == "none":
-        _check(k_pages.dtype in _POOL_DTYPE,
-               f"pool dtype {k_pages.dtype} not float32/bfloat16")
-        fmt = _POOL_DTYPE[k_pages.dtype]
-    else:
-        want = torch.int8 if kv_quant == "kv8" else torch.uint8
-        _check(k_pages.dtype == want, f"{kv_quant} pool must be {want}")
-        fmt = _FMT[kv_quant]
-        for s in (k_scale, v_scale):
-            _check(s is not None and s.dtype == torch.float32
-                   and s.shape == (B, K, NP) and s.is_contiguous()
-                   and s.device == dev,
-                   "kv8/kv4 scales must be contiguous float32 [B, K, NP]")
-    for t in (k_pages, v_pages):
-        _check(t.shape == (B, K, NP, Ts, dh) and t.dtype == k_pages.dtype,
-               f"pool shape {tuple(t.shape)} != {(B, K, NP, Ts, dh)}")
-        _check(t.device == dev and t.is_contiguous()
-               and t.data_ptr() % 16 == 0,
-               "pools must be contiguous and 16-byte aligned on q's device")
-    _check(q.is_contiguous(), "q must be contiguous")
-    _check(page_base.shape == (B, NP) and page_base.dtype == torch.int32
-           and page_base.is_contiguous() and page_base.device == dev,
-           "page_base must be contiguous int32 [B, NP]")
-    _check(length.shape == (B,) and length.dtype == torch.int32
-           and length.is_contiguous() and length.device == dev,
-           "length must be contiguous int32 [B]")
-
-    P = partitions
-    o = torch.empty((B, K, P, G, dh), dtype=torch.float32, device=dev)
-    m = torch.empty((B, K, P, G), dtype=torch.float32, device=dev)
-    l = torch.empty((B, K, P, G), dtype=torch.float32, device=dev)
+    fmt = _check_inputs(q, k_pages, v_pages, page_base, length,
+                        pool_shape=(B, K, NP, Ts, dh),
+                        scale_shape=(B, K, NP), NP=NP, window=window,
+                        kv_quant=kv_quant, k_scale=k_scale, v_scale=v_scale,
+                        partitions=partitions)
+    o, m, l = _partials(q, partitions)
     if B == 0:
         return o, m, l
-    lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = lib.kvnand_paged_attention(
-        ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_scale), ptr(v_scale),
-        ptr(page_base), ptr(length), ptr(o), ptr(m), ptr(l),
-        B, K, NP, T, G, dh, P, -1 if window is None else int(window), fmt,
-        stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+    fn = _entry("stripe")
+    _raise_on(fn(
+        _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
+        _ptr(page_base), _ptr(length), _ptr(o), _ptr(m), _ptr(l),
+        B, K, NP, T, G, dh, partitions, -1 if window is None else int(window),
+        fmt, torch.cuda.current_stream(q.device).cuda_stream))
     launches.value += 1
+    return o, m, l
+
+
+def paged_attention_shared_cuda(
+    q: torch.Tensor,           # [B, K, G, dh] float32
+    k_pages: torch.Tensor,     # [K, P_total, Ts, dh]
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # [B, NP] int32, every entry in [0, P_total)
+    page_base: torch.Tensor,   # [B, NP] int32
+    length: torch.Tensor,      # [B] int32
+    *,
+    window: Optional[int] = None,
+    kv_quant: str = "none",
+    k_scale: Optional[torch.Tensor] = None,   # [K, P_total] float32
+    v_scale: Optional[torch.Tensor] = None,
+    partitions: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch B2 (shared pool through page tables); returns partials
+    o [B, K, P, G, dh], m / l [B, K, P, G] (float32).
+
+    Precondition, not checked (it would cost a device sync per launch):
+    every table entry lies in [0, P_total).  The kernel addresses pages
+    only through the entries of tokens that pass the base / length /
+    window mask, so stale entries past `length` are never dereferenced.
+    Checks device, dtype, shape and contiguity and raises on anything the
+    kernel does not take."""
+    _check(kv_quant in _FMT, f"unknown kv_quant {kv_quant!r}")
+    _check(q.is_cuda, "tensors must be on a CUDA device")
+    B, K, G, dh = q.shape
+    P_total, Ts = k_pages.shape[1], k_pages.shape[2]
+    T = 2 * Ts if kv_quant == "kv4" else Ts
+    _check(page_table.ndim == 2 and page_table.shape[0] == B
+           and page_table.dtype == torch.int32
+           and page_table.is_contiguous() and page_table.device == q.device,
+           "page_table must be contiguous int32 [B, NP]")
+    NP = page_table.shape[1]
+    _check(0 < P_total < 2 ** 31, f"bad pool size {P_total}")
+    fmt = _check_inputs(q, k_pages, v_pages, page_base, length,
+                        pool_shape=(K, P_total, Ts, dh),
+                        scale_shape=(K, P_total), NP=NP, window=window,
+                        kv_quant=kv_quant, k_scale=k_scale, v_scale=v_scale,
+                        partitions=partitions)
+    o, m, l = _partials(q, partitions)
+    if B == 0:
+        return o, m, l
+    fn = _entry("shared")
+    _raise_on(fn(
+        _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
+        _ptr(page_table), _ptr(page_base), _ptr(length), _ptr(o), _ptr(m),
+        _ptr(l), B, K, NP, P_total, T, G, dh, partitions,
+        -1 if window is None else int(window), fmt,
+        torch.cuda.current_stream(q.device).cuda_stream))
+    launches_shared.value += 1
     return o, m, l

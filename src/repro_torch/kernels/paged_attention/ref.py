@@ -1,9 +1,11 @@
 """Plain torch paged attention (port of `repro.kernels.paged_attention.ref`).
 
-`paged_attention_partial_ref` is the plain version of the CUDA decode
-kernel: the CPU path and the yardstick the kernel is held against on the
-card.  `paged_chunk_attention_ref` is the past-context partial of chunked
-prefill, which has no kernel in the reference either.
+`paged_attention_partial_ref` is the plain version of the stripe CUDA
+decode kernel and `paged_attention_shared_ref` that of the shared-pool
+kernel (`gather_table_pages`, then the stripe oracle — the reference's
+`impl="ref"` path): the CPU path and the yardsticks the kernels are held
+against on the card.  `paged_chunk_attention_ref` is the past-context
+partial of chunked prefill, which has no kernel in the reference either.
 
 Arithmetic mirrors the reference: bf16/f32 pools are contracted in the
 POOL dtype with float32 accumulation (q and p rounded to the pool dtype,
@@ -72,6 +74,41 @@ def paged_attention_partial_ref(
     o = torch.einsum("bkgnt,bkntd->bkgd", pv.to(dt).float(), vf)
     o = o / l.clamp_min(1e-30)[..., None]
     return o.reshape(B, H, dh), m.reshape(B, H), l.reshape(B, H)
+
+
+def gather_table_pages(pages: torch.Tensor,
+                       page_table: torch.Tensor) -> torch.Tensor:
+    """Shared-pool view: gather each slot's pages through its table.
+
+    pages: [K, P_total, ...] pool (code pages [K, P, Ts, dh] or scales
+    [K, P]); page_table: [B, NP] physical indices, every entry in
+    [0, P_total).  Returns the per-slot stripe view [B, K, NP, ...]."""
+    return pages[:, page_table.long()].movedim(1, 0)
+
+
+def paged_attention_shared_ref(
+    q: torch.Tensor,           # [B, H, dh]
+    k_pages: torch.Tensor,     # [K, P_total, T, dh] (kv4: [K, P, T/2, dh])
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # [B, NP] physical page of each logical page
+    page_base: torch.Tensor,   # [B, NP] absolute pos of logical page slot 0
+    length: torch.Tensor,      # [B]
+    *,
+    window: Optional[int] = None,
+    kv_quant: str = "none",
+    k_scale: Optional[torch.Tensor] = None,    # [K, P_total]
+    v_scale: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain shared-pool decode partial: the slot's pages gathered through
+    its table row, then the stripe oracle.  Returns (o [B, H, dh], m, l)."""
+    ks = vs = None
+    if kv_quant != "none":
+        ks = gather_table_pages(k_scale, page_table)
+        vs = gather_table_pages(v_scale, page_table)
+    return paged_attention_partial_ref(
+        q, gather_table_pages(k_pages, page_table),
+        gather_table_pages(v_pages, page_table), page_base, length,
+        window=window, kv_quant=kv_quant, k_scale=ks, v_scale=vs)
 
 
 def paged_chunk_attention_ref(

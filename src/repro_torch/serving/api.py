@@ -10,11 +10,13 @@ Entry points set `torch.backends.cuda.matmul.allow_tf32` and
 `torch.backends.cudnn.allow_tf32` to False: the reference computes in
 float32 (`Runtime.activ_dtype`), and TF32 would keep ~3 decimal digits.
 
-Configurations this slice does not port raise NotImplementedError at
-construction, naming their ROADMAP item: the splice scheduler,
-speculation, the overlapped pipeline, and (through the engine) shared or
-tiered pools, kv8/kv4 pools, the discrete variant, window archs and
-non-dense families.
+Both pool layouts are served: the per-slot stripe (the default) and the
+shared pool with its prefix cache and copy-on-write
+(``EngineConfig(shared_pool=True)``).  Configurations the port does not
+serve yet raise NotImplementedError at construction, naming their ROADMAP
+item: the splice scheduler, speculation, the overlapped pipeline, and
+(through the engine) tiered pools (``hot_pages``), kv8/kv4 pools, the
+discrete variant, window archs and non-dense families.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Continuous batching over the KVNAND engine (port of
-`repro.serving.scheduler.ContinuousBatcher`, stripe layout, synchronous).
+`repro.serving.scheduler.ContinuousBatcher`, synchronous).
 
   * a fixed decode batch of B slots; empty slots are refilled from the
     queue between steps, by (priority, deadline, submit order);
@@ -13,23 +13,46 @@
     mid-prefill get no append and no length advance;
   * each request samples from its own (seed, tokens emitted) stream.
 
+Shared-pool mode (``EngineConfig.shared_pool``, the paper's §IV-D
+page-level mapping) replaces the per-slot stripes with ONE physical page
+pool and moves allocation policy to this host scheduler, as in the
+reference:
+
+  * admission is by FREE-PAGE COUNT: a request is admitted when its
+    worst-case footprint ceil((prompt + max_new) / T) pages fits the
+    pool's free + cache-evictable pages net of outstanding reservations;
+  * pages are allocated lazily as prefill chunks and decode appends land
+    (`_ensure_page`), and the host tables are mirrored into the device
+    table before the device work that reads them (`_push_tables`);
+  * a prefix cache (`core/page_alloc.PrefixCache`) maps a new prompt's
+    already-computed full-page prefixes read-only into its table, and a
+    whole-prompt repeat skips prefill (its first token is sampled from
+    the cached last-token logits); the first write into a shared page
+    copies it on write: the allocator hands the slot a private page and
+    the device copies the bytes (`paged_kv.copy_page_shared`, on the same
+    stream as the decode step that then appends into it);
+  * completion drops the slot's references; pages the prefix cache still
+    names survive until LRU eviction reclaims them under pressure.
+
 `step()` is the reference's synchronous schedule (dispatch, then
 collect, back to back).  Not ported yet, and refused at construction:
-the shared/tiered pool and prefix cache, speculative verify, the
-overlapped dispatch/collect pipeline and the splice baseline (ROADMAP).
+the tiered pool, speculative verify, the overlapped dispatch/collect
+pipeline and the splice baseline (ROADMAP).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Set
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import EngineConfig, ModelConfig
+from repro_torch.core import paged_kv
 from repro_torch.core.engine import KVNANDEngine
+from repro_torch.core.page_alloc import OutOfPages, PageAllocator, PrefixCache
 from repro_torch.models.transformer import Runtime
 from repro_torch.serving.sampler import (SamplingParams, request_noise,
                                          sample_with_logprobs)
@@ -110,7 +133,138 @@ class ContinuousBatcher:
         self.completed: Dict[int, Request] = {}
         self.stats = {"steps": 0, "admits": 0, "prefill_chunks": 0,
                       "decode_steps": 0, "decode_tokens": 0,
-                      "deadline_drops": 0}
+                      "deadline_drops": 0, "prefix_hit_pages": 0,
+                      "prompt_pages": 0, "cow_copies": 0,
+                      "pool_peak_pages": 0, "pool_total_pages": 0}
+        self.shared = eng.shared_pool
+        self.alloc: Optional[PageAllocator] = None
+        self.prefix_cache: Optional[PrefixCache] = None
+        if self.shared:
+            self._start_shared_pool()
+
+    # -- shared-pool bookkeeping (allocator, tables, prefix cache) -----
+    def _start_shared_pool(self):
+        """The reference's `_init_shared_pool`, without the tier and
+        window-ring branches (not ported): an allocator over the pool's
+        pages, zeroed host tables, per-slot maps and the prefix cache
+        (every ported arch is a global-pool dense arch, which is what
+        prefix sharing needs)."""
+        c = self.cache
+        self._NPg = c.page_table_g.shape[1]
+        self.alloc = PageAllocator(c.k_pages_g.shape[2])
+        self._table_np = np.zeros((self.B, self._NPg), np.int32)
+        self.stats["pool_total_pages"] = self.alloc.total
+        # per-slot maps: logical page -> physical; shared = mapped with
+        # refcount > 1 (read-only until copied on write)
+        self._slot_pages: List[Dict[int, int]] = [{} for _ in range(self.B)]
+        self._slot_shared: List[Set[int]] = [set() for _ in range(self.B)]
+        self._resv = np.zeros(self.B, np.int64)   # reserved, not yet alloc'd
+        self._outstanding = 0
+        self.prefix_cache = PrefixCache(self.alloc,
+                                        self.engine.eng.page_tokens)
+        self._tables_dirty = True
+        self._push_tables()
+
+    def _push_tables(self):
+        """Mirror the host page tables into the device table, only when a
+        mapping changed (a blocking copy: see `paged_kv.write_page_table`)."""
+        if not self._tables_dirty:
+            return
+        paged_kv.write_page_table(self.cache.page_table_g, self._table_np)
+        self._tables_dirty = False
+
+    def _alloc_g(self, logical: int) -> int:
+        """One pool page, evicting prefix-cache LRU entries under pressure
+        (their pages are the only reclaimable slack)."""
+        while True:
+            try:
+                p = self.alloc.alloc_for_logical(logical)
+                self.stats["pool_peak_pages"] = max(
+                    self.stats["pool_peak_pages"], self.alloc.live_count)
+                return p
+            except OutOfPages:
+                if not self.prefix_cache.evict_lru():
+                    raise RuntimeError(
+                        "shared page pool exhausted despite admission "
+                        "reservations — allocator accounting bug") from None
+
+    def _ensure_page(self, i: int, lp: int):
+        """Slot i is about to WRITE logical page lp: allocate it fresh if
+        unmapped, copy it on write if currently shared (refcount > 1)."""
+        pages = self._slot_pages[i]
+        if lp not in pages:
+            p = self._alloc_g(lp)
+            pages[lp] = p
+            self._table_np[i, lp] = p
+            self._tables_dirty = True
+            self._resv[i] -= 1
+            self._outstanding -= 1
+            return
+        if lp in self._slot_shared[i]:
+            old = pages[lp]
+            fresh = self.alloc.cow(old)
+            if fresh != old:
+                # one copy per pool leaf, on the stream the next decode
+                # step runs on, so the bytes land before its append
+                for pool in (self.cache.k_pages_g, self.cache.v_pages_g):
+                    paged_kv.copy_page_shared(pool, old, fresh)
+                self._table_np[i, lp] = fresh
+                pages[lp] = fresh
+                self._tables_dirty = True
+                self.stats["cow_copies"] += 1
+                self._resv[i] -= 1
+                self._outstanding -= 1
+            self._slot_shared[i].discard(lp)
+            self.stats["pool_peak_pages"] = max(
+                self.stats["pool_peak_pages"], self.alloc.live_count)
+
+    def _free_slot_pages(self, i: int):
+        if not self.shared:
+            return
+        if self._slot_pages[i]:
+            self.alloc.free(list(self._slot_pages[i].values()))
+        self._slot_pages[i] = {}
+        self._slot_shared[i] = set()
+        self._outstanding -= int(self._resv[i])
+        self._resv[i] = 0
+
+    def _pages_needed(self, req: Request) -> int:
+        total = min(len(req.prompt) + req.max_new, self.max_context)
+        return -(-total // self.engine.eng.page_tokens)
+
+    def _map_cached_pages(self, i: int, pages) -> int:
+        """Map cached pages read-only into slot i's logical pages 0..len:
+        one allocator reference each, marked shared (copy before write)."""
+        for j, p in enumerate(pages):
+            self.alloc.share([p])
+            self._slot_pages[i][j] = p
+            self._slot_shared[i].add(j)
+            self._table_np[i, j] = p
+        return len(pages)
+
+    def _register_prefix(self, i: int, ps: "_PrefillState",
+                         logits: np.ndarray):
+        """Publish a freshly prefilled prompt's pages into the prefix
+        cache.  Full pages are always safe to share (the slot never
+        rewrites them).  The trailing PARTIAL page becomes shared too —
+        making this slot's own first decode append copy it on write — but
+        only when the pool has a free page of slack to fund that copy
+        (the reservation grows by one to keep admission accounting
+        exact)."""
+        T = self.engine.eng.page_tokens
+        n_pages = -(-ps.n // T)
+        pages = [self._slot_pages[i][j] for j in range(n_pages)]
+        partial = ps.n % T != 0
+        slack = self.alloc.free_count - self._outstanding
+        include_exact = (not partial) or slack >= 1
+        added = self.prefix_cache.register(
+            ps.req.prompt, pages, logits, include_exact=include_exact)
+        if added and partial and include_exact:
+            self._resv[i] += 1
+            self._outstanding += 1
+        for j, p in enumerate(pages):
+            if self.alloc.refcount[p] > 1:
+                self._slot_shared[i].add(j)
 
     # -- per-request sampling / lifecycle ------------------------------
     def _seed_of(self, req: Request) -> np.uint32:
@@ -148,8 +302,9 @@ class ContinuousBatcher:
         return toks.cpu().numpy(), lps.cpu().numpy()
 
     def _finish(self, i: int, reason: str):
-        """Retire slot i's request; its stripe is overwritten in place by
-        the next occupant."""
+        """Retire slot i's request: a stripe is overwritten in place by
+        the next occupant; a shared pool gets the slot's page references
+        and reservations back."""
         req = self.slots[i]
         req.done = True
         req.finish_reason = reason
@@ -157,6 +312,7 @@ class ContinuousBatcher:
         self.completed[req.uid] = req
         self.slots[i] = None
         self._lengths[i] = 0
+        self._free_slot_pages(i)
 
     def _emit_token(self, i: int, req: Request, tok: int, lp: float):
         """Append one sampled token and apply the finish rules (stop
@@ -173,7 +329,9 @@ class ContinuousBatcher:
 
     def abort(self, uid: int) -> bool:
         """Cancel a request wherever it is: queued, mid-chunked-prefill,
-        or decoding.  Returns False for unknown/finished uids."""
+        or decoding.  A running request releases its shared-pool pages
+        (prefix-cache references survive) and frees the slot at once.
+        Returns False for unknown/finished uids."""
         for r in self.queue:
             if r.uid == uid:
                 self.queue.remove(r)
@@ -208,6 +366,14 @@ class ContinuousBatcher:
                 f"capacity of {cap} (max_context={self.max_context} minus "
                 "1 decode token); truncate the prompt or enlarge "
                 "max_context")
+        if self.shared:
+            need = self._pages_needed(req)
+            if need > self.alloc.total:
+                raise ValueError(
+                    f"request {req.uid}: worst-case footprint of {need} "
+                    f"pages exceeds the shared pool of {self.alloc.total} "
+                    "pages; shrink the prompt/max_new or grow "
+                    "EngineConfig.total_pages")
         self.queue.append(req)
 
     @staticmethod
@@ -238,26 +404,91 @@ class ContinuousBatcher:
                 req = self._queue_pick()
                 if req is None:
                     break
+                if self.shared:
+                    if not self._admit_shared(i, req):
+                        break          # best candidate waits for pages
+                    continue
                 self.queue.remove(req)
                 self.slots[i] = req
                 self._set_slot_params(i, req)
                 self._start_prefill(i, req)
                 self.stats["admits"] += 1
 
-    def _start_prefill(self, i: int, req: Request):
+    def _start_prefill(self, i: int, req: Request, pos: int = 0):
         n = len(req.prompt)
         C = self.chunk_tokens
         toks = np.zeros(-(-n // C) * C, np.int64)
         toks[:n] = req.prompt
-        self._prefill_live[i] = _PrefillState(req, toks, n,
+        self._prefill_live[i] = _PrefillState(req, toks, n, pos=pos,
                                               order=self._admit_seq)
         self._admit_seq += 1
+
+    def _admit_shared(self, i: int, req: Request) -> bool:
+        """Admission by KV footprint: reserve the request's worst-case
+        pages against the pool; map any cached prefix read-only; admit
+        only if the remainder fits free + evictable pages."""
+        n = len(req.prompt)
+        T = self.engine.eng.page_tokens
+        need = self._pages_needed(req)
+        hit = self.prefix_cache.lookup(req.prompt)
+        hit_pages = (hit.exact.pages if hit.exact is not None
+                     else hit.full_pages)
+        # mapping the hit PINS its pages: whatever part of the evictable
+        # pages they are stops being reclaimable once this request is
+        # admitted, so discount them all (conservative)
+        avail = (self.alloc.free_count
+                 + max(0, self.prefix_cache.evictable_pages()
+                       - len(hit_pages))
+                 - self._outstanding)
+        # fresh pages this slot may still allocate: decode growth, plus
+        # the copy of an exact hit's shared partial page
+        resv_needed = need - (n // T if hit.exact is not None
+                              else len(hit.full_pages))
+        if resv_needed > avail:
+            return False
+
+        self.queue.remove(req)
+        self.slots[i] = req
+        self._set_slot_params(i, req)
+        self.stats["admits"] += 1
+        self.stats["prompt_pages"] += -(-n // T)
+        if hit.exact is not None:
+            # whole-prompt repeat: map EVERY page (the trailing partial
+            # one too) read-only and skip prefill; the first decode
+            # append into the partial page copies it on write
+            mapped = self._map_cached_pages(i, hit.exact.pages)
+            self._resv[i] = need - (n // T)
+            self._lengths[i] = n
+            self.cache.lengths[i] = n
+        else:
+            mapped = self._map_cached_pages(i, hit.full_pages)
+            self._resv[i] = need - mapped   # full pages never rewritten
+            self._start_prefill(i, req, pos=mapped * T)
+        self._outstanding += int(self._resv[i])
+        self.stats["prefix_hit_pages"] += mapped
+        self._tables_dirty = self._tables_dirty or mapped > 0
+        self._push_tables()
+        if hit.exact is not None:
+            # first token from the cached float32 last-token logits,
+            # through the request's own params and stream (the accounting
+            # above is final, so a stop/length finish frees cleanly)
+            logits = torch.as_tensor(hit.exact.logits,
+                                     device=self.device)[None]
+            toks, lps = self._sample(logits, [i], [len(req.output)])
+            self._emit_token(i, req, int(toks[0]), float(lps[0]))
+        return True
 
     def _prefill_tick(self, i: int, ps: _PrefillState):
         """Process ONE chunk of slot i's prompt into the cache."""
         c0 = ps.pos
         chunk = ps.tokens[c0:c0 + self.chunk_tokens]
         cl = min(self.chunk_tokens, ps.n - c0)
+        if self.shared:
+            # lazy page allocation: back every page this chunk will write
+            T = self.engine.eng.page_tokens
+            for lp in range(c0 // T, -(-(c0 + cl) // T)):
+                self._ensure_page(i, lp)
+            self._push_tables()
         logits, self.cache = self.engine.prefill_chunk(
             self.params, self.cache,
             {"tokens": torch.as_tensor(chunk, device=self.device)[None]},
@@ -267,6 +498,9 @@ class ContinuousBatcher:
         if ps.pos >= ps.n:                         # prompt fully prefilled
             del self._prefill_live[i]
             self._lengths[i] = ps.n
+            if self.prefix_cache is not None:
+                self._register_prefix(
+                    i, ps, logits[0].float().cpu().numpy())
             toks, lps = self._sample(logits, [i], [len(ps.req.output)])
             self._emit_token(i, ps.req, int(toks[0]), float(lps[0]))
 
@@ -308,6 +542,14 @@ class ContinuousBatcher:
         for i in active:
             tokens[i, 0] = self.slots[i].output[-1]
             mask[i] = True
+        if self.shared:
+            # every active slot appends at its current position: make that
+            # page exclusively writable (lazy allocation, or a copy off a
+            # shared prefix/partial page) before the step runs
+            T = self.engine.eng.page_tokens
+            for i in active:
+                self._ensure_page(i, int(self._lengths[i]) // T)
+            self._push_tables()
         logits, self.cache = self.engine.decode_step(
             self.params, self.cache,
             torch.as_tensor(tokens, device=self.device),

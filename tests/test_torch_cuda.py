@@ -1,5 +1,7 @@
-"""PyTorch port on the card: the CUDA paged decode-attention kernel
-against its plain torch version, its launch counter and its input checks.
+"""PyTorch port on the card: the CUDA paged decode-attention kernels —
+B1 over per-slot stripes, B2 over the shared pool through page tables —
+against their plain torch versions, their launch counters and their input
+checks.
 
 Every test needs a CUDA device; the `cuda_device` fixture skips it where
 `torch.cuda.is_available()` is False (decided inside the fixture, never
@@ -12,7 +14,8 @@ Tolerances: 2e-5 (atol and rtol) for f32 pools and for kv8/kv4 (codes are
 contracted in f32 on both sides), 3e-2 for bf16 pools, where the plain
 version rounds q and p to bf16 and the kernel keeps them in f32.  A bf16
 pool is also held at 2e-5 against the plain version on the same pages
-upcast to f32, which is the kernel's own arithmetic.
+upcast to f32, which is the kernel's own arithmetic.  B2 is held to the
+same tolerances against `paged_attention_shared_ref`.
 """
 import itertools
 
@@ -98,3 +101,117 @@ def test_unsupported_inputs_raise(cuda_device, bad):
         kp = kp.transpose(3, 4).contiguous().transpose(3, 4)
     with pytest.raises(ValueError):
         tpa.paged_attention_cuda(q.reshape(B, K, G, dh), kp, vp, base, length)
+
+
+# ---------------------------------------------------------------------------
+# B2: the shared pool through page tables
+# ---------------------------------------------------------------------------
+
+P_TOTAL = B * NP + 7
+
+
+def _shared_inputs(fmt, G, dh, dev, seed=0):
+    """A pool larger than the tables need, tables that permute it, a row
+    whose entries past its length name pages other rows own, an
+    all-masked row (length 0)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, K * G, dh, generator=gen, device=dev)
+    kd = torch.randn(K, P_TOTAL, T, dh, generator=gen, device=dev)
+    vd = torch.randn(K, P_TOTAL, T, dh, generator=gen, device=dev)
+    perm = torch.randperm(P_TOTAL, generator=torch.Generator().manual_seed(
+        seed))[:B * NP]
+    table = perm.reshape(B, NP).to(torch.int32).to(dev)
+    table[2, 1:] = table[0, 1:]         # row 2 holds 1 token: stale entries
+    table[3] = table[0]
+    base = (torch.arange(NP, dtype=torch.int32, device=dev) * T)[None]
+    base = base.repeat(B, 1).contiguous()
+    length = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
+    if fmt in ("kv8", "kv4"):
+        kp, ks = quantize_kv_page(kd, fmt)
+        vp, vs = quantize_kv_page(vd, fmt)
+        return q, kp, vp, table, base, length, ks, vs, fmt
+    dt = torch.float32 if fmt == "f32" else torch.bfloat16
+    return q, kd.to(dt), vd.to(dt), table, base, length, None, None, "none"
+
+
+@pytest.mark.parametrize("fmt,G,dh,window,partitions", list(itertools.product(
+    ("f32", "bf16", "kv8", "kv4"), (1, 3, 8), (32, 64, 128), (None, 40),
+    (1, 4))))
+def test_shared_kernel_matches_plain_version(cuda_device, fmt, G, dh, window,
+                                             partitions):
+    q, kp, vp, table, base, length, ks, vs, kvq = _shared_inputs(
+        fmt, G, dh, cuda_device)
+    got = tpa.paged_attention_partial(q, kp, vp, base, length, window=window,
+                                      kv_quant=kvq, k_scale=ks, v_scale=vs,
+                                      page_table=table,
+                                      partitions=partitions)
+    torch.cuda.synchronize()
+    want = tpa.paged_attention_shared_ref(q, kp, vp, table, base, length,
+                                          window=window, kv_quant=kvq,
+                                          k_scale=ks, v_scale=vs)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=TOL[fmt], rtol=TOL[fmt])
+    if fmt == "bf16":
+        want32 = tpa.paged_attention_shared_ref(q, kp.float(), vp.float(),
+                                                table, base, length,
+                                                window=window)
+        for g, w in zip(got, want32):
+            torch.testing.assert_close(g, w, atol=TOL["f32"],
+                                       rtol=TOL["f32"])
+    o, m, l = got                       # the all-masked row
+    assert torch.all(o[3] == 0) and torch.all(l[3] == 0)
+    assert torch.all(m[3] == -1e30)
+
+
+def test_shared_kernel_matches_stripe_kernel_on_identity_tables(cuda_device):
+    """One body, two page policies: a shared pool whose tables are the
+    identity stripes gives B1's result on the same pages, bit for bit."""
+    q, kp, vp, base, length, *_ = _inputs("bf16", 4, 64, cuda_device)
+    pool_k = kp.permute(1, 0, 2, 3, 4).reshape(K, B * NP, T, 64).contiguous()
+    pool_v = vp.permute(1, 0, 2, 3, 4).reshape(K, B * NP, T, 64).contiguous()
+    table = torch.arange(B * NP, dtype=torch.int32,
+                         device=cuda_device).reshape(B, NP)
+    stripe = tpa.paged_attention_partial(q, kp, vp, base, length,
+                                         partitions=2)
+    shared = tpa.paged_attention_partial(q, pool_k, pool_v, base, length,
+                                         page_table=table, partitions=2)
+    for a, b in zip(stripe, shared):
+        assert torch.equal(a, b)
+
+
+def test_shared_one_launch_per_call(cuda_device):
+    q, kp, vp, table, base, length, *_ = _shared_inputs("bf16", 1, 64,
+                                                        cuda_device)
+    tpa.launches.reset()
+    tpa.launches_shared.reset()
+    for p in (1, 4):
+        tpa.paged_attention_partial(q, kp, vp, base, length, page_table=table,
+                                    partitions=p)
+    assert tpa.launches_shared.value == 2
+    assert tpa.launches.value == 0
+
+
+@pytest.mark.parametrize("bad", ["cpu", "dh", "dtype", "pool_shape",
+                                 "table_dtype", "table_layout", "scales"])
+def test_shared_unsupported_inputs_raise(cuda_device, bad):
+    dh = 48 if bad == "dh" else 64
+    fmt = "kv8" if bad == "scales" else "f32"
+    q, kp, vp, table, base, length, ks, vs, kvq = _shared_inputs(
+        fmt, 1, dh, cuda_device)
+    q4 = q.reshape(B, K, 1, dh)
+    if bad == "cpu":
+        q4, kp, vp, table, base, length = (t.cpu() for t in (
+            q4, kp, vp, table, base, length))
+    if bad == "dtype":
+        kp, vp = kp.half(), vp.half()
+    if bad == "pool_shape":
+        kp = kp[:, :-1]
+    if bad == "table_dtype":
+        table = table.long()
+    if bad == "table_layout":
+        table = table.t().contiguous().t()
+    if bad == "scales":
+        ks = ks.t().contiguous().t()
+    with pytest.raises(ValueError):
+        tpa.paged_attention_shared_cuda(q4, kp, vp, table, base, length,
+                                        kv_quant=kvq, k_scale=ks, v_scale=vs)

@@ -181,7 +181,7 @@ def test_port_imports_without_jax_nvcc_or_card():
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from repro_torch.kernels.paged_attention import kernel\n"
-        "assert kernel._lib is None\n"
+        "assert not kernel._fns\n"
         "assert not any(k == 'repro' or k.startswith('repro.') "
         "for k in sys.modules)\n"
         "print('ok')\n")
