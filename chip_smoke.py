@@ -5,9 +5,10 @@
 
 Phases (each one fails the run when it fails):
 
-1. build    both paged decode-attention kernels from src/repro_torch/csrc
-            (B1 over per-slot stripes, B2 over the shared pool through page
-            tables), one nvcc process per source, started together, timed;
+1. build    the three kernel libraries from src/repro_torch/csrc (B1 paged
+            decode attention over per-slot stripes, B2 over the shared pool
+            through page tables, B3 the quantized GEMV), one nvcc process
+            per source, started together, timed;
 2. kernel   hold each kernel against its plain torch version on the card,
             {f32, bf16, kv8, kv4} pools x partitions {1, 16} x window
             {None, 64}.  B1: head shapes (K=16, G=1, dh=64) (qwen1.5-0.5b)
@@ -38,7 +39,30 @@ Phases (each one fails the run when it fails):
             forward, teacher-forced on prompt + output (logprobs within
             LOGPROB_TOL; the token the reference argmax within
             LOGIT_GAP_TOL, except on the shared bf16 run, which reports
-            its largest gap: see `shared_server_phase`).
+            its largest gap: see `shared_server_phase`);
+7. B3       the quantized GEMV against its plain version on the card,
+            {w4a16, w8a8} x M in {1, 4, 64} x (D, F) of qwen1.5-0.5b
+            (1024->1024, 1024->2816, 2816->1024), llama3.1-8b
+            (4096->14336, 14336->4096) and a ragged (130, 77): W8A8
+            within 1e-6 x max|y|, W4A16 within 4e-3 x max|y| (the plain
+            version rounds the product to bf16) and within 1e-5 x max|y|
+            of the TPU kernel's function f32(bf16(x) @ w4) x scale;
+            timed (kernel, plain, library, bound) at M = 4 and 64 on
+            qwen1.5-0.5b's gate projection and llama3.1-8b's down one;
+8. Q1, Q2   the quantized deployments at the full width of qwen1.5-0.5b:
+            Q1 W4A16 weights, stripe pool, kv4 pages (the design-space
+            search's fallback); Q2 W8A8 weights, shared pool, kv8 pages
+            (prefix hits, copy-on-write of codes and scales).  B3's
+            counter must equal 4 x 24 per decode step and prefill chunk
+            (wo, gate, up, down; wq/wk/wv are dequantized, the LM head is
+            the float embedding), B1's (Q1) or B2's (Q2) 24 per decode
+            step, the other 0.  Each is held against the same server run
+            on the CPU (plain versions, the same quantized params, the
+            same prompts): served logprobs within QUANT_LOGPROB_TOL up to
+            and including each request's first differing token, and the
+            longest prompt's prefill logits within QUANT_PREFILL_TOL,
+            beside the noise floor of the model (the card against itself
+            with the embedding moved by one ulp).
 
 It needs a CUDA card (exits non-zero without one, printing no result),
 imports nothing of JAX, and prints the card's name and power limit, a
@@ -66,11 +90,27 @@ TOL = {"f32": 2e-5, "bf16": 3e-2, "kv8": 2e-5, "kv4": 2e-5}
 # through the bf16 pool, the reference's do not
 LOGPROB_TOL = 2e-2
 LOGIT_GAP_TOL = 1e-3
+# the quantized deployments Q1/Q2 against the same server on the CPU:
+# every quantizer is a rounding step, so two correct runs agree to the
+# model's quantization noise, not to float rounding (a one-ulp change of
+# the embedding moves the full-width random model's logits by a few 1e-2,
+# measured in the same run: see `quant_server_phase` and PERF.md).
+# Served logprobs up to each first differing token, and the last-token
+# logits of a prefill (as a share of max|logit|):
+QUANT_LOGPROB_TOL = 0.3
+QUANT_PREFILL_TOL = 0.1
 
 # HBM bandwidth by SKU (NVIDIA data sheets); float32 CUDA-core peak
 HBM_BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12,
                    "H100": 3.35e12}
 F32_FLOPS = 67e12
+# dense tensor-core peaks (NVIDIA H100 SXM data sheet): the bound of B3's
+# multiply-adds, bf16 for W4A16 (its product runs on bf16 inputs), int8
+# for W8A8
+TC_OPS = {"w4a16": 989e12, "w8a8": 1979e12}
+# B3 against its plain version, in units of max|y| (see phase 7)
+GEMV_TOL = {"w8a8": 1e-6, "w4a16": 4e-3}
+GEMV_TPU_TOL = 1e-5
 # cycles of torch.cuda._sleep queued ahead of each timed launch (~2.5 ms
 # at the H100's clock), so that the host has enqueued the whole timed
 # call before the start event fires and the window holds device time only
@@ -440,7 +480,9 @@ def timing_phase(rate):
 # phases 4-6: servers + teacher-forced reference
 # ---------------------------------------------------------------------------
 
-def build_server(**engine):
+def build_server(params=None, device="cuda", **engine):
+    """The full-width qwen1.5-0.5b server on `device`: random weights from
+    seed 0, or `params` (e.g. a quantized tree)."""
     import torch
     from repro_torch.configs import EngineConfig
     from repro_torch.serving.api import KVNANDServer, ServerConfig
@@ -448,15 +490,19 @@ def build_server(**engine):
     eng = EngineConfig(page_tokens=16, uniform_lengths=False, **engine)
     srv = KVNANDServer(ServerConfig(
         arch="qwen1.5-0.5b", reduced=False, engine=eng, batch_slots=4,
-        max_context=512, prefill_chunk_tokens=64, device="cuda"))
+        max_context=512, prefill_chunk_tokens=64, device=device),
+        params=params)
     cfg = srv.cfg
     check(cfg.n_layers == 24 and cfg.d_model == 1024 and cfg.n_heads == 16
           and cfg.padded_vocab == 152064, "not the full-width qwen1.5-0.5b")
-    check(srv._batcher.cache.k_pages_g.dtype == getattr(torch, eng.kv_dtype),
-          f"the KV pool is not {eng.kv_dtype}")
-    torch.cuda.synchronize()
+    pool = {"kv8": torch.int8, "kv4": torch.uint8}.get(
+        eng.kv_quant, getattr(torch, eng.kv_dtype))
+    check(srv._batcher.cache.k_pages_g.dtype == pool,
+          f"the KV pool is not {pool}")
+    if device == "cuda":
+        torch.cuda.synchronize()
     print(f"server: built {cfg.name} ({cfg.param_count() / 1e6:.1f}M params,"
-          f" {eng}) in {time.perf_counter() - t0:.2f} s")
+          f" {eng}) on {device} in {time.perf_counter() - t0:.2f} s")
     return srv
 
 
@@ -464,22 +510,28 @@ def serve(label, srv, prompts):
     """Drive the server's main path with both launch counters reset just
     before and read just after; returns the outputs and the counts."""
     import torch
+    from repro_torch.kernels import quant_gemv
     from repro_torch.kernels.paged_attention import launches, launches_shared
     from repro_torch.serving.api import SamplingParams
     steps0 = srv.stats["decode_steps"]
-    launches.reset()
-    launches_shared.reset()
+    chunks0 = srv.stats["prefill_chunks"]
+    counters = {"B1": launches, "B2": launches_shared,
+                "B3": quant_gemv.launches}
+    for c in counters.values():
+        c.reset()
     t0 = time.perf_counter()
     outs = srv.generate(prompts, SamplingParams(max_new_tokens=16,
                                                 logprobs=True))
-    torch.cuda.synchronize()
+    if srv._batcher.device.type == "cuda":
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"B1": launches.value, "B2": launches_shared.value}
+    counts = {k: c.value for k, c in counters.items()}
     steps = srv.stats["decode_steps"] - steps0
+    counts["prefill_chunks"] = srv.stats["prefill_chunks"] - chunks0
     new_tokens = sum(len(o.token_ids) for o in outs)
     print(f"{label}: {len(outs)} requests, {new_tokens} tokens in "
           f"{wall:.3f} s, {steps} decode steps, "
-          f"{srv.stats['prefill_chunks']} prefill chunks, launches {counts}")
+          f"{counts['prefill_chunks']} prefill chunks, launches {counts}")
     check(len(outs) == len(prompts)
           and all(len(o.token_ids) == 16 and o.finish_reason == "length"
                   for o in outs), f"{label}: not every request answered")
@@ -529,17 +581,35 @@ def teacher_forced_check(label, srv, outs, *, argmax=True):
     return lp_err, gap
 
 
+def stripe_prompts(V):
+    """6 prompts of 5-200 tokens."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, V, n).tolist()
+            for n in (5, 37, 64, 100, 150, 200)]
+
+
+def shared_prompts(V):
+    """6 prompts: 3 share a 32-token system prefix (2 pages of 16), one
+    repeats the first exactly; the last two are admitted once slots free
+    up, after the first registered its pages."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    system = rng.integers(0, V, 32).tolist()
+    a = system + rng.integers(0, V, 37).tolist()
+    prompts = [a] + [rng.integers(0, V, n).tolist() for n in (100, 150, 64)]
+    return prompts + [system + rng.integers(0, V, 50).tolist(), list(a)]
+
+
 def server_phase():
     """The stripe pool: every decode step goes through B1."""
-    import numpy as np
     srv = build_server()
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, srv.cfg.vocab_size, n).tolist()
-               for n in (5, 37, 64, 100, 150, 200)]
+    prompts = stripe_prompts(srv.cfg.vocab_size)
     outs, counts, steps, wall, tokens = serve("server (stripe)", srv, prompts)
     L = srv.cfg.n_layers
-    check(steps > 0 and counts["B1"] == steps * L and counts["B2"] == 0,
-          f"stripe launches {counts} != (decode steps {steps} x {L}, 0)")
+    check(steps > 0 and counts["B1"] == steps * L and counts["B2"] == 0
+          and counts["B3"] == 0,
+          f"stripe launches {counts} != (decode steps {steps} x {L}, 0, 0)")
     lp_err, gap = teacher_forced_check("stripe", srv, outs)
     return {"launches": counts["B1"], "launches_B2": counts["B2"],
             "decode_steps": steps, "wall_s": wall, "tokens": tokens,
@@ -556,16 +626,8 @@ def shared_server_phase(kv_dtype: str):
     to the logprob tolerance and reports its largest argmax gap, the f32
     run (kernel arithmetic = reference arithmetic up to summation order)
     is held to the argmax too."""
-    import numpy as np
     srv = build_server(shared_pool=True, kv_dtype=kv_dtype)
-    V = srv.cfg.vocab_size
-    rng = np.random.default_rng(1)
-    system = rng.integers(0, V, 32).tolist()           # 2 pages of 16
-    a = system + rng.integers(0, V, 37).tolist()
-    prompts = [a] + [rng.integers(0, V, n).tolist() for n in (100, 150, 64)]
-    # admitted once slots free up, after `a` registered its pages: one
-    # shares its 2-page prefix, one repeats it exactly
-    prompts += [system + rng.integers(0, V, 50).tolist(), list(a)]
+    prompts = shared_prompts(srv.cfg.vocab_size)
     label = f"server (shared, {kv_dtype})"
     outs, counts, steps, wall, tokens = serve(label, srv, prompts)
     L = srv.cfg.n_layers
@@ -575,8 +637,9 @@ def shared_server_phase(kv_dtype: str):
           f"cow_copies={st['cow_copies']} prompt_pages={st['prompt_pages']} "
           f"pool_peak_pages={st['pool_peak_pages']} of "
           f"{st['pool_total_pages']}")
-    check(steps > 0 and counts["B2"] == steps * L and counts["B1"] == 0,
-          f"shared launches {counts} != (0, decode steps {steps} x {L})")
+    check(steps > 0 and counts["B2"] == steps * L and counts["B1"] == 0
+          and counts["B3"] == 0,
+          f"shared launches {counts} != (0, decode steps {steps} x {L}, 0)")
     check(st["prefix_hit_pages"] > 0, "the prefix cache never hit")
     check(st["cow_copies"] > 0, "no page was copied on write")
     b.alloc.check()
@@ -594,6 +657,332 @@ def shared_server_phase(kv_dtype: str):
             "pool_total_pages": st["pool_total_pages"],
             "logprob_err": lp_err, "logit_gap": gap,
             "token_ids": [o.token_ids for o in outs]}
+
+
+# ---------------------------------------------------------------------------
+# phases 7-8: the quantized GEMV (B3) and the quantized deployments
+# ---------------------------------------------------------------------------
+
+GEMV_SHAPES = (("qwen1.5-0.5b wo", 1024, 1024),
+               ("qwen1.5-0.5b gate/up", 1024, 2816),
+               ("qwen1.5-0.5b down", 2816, 1024),
+               ("llama3.1-8b gate/up", 4096, 14336),
+               ("llama3.1-8b down", 14336, 4096),
+               ("ragged", 130, 77))
+
+
+def gemv_case(scheme, M, D, F, gen):
+    """Random x [M, D] and a quantized fan-in-scaled weight [D, F]."""
+    import torch
+    from repro_torch.core.quant import quantize_weight
+    w = torch.randn(D, F, generator=gen, device="cuda") / D ** 0.5
+    x = torch.randn(M, D, generator=gen, device="cuda")
+    return x, quantize_weight(w, scheme)
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b|."""
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max())
+
+
+def quant_kernel_phase() -> float:
+    """B3 against `quant_gemv_ref`, and W4A16 also against the TPU
+    kernel's function (float32 accumulation of bf16(x) · w4, taken in
+    float64 here)."""
+    import torch
+    from repro_torch.core.quant import unpack_int4
+    from repro_torch.kernels.quant_gemv import quant_gemv, quant_gemv_ref
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    max_abs, n = 0.0, 0
+    for scheme in ("w4a16", "w8a8"):
+        for M in (1, 4, 64):
+            for label, D, F in GEMV_SHAPES:
+                x, qw = gemv_case(scheme, M, D, F, gen)
+                got = quant_gemv(x, qw)
+                torch.cuda.synchronize()
+                want = quant_gemv_ref(x, qw.q, qw.scale, scheme)
+                err = rel_err(got, want)
+                msg = (f"B3 {scheme} M={M:2d} {label} [{D}->{F}]: "
+                       f"rel_err={err:.3e} (tol {GEMV_TOL[scheme]:.0e})")
+                check(bool(torch.isfinite(got).all())
+                      and got.shape == (M, F), f"{msg}: bad output")
+                if scheme == "w4a16":
+                    tpu = ((x.to(torch.bfloat16).double()
+                            @ unpack_int4(qw.q).double())
+                           * qw.scale.double())
+                    err_tpu = rel_err(got, tpu)
+                    msg += (f", vs the TPU kernel's function "
+                            f"{err_tpu:.3e} (tol {GEMV_TPU_TOL:.0e})")
+                    check(err_tpu <= GEMV_TPU_TOL, msg)
+                print(msg)
+                check(err <= GEMV_TOL[scheme], msg)
+                max_abs = max(max_abs, float((got - want).abs().max()))
+                n += 1
+    print(f"B3 kernel phase: {n} cases within tolerance, "
+          f"max_abs_err={max_abs:.3e}")
+    return max_abs
+
+
+def quant_timing_shape(label, scheme, M, D, F, rate, flush, gen):
+    """B3 at one shape: the kernel on x prepared as it receives it (bf16,
+    or int8 codes), the plain version on float x (its activation
+    quantization included), and the library yardstick: torch._int_mm
+    plus the two scales (W8A8 at M > 16, where that call exists), else a
+    dense bf16 torch.matmul on the weight dequantized beforehand — the
+    product the quantized weight replaces.  Bound: packed weight + scale
+    + x + out bytes at the HBM rate vs 2·M·D·F operations at the dense
+    tensor-core peak of the input type.  stream_ms: one torch sum over the
+    packed weight, what a single read of those bytes costs in practice."""
+    import torch
+    from repro_torch.core.quant import dequantize, quantize_activations_int8
+    from repro_torch.kernels.quant_gemv import quant_gemv_cuda, quant_gemv_ref
+    x, qw = gemv_case(scheme, M, D, F, gen)
+    check(qw.q.numel() % 4 == 0, "the stream yardstick reads 4-byte words")
+    if scheme == "w8a8":
+        xk, xs = quantize_activations_int8(x)
+    else:
+        xk = x.to(torch.bfloat16)
+    times = {
+        "ms": time_ms(lambda: quant_gemv_cuda(xk, qw.q, qw.scale, scheme),
+                      20, flush),
+        "plain_ms": time_ms(lambda: quant_gemv_ref(x, qw.q, qw.scale,
+                                                   scheme), 5, flush),
+    }
+    if scheme == "w8a8" and M > 16:
+        library = "torch._int_mm + scales"
+        qb = qw.q
+        try:
+            torch._int_mm(xk, qb)
+        except RuntimeError:          # cuBLASLt wants B column-major
+            qb = qw.q.t().contiguous().t()
+        times["library_ms"] = time_ms(
+            lambda: torch._int_mm(xk, qb).float() * qw.scale * xs, 20, flush)
+    else:
+        library = "torch.matmul bf16 on the dequantized weight"
+        wd = dequantize(qw, torch.bfloat16)
+        xb = x.to(torch.bfloat16)
+        times["library_ms"] = time_ms(lambda: torch.matmul(xb, wd), 20,
+                                      flush)
+    # what reading the packed weight once costs this card in one PyTorch
+    # reduction (its bytes summed as float32 words, NaN or not): an
+    # achievable-bandwidth yardstick beside the bound
+    words = qw.q.view(torch.float32)
+    times["stream_ms"] = time_ms(lambda: words.sum(), 20, flush)
+    nbytes = (qw.q.numel() + 4 * F + M * D * (2 if scheme == "w4a16" else 1)
+              + 4 * M * F)
+    ops = 2 * M * D * F
+    t_bytes = nbytes / rate * 1e3
+    t_ops = ops / TC_OPS[scheme] * 1e3
+    res = {"shape": label, "scheme": scheme, "M": M, "D": D, "F": F,
+           "library": library, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "ops": ops}
+    for key, t in times.items():
+        res[key] = statistics.median(t)
+        res[f"{key}_min_max"] = [t[0], t[-1]]
+    print(f"timing B3 {scheme} {label} M={M} [{D}->{F}] (median [min, max]): "
+          + " ".join(f"{k}={res[k]:.6f} [{t[0]:.6f}, {t[-1]:.6f}]"
+                     for k, t in times.items())
+          + f" bound_ms={res['bound_ms']:.6f} ({res['bound_by']}, "
+          f"{nbytes} bytes, {ops} ops); library = {library}")
+    return res
+
+
+def quant_timing_phase(rate):
+    """The serving shape first (W4A16, qwen1.5-0.5b's gate projection at
+    the 4 decode slots), then the long shape (llama3.1-8b's down
+    projection) and the 64-row prefill chunk, for both schemes."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    shapes = []
+    for scheme in ("w4a16", "w8a8"):
+        for label, M, D, F in (("qwen1.5-0.5b gate, serving", 4, 1024, 2816),
+                               ("llama3.1-8b down, long", 4, 14336, 4096),
+                               ("qwen1.5-0.5b gate, prefill", 64, 1024, 2816),
+                               ("llama3.1-8b down, prefill", 64, 14336,
+                                4096)):
+            shapes.append(quant_timing_shape(label, scheme, M, D, F, rate,
+                                             flush, gen))
+    return shapes
+
+
+def tree_to(tree, device):
+    """A parameter tree (tensors and QuantizedWeight leaves) on `device`."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def code_diff_share(a_cache, b_cache, fmt):
+    """Share of kv8/kv4 pool codes that differ between two runs' pools,
+    over the pages either run wrote (scale above the all-zero page's)."""
+    from repro_torch.core.quant import unpack_int4_tokens
+    diff = total = 0
+    for pages, scale in (("k_pages_g", "k_scale_g"),
+                         ("v_pages_g", "v_scale_g")):
+        a, b = getattr(a_cache, pages).cpu(), getattr(b_cache, pages).cpu()
+        if fmt == "kv4":
+            a, b = unpack_int4_tokens(a), unpack_int4_tokens(b)
+        written = ((getattr(a_cache, scale).cpu() > 1e-6)
+                   | (getattr(b_cache, scale).cpu() > 1e-6))
+        mask = written[..., None, None].expand_as(a)
+        diff += int((a != b)[mask].sum())
+        total += int(mask.sum())
+    return diff / max(total, 1), diff, total
+
+
+def compare_runs(outs, ref_outs):
+    """Served logprobs of two runs of the same prompts, up to and
+    including each request's first differing token (after it the two
+    condition on other tokens); returns (max |difference|, requests that
+    served identical tokens, per request (first differing index or None,
+    max |difference| before it, |difference| at it))."""
+    err, same, rows = 0.0, 0, []
+    for o, r in zip(outs, ref_outs):
+        n = 0
+        while (n < len(o.token_ids) and n < len(r.token_ids)
+               and o.token_ids[n] == r.token_ids[n]):
+            n += 1
+        same += o.token_ids == r.token_ids
+        d = [abs(a - b) for a, b in zip(o.logprobs, r.logprobs)]
+        before = max(d[:n], default=0.0)
+        at = d[n] if n < len(d) else None
+        rows.append((n if n < len(d) else None, before, at))
+        err = max(err, before, at or 0.0)
+    return err, same, rows
+
+
+def prefill_once(srv, prompt, params=None):
+    """`prompt` prefilled chunk by chunk into a fresh one-slot cache of the
+    server's engine: (last-token logits on the CPU, the cache)."""
+    import torch
+    b = srv._batcher
+    cache = b.engine.init_cache(1, b.max_context)
+    C = b.chunk_tokens
+    for pos in range(0, len(prompt), C):
+        n = min(C, len(prompt) - pos)
+        toks = torch.zeros((1, C), dtype=torch.long, device=b.device)
+        toks[0, :n] = torch.tensor(prompt[pos:pos + n])
+        logits, _ = b.engine.prefill_chunk(
+            params or b.params, cache, {"tokens": toks}, 0, pos, n,
+            first=pos == 0)
+    return logits.float().cpu(), cache
+
+
+def prefill_compare(card, cpu, prompt, kv_quant):
+    """The same prompt prefilled on the card and on the CPU (no sampling,
+    so nothing diverges), and on the card once more with the embedding
+    moved by about one ulp (x (1 + 2^-22)): the noise floor of the model.
+    Returns, for card vs CPU and card vs perturbed card, max |logit
+    difference| / max |logit| at the last token and the share of pool
+    codes that differ."""
+    a, ca = prefill_once(card, prompt)
+    r, cr = prefill_once(cpu, prompt)
+    params = dict(card._batcher.params)
+    params["embedding"] = params["embedding"] * (1 + 2 ** -22)
+    p, cp = prefill_once(card, prompt, params)
+
+    def rel(x, y):
+        return float((x - y).abs().max() / y.abs().max())
+
+    return ((rel(a, r), code_diff_share(ca, cr, kv_quant)),
+            (rel(p, a), code_diff_share(cp, ca, kv_quant)))
+
+
+def quant_server_phase(label, scheme, kv_quant, shared, prompts_of):
+    """A quantized deployment of full-width qwen1.5-0.5b on the card (the
+    random model of the server phases, quantized by `quantize_params`),
+    then the same server on the CPU with the same params, both serving the
+    same prompts.  Every copy-on-write is checked as it happens: the new
+    page's codes and scales equal its source's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import paged_kv
+    from repro_torch.core.quant import quantize_params
+    from repro_torch.models.registry import Model
+    cfg = get_config("qwen1.5-0.5b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qparams = quantize_params(Model(cfg).init(gen), scheme)
+    eng = dict(kv_quant=kv_quant, shared_pool=shared)
+    srv = build_server(params=qparams, **eng)
+    prompts = prompts_of(srv.cfg.vocab_size)
+    copies = []
+    plain_copy = paged_kv.copy_page_shared
+
+    def checked_copy(leaf, src, dst):
+        plain_copy(leaf, src, dst)
+        copies.append((leaf.dtype == torch.float32,
+                       bool(torch.equal(leaf[:, :, dst], leaf[:, :, src]))))
+        return leaf
+
+    paged_kv.copy_page_shared = checked_copy
+    try:
+        outs, counts, steps, wall, tokens = serve(label, srv, prompts)
+    finally:
+        paged_kv.copy_page_shared = plain_copy
+    L = srv.cfg.n_layers
+    chunks = counts["prefill_chunks"]
+    paged = "B2" if shared else "B1"
+    other = "B1" if shared else "B2"
+    check(steps > 0 and counts["B3"] == 4 * L * (steps + chunks)
+          and counts[paged] == steps * L and counts[other] == 0,
+          f"{label}: launches {counts} != (B3 4 x {L} x ({steps} decode "
+          f"steps + {chunks} chunks), {paged} {steps} x {L}, {other} 0)")
+    st = srv.stats
+    res = {"launches": counts["B3"], f"launches_{paged}": counts[paged],
+           f"launches_{other}": counts[other], "scheme": scheme,
+           "kv_quant": kv_quant, "pool": "shared" if shared else "stripe",
+           "decode_steps": steps, "prefill_chunks": chunks, "wall_s": wall,
+           "tokens": tokens}
+    if shared:
+        b = srv._batcher
+        scale_copies = sum(1 for is_scale, _ in copies if is_scale)
+        print(f"{label}: prefix_hit_pages={st['prefix_hit_pages']} "
+              f"cow_copies={st['cow_copies']} ({len(copies)} leaf copies, "
+              f"{scale_copies} of scales, all equal to their source: "
+              f"{all(eq for _, eq in copies)}) pool_peak_pages="
+              f"{st['pool_peak_pages']} of {st['pool_total_pages']}")
+        check(st["prefix_hit_pages"] > 0, f"{label}: no prefix hit")
+        check(st["cow_copies"] > 0
+              and len(copies) == 4 * st["cow_copies"]
+              and scale_copies == 2 * st["cow_copies"]
+              and all(eq for _, eq in copies),
+              f"{label}: copy-on-write did not copy codes and scales")
+        b.alloc.check()
+        check(b.alloc.live_count == b.prefix_cache.evictable_pages(),
+              f"{label}: pages still mapped after the drain")
+        check(outs[5].token_ids == outs[0].token_ids,
+              f"{label}: the exact repeat served other tokens")
+        res.update(prefix_hit_pages=st["prefix_hit_pages"],
+                   cow_copies=st["cow_copies"])
+    # the same server on the CPU: plain versions, the same params
+    cpu = build_server(params=tree_to(qparams, "cpu"), device="cpu", **eng)
+    cpu_outs, cpu_counts, _, cpu_wall, _ = serve(f"{label} on the CPU", cpu,
+                                                 prompts)
+    check(all(cpu_counts[k] == 0 for k in ("B1", "B2", "B3")),
+          f"{label}: the CPU run launched a kernel")
+    lp_err, same, rows = compare_runs(outs, cpu_outs)
+    longest = max(prompts, key=len)
+    ((logit_rel, (share, diff, total)),
+     (noise_rel, (noise_share, _, _))) = prefill_compare(srv, cpu, longest,
+                                                         kv_quant)
+    print(f"check {label}: card vs CPU run ({cpu_wall:.3f} s on the CPU): "
+          f"{same} of {len(prompts)} requests served identical tokens; max "
+          f"|served logprob difference| up to each first differing token = "
+          f"{lp_err:.3e} (tol {QUANT_LOGPROB_TOL:.0e}); per request (first "
+          f"differing token, max before it, at it): {rows}")
+    print(f"check {label}: the {len(longest)}-token prompt prefilled on "
+          f"both: last-token logits differ by {logit_rel:.3e} x max|logit| "
+          f"(tol {QUANT_PREFILL_TOL:.0e}), pool codes by {diff} of {total} "
+          f"({share:.3e}); noise floor (the card against itself with the "
+          f"embedding moved by one ulp): {noise_rel:.3e} x max|logit|, "
+          f"codes {noise_share:.3e}")
+    res.update(cpu_wall_s=cpu_wall, same_tokens=same, logprob_err=lp_err,
+               prefill_logit_rel=logit_rel, code_diff_share=share,
+               noise_logit_rel=noise_rel, noise_code_diff_share=noise_share)
+    return res
 
 
 def kernel_entry(name, source, replaces, launches, max_abs, shapes, server):
@@ -614,20 +1003,22 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels import _build
     card = smi_line()
     name = torch.cuda.get_device_name(0)
+    rate = hbm_rate(name)
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
 
     t0 = time.perf_counter()
-    libs = pa_kernel.build()
-    print(f"build: {', '.join(p.name for p in libs.values())} in "
+    libs = _build.build()
+    print(f"build: {len(libs)} libraries "
+          f"({', '.join(p.name for p in libs.values())}) in "
           f"{time.perf_counter() - t0:.2f} s (parallel nvcc)")
 
     b1_err = kernel_phase()
     b2_err = shared_kernel_phase()
-    b1_shapes, b2_shapes = timing_phase(hbm_rate(name))
+    b1_shapes, b2_shapes = timing_phase(rate)
     stripe = server_phase()
     shared = shared_server_phase("bfloat16")
     shared32 = shared_server_phase("float32")
@@ -638,6 +1029,19 @@ def main() -> int:
     for r in (shared, shared32):
         del r["token_ids"]
 
+    b3_err = quant_kernel_phase()
+    b3_shapes = quant_timing_phase(rate)
+    q1 = quant_server_phase("Q1 (w4a16, stripe, kv4)", "w4a16", "kv4",
+                            False, stripe_prompts)
+    q2 = quant_server_phase("Q2 (w8a8, shared, kv8)", "w8a8", "kv8", True,
+                            shared_prompts)
+    for label, q in (("Q1", q1), ("Q2", q2)):
+        check(q["logprob_err"] <= QUANT_LOGPROB_TOL,
+              f"{label}: served logprobs disagree with the CPU run: "
+              f"{q['logprob_err']:.3e} > {QUANT_LOGPROB_TOL:.0e}")
+        check(q["prefill_logit_rel"] <= QUANT_PREFILL_TOL,
+              f"{label}: prefill logits disagree with the CPU run: "
+              f"{q['prefill_logit_rel']:.3e} > {QUANT_PREFILL_TOL:.0e}")
     kernels = [
         kernel_entry("paged_attention", "src/repro_torch/csrc/"
                      "paged_attention.cu",
@@ -648,6 +1052,10 @@ def main() -> int:
                      "src/repro/kernels/paged_attention/kernel.py:209",
                      shared["launches"], b2_err, b2_shapes,
                      [shared, shared32]),
+        kernel_entry("quant_gemv", "src/repro_torch/csrc/quant_gemv.cu",
+                     "src/repro/kernels/quant_gemv/kernel.py:68",
+                     q1["launches"] + q2["launches"], b3_err, b3_shapes,
+                     [q1, q2]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

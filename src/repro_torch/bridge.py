@@ -9,7 +9,10 @@ torch tensors, so every leaf keeps the name it has in
 Input is a nested dict of numpy arrays (what `jax.tree.map(np.asarray,
 params)` gives); no jax import is needed.  bfloat16 leaves arrive as
 ml_dtypes arrays and are carried over bit-exactly through their uint16
-view.  Quantized weight leaves (NamedTuples) are not part of this slice.
+view.  A quantized weight leaf (the reference's `QuantizedWeight`, a
+registered pytree class holding numpy `q` and `scale` after the tree map)
+is recognised by its attributes and carried over, codes and scales bit
+for bit, into the port's `core.quant.QuantizedWeight`.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from repro_torch.core.quant import QuantizedWeight
 
 SEP = "/"
 
@@ -30,9 +35,9 @@ def flatten_with_paths(tree) -> Dict[str, Any]:
             for k in sorted(node):
                 walk(f"{prefix}{SEP}{k}" if prefix else str(k), node[k])
         elif hasattr(node, "_fields"):
-            raise NotImplementedError(
-                f"{prefix}: quantized weight leaves are not ported yet "
-                "(ROADMAP B3, quant_gemv)")
+            raise TypeError(
+                f"{prefix}: a NamedTuple leaf is not part of the reference's "
+                "parameter tree")
         else:
             flat[prefix] = node
 
@@ -51,6 +56,11 @@ def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
     return tree
 
 
+def _is_quantized(node) -> bool:
+    return all(hasattr(node, a) for a in ("q", "scale", "scheme",
+                                          "orig_shape"))
+
+
 def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
     arr = np.array(arr)                    # a private, writable copy
     if arr.dtype.name == "bfloat16":
@@ -61,5 +71,13 @@ def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
 
 def params_from_numpy(tree, device="cuda") -> Dict[str, Any]:
     """Reference numpy params -> the port's params on `device`."""
-    return unflatten({p: _to_tensor(a, device)
+
+    def leaf(a):
+        if _is_quantized(a):
+            return QuantizedWeight(_to_tensor(a.q, device),
+                                   _to_tensor(a.scale, device), a.scheme,
+                                   a.orig_shape)
+        return _to_tensor(a, device)
+
+    return unflatten({p: leaf(a)
                       for p, a in flatten_with_paths(tree).items()})

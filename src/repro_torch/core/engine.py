@@ -19,10 +19,18 @@ pools are mutated in place through `core/paged_kv.py`.  The private
 helpers carry names of their own (the reference's are cited in their
 docstrings): the repo's static analyzer resolves `self.<method>` calls
 by class and method name, and a shared name would let this eager code
-feed its call graph of the jitted reference engine.  Not ported yet,
-and refused here: the discrete/head-group-pipelined variant, the tiered
-pool, kv8/kv4 pools, window rings, non-dense families, quantized weights,
-speculative verify, the one-shot prefill and a device mesh.
+feed its call graph of the jitted reference engine.
+
+kv8/kv4 pools (`EngineConfig.kv_quant`) carry per-page scales beside the
+codes: appends requantize the touched page, fills quantize whole pages,
+and the decode kernels and the chunk's past partial dequantize as they
+read.  Quantized weights need no engine setting: the format travels with
+the params (`core.quant.quantize_params`), and `layers.dense` sends each
+2-D quantized weight through kernel B3; `EngineConfig.quant` is not read,
+as in the reference.  Not ported yet, and refused here: the
+discrete/head-group-pipelined variant, the tiered pool, window rings,
+non-dense families, speculative verify, the one-shot prefill and a device
+mesh.
 """
 from __future__ import annotations
 
@@ -58,10 +66,6 @@ class KVNANDEngine:
             raise NotImplementedError(
                 "the discrete head-group-pipelined variant is not ported "
                 "yet (ROADMAP A15)")
-        if self.eng.quant != "none":
-            raise NotImplementedError(
-                f"quant={self.eng.quant!r} weights need quant_gemv, not "
-                "ported yet (ROADMAP B3)")
 
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_context: int) -> DecodeCache:
@@ -87,12 +91,16 @@ class KVNANDEngine:
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
-    def _attend_heads(self, q, kp, vp, base, lengths, table=None):
+    def _attend_heads(self, q, kp, vp, base, lengths, table=None, ks=None,
+                      vs=None):
         """All heads at once (KVNAND-C, the reference's `_attend_compact`):
         q [B, 1, H, dh] against the layer's already-appended pool slices
-        kp/vp (a shared pool's through `table`)."""
+        kp/vp (a shared pool's through `table`; ks/vs their kv8/kv4
+        scales)."""
         o, _, _ = paged_attention_partial(
-            q[:, 0], kp, vp, base, lengths + 1, page_table=table,
+            q[:, 0], kp, vp, base, lengths + 1,
+            kv_quant=self.eng.kv_quant if ks is not None else "none",
+            k_scale=ks, v_scale=vs, page_table=table,
             partitions=self.eng.attn_partitions)
         return o
 
@@ -100,8 +108,9 @@ class KVNANDEngine:
                            lengths, base, active, rows):
         """One layer's decode attention (the reference's
         `_decode_attn_layer`): append the token's K/V, attend, project
-        out.  Stripe pools mask inactive rows with `active`; a shared pool
-        writes only the active `rows` (see `core/paged_kv.py`)."""
+        out.  Float stripe pools mask inactive rows with `active`; a shared
+        pool and the requantizing kv8/kv4 appends write only the active
+        `rows` (see `core/paged_kv.py`)."""
         cfg = self.cfg
         h = rms_norm(x, pl_["ln1"], cfg.norm_eps)
         # one projection serves the append (k, v) and the attention (q);
@@ -114,16 +123,26 @@ class KVNANDEngine:
         phys = torch.gather(cache.page_table_g, 1, logical[:, None])[:, 0]
         slot = lengths % T
         shared = self.eng.shared_pool
-        for pool, new in ((cache.k_pages_g, k_new), (cache.v_pages_g, v_new)):
-            if shared:
+        fmt = self.eng.kv_quant
+        for pool, scale, new in ((cache.k_pages_g, cache.k_scale_g, k_new),
+                                 (cache.v_pages_g, cache.v_scale_g, v_new)):
+            if fmt != "none":
+                append = (paged_kv.append_token_quant_shared if shared
+                          else paged_kv.append_token_quant)
+                append(pool, scale, layer, phys, slot, new[:, 0], fmt, rows)
+            elif shared:
                 paged_kv.append_global_shared(pool, layer, phys, slot,
                                               new[:, 0], rows)
             else:
                 paged_kv.append_token_inplace(pool, layer, phys, slot,
                                               new[:, 0], active)
         table = cache.page_table_g if shared else None
+        ks = vs = None
+        if fmt != "none":
+            ks, vs = cache.k_scale_g[layer], cache.v_scale_g[layer]
         o = self._attend_heads(q, cache.k_pages_g[layer],
-                               cache.v_pages_g[layer], base, lengths, table)
+                               cache.v_pages_g[layer], base, lengths, table,
+                               ks, vs)
         return attn_mod.project_out(pl_["attn"], cfg, o[:, None])
 
     def decode_step(self, params, cache: DecodeCache, tokens: torch.Tensor,
@@ -139,10 +158,11 @@ class KVNANDEngine:
                              "(uniform_lengths=False) append path")
         lengths = cache.lengths
         base = self._page_bases(cache.page_table_g)
-        # the shared pool's writing rows, read once per step (on a card
-        # this is one device-to-host sync)
+        # the writing rows of a shared pool or a requantizing append, read
+        # once per step (on a card this is one device-to-host sync)
+        row_writers = self.eng.shared_pool or self.eng.kv_quant != "none"
         rows = (active.nonzero()[:, 0]
-                if self.eng.shared_pool and active is not None else None)
+                if row_writers and active is not None else None)
         x = embed_lookup(params["embedding"], tokens, self.rt.activ_dtype)
         for i in range(cfg.n_layers):
             pl_ = layer_slice(params["layers"], i)
@@ -179,6 +199,7 @@ class KVNANDEngine:
         positions = q_pos[None]
         page0 = start // self.eng.page_tokens
         shared = self.eng.shared_pool
+        fmt = self.eng.kv_quant
         trow = cache.page_table_g[slot]     # the slot's row (shared pool)
         base = self._page_bases(cache.page_table_g[slot:slot + 1])
         scale = cfg.d_head ** -0.5
@@ -191,24 +212,28 @@ class KVNANDEngine:
                 q, k, v, q_pos, start, causal=True, window=None, scale=scale)
             if not first:
                 # past-context partial from the slot's already-written pages
-                if shared:
-                    kp, vp = cache.k_pages_g[i], cache.v_pages_g[i]
-                else:
-                    kp = cache.k_pages_g[i, slot:slot + 1]
-                    vp = cache.v_pages_g[i, slot:slot + 1]
+                kp, vp, ks, vs = (
+                    None if a is None else a[i] if shared
+                    else a[i, slot:slot + 1]
+                    for a in (cache.k_pages_g, cache.v_pages_g,
+                              cache.k_scale_g, cache.v_scale_g))
                 o2, m2, l2 = paged_chunk_attention(
-                    q, kp, vp, base, start, q_pos,
+                    q, kp, vp, base, start, q_pos, kv_quant=fmt, k_scale=ks,
+                    v_scale=vs,
                     page_table=trow[None] if shared else None,
                     partitions=self.eng.attn_partitions)
                 o, m, l = seqpar.merge_two(o, m, l, o2, m2, l2)
             x = x + attn_mod.project_out(pl_["attn"], cfg, o.to(h.dtype))
-            for pool, kv in ((cache.k_pages_g, k), (cache.v_pages_g, v)):
+            for pool, sc, kv in ((cache.k_pages_g, cache.k_scale_g, k),
+                                 (cache.v_pages_g, cache.v_scale_g, v)):
                 if shared:
-                    paged_kv.fill_chunk_global_at_shared(pool, kv, i, trow,
-                                                         page0, chunk_len)
+                    paged_kv.fill_chunk_global_at_shared(
+                        pool, kv, i, trow, page0, chunk_len, scale=sc,
+                        kv_quant=fmt)
                 else:
-                    paged_kv.fill_chunk_global_at(pool, kv, i, slot, page0,
-                                                  chunk_len)
+                    paged_kv.fill_chunk_global_at(
+                        pool, kv, i, slot, page0, chunk_len, scale=sc,
+                        kv_quant=fmt)
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
             x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
         cache.lengths[slot] = start + chunk_len

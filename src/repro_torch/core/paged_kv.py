@@ -35,8 +35,18 @@ engine's active mask): active rows own their write page exclusively (the
 scheduler allocates or copies-on-write it first), so no two rows of one
 scatter ever name one cell.
 
-Not ported yet: window rings, kv8/kv4 write paths, span appends and
-tier staging (ROADMAP A9-A12).
+kv8/kv4 pools (`EngineConfig.kv_quant`) store int8 / packed-uint8 codes,
+`Ts = T` (kv8) or `T/2` (kv4) rows per page, with one float32 scale per
+page × kv head in `k_scale_g` / `v_scale_g` ([L, B, K, NP] on the stripe,
+[L, K, P] on the shared pool).  A token append requantizes only the page
+it touches (dequantize, insert, zero the dead slots past it, quantize); a
+chunk fill quantizes whole pages.  The requantizing appends write only
+the active rows, on BOTH layouts: an inactive row's dead-slot zeroing
+would go through its own stale (page, slot), which in a shared pool can
+be another slot's live page.
+
+Not ported yet: window rings, span appends and tier staging (ROADMAP
+A10-A12).
 """
 from __future__ import annotations
 
@@ -46,6 +56,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import EngineConfig, ModelConfig
+from repro_torch.core import quant
 
 
 def ceil_div(a: int, b: int) -> int:
@@ -58,6 +69,9 @@ class DecodeCache:
     k_pages_g: Optional[torch.Tensor] = None    # [L, B, K, NP, T, dh] or
     v_pages_g: Optional[torch.Tensor] = None    # shared [L, K, P, T, dh]
     page_table_g: Optional[torch.Tensor] = None  # [B, NP] logical -> physical
+    # per-page × kv-head dequant scales (kv8/kv4 pools only)
+    k_scale_g: Optional[torch.Tensor] = None    # [L, B, K, NP] float32 or
+    v_scale_g: Optional[torch.Tensor] = None    # shared [L, K, P]
     lengths: Optional[torch.Tensor] = None      # [B] int32
 
 
@@ -67,38 +81,46 @@ def check_supported(eng: EngineConfig) -> None:
         raise NotImplementedError(
             "the tiered pool (hot_pages) is not ported yet (ROADMAP A12: "
             "tiered pool)")
-    if eng.kv_quant != "none":
-        raise NotImplementedError(
-            f"kv_quant={eng.kv_quant!r} pools are not ported at the engine "
-            "level yet (ROADMAP: kv8/kv4 server path); the decode kernel "
-            "itself reads kv8/kv4 pages")
 
 
 def init_cache(cfg: ModelConfig, eng: EngineConfig, batch: int,
                max_context: int, *, dtype=torch.bfloat16,
                device="cuda") -> DecodeCache:
-    """Zeroed pools, zero lengths.  Stripe: NP = ceil(max_context / T)
-    pages per slot, identity tables.  Shared: one pool of P =
-    total_pages or B·NP pages, tables of identity stripes mod P (slot b's
-    logical page j on physical page (b·NP + j) mod P — the allocator-free
-    default; the scheduler overwrites the tables from its allocator)."""
+    """Zeroed pools (and kv8/kv4 scales), zero lengths.  Stripe: NP =
+    ceil(max_context / T) pages per slot, identity tables.  Shared: one
+    pool of P = total_pages or B·NP pages, tables of identity stripes mod
+    P (slot b's logical page j on physical page (b·NP + j) mod P — the
+    allocator-free default; the scheduler overwrites the tables from its
+    allocator).  `dtype` is the pool's dtype when kv_quant is "none"."""
     check_supported(eng)
     T = eng.page_tokens
     K, dh, L = cfg.n_kv_heads, cfg.d_head, cfg.n_layers
     NP = eng.max_pages_per_seq or ceil_div(max_context, T)
+    fmt = eng.kv_quant
+    if fmt != "none":
+        Ts, dtype = (quant.kv_page_tokens_stored(T, fmt),
+                     quant.kv_storage_dtype(fmt))
+    else:
+        Ts = T
     logical = torch.arange(NP, dtype=torch.int32, device=device)
     if eng.shared_pool:
         P = eng.total_pages or batch * NP
-        pool = (L, K, P, T, dh)
+        pool, scales = (L, K, P, Ts, dh), (L, K, P)
         rows = torch.arange(batch, dtype=torch.int32, device=device)
         table = (rows[:, None] * NP + logical[None]) % P
     else:
-        pool = (L, batch, K, NP, T, dh)
+        pool, scales = (L, batch, K, NP, Ts, dh), (L, batch, K, NP)
         table = logical[None].expand(batch, NP).contiguous()
+
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    quantized = fmt != "none"
     return DecodeCache(
-        k_pages_g=torch.zeros(pool, dtype=dtype, device=device),
-        v_pages_g=torch.zeros(pool, dtype=dtype, device=device),
+        k_pages_g=zeros(pool, dtype), v_pages_g=zeros(pool, dtype),
         page_table_g=table,
+        k_scale_g=zeros(scales, torch.float32) if quantized else None,
+        v_scale_g=zeros(scales, torch.float32) if quantized else None,
         lengths=torch.zeros(batch, dtype=torch.int32, device=device))
 
 
@@ -130,6 +152,48 @@ def append_token_inplace(pool: torch.Tensor, layer: int, phys: torch.Tensor,
     return pool
 
 
+# ---------------------------------------------------------------------------
+# Quantized (kv8 / kv4) token appends: requantize the touched page
+# ---------------------------------------------------------------------------
+#
+# Tokens land in page order, so the slots past the new token's hold a
+# recycled occupant's stale K/V or bucket padding: masked at read time,
+# but they must not enter the page's new amax, so they are zeroed before
+# the page requantizes (the reference's `_zero_dead_slots`).
+
+def _requantize_with_token(qpage, s, slot, val, fmt: str):
+    """qpage [n, K, Ts, dh] codes with scales s [n, K]; insert val [n, K,
+    dh] at token `slot` [n] of each page, zero the later tokens and
+    requantize -> (codes, scales)."""
+    page = quant.dequantize_kv_page(qpage, s, fmt)            # [n, K, T, dh]
+    n, T = page.shape[0], page.shape[2]
+    sl = slot.long()
+    page[torch.arange(n, device=page.device), :, sl] = val.to(page.dtype)
+    live = torch.arange(T, device=page.device)[None, :] <= sl[:, None]
+    page = torch.where(live[:, None, :, None], page, page.new_zeros(()))
+    return quant.quantize_kv_page(page, fmt)
+
+
+def append_token_quant(pool: torch.Tensor, scale: torch.Tensor, layer: int,
+                       phys: torch.Tensor, slot: torch.Tensor,
+                       val: torch.Tensor, fmt: str,
+                       rows: Optional[torch.Tensor] = None):
+    """Ragged requantizing append into a stripe pool [L, B, K, NP, Ts, dh]
+    with scales [L, B, K, NP].  phys/slot: [B] page and in-page token of
+    each row's new token; val: [B, K, dh].  `rows` (int64 indices) selects
+    the rows that write — the active ones; None writes every row."""
+    b_idx = torch.arange(pool.shape[1], device=pool.device)
+    if rows is not None:
+        b_idx, phys, slot, val = rows, phys[rows], slot[rows], val[rows]
+    p = phys.long()
+    pool_l, scale_l = pool[layer], scale[layer]
+    q2, s2 = _requantize_with_token(pool_l[b_idx, :, p], scale_l[b_idx, :, p],
+                                    slot, val, fmt)
+    pool_l[b_idx, :, p] = q2
+    scale_l[b_idx, :, p] = s2
+    return pool, scale
+
+
 def _paged_from_seq(kv_seq: torch.Tensor, T: int) -> torch.Tensor:
     """[B, S, K, dh] -> page-major [B, K, n_pages, T, dh] (zero-padded)."""
     B, S, K, dh = kv_seq.shape
@@ -140,21 +204,40 @@ def _paged_from_seq(kv_seq: torch.Tensor, T: int) -> torch.Tensor:
     return kv_seq.reshape(B, n_pages, T, K, dh).permute(0, 3, 1, 2, 4)
 
 
+def _chunk_pages(pool: torch.Tensor, kv_chunk: torch.Tensor, NP: int,
+                 page0: int, valid_len: int, kv_quant: str):
+    """The chunk as whole pages, quantized for a kv8/kv4 pool: (pages
+    [K, n_w, Ts, dh] in the pool's dtype, scales [K, n_w] or None), n_w
+    the pages holding at least one of the `valid_len` real tokens and
+    lying inside the NP-page walk (the reference drops the rest)."""
+    T = pool.shape[-2] * (2 if kv_quant == "kv4" else 1)
+    x = _paged_from_seq(kv_chunk, T)[0]                # [K, n, T, dh]
+    n_w = min(ceil_div(valid_len, T), x.shape[1], max(NP - page0, 0))
+    if n_w <= 0 or kv_quant == "none":
+        return x[:, :n_w].to(pool.dtype), None, n_w
+    xq, s = quant.quantize_kv_page(x[:, :n_w], kv_quant)
+    return xq, s, n_w
+
+
 def fill_chunk_global_at(pool: torch.Tensor, kv_chunk: torch.Tensor,
                          layer: int, slot: int, page0: int,
-                         valid_len: int) -> torch.Tensor:
+                         valid_len: int, *,
+                         scale: Optional[torch.Tensor] = None,
+                         kv_quant: str = "none") -> torch.Tensor:
     """Write one slot's prompt chunk into its stripe, whole pages at once.
 
-    pool: [L, B, K, NP, T, dh]; kv_chunk: [1, C, K, dh]; page0: the
+    pool: [L, B, K, NP, Ts, dh]; kv_chunk: [1, C, K, dh]; page0: the
     chunk's first page (chunk starts are page-aligned).  Only pages
     holding at least one of the `valid_len` real tokens are written, and
-    a page past the stripe is skipped (the reference drops it).
+    a page past the stripe is skipped (the reference drops it).  A kv8/kv4
+    pool quantizes whole pages (its scales [L, B, K, NP] written beside).
     """
-    NP, T = pool.shape[3], pool.shape[4]
-    x = _paged_from_seq(kv_chunk, T)                   # [1, K, n, T, dh]
-    n_w = min(ceil_div(valid_len, T), x.shape[2], max(NP - page0, 0))
+    x, s, n_w = _chunk_pages(pool, kv_chunk, pool.shape[3], page0,
+                             valid_len, kv_quant)
     if n_w > 0:
-        pool[layer, slot, :, page0:page0 + n_w] = x[0, :, :n_w].to(pool.dtype)
+        pool[layer, slot, :, page0:page0 + n_w] = x
+        if s is not None:
+            scale[layer, slot, :, page0:page0 + n_w] = s
     return pool
 
 
@@ -184,30 +267,52 @@ def append_global_shared(pool: torch.Tensor, layer: int, phys: torch.Tensor,
     return pool
 
 
+def append_token_quant_shared(pool: torch.Tensor, scale: torch.Tensor,
+                              layer: int, phys: torch.Tensor,
+                              slot: torch.Tensor, val: torch.Tensor,
+                              fmt: str,
+                              rows: Optional[torch.Tensor] = None):
+    """Ragged requantizing append into a shared pool [L, K, P, Ts, dh]
+    with scales [L, K, P]: `append_token_quant` through the table's
+    physical pages.  `rows` selects the writing (active) rows, each owning
+    its page exclusively; None writes every row."""
+    if rows is not None:
+        phys, slot, val = phys[rows], slot[rows], val[rows]
+    p = phys.long()
+    pool_l, scale_l = pool[layer], scale[layer]        # [K, P, ...], [K, P]
+    q2, s2 = _requantize_with_token(pool_l[:, p].transpose(0, 1),
+                                    scale_l[:, p].t(), slot, val, fmt)
+    pool_l[:, p] = q2.transpose(0, 1)
+    scale_l[:, p] = s2.t()
+    return pool, scale
+
+
 def fill_chunk_global_at_shared(pool: torch.Tensor, kv_chunk: torch.Tensor,
                                 layer: int, table_row: torch.Tensor,
-                                page0: int, valid_len: int) -> torch.Tensor:
+                                page0: int, valid_len: int, *,
+                                scale: Optional[torch.Tensor] = None,
+                                kv_quant: str = "none") -> torch.Tensor:
     """Shared-pool `fill_chunk_global_at`: chunk page sp lands on the
     physical page `table_row[page0 + sp]`.
 
-    pool: [L, K, P, T, dh]; kv_chunk: [1, C, K, dh]; table_row: [NP].
+    pool: [L, K, P, Ts, dh]; kv_chunk: [1, C, K, dh]; table_row: [NP].
     Only pages holding at least one of the `valid_len` real tokens are
     written, and a logical page past the table is skipped (the reference
-    drops it)."""
-    T = pool.shape[3]
-    NP = table_row.shape[0]
-    x = _paged_from_seq(kv_chunk, T)                   # [1, K, n, T, dh]
-    n_w = min(ceil_div(valid_len, T), x.shape[2], max(NP - page0, 0))
+    drops it).  A kv8/kv4 pool quantizes whole pages (scales [L, K, P])."""
+    x, s, n_w = _chunk_pages(pool, kv_chunk, table_row.shape[0], page0,
+                             valid_len, kv_quant)
     if n_w > 0:
         phys = table_row[page0:page0 + n_w].long()
-        pool[layer][:, phys] = x[0, :, :n_w].to(pool.dtype)
+        pool[layer][:, phys] = x
+        if s is not None:
+            scale[layer][:, phys] = s
     return pool
 
 
 def copy_page_shared(pool: torch.Tensor, src: int, dst: int) -> torch.Tensor:
     """Copy physical page src -> dst across ALL layers of a shared pool
     [L, K, P, ...], in place (copy-on-write: the new exclusive owner starts
-    from the shared page's bytes).  It runs on the current stream, so it
+    from the shared page's bytes; code pools and scale leaves alike).  It runs on the current stream, so it
     reaches the pool before any later append into `dst`."""
     pool[:, :, dst] = pool[:, :, src]
     return pool

@@ -9,123 +9,23 @@ Two kernels share one body (`csrc/paged_attention.cuh`):
     replaces `paged_attention_pallas_shared` (one shared pool reached
     through per-slot page tables).
 
-Each source is compiled by its own nvcc process for sm_90a into a shared
-library with a plain C entry point, bound with ctypes; the processes start
-together, at first use, from the sources in this checkout only, into
-`build/` at the repository root, each named by a hash of its source, the
-shared header and the flags so a changed source rebuilds.  Importing this
-module builds nothing and needs neither nvcc nor a card.
+Each source builds into its own library (`kernels/_build.py`, which
+compiles every kernel library of the port in parallel at first use).
+Importing this module builds nothing and needs neither nvcc nor a card.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-_CSRC = Path(__file__).resolve().parents[2] / "csrc"
-_HEADER = _CSRC / "paged_attention.cuh"
-_BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-# library -> (source, C entry point, ctypes argument types)
-_LIBS = {
-    "stripe": (_CSRC / "paged_attention.cu", "kvnand_paged_attention",
-               [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-               + [ctypes.c_void_p]),
-    "shared": (_CSRC / "paged_attention_shared.cu",
-               "kvnand_paged_attention_shared",
-               [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
-               + [ctypes.c_void_p]),
-}
+from repro_torch.kernels._build import LaunchCount, entry
+
 _FMT = {"none": None, "kv8": 2, "kv4": 3}
 _POOL_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
-_lock = threading.Lock()
-_fns: Dict[str, ctypes._CFuncPtr] = {}
-
-
-class LaunchCount:
-    """Kernel launches since the last `reset()` (one per wrapper call
-    that reached the kernel)."""
-
-    def __init__(self):
-        self.value = 0
-
-    def reset(self):
-        self.value = 0
-
-
 launches = LaunchCount()          # B1, the stripe kernel
 launches_shared = LaunchCount()   # B2, the shared-pool kernel
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
-                       "toolkit is needed to build the paged-attention "
-                       "kernels")
-
-
-def library_path(name: str) -> Path:
-    src = _LIBS[name][0]
-    digest = hashlib.sha256(src.read_bytes() + _HEADER.read_bytes()
-                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    return _BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
-
-
-def build() -> Dict[str, Path]:
-    """Compile every kernel library whose build is missing, one nvcc
-    process per source, all started together; returns their paths."""
-    outs = {name: library_path(name) for name in _LIBS}
-    todo = {name: out for name, out in outs.items() if not out.exists()}
-    if not todo:
-        return outs
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for name, out in todo.items():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        procs[name] = (tmp, subprocess.Popen(
-            [nvcc, *_NVCC_FLAGS, "-o", tmp, str(_LIBS[name][0])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"{_LIBS[name][0].name} ({proc.returncode}):\n{log}")
-        else:
-            os.replace(tmp, todo[name])
-    if failed:
-        raise RuntimeError("nvcc failed: " + "\n".join(failed))
-    return outs
-
-
-def _entry(name: str):
-    with _lock:
-        if name not in _fns:
-            paths = build()
-            for lib_name, (_, symbol, argtypes) in _LIBS.items():
-                fn = getattr(ctypes.CDLL(str(paths[lib_name])), symbol)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                _fns[lib_name] = fn
-    return _fns[name]
 
 
 def _check(cond: bool, msg: str):
@@ -224,7 +124,7 @@ def paged_attention_cuda(
     o, m, l = _partials(q, partitions)
     if B == 0:
         return o, m, l
-    fn = _entry("stripe")
+    fn = entry("kvnand_paged_attention")
     _raise_on(fn(
         _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
         _ptr(page_base), _ptr(length), _ptr(o), _ptr(m), _ptr(l),
@@ -276,7 +176,7 @@ def paged_attention_shared_cuda(
     o, m, l = _partials(q, partitions)
     if B == 0:
         return o, m, l
-    fn = _entry("shared")
+    fn = entry("kvnand_paged_attention_shared")
     _raise_on(fn(
         _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
         _ptr(page_table), _ptr(page_base), _ptr(length), _ptr(o), _ptr(m),

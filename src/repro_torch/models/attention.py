@@ -13,6 +13,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quant import QuantizedWeight, dequantize
 from repro_torch.models.layers import ParamInit, apply_rope, dense
 
 NEG_INF = -1e30
@@ -32,11 +33,12 @@ def init_attention(b: ParamInit, cfg: ModelConfig):
 
 
 def _proj(p, name: str, x: torch.Tensor) -> torch.Tensor:
-    """x: [B, S, D] -> [B, S, K, f] via the head-group-major weight."""
+    """x: [B, S, D] -> [B, S, K, f] via the head-group-major weight.  A
+    quantized [K, D, f] weight is dequantized first, as in the reference
+    (a plain product outside any kernel)."""
     w = p[f"{name}_w"]
-    if not isinstance(w, torch.Tensor):
-        raise NotImplementedError(
-            f"{name}: quantized weights are not ported yet (ROADMAP B3)")
+    if isinstance(w, QuantizedWeight):
+        w = dequantize(w, x.dtype)
     y = torch.einsum("bsd,kdf->bskf", x, w.to(x.dtype))
     b = p.get(f"{name}_b")
     if b is not None:
@@ -60,10 +62,10 @@ def project_qkv(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
 
 
 def project_out(params: Dict[str, Any], cfg: ModelConfig,
-                attn: torch.Tensor) -> torch.Tensor:
+                attn: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
     """attn: [B, S, H, dh] -> [B, S, D]."""
     B, S = attn.shape[:2]
-    return dense(params, "wo", attn.reshape(B, S, cfg.q_dim))
+    return dense(params, "wo", attn.reshape(B, S, cfg.q_dim), impl=impl)
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor,

@@ -14,6 +14,9 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.quant import QuantizedWeight
+from repro_torch.kernels.quant_gemv import quant_gemv
+
 # ---------------------------------------------------------------------------
 # Parameter init (counterpart of ParamBuilder's fan-in normal init)
 # ---------------------------------------------------------------------------
@@ -109,14 +112,17 @@ def init_dense(b: ParamInit, name: str, in_dim: int, out_dim: int):
     b.param(f"{name}_w", (in_dim, out_dim))
 
 
-def dense(params: Dict[str, Any], name: str, x: torch.Tensor) -> torch.Tensor:
-    """`x @ w (+ b)`: a plain matrix product, left to torch.matmul as the
-    reference leaves it to XLA.  Quantized weights are not ported."""
+def dense(params: Dict[str, Any], name: str, x: torch.Tensor, *,
+          impl: str = "auto") -> torch.Tensor:
+    """`x @ w (+ b)`.  A float weight is a plain matrix product, left to
+    torch.matmul as the reference leaves it to XLA; a quantized weight goes
+    through `quant_gemv` (kernel B3 on a card; impl="ref" asks for its
+    plain version on any device)."""
     w = params[f"{name}_w"]
-    if not isinstance(w, torch.Tensor):
-        raise NotImplementedError(
-            f"{name}: quantized weights are not ported yet (ROADMAP B3)")
-    y = torch.matmul(x, w.to(x.dtype))
+    if isinstance(w, QuantizedWeight):
+        y = quant_gemv(x, w, impl=impl)
+    else:
+        y = torch.matmul(x, w.to(x.dtype))
     b = params.get(f"{name}_b")
     if b is not None:
         y = y + b.to(y.dtype)
@@ -130,12 +136,14 @@ def init_mlp(b: ParamInit, d_model: int, d_ff: int, gated: bool):
     init_dense(b, "down", d_ff, d_model)
 
 
-def mlp(params: Dict[str, Any], x: torch.Tensor, gated: bool) -> torch.Tensor:
+def mlp(params: Dict[str, Any], x: torch.Tensor, gated: bool, *,
+        impl: str = "auto") -> torch.Tensor:
     if gated:
-        h = F.silu(dense(params, "gate", x)) * dense(params, "up", x)
+        h = (F.silu(dense(params, "gate", x, impl=impl))
+             * dense(params, "up", x, impl=impl))
     else:
-        h = F.gelu(dense(params, "up", x), approximate="tanh")
-    return dense(params, "down", h)
+        h = F.gelu(dense(params, "up", x, impl=impl), approximate="tanh")
+    return dense(params, "down", h, impl=impl)
 
 
 # ---------------------------------------------------------------------------

@@ -76,8 +76,9 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             rt: Runtime) -> torch.Tensor:
     """Plain full forward with plain causal attention -> logits [B, S, V].
 
-    Kernel-free: the reference the engine and the served tokens are held
-    against, never the serving path."""
+    Kernel-free on every device (quantized weights take quant_gemv's plain
+    version, impl="ref"): the reference the engine and the served tokens
+    are held against, never the serving path."""
     check_supported(cfg)
     x, positions = embed_inputs(params, cfg, batch, rt)
     for i in range(cfg.n_layers):
@@ -85,7 +86,8 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         h = rms_norm(x, pl_["ln1"], cfg.norm_eps)
         q, k, v = attn_mod.project_qkv(pl_["attn"], cfg, h, positions)
         x = x + attn_mod.project_out(pl_["attn"], cfg,
-                                     attn_mod.causal_attention(q, k, v))
+                                     attn_mod.causal_attention(q, k, v),
+                                     impl="ref")
         h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
-        x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
+        x = x + mlp(pl_["mlp"], h, cfg.gated_mlp, impl="ref")
     return lm_head_logits(params, cfg, x)

@@ -12,11 +12,16 @@ float32 (`Runtime.activ_dtype`), and TF32 would keep ~3 decimal digits.
 
 Both pool layouts are served: the per-slot stripe (the default) and the
 shared pool with its prefix cache and copy-on-write
-(``EngineConfig(shared_pool=True)``).  Configurations the port does not
-serve yet raise NotImplementedError at construction, naming their ROADMAP
-item: the splice scheduler, speculation, the overlapped pipeline, and
-(through the engine) tiered pools (``hot_pages``), kv8/kv4 pools, the
-discrete variant, window archs and non-dense families.
+(``EngineConfig(shared_pool=True)``), each with bf16/f32 pages or kv8/kv4
+codes (``EngineConfig(kv_quant=...)``).  Quantized weights are served as
+the reference serves them: the caller passes ``params`` from
+`core.quant.quantize_params` (W8A8 or W4A16), and every 2-D quantized
+matmul runs in the `quant_gemv` kernel; the server does not quantize on
+its own.  Configurations the port does not serve yet raise
+NotImplementedError at construction, naming their ROADMAP item: the
+splice scheduler, speculation, the overlapped pipeline, and (through the
+engine) tiered pools (``hot_pages``), the discrete variant, window archs
+and non-dense families.
 """
 from __future__ import annotations
 

@@ -29,8 +29,10 @@ reference:
     whole-prompt repeat skips prefill (its first token is sampled from
     the cached last-token logits); the first write into a shared page
     copies it on write: the allocator hands the slot a private page and
-    the device copies the bytes (`paged_kv.copy_page_shared`, on the same
-    stream as the decode step that then appends into it);
+    the device copies the bytes, and a kv8/kv4 page its scales
+    (`paged_kv.copy_page_shared`, on the same stream as the decode step
+    that then appends into it); a prefix hit maps the physical page, so
+    its scales come with it;
   * completion drops the slot's references; pages the prefix cache still
     names survive until LRU eviction reclaims them under pressure.
 
@@ -204,10 +206,14 @@ class ContinuousBatcher:
             old = pages[lp]
             fresh = self.alloc.cow(old)
             if fresh != old:
-                # one copy per pool leaf, on the stream the next decode
-                # step runs on, so the bytes land before its append
-                for pool in (self.cache.k_pages_g, self.cache.v_pages_g):
-                    paged_kv.copy_page_shared(pool, old, fresh)
+                # one copy per pool leaf (kv8/kv4 scales too), on the
+                # stream the next decode step runs on, so the bytes land
+                # before its append
+                c = self.cache
+                for leaf in (c.k_pages_g, c.v_pages_g, c.k_scale_g,
+                             c.v_scale_g):
+                    if leaf is not None:
+                        paged_kv.copy_page_shared(leaf, old, fresh)
                 self._table_np[i, lp] = fresh
                 pages[lp] = fresh
                 self._tables_dirty = True

@@ -1,5 +1,6 @@
 """PyTorch port: the weight bridge carries every reference leaf over bit
-for bit, and the port's own initializer builds the reference's tree."""
+for bit — quantized `QuantizedWeight` leaves too — and the port's own
+initializer builds the reference's tree."""
 import collections
 
 import jax
@@ -10,8 +11,10 @@ import torch
 
 from repro.checkpoint.checkpoint import _flatten_with_paths
 from repro.configs import get_config
+from repro.core.quant import quantize_params
 from repro.models.registry import Model
 from repro_torch import bridge
+from repro_torch.core.quant import QuantizedWeight
 from repro_torch.models.registry import Model as TModel
 
 torch.set_num_threads(2)
@@ -52,10 +55,43 @@ def test_bfloat16_leaves_carry_over_exactly():
                           np.asarray(x).reshape(-1).view(np.uint8))
 
 
-def test_quantized_leaves_are_refused():
-    QW = collections.namedtuple("QuantizedWeight", "q scale")
-    tree = {"wq_w": QW(np.zeros((2, 2), np.int8), np.ones(2, np.float32))}
-    with pytest.raises(NotImplementedError, match="B3"):
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("scheme", ["w4a16", "w8a8"])
+def test_quantized_tree_round_trips_bit_exactly(arch, scheme):
+    """A real `quantize_params` tree (stacked layers): every quantized leaf
+    becomes the port's `QuantizedWeight` with the reference's codes,
+    scales, scheme and shape; every float leaf carries over as before."""
+    cfg = get_config(arch).reduced()
+    qparams = quantize_params(Model(cfg).init(jax.random.PRNGKey(0)), scheme)
+    ref = bridge.flatten_with_paths(jax.tree.map(np.asarray, qparams))
+    port = bridge.flatten_with_paths(bridge.params_from_numpy(
+        jax.tree.map(np.asarray, qparams), "cpu"))
+    assert sorted(port) == sorted(ref)
+    n_quant = 0
+    for name, leaf in ref.items():
+        t = port[name]
+        if type(leaf).__name__ == "QuantizedWeight":
+            n_quant += 1
+            assert isinstance(t, QuantizedWeight), name
+            assert (t.scheme, t.orig_shape) == (scheme, leaf.orig_shape)
+            for got, want in ((t.q, leaf.q), (t.scale, leaf.scale)):
+                want = np.asarray(want)
+                assert str(got.dtype).removeprefix("torch.") == \
+                    want.dtype.name, name
+                assert np.array_equal(got.numpy(), want), name
+        else:
+            assert np.array_equal(_bits(t).reshape(-1),
+                                  np.asarray(leaf).reshape(-1).view(np.uint8))
+    assert n_quant == 7                    # wq wk wv wo gate up down
+
+
+def test_namedtuple_leaves_are_refused():
+    """The reference tree holds no NamedTuple leaf; one with a quantized
+    leaf's fields is not taken for one."""
+    QW = collections.namedtuple("QW", "q scale scheme orig_shape")
+    tree = {"wq_w": QW(np.zeros((2, 2), np.int8), np.ones(2, np.float32),
+                       "w8a8", (2, 2))}
+    with pytest.raises(TypeError, match="NamedTuple"):
         bridge.params_from_numpy(tree, "cpu")
 
 

@@ -1,7 +1,7 @@
 """PyTorch port on the card: the CUDA paged decode-attention kernels —
 B1 over per-slot stripes, B2 over the shared pool through page tables —
-against their plain torch versions, their launch counters and their input
-checks.
+and the quantized GEMV kernel B3, against their plain torch versions,
+their launch counters and their input checks.
 
 Every test needs a CUDA device; the `cuda_device` fixture skips it where
 `torch.cuda.is_available()` is False (decided inside the fixture, never
@@ -16,14 +16,22 @@ version rounds q and p to bf16 and the kernel keeps them in f32.  A bf16
 pool is also held at 2e-5 against the plain version on the same pages
 upcast to f32, which is the kernel's own arithmetic.  B2 is held to the
 same tolerances against `paged_attention_shared_ref`.
+
+B3: W8A8 within 1e-6 x max|y| of the plain version (only the order of the
+float32 scale multiplies differs); W4A16 within 4e-3 x max|y| of the plain
+version (which rounds the product to bf16, as the reference's
+`quant_gemv_ref` does) and within 1e-5 x max|y| of the TPU kernel's own
+function, `f32(bf16(x) @ w4) * scale`, taken here in float64.
 """
 import itertools
 
 import pytest
 import torch
 
-from repro_torch.core.quant import quantize_kv_page
+from repro_torch.core.quant import (quantize_kv_page, quantize_params,
+                                    quantize_weight, unpack_int4)
 from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import quant_gemv as tqg
 
 pytestmark = pytest.mark.cuda
 
@@ -215,3 +223,112 @@ def test_shared_unsupported_inputs_raise(cuda_device, bad):
     with pytest.raises(ValueError):
         tpa.paged_attention_shared_cuda(q4, kp, vp, table, base, length,
                                         kv_quant=kvq, k_scale=ks, v_scale=vs)
+
+
+# ---------------------------------------------------------------------------
+# B3: the quantized GEMV
+# ---------------------------------------------------------------------------
+
+GEMV_TOL = {"w8a8": 1e-6, "w4a16": 4e-3}
+GEMV_SHAPES = [(1024, 1024), (1024, 2816), (2816, 1024), (4096, 14336),
+               (14336, 4096), (130, 77), (256, 384)]
+
+
+def _gemv_case(scheme, M, D, F, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn(D, F, generator=gen, device=dev) / D ** 0.5
+    x = torch.randn(M, D, generator=gen, device=dev)
+    return x, quantize_weight(w, scheme)
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max())
+
+
+@pytest.mark.parametrize("scheme", ["w4a16", "w8a8"])
+@pytest.mark.parametrize("M", [1, 4, 64, 70])
+@pytest.mark.parametrize("D,F", GEMV_SHAPES)
+def test_quant_gemv_matches_plain_version(cuda_device, scheme, M, D, F):
+    x, qw = _gemv_case(scheme, M, D, F, cuda_device)
+    tqg.launches.reset()
+    got = tqg.quant_gemv(x, qw)
+    torch.cuda.synchronize()
+    assert tqg.launches.value == 1
+    assert got.shape == (M, F) and bool(torch.isfinite(got).all())
+    want = tqg.quant_gemv_ref(x, qw.q, qw.scale, scheme)
+    assert _rel(got, want) <= GEMV_TOL[scheme]
+    if scheme == "w4a16":
+        tpu = ((x.to(torch.bfloat16).double() @ unpack_int4(qw.q).double())
+               * qw.scale.double())
+        assert _rel(got, tpu) <= 1e-5
+
+
+def test_quant_gemv_reads_no_padding_rows(cuda_device):
+    """The kernel's rows are the first M of a larger buffer: what lies
+    past them (NaN here) must not reach the output."""
+    x, qw = _gemv_case("w4a16", 64, 1024, 2816, cuda_device)
+    buf = torch.full((80, 1024), float("nan"), device=cuda_device,
+                     dtype=torch.bfloat16)
+    buf[:64] = x.to(torch.bfloat16)
+    got = tqg.quant_gemv_cuda(buf[:64], qw.q, qw.scale, "w4a16")
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(
+        got, tqg.quant_gemv_cuda(x.to(torch.bfloat16), qw.q, qw.scale,
+                                 "w4a16"), atol=0, rtol=0)
+
+
+def test_quant_gemv_expert_batched_weight_raises(cuda_device):
+    w = torch.randn(2, 64, 32, device=cuda_device)
+    qw = quantize_weight(w, "w8a8")
+    tqg.launches.reset()
+    with pytest.raises(NotImplementedError, match="A15"):
+        tqg.quant_gemv(torch.randn(4, 64, device=cuda_device), qw)
+    assert tqg.launches.value == 0
+
+
+@pytest.mark.parametrize("bad", ["cpu", "x_dtype", "q_dtype", "q_shape",
+                                 "q_layout", "scale_dtype"])
+def test_quant_gemv_unsupported_inputs_raise(cuda_device, bad):
+    x, qw = _gemv_case("w8a8", 4, 256, 128, cuda_device)
+    xq = x.to(torch.int8)
+    q, scale = qw.q, qw.scale
+    if bad == "cpu":
+        xq, q, scale = xq.cpu(), q.cpu(), scale.cpu()
+    if bad == "x_dtype":
+        xq = x
+    if bad == "q_dtype":
+        q = q.to(torch.uint8)
+    if bad == "q_shape":
+        q = q[:-4]
+    if bad == "q_layout":
+        q = q.t().contiguous().t()
+    if bad == "scale_dtype":
+        scale = scale.double()
+    with pytest.raises(ValueError):
+        tqg.quant_gemv_cuda(xq, q, scale, "w8a8")
+
+
+@pytest.mark.parametrize("scheme", ["w4a16", "w8a8"])
+def test_forward_launches_no_quant_gemv(cuda_device, scheme):
+    """The reference forward stays kernel-free with quantized weights; a
+    decode step of the engine launches B3 for wo, gate, up and down of
+    every layer."""
+    from repro_torch.configs import EngineConfig, get_config
+    from repro_torch.core.engine import KVNANDEngine
+    from repro_torch.models.registry import Model
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = quantize_params(Model(cfg).init(gen), scheme)
+    tokens = torch.randint(1, cfg.vocab_size, (2, 9), device=cuda_device)
+    tqg.launches.reset()
+    logits = Model(cfg).forward(params, {"tokens": tokens})
+    assert bool(torch.isfinite(logits).all())
+    assert tqg.launches.value == 0
+    te = KVNANDEngine(cfg, EngineConfig(page_tokens=16,
+                                        uniform_lengths=False),
+                      device=cuda_device)
+    cache = te.init_cache(2, 32)
+    te.decode_step(params, cache, tokens[:, :1])
+    torch.cuda.synchronize()
+    assert tqg.launches.value == 4 * cfg.n_layers

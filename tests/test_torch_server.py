@@ -114,9 +114,7 @@ def test_abort_mid_prefill_frees_the_slot():
     lambda: ServerConfig(speculation_k=2, device="cpu"),
     lambda: ServerConfig(overlap=True, device="cpu"),
     lambda: _port_with_engine(shared_pool=True, hot_pages=4),
-    lambda: _port_with_engine(kv_quant="kv8"),
     lambda: _port_with_engine(variant="discrete"),
-    lambda: _port_with_engine(quant="w8a8"),
     lambda: KVNANDServer(ServerConfig(arch="gemma3-12b", reduced=True,
                                       device="cpu")),
     lambda: KVNANDServer(ServerConfig(arch="rwkv6-3b", reduced=True,
@@ -124,7 +122,7 @@ def test_abort_mid_prefill_frees_the_slot():
     lambda: KVNANDEngine(tget("qwen1.5-0.5b").reduced(), mesh=object(),
                          device="cpu"),
 ], ids=["splice", "speculation", "overlap", "hot_pages",
-        "kv8", "discrete", "w8a8", "window_arch", "rwkv6", "mesh"])
+        "discrete", "window_arch", "rwkv6", "mesh"])
 def test_unported_configurations_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make()
