@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                    # every phase
+    python3 chip_smoke.py --quant-servers    # the build and phase 8 only
 
 Phases (each one fails the run when it fails):
 
@@ -58,11 +59,10 @@ Phases (each one fails the run when it fails):
             the float embedding), B1's (Q1) or B2's (Q2) 24 per decode
             step, the other 0.  Each is held against the same server run
             on the CPU (plain versions, the same quantized params, the
-            same prompts): served logprobs within QUANT_LOGPROB_TOL up to
-            and including each request's first differing token, and the
-            longest prompt's prefill logits within QUANT_PREFILL_TOL,
-            beside the noise floor of the model (the card against itself
-            with the embedding moved by one ulp).
+            same prompts): each prompt's last-token prefill logits within
+            QUANT_PREFILL_TOL (relative Euclidean distance), and served
+            logprobs within QUANT_LOGPROB_TOL up to and including each
+            request's first differing token.
 
 It needs a CUDA card (exits non-zero without one, printing no result),
 imports nothing of JAX, and prints the card's name and power limit, a
@@ -90,15 +90,19 @@ TOL = {"f32": 2e-5, "bf16": 3e-2, "kv8": 2e-5, "kv4": 2e-5}
 # through the bf16 pool, the reference's do not
 LOGPROB_TOL = 2e-2
 LOGIT_GAP_TOL = 1e-3
-# the quantized deployments Q1/Q2 against the same server on the CPU:
-# every quantizer is a rounding step, so two correct runs agree to the
-# model's quantization noise, not to float rounding (a one-ulp change of
-# the embedding moves the full-width random model's logits by a few 1e-2,
-# measured in the same run: see `quant_server_phase` and PERF.md).
-# Served logprobs up to each first differing token, and the last-token
-# logits of a prefill (as a share of max|logit|):
-QUANT_LOGPROB_TOL = 0.3
+# the quantized deployments Q1/Q2 against the same server on the CPU.
+# Every quantizer (W4A16's bf16 input, W8A8's int8 activations, kv8/kv4
+# codes) is a rounding step, so two correct runs agree to the model's
+# quantization noise, not to float rounding.  Measured on an H100 (PERF.md,
+# with three deliberately broken copies of B3): ||card - CPU|| / ||CPU||
+# of the last-token prefill logits is at most 4.1e-2 over the 6 prompts of
+# either phase for the sound kernel and at least 2.2e-1 for each broken
+# one (4 rows of D dropped), so QUANT_PREFILL_TOL separates them.  Served
+# logprobs up to each first differing token reach 1.2e-1 for the sound
+# kernel and as little as 2.4e-1 for a broken one: QUANT_LOGPROB_TOL only
+# bounds them, it cannot tell the two apart.
 QUANT_PREFILL_TOL = 0.1
+QUANT_LOGPROB_TOL = 0.3
 
 # HBM bandwidth by SKU (NVIDIA data sheets); float32 CUDA-core peak
 HBM_BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12,
@@ -732,13 +736,11 @@ def quant_timing_shape(label, scheme, M, D, F, rate, flush, gen):
     dense bf16 torch.matmul on the weight dequantized beforehand — the
     product the quantized weight replaces.  Bound: packed weight + scale
     + x + out bytes at the HBM rate vs 2·M·D·F operations at the dense
-    tensor-core peak of the input type.  stream_ms: one torch sum over the
-    packed weight, what a single read of those bytes costs in practice."""
+    tensor-core peak of the input type."""
     import torch
     from repro_torch.core.quant import dequantize, quantize_activations_int8
     from repro_torch.kernels.quant_gemv import quant_gemv_cuda, quant_gemv_ref
     x, qw = gemv_case(scheme, M, D, F, gen)
-    check(qw.q.numel() % 4 == 0, "the stream yardstick reads 4-byte words")
     if scheme == "w8a8":
         xk, xs = quantize_activations_int8(x)
     else:
@@ -764,11 +766,6 @@ def quant_timing_shape(label, scheme, M, D, F, rate, flush, gen):
         xb = x.to(torch.bfloat16)
         times["library_ms"] = time_ms(lambda: torch.matmul(xb, wd), 20,
                                       flush)
-    # what reading the packed weight once costs this card in one PyTorch
-    # reduction (its bytes summed as float32 words, NaN or not): an
-    # achievable-bandwidth yardstick beside the bound
-    words = qw.q.view(torch.float32)
-    times["stream_ms"] = time_ms(lambda: words.sum(), 20, flush)
     nbytes = (qw.q.numel() + 4 * F + M * D * (2 if scheme == "w4a16" else 1)
               + 4 * M * F)
     ops = 2 * M * D * F
@@ -815,24 +812,6 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
-def code_diff_share(a_cache, b_cache, fmt):
-    """Share of kv8/kv4 pool codes that differ between two runs' pools,
-    over the pages either run wrote (scale above the all-zero page's)."""
-    from repro_torch.core.quant import unpack_int4_tokens
-    diff = total = 0
-    for pages, scale in (("k_pages_g", "k_scale_g"),
-                         ("v_pages_g", "v_scale_g")):
-        a, b = getattr(a_cache, pages).cpu(), getattr(b_cache, pages).cpu()
-        if fmt == "kv4":
-            a, b = unpack_int4_tokens(a), unpack_int4_tokens(b)
-        written = ((getattr(a_cache, scale).cpu() > 1e-6)
-                   | (getattr(b_cache, scale).cpu() > 1e-6))
-        mask = written[..., None, None].expand_as(a)
-        diff += int((a != b)[mask].sum())
-        total += int(mask.sum())
-    return diff / max(total, 1), diff, total
-
-
 def compare_runs(outs, ref_outs):
     """Served logprobs of two runs of the same prompts, up to and
     including each request's first differing token (after it the two
@@ -854,9 +833,10 @@ def compare_runs(outs, ref_outs):
     return err, same, rows
 
 
-def prefill_once(srv, prompt, params=None):
+def prefill_logits(srv, prompt):
     """`prompt` prefilled chunk by chunk into a fresh one-slot cache of the
-    server's engine: (last-token logits on the CPU, the cache)."""
+    server's engine: its last-token logits over the vocabulary, on the
+    CPU."""
     import torch
     b = srv._batcher
     cache = b.engine.init_cache(1, b.max_context)
@@ -865,30 +845,20 @@ def prefill_once(srv, prompt, params=None):
         n = min(C, len(prompt) - pos)
         toks = torch.zeros((1, C), dtype=torch.long, device=b.device)
         toks[0, :n] = torch.tensor(prompt[pos:pos + n])
-        logits, _ = b.engine.prefill_chunk(
-            params or b.params, cache, {"tokens": toks}, 0, pos, n,
-            first=pos == 0)
-    return logits.float().cpu(), cache
+        logits, _ = b.engine.prefill_chunk(b.params, cache, {"tokens": toks},
+                                           0, pos, n, first=pos == 0)
+    return logits.float().cpu()[..., :srv.cfg.vocab_size]
 
 
-def prefill_compare(card, cpu, prompt, kv_quant):
-    """The same prompt prefilled on the card and on the CPU (no sampling,
-    so nothing diverges), and on the card once more with the embedding
-    moved by about one ulp (x (1 + 2^-22)): the noise floor of the model.
-    Returns, for card vs CPU and card vs perturbed card, max |logit
-    difference| / max |logit| at the last token and the share of pool
-    codes that differ."""
-    a, ca = prefill_once(card, prompt)
-    r, cr = prefill_once(cpu, prompt)
-    params = dict(card._batcher.params)
-    params["embedding"] = params["embedding"] * (1 + 2 ** -22)
-    p, cp = prefill_once(card, prompt, params)
-
-    def rel(x, y):
-        return float((x - y).abs().max() / y.abs().max())
-
-    return ((rel(a, r), code_diff_share(ca, cr, kv_quant)),
-            (rel(p, a), code_diff_share(cp, ca, kv_quant)))
+def prefill_gaps(card, cpu, prompts):
+    """Each prompt prefilled on the card and on the CPU (no sampling, so
+    nothing diverges): ||card - CPU|| / ||CPU|| of its last-token logits
+    (Euclidean norms over the vocabulary)."""
+    gaps = []
+    for prompt in prompts:
+        a, r = prefill_logits(card, prompt), prefill_logits(cpu, prompt)
+        gaps.append(float((a - r).norm() / r.norm()))
+    return gaps
 
 
 def quant_server_phase(label, scheme, kv_quant, shared, prompts_of):
@@ -964,24 +934,18 @@ def quant_server_phase(label, scheme, kv_quant, shared, prompts_of):
     check(all(cpu_counts[k] == 0 for k in ("B1", "B2", "B3")),
           f"{label}: the CPU run launched a kernel")
     lp_err, same, rows = compare_runs(outs, cpu_outs)
-    longest = max(prompts, key=len)
-    ((logit_rel, (share, diff, total)),
-     (noise_rel, (noise_share, _, _))) = prefill_compare(srv, cpu, longest,
-                                                         kv_quant)
+    gaps = prefill_gaps(srv, cpu, prompts)
     print(f"check {label}: card vs CPU run ({cpu_wall:.3f} s on the CPU): "
           f"{same} of {len(prompts)} requests served identical tokens; max "
           f"|served logprob difference| up to each first differing token = "
           f"{lp_err:.3e} (tol {QUANT_LOGPROB_TOL:.0e}); per request (first "
           f"differing token, max before it, at it): {rows}")
-    print(f"check {label}: the {len(longest)}-token prompt prefilled on "
-          f"both: last-token logits differ by {logit_rel:.3e} x max|logit| "
-          f"(tol {QUANT_PREFILL_TOL:.0e}), pool codes by {diff} of {total} "
-          f"({share:.3e}); noise floor (the card against itself with the "
-          f"embedding moved by one ulp): {noise_rel:.3e} x max|logit|, "
-          f"codes {noise_share:.3e}")
+    print(f"check {label}: each prompt prefilled on both, ||logit "
+          f"difference|| / ||CPU logits|| at its last token: "
+          f"{', '.join(f'{g:.4e}' for g in gaps)} (max {max(gaps):.4e}, tol "
+          f"{QUANT_PREFILL_TOL:.0e})")
     res.update(cpu_wall_s=cpu_wall, same_tokens=same, logprob_err=lp_err,
-               prefill_logit_rel=logit_rel, code_diff_share=share,
-               noise_logit_rel=noise_rel, noise_code_diff_share=noise_share)
+               prefill_gaps=gaps, prefill_gap=max(gaps))
     return res
 
 
@@ -996,8 +960,12 @@ def kernel_entry(name, source, replaces, launches, max_abs, shapes, server):
             "server": server}
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
+    if argv not in ([], ["--quant-servers"]):
+        print(__doc__, file=sys.stderr)
+        return 2
+    quant_only = argv == ["--quant-servers"]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1016,32 +984,36 @@ def main() -> int:
           f"({', '.join(p.name for p in libs.values())}) in "
           f"{time.perf_counter() - t0:.2f} s (parallel nvcc)")
 
-    b1_err = kernel_phase()
-    b2_err = shared_kernel_phase()
-    b1_shapes, b2_shapes = timing_phase(rate)
-    stripe = server_phase()
-    shared = shared_server_phase("bfloat16")
-    shared32 = shared_server_phase("float32")
-    same = sum(x == y for x, y in zip(shared["token_ids"],
-                                      shared32["token_ids"]))
-    print(f"server (shared): {same} of 6 requests served the same tokens "
-          "from the bf16 and the f32 pool")
-    for r in (shared, shared32):
-        del r["token_ids"]
-
-    b3_err = quant_kernel_phase()
-    b3_shapes = quant_timing_phase(rate)
+    if not quant_only:
+        b1_err = kernel_phase()
+        b2_err = shared_kernel_phase()
+        b1_shapes, b2_shapes = timing_phase(rate)
+        stripe = server_phase()
+        shared = shared_server_phase("bfloat16")
+        shared32 = shared_server_phase("float32")
+        same = sum(x == y for x, y in zip(shared["token_ids"],
+                                          shared32["token_ids"]))
+        print(f"server (shared): {same} of 6 requests served the same "
+              "tokens from the bf16 and the f32 pool")
+        for r in (shared, shared32):
+            del r["token_ids"]
+        b3_err = quant_kernel_phase()
+        b3_shapes = quant_timing_phase(rate)
     q1 = quant_server_phase("Q1 (w4a16, stripe, kv4)", "w4a16", "kv4",
                             False, stripe_prompts)
     q2 = quant_server_phase("Q2 (w8a8, shared, kv8)", "w8a8", "kv8", True,
                             shared_prompts)
     for label, q in (("Q1", q1), ("Q2", q2)):
+        check(q["prefill_gap"] <= QUANT_PREFILL_TOL,
+              f"{label}: prefill logits disagree with the CPU run: "
+              f"{q['prefill_gap']:.3e} > {QUANT_PREFILL_TOL:.0e}")
         check(q["logprob_err"] <= QUANT_LOGPROB_TOL,
               f"{label}: served logprobs disagree with the CPU run: "
               f"{q['logprob_err']:.3e} > {QUANT_LOGPROB_TOL:.0e}")
-        check(q["prefill_logit_rel"] <= QUANT_PREFILL_TOL,
-              f"{label}: prefill logits disagree with the CPU run: "
-              f"{q['prefill_logit_rel']:.3e} > {QUANT_PREFILL_TOL:.0e}")
+    if quant_only:
+        print(card)
+        print(json.dumps({"quant_servers": [q1, q2]}))
+        return 0
     kernels = [
         kernel_entry("paged_attention", "src/repro_torch/csrc/"
                      "paged_attention.cu",
@@ -1066,4 +1038,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

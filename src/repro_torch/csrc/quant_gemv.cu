@@ -25,7 +25,7 @@
 // for all the rows of x the CTA holds, in registers:
 //
 //   * a CTA owns a tile of output columns and up to MT rows of x (grid.y
-//     walks M in chunks of MT).  At decode (MT = 4 or 8) a lane owns 4
+//     walks M in chunks of MT).  At decode (MT = 4) a lane owns 4
 //     adjacent columns and reads them as one 32-bit word per weight row, so
 //     a warp reads 128 contiguous bytes of a row (a whole cache line); at
 //     MT = 64 a lane owns one column (its 64 accumulators fill the
@@ -367,7 +367,6 @@ struct Shape {
 
 Shape shape_of(int M) {
   if (M <= 4) return {4, 4, 4, 4};
-  if (M <= 8) return {8, 4, 4, 4};
   return {64, 1, 2, 4};
 }
 
@@ -430,9 +429,6 @@ extern "C" int kvnand_quant_gemv(const void* x, const void* q,
   const Shape sh = shape_of(M);
   if (sh.mt == 4)
     return launch<4, 4, 4, 4>(scheme, x, q, s, o, ws, t, M, D, F, ldx,
-                              splits, vec, st);
-  if (sh.mt == 8)
-    return launch<8, 4, 4, 4>(scheme, x, q, s, o, ws, t, M, D, F, ldx,
                               splits, vec, st);
   return launch<64, 1, 2, 4>(scheme, x, q, s, o, ws, t, M, D, F, ldx,
                              splits, vec, st);

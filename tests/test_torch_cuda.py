@@ -247,7 +247,7 @@ def _rel(a, b):
 
 
 @pytest.mark.parametrize("scheme", ["w4a16", "w8a8"])
-@pytest.mark.parametrize("M", [1, 4, 64, 70])
+@pytest.mark.parametrize("M", [1, 4, 8, 64, 70])
 @pytest.mark.parametrize("D,F", GEMV_SHAPES)
 def test_quant_gemv_matches_plain_version(cuda_device, scheme, M, D, F):
     x, qw = _gemv_case(scheme, M, D, F, cuda_device)

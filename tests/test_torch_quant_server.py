@@ -20,17 +20,24 @@ logprobs each) were 3.6e-3 (w4a16), 3.3e-2 (w8a8), 3.6e-3 (kv8) and
 5.0e-2 (kv4).  The tolerances below sit 2-3x above those.  Exactness is
 held elsewhere: the quantizers, the plain GEMV and the pool writers are
 bit-identical to the reference's on the same inputs
-(`test_torch_quant.py`, `test_torch_quant_gemv.py`).
+(`test_torch_quant.py`, `test_torch_quant_gemv.py`), and
+`test_quantized_forward_differs_only_where_a_quantized_input_does` shows
+the mechanism on the two full forwards: a quantized matmul's output
+differs only where its quantized input does, the first such input comes
+from float rounding one step away from a rounding threshold, and without
+such a step the logits agree within 1e-5.
 
 Also: inactive rows never requantize a page (an engine-level aliasing
 check on both layouts)."""
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import repro.kernels.quant_gemv as jqg
 from repro.configs import EngineConfig, get_config
-from repro.core.quant import quantize_params
+from repro.core.quant import quantize_activations_int8, quantize_params
 from repro.models.registry import Model
 from repro.serving.api import KVNANDServer as JServer
 from repro.serving.api import SamplingParams as JParams
@@ -42,6 +49,7 @@ from repro_torch.core import paged_kv as tkv
 from repro_torch.core import quant as tq
 from repro_torch.core.engine import KVNANDEngine
 from repro_torch.kernels import quant_gemv as tqg
+from repro_torch.models import layers as tlayers
 from repro_torch.models.registry import Model as TModel
 from repro_torch.serving.api import KVNANDServer, SamplingParams, ServerConfig
 
@@ -108,6 +116,91 @@ def test_quantized_server_matches_reference(arch, weights, kv_quant, shared):
         assert port.stats["prefix_hit_pages"] > 0
         assert port.stats["cow_copies"] > 0
         port._batcher.alloc.check()
+
+
+def _quantized_input(x, scheme):
+    """What a quantized matmul consumes of x: bf16(x) (W4A16), or the int8
+    codes and the per-token scale (W8A8)."""
+    if scheme == "w4a16":
+        return (np.asarray(jnp.asarray(x).astype(jnp.bfloat16)
+                           .astype(jnp.float32)),)
+    codes, scale = quantize_activations_int8(jnp.asarray(x))
+    return np.asarray(codes), np.asarray(scale)
+
+
+@pytest.mark.parametrize("scheme", ["w4a16", "w8a8"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_quantized_forward_differs_only_where_a_quantized_input_does(
+        arch, scheme, monkeypatch):
+    """The port's and the reference's full forward (eager) on the same
+    bridged quantized params and 96 tokens, every quantized matmul's input
+    and output recorded on both sides, in call order (wo, gate, up, down
+    per layer).
+
+    * Fed the reference's input, the port's matmul returns the reference's
+      output bit for bit, at every call.
+    * The first call whose output differs between the two forwards got
+      inputs within float rounding of each other (1e-6 x max|x|) that
+      round to neighbouring values: bf16 values one ulp apart (W4A16),
+      codes one step apart or a per-token scale that differs in its last
+      bits (W8A8).
+    * Without a code or bf16 value that rounds differently, the logits
+      agree within 1e-5.  With one (measured here: W4A16 on both archs,
+      1-4 bf16 values of layer 0's wo input), they differ by up to ~1e-2:
+      the step carries through the later quantizers."""
+    cfg = get_config(arch).reduced()
+    params = quantize_params(Model(cfg).init(jax.random.PRNGKey(0)), scheme)
+    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, params),
+                                       "cpu")
+    tokens = np.random.default_rng(0).integers(1, cfg.vocab_size, (1, 96))
+    jax_calls, port_calls = [], []
+    jax_gemv, port_gemv = jqg.quant_gemv, tlayers.quant_gemv
+
+    def jax_rec(x, w, **kw):
+        y = jax_gemv(x, w, **kw)
+        tw = tq.QuantizedWeight(torch.from_numpy(np.array(w.q)),
+                                torch.from_numpy(np.array(w.scale)),
+                                w.scheme, w.orig_shape)
+        jax_calls.append((np.array(x), np.asarray(y), tw))
+        return y
+
+    def port_rec(x, w, **kw):
+        y = port_gemv(x, w, **kw)
+        port_calls.append((x.numpy().copy(), y.numpy().copy()))
+        return y
+
+    monkeypatch.setattr(jqg, "quant_gemv", jax_rec)
+    monkeypatch.setattr(tlayers, "quant_gemv", port_rec)
+    with jax.disable_jit():
+        want = np.asarray(Model(cfg).forward(
+            params, {"tokens": jnp.asarray(tokens)})[0])
+    with torch.no_grad():
+        got = TModel(tget(arch).reduced()).forward(
+            tparams, {"tokens": torch.from_numpy(tokens)}).numpy()
+    assert len(jax_calls) == len(port_calls) == 4 * cfg.n_layers
+
+    first, stepped = None, False
+    for i, ((xj, yj, tw), (xt, yt)) in enumerate(zip(jax_calls,
+                                                      port_calls)):
+        same = port_gemv(torch.from_numpy(xj), tw).numpy()
+        assert np.array_equal(same, yj), f"matmul {i} on the same input"
+        qj, qt = _quantized_input(xj, scheme), _quantized_input(xt, scheme)
+        stepped |= not np.array_equal(qj[0], qt[0])
+        if first is None and not np.array_equal(yj, yt):
+            first = i
+            assert (np.abs(xj - xt).max()
+                    <= 1e-6 * np.abs(xj).max()), f"matmul {i}"
+            if scheme == "w4a16":
+                # one bf16 ulp: 2^-7 of the value's binade at most
+                diff = qj[0] != qt[0]
+                assert diff.any()
+                assert (np.abs(qj[0] - qt[0])[diff]
+                        <= np.abs(qj[0][diff]) * 2.0 ** -7).all()
+            else:
+                assert (np.abs(qj[0].astype(np.int32) - qt[0]) <= 1).all()
+                np.testing.assert_allclose(qj[1], qt[1], rtol=1e-6)
+    if not stepped:
+        np.testing.assert_allclose(got, want, atol=1e-5)
 
 
 def test_quant_settings_are_served_not_refused():
