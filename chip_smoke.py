@@ -6,10 +6,11 @@
 
 Phases (each one fails the run when it fails):
 
-1. build    the three kernel libraries from src/repro_torch/csrc (B1 paged
+1. build    the four kernel libraries from src/repro_torch/csrc (B1 paged
             decode attention over per-slot stripes, B2 over the shared pool
-            through page tables, B3 the quantized GEMV), one nvcc process
-            per source, started together, timed;
+            through page tables, B3 the quantized GEMV, B4 flash attention
+            for the one-shot prefill), one nvcc process per source, started
+            together, timed;
 2. kernel   hold each kernel against its plain torch version on the card,
             {f32, bf16, kv8, kv4} pools x partitions {1, 16} x window
             {None, 64}.  B1: head shapes (K=16, G=1, dh=64) (qwen1.5-0.5b)
@@ -62,7 +63,26 @@ Phases (each one fails the run when it fails):
             same prompts): each prompt's last-token prefill logits within
             QUANT_PREFILL_TOL (relative Euclidean distance), and served
             logprobs within QUANT_LOGPROB_TOL up to and including each
-            request's first differing token.
+            request's first differing token;
+9. B4       flash attention against its plain version on the card,
+            {f32, bf16} x heads (H, K, dh) (16, 16, 64) (qwen1.5-0.5b),
+            (32, 8, 128) (llama3.1-8b) and (8, 1, 64) x causal {True,
+            False} x window {None, 16, 64} (16 is shorter than the
+            kernel's 64-key tile) x ragged Sq = Sk in {1, 70, 255, 511}
+            and Sq = 70 < Sk = 255 (at q_offset 0 and 185) x B {1, 3},
+            within FLASH_TOL (the reference's own tolerances); bf16 also
+            within one bf16 rounding of the plain version on the inputs
+            upcast to f32, which is the kernel's own arithmetic; timed
+            (kernel, plain, SDPA, bound) at the serving shape (B=1, 256
+            tokens, H=K=16, dh=64, f32, causal: a bucketed admit of
+            qwen1.5-0.5b) and a long shape (B=1, 8192 tokens, H=32, K=8,
+            dh=128, f32, causal);
+10. S1      the splice scheduler (`scheduler="splice"`) at the full width
+            of qwen1.5-0.5b, stripe f32 pool: the stripe prompts plus one of
+            500 tokens (its bucket clamps to 511); B4's counter must equal
+            admits x 24, B1's decode steps x 24, B2's and B3's 0; served
+            tokens pass the teacher-forced check with the argmax, and the
+            interleaved scheduler serves the same greedy tokens.
 
 It needs a CUDA card (exits non-zero without one, printing no result),
 imports nothing of JAX, and prints the card's name and power limit, a
@@ -115,6 +135,13 @@ TC_OPS = {"w4a16": 989e12, "w8a8": 1979e12}
 # B3 against its plain version, in units of max|y| (see phase 7)
 GEMV_TOL = {"w8a8": 1e-6, "w4a16": 4e-3}
 GEMV_TPU_TOL = 1e-5
+# B4 against its plain version: the reference's own flash-attention
+# tolerances (tests/test_kernels_flash_attention.py), atol = rtol.  A bf16
+# output is also held against the plain version on the inputs upcast to
+# f32 within one bf16 rounding (2^-8 relative) plus the f32 tolerance: the
+# kernel computes in f32 and rounds only its output to bf16
+FLASH_TOL = {"f32": 2e-5, "bf16": 2e-2}
+BF16_ROUNDING = 2.0 ** -8
 # cycles of torch.cuda._sleep queued ahead of each timed launch (~2.5 ms
 # at the H100's clock), so that the host has enqueued the whole timed
 # call before the start event fires and the window holds device time only
@@ -484,7 +511,8 @@ def timing_phase(rate):
 # phases 4-6: servers + teacher-forced reference
 # ---------------------------------------------------------------------------
 
-def build_server(params=None, device="cuda", **engine):
+def build_server(params=None, device="cuda", scheduler="interleaved",
+                 **engine):
     """The full-width qwen1.5-0.5b server on `device`: random weights from
     seed 0, or `params` (e.g. a quantized tree)."""
     import torch
@@ -494,7 +522,8 @@ def build_server(params=None, device="cuda", **engine):
     eng = EngineConfig(page_tokens=16, uniform_lengths=False, **engine)
     srv = KVNANDServer(ServerConfig(
         arch="qwen1.5-0.5b", reduced=False, engine=eng, batch_slots=4,
-        max_context=512, prefill_chunk_tokens=64, device=device),
+        max_context=512, prefill_chunk_tokens=64, device=device,
+        scheduler=scheduler),
         params=params)
     cfg = srv.cfg
     check(cfg.n_layers == 24 and cfg.d_model == 1024 and cfg.n_heads == 16
@@ -506,21 +535,25 @@ def build_server(params=None, device="cuda", **engine):
     if device == "cuda":
         torch.cuda.synchronize()
     print(f"server: built {cfg.name} ({cfg.param_count() / 1e6:.1f}M params,"
-          f" {eng}) on {device} in {time.perf_counter() - t0:.2f} s")
+          f" {eng}, {scheduler} scheduler) on {device} in "
+          f"{time.perf_counter() - t0:.2f} s")
     return srv
 
 
 def serve(label, srv, prompts):
-    """Drive the server's main path with both launch counters reset just
-    before and read just after; returns the outputs and the counts."""
+    """Drive the server's main path with every launch counter reset just
+    before and read just after; returns the outputs and the counts.  A
+    request answers 16 tokens ("length"), or fewer where its prompt fills
+    the slot first ("capacity")."""
     import torch
-    from repro_torch.kernels import quant_gemv
+    from repro_torch.kernels import flash_attention, quant_gemv
     from repro_torch.kernels.paged_attention import launches, launches_shared
     from repro_torch.serving.api import SamplingParams
     steps0 = srv.stats["decode_steps"]
     chunks0 = srv.stats["prefill_chunks"]
+    admits0 = srv.stats["admits"]
     counters = {"B1": launches, "B2": launches_shared,
-                "B3": quant_gemv.launches}
+                "B3": quant_gemv.launches, "B4": flash_attention.launches}
     for c in counters.values():
         c.reset()
     t0 = time.perf_counter()
@@ -532,13 +565,20 @@ def serve(label, srv, prompts):
     counts = {k: c.value for k, c in counters.items()}
     steps = srv.stats["decode_steps"] - steps0
     counts["prefill_chunks"] = srv.stats["prefill_chunks"] - chunks0
+    counts["admits"] = srv.stats["admits"] - admits0
     new_tokens = sum(len(o.token_ids) for o in outs)
     print(f"{label}: {len(outs)} requests, {new_tokens} tokens in "
           f"{wall:.3f} s, {steps} decode steps, "
           f"{counts['prefill_chunks']} prefill chunks, launches {counts}")
-    check(len(outs) == len(prompts)
-          and all(len(o.token_ids) == 16 and o.finish_reason == "length"
-                  for o in outs), f"{label}: not every request answered")
+    ctx = srv._batcher.max_context
+
+    def answered(o):
+        want = min(16, ctx - len(o.prompt))
+        return len(o.token_ids) == want and o.finish_reason == (
+            "length" if want == 16 else "capacity")
+
+    check(len(outs) == len(prompts) and all(answered(o) for o in outs),
+          f"{label}: not every request answered")
     return outs, counts, steps, wall, new_tokens
 
 
@@ -612,8 +652,9 @@ def server_phase():
     outs, counts, steps, wall, tokens = serve("server (stripe)", srv, prompts)
     L = srv.cfg.n_layers
     check(steps > 0 and counts["B1"] == steps * L and counts["B2"] == 0
-          and counts["B3"] == 0,
-          f"stripe launches {counts} != (decode steps {steps} x {L}, 0, 0)")
+          and counts["B3"] == 0 and counts["B4"] == 0,
+          f"stripe launches {counts} != (decode steps {steps} x {L}, 0, 0, "
+          "0)")
     lp_err, gap = teacher_forced_check("stripe", srv, outs)
     return {"launches": counts["B1"], "launches_B2": counts["B2"],
             "decode_steps": steps, "wall_s": wall, "tokens": tokens,
@@ -642,8 +683,9 @@ def shared_server_phase(kv_dtype: str):
           f"pool_peak_pages={st['pool_peak_pages']} of "
           f"{st['pool_total_pages']}")
     check(steps > 0 and counts["B2"] == steps * L and counts["B1"] == 0
-          and counts["B3"] == 0,
-          f"shared launches {counts} != (0, decode steps {steps} x {L}, 0)")
+          and counts["B3"] == 0 and counts["B4"] == 0,
+          f"shared launches {counts} != (0, decode steps {steps} x {L}, 0, "
+          "0)")
     check(st["prefix_hit_pages"] > 0, "the prefix cache never hit")
     check(st["cow_copies"] > 0, "no page was copied on write")
     b.alloc.check()
@@ -897,9 +939,11 @@ def quant_server_phase(label, scheme, kv_quant, shared, prompts_of):
     paged = "B2" if shared else "B1"
     other = "B1" if shared else "B2"
     check(steps > 0 and counts["B3"] == 4 * L * (steps + chunks)
-          and counts[paged] == steps * L and counts[other] == 0,
+          and counts[paged] == steps * L and counts[other] == 0
+          and counts["B4"] == 0,
           f"{label}: launches {counts} != (B3 4 x {L} x ({steps} decode "
-          f"steps + {chunks} chunks), {paged} {steps} x {L}, {other} 0)")
+          f"steps + {chunks} chunks), {paged} {steps} x {L}, {other} 0, B4 "
+          "0)")
     st = srv.stats
     res = {"launches": counts["B3"], f"launches_{paged}": counts[paged],
            f"launches_{other}": counts[other], "scheme": scheme,
@@ -931,7 +975,7 @@ def quant_server_phase(label, scheme, kv_quant, shared, prompts_of):
     cpu = build_server(params=tree_to(qparams, "cpu"), device="cpu", **eng)
     cpu_outs, cpu_counts, _, cpu_wall, _ = serve(f"{label} on the CPU", cpu,
                                                  prompts)
-    check(all(cpu_counts[k] == 0 for k in ("B1", "B2", "B3")),
+    check(all(cpu_counts[k] == 0 for k in ("B1", "B2", "B3", "B4")),
           f"{label}: the CPU run launched a kernel")
     lp_err, same, rows = compare_runs(outs, cpu_outs)
     gaps = prefill_gaps(srv, cpu, prompts)
@@ -947,6 +991,172 @@ def quant_server_phase(label, scheme, kv_quant, shared, prompts_of):
     res.update(cpu_wall_s=cpu_wall, same_tokens=same, logprob_err=lp_err,
                prefill_gaps=gaps, prefill_gap=max(gaps))
     return res
+
+
+# ---------------------------------------------------------------------------
+# phases 9-10: flash attention (B4) and the splice scheduler
+# ---------------------------------------------------------------------------
+
+FLASH_HEADS = ((16, 16, 64), (32, 8, 128), (8, 1, 64))     # H, K, dh
+# (Sq, Sk, q_offset): ragged prompts, and queries placed before or at the
+# end of a longer key range
+FLASH_LENGTHS = ((1, 1, 0), (70, 70, 0), (255, 255, 0), (511, 511, 0),
+                 (70, 255, 0), (70, 255, 185))
+
+
+def flash_inputs(B, Sq, Sk, H, K, dh, dtype, gen):
+    import torch
+    return (torch.randn(B, Sq, H, dh, generator=gen, device="cuda")
+            .to(dtype),
+            torch.randn(B, Sk, K, dh, generator=gen, device="cuda").to(dtype),
+            torch.randn(B, Sk, K, dh, generator=gen, device="cuda").to(dtype))
+
+
+def flash_kernel_phase() -> float:
+    """B4 against `flash_attention_ref`; returns max |o - plain o|."""
+    import itertools
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    max_abs, n = 0.0, 0
+    worst = {"f32": 0.0, "bf16": 0.0, "bf16 vs f32": 0.0}
+    for fmt, (H, K, dh), causal, window, (Sq, Sk, off), B in \
+            itertools.product(("f32", "bf16"), FLASH_HEADS, (True, False),
+                              (None, 16, 64), FLASH_LENGTHS, (1, 3)):
+        dt = torch.float32 if fmt == "f32" else torch.bfloat16
+        q, k, v = flash_inputs(B, Sq, Sk, H, K, dh, dt, gen)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        got = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_ref(q, k, v, **kw)
+        label = (f"B4 {fmt} H={H} K={K} dh={dh} causal={causal} "
+                 f"window={window} B={B} Sq={Sq} Sk={Sk} q_offset={off}")
+        check(got.shape == want.shape and got.dtype == dt
+              and bool(torch.isfinite(got).all()), f"{label}: bad output")
+        err = close_err(got, want, FLASH_TOL[fmt])
+        worst[fmt] = max(worst[fmt], err)
+        check(err <= FLASH_TOL[fmt], f"{label}: kernel disagrees with plain "
+              f"version: {err:.3e} > {FLASH_TOL[fmt]:.0e}")
+        if fmt == "bf16":
+            w32 = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+            bound = BF16_ROUNDING * w32.abs() + FLASH_TOL["f32"] * (
+                1 + w32.abs())
+            err32 = float(((got.float() - w32).abs() / bound).max())
+            worst["bf16 vs f32"] = max(worst["bf16 vs f32"], err32)
+            check(err32 <= 1, f"{label}: bf16 kernel disagrees with its own "
+                  f"arithmetic: {err32:.3e} of one bf16 rounding + 2e-5")
+        max_abs = max(max_abs, float((got.float() - want.float()).abs()
+                                     .max()))
+        n += 1
+    print(f"B4 kernel phase: {n} cases within tolerance; worst rel_err f32 "
+          f"{worst['f32']:.3e} (tol {FLASH_TOL['f32']:.0e}), bf16 "
+          f"{worst['bf16']:.3e} (tol {FLASH_TOL['bf16']:.0e}), bf16 vs the "
+          f"f32-upcast plain version {worst['bf16 vs f32']:.3e} of one bf16 "
+          f"rounding + 2e-5; max_abs_err={max_abs:.3e}")
+    return max_abs
+
+
+def flash_timing_shape(label, B, S, H, K, dh, rate, flush, gen, reps):
+    """B4 at one causal f32 shape: kernel, plain version, and one SDPA call
+    on the same tensors (K/V expanded to H heads beforehand, [B, H, S, dh]
+    copies).  Bound: 4·B·H·dh FLOPs per visible (query, key) pair at the
+    float32 CUDA-core peak against q, k, v and o moved once at the HBM
+    rate."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_ref)
+    q, k, v = flash_inputs(B, S, S, H, K, dh, torch.float32, gen)
+    G = H // K
+    qs = q.transpose(1, 2).contiguous()
+    ks = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    vs = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    times = {
+        "ms": time_ms(lambda: flash_attention_cuda(q, k, v, causal=True),
+                      reps, flush),
+        "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
+                            3, flush),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True), reps, flush),
+    }
+    pairs = S * (S + 1) // 2                       # causal, Sq = Sk = S
+    flops = 4 * B * H * dh * pairs
+    nbytes = 4 * B * S * dh * (2 * H + 2 * K)
+    t_ops = flops / F32_FLOPS * 1e3
+    t_bytes = nbytes / rate * 1e3
+    res = {"shape": label, "B": B, "S": S, "H": H, "K": K, "dh": dh,
+           "dtype": "float32", "causal": True,
+           "library": "scaled_dot_product_attention(is_causal=True)",
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flops": flops, "bytes": nbytes}
+    for key, t in times.items():
+        res[key] = statistics.median(t)
+        res[f"{key}_min_max"] = [t[0], t[-1]]
+    print(f"timing B4 {label} B={B} S={S} H={H} K={K} dh={dh} f32 causal "
+          "(median [min, max]): " + " ".join(
+              f"{k}={res[k]:.6f} [{t[0]:.6f}, {t[-1]:.6f}]"
+              for k, t in times.items())
+          + f" bound_ms={res['bound_ms']:.6f} ({res['bound_by']}, {flops} "
+          f"flops, {nbytes} bytes); library = {res['library']}")
+    return res
+
+
+def flash_timing_phase(rate):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    return (flash_timing_shape("serving", 1, 256, 16, 16, 64, rate, flush,
+                               gen, 20),
+            flash_timing_shape("long", 1, 8192, 32, 8, 128, rate, flush, gen,
+                               5))
+
+
+def splice_prompts(V):
+    """The stripe prompts and one of 500 tokens, whose power-of-two bucket
+    (512) clamps to the slot's 511."""
+    import numpy as np
+    rng = np.random.default_rng(2)
+    return stripe_prompts(V) + [rng.integers(0, V, 500).tolist()]
+
+
+def splice_server_phase():
+    """S1: the splice scheduler on a stripe f32 pool.  Every admit is one
+    B4 launch per layer (the bucketed one-shot prefill), every decode step
+    one B1 launch per layer; the interleaved scheduler on the same prompts
+    serves the same greedy tokens."""
+    from repro_torch.serving.scheduler import bucket_length
+    srv = build_server(scheduler="splice", kv_dtype="float32")
+    prompts = splice_prompts(srv.cfg.vocab_size)
+    check(bucket_length(len(prompts[-1]), hi=511) == 511,
+          "the long prompt's bucket does not clamp to 511")
+    label = "S1 (splice, stripe, f32)"
+    outs, counts, steps, wall, tokens = serve(label, srv, prompts)
+    L = srv.cfg.n_layers
+    admits = counts["admits"]
+    stall = srv.stats["decode_stall_tokens"]
+    print(f"{label}: {admits} admits, decode_stall_tokens={stall}, wall "
+          f"{wall:.3f} s")
+    check(admits == len(prompts) and counts["B4"] == admits * L
+          and counts["B1"] == steps * L and counts["B2"] == 0
+          and counts["B3"] == 0,
+          f"{label}: launches {counts} != (B1 decode steps {steps} x {L}, "
+          f"B2 0, B3 0, B4 admits {admits} x {L})")
+    lp_err, gap = teacher_forced_check("S1 splice", srv, outs)
+    inter = build_server(kv_dtype="float32")
+    i_outs, i_counts, _, i_wall, _ = serve("S1 on the interleaved scheduler",
+                                           inter, prompts)
+    same = sum(a.token_ids == b.token_ids for a, b in zip(outs, i_outs))
+    print(f"check S1: {same} of {len(prompts)} requests served the same "
+          f"greedy tokens on the splice and the interleaved scheduler")
+    check(same == len(prompts) and i_counts["B4"] == 0,
+          "S1: the splice and the interleaved scheduler served other tokens")
+    return {"launches": counts["B4"], "launches_B1": counts["B1"],
+            "admits": admits, "decode_steps": steps, "wall_s": wall,
+            "interleaved_wall_s": i_wall, "tokens": tokens,
+            "decode_stall_tokens": stall, "logprob_err": lp_err,
+            "logit_gap": gap}
 
 
 def kernel_entry(name, source, replaces, launches, max_abs, shapes, server):
@@ -999,6 +1209,9 @@ def main(argv) -> int:
             del r["token_ids"]
         b3_err = quant_kernel_phase()
         b3_shapes = quant_timing_phase(rate)
+        b4_err = flash_kernel_phase()
+        b4_shapes = flash_timing_phase(rate)
+        s1 = splice_server_phase()
     q1 = quant_server_phase("Q1 (w4a16, stripe, kv4)", "w4a16", "kv4",
                             False, stripe_prompts)
     q2 = quant_server_phase("Q2 (w8a8, shared, kv8)", "w8a8", "kv8", True,
@@ -1028,6 +1241,10 @@ def main(argv) -> int:
                      "src/repro/kernels/quant_gemv/kernel.py:68",
                      q1["launches"] + q2["launches"], b3_err, b3_shapes,
                      [q1, q2]),
+        kernel_entry("flash_attention",
+                     "src/repro_torch/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention/kernel.py:82",
+                     s1["launches"], b4_err, b4_shapes, s1),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
-"""KVNAND engine: chunked prefill + decode over the paged KV pool
-(port of `repro.core.engine`, single device, compact variant).
+"""KVNAND engine: one-shot and chunked prefill + decode over the paged
+KV pool (port of `repro.core.engine`, single device, compact variant).
 
 `decode_step` runs one token per slot through every layer: QKV
 projection, an in-place append of the new K/V into the slot's page,
@@ -8,6 +8,10 @@ output projection and MLP.  `prefill_chunk` runs one page-aligned chunk
 of one slot's prompt: a causal in-chunk partial over the chunk's own K/V
 and a past-page partial over the slot's already-written pages, merged by
 log-sum-exp, then the chunk's K/V are filled into the slot's pages.
+`prefill` runs whole prompts of every row of a fresh cache at once:
+causal flash attention over the prompt (kernel B4 on the card), then
+each layer's K/V filled into the pools (`paged_kv.fill_layer`); the
+splice scheduler copies such a one-row cache into a batch slot.
 
 Two pool layouts (`core/paged_kv.py`): the per-slot stripe, and the
 shared pool (`EngineConfig.shared_pool`), where every slot walks its
@@ -29,8 +33,7 @@ the params (`core.quant.quantize_params`), and `layers.dense` sends each
 2-D quantized weight through kernel B3; `EngineConfig.quant` is not read,
 as in the reference.  Not ported yet, and refused here: the
 discrete/head-group-pipelined variant, the tiered pool, window rings,
-non-dense families, speculative verify, the one-shot prefill and a device
-mesh.
+non-dense families, speculative verify and a device mesh.
 """
 from __future__ import annotations
 
@@ -173,6 +176,46 @@ class KVNANDEngine:
         cache.lengths += (1 if active is None
                           else active.to(cache.lengths.dtype))
         return lm_head_logits(params, cfg, x)[:, 0], cache
+
+    # ------------------------------------------------------------------
+    # one-shot prefill
+    # ------------------------------------------------------------------
+    def prefill(self, params, batch, max_context: int,
+                prompt_len: Optional[int] = None):
+        """Full-prompt prefill of every row: batch["tokens"] [B, S] ->
+        (last-token logits [B, V], a fresh cache of max(max_context,
+        S + 1) tokens per row holding the prompts' K/V).
+
+        prompt_len: the count of real tokens (the same for every row)
+        when the trailing tokens are bucket padding: `lengths` and the
+        logits then come from the true last token, while the padding's
+        K/V are written to the pages past it like any other token, as
+        in the reference (masked by `lengths`, overwritten by decode
+        appends).  The reference's refusals for a tiered pool and for
+        recurrent state are made at construction here: the engine takes
+        neither a tiered pool nor a non-dense family."""
+        cfg, rt = self.cfg, self.rt
+        x, positions = embed_inputs(params, cfg, batch, rt)
+        B, S = x.shape[:2]
+        cache = self.init_cache(B, max(max_context, S + 1))
+        table = cache.page_table_g if self.eng.shared_pool else None
+        fmt = self.eng.kv_quant
+        for i in range(cfg.n_layers):
+            pl_ = layer_slice(params["layers"], i)
+            h = rms_norm(x, pl_["ln1"], cfg.norm_eps)
+            q, k, v = attn_mod.project_qkv(pl_["attn"], cfg, h, positions)
+            o = attn_mod.sharded_flash_attention(q, k, v, causal=True,
+                                                 impl=rt.attn_impl)
+            x = x + attn_mod.project_out(pl_["attn"], cfg, o)
+            for pool, sc, kv in ((cache.k_pages_g, cache.k_scale_g, k),
+                                 (cache.v_pages_g, cache.v_scale_g, v)):
+                paged_kv.fill_layer(pool, kv, i, table=table, scale=sc,
+                                    kv_quant=fmt)
+            h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
+            x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
+        n = S if prompt_len is None else prompt_len
+        cache.lengths.fill_(n)
+        return lm_head_logits(params, cfg, x[:, n - 1:n])[:, 0], cache
 
     # ------------------------------------------------------------------
     # chunked prefill

@@ -45,6 +45,13 @@ the active rows, on BOTH layouts: an inactive row's dead-slot zeroing
 would go through its own stale (page, slot), which in a shared pool can
 be another slot's live page.
 
+The one-shot prefill writes a whole prompt's pages per layer with
+`fill_layer` (every batch row at once, padding included: the bucketed
+prompts of the splice scheduler fill their padded tail too, and a kv8/kv4
+page's scale is taken over real and padding tokens alike, as in the
+reference); `splice_slot` copies a one-sequence prefill cache into one
+slot of the batch cache.
+
 Not ported yet: window rings, span appends and tier staging (ROADMAP
 A10-A12).
 """
@@ -239,6 +246,69 @@ def fill_chunk_global_at(pool: torch.Tensor, kv_chunk: torch.Tensor,
         if s is not None:
             scale[layer, slot, :, page0:page0 + n_w] = s
     return pool
+
+
+# ---------------------------------------------------------------------------
+# One-shot prefill fill and the splice of a prefilled slot
+# ---------------------------------------------------------------------------
+
+def fill_layer(pool: torch.Tensor, kv_seq: torch.Tensor, layer: int, *,
+               ring: bool = False, table: Optional[torch.Tensor] = None,
+               scale: Optional[torch.Tensor] = None,
+               kv_quant: str = "none") -> torch.Tensor:
+    """One-shot prefill fill of ONE layer for every batch row, in place.
+
+    kv_seq: [B, S, K, dh], all S tokens written (bucket padding too; the
+    reference reads a true length only for window rings).  Stripe pool
+    [L, B, K, NP, Ts, dh]: row b's pages 0..ceil(S/T) of its stripe.
+    Shared pool [L, K, P, Ts, dh] with `table` [B, NP]: row b's logical
+    page j on physical page table[b, j].  A kv8/kv4 pool quantizes whole
+    pages and writes their scales into `scale` beside."""
+    if ring:
+        raise NotImplementedError(
+            "window-ring prefill fills are not ported yet (ROADMAP A10, "
+            "window rings)")
+    T = pool.shape[-2] * (2 if kv_quant == "kv4" else 1)
+    x = _paged_from_seq(kv_seq, T)                  # [B, K, n, T, dh]
+    s = None
+    if kv_quant != "none":
+        x, s = quant.quantize_kv_page(x, kv_quant)
+    n = x.shape[2]
+    if table is None:
+        pool[layer, :, :, :n] = x
+        if s is not None:
+            scale[layer, :, :, :n] = s
+        return pool
+    n = min(n, table.shape[1])
+    phys = table[:, :n].long()                      # [B, n]
+    pool[layer][:, phys] = x[:, :, :n].transpose(0, 1).to(pool.dtype)
+    if s is not None:
+        scale[layer][:, phys] = s[:, :, :n].transpose(0, 1)
+    return pool
+
+
+# leaves whose batch axis leads; every other leaf is [L, B, ...]
+_BATCH_AXIS0 = ("page_table_g", "lengths")
+
+
+def splice_slot(cache: DecodeCache, one: DecodeCache, i: int) -> DecodeCache:
+    """Copy sequence 0 of a B=1 cache into slot i of the batch cache, in
+    place: the slot's stripe of every pool, its kv8/kv4 scales, its table
+    row and its length.  Stripe layout only (a shared pool has no per-slot
+    stripe to copy)."""
+    if cache.k_pages_g.ndim != 6:
+        raise ValueError("splice_slot copies per-slot stripes; a shared "
+                         "pool has none")
+    for name in ("k_pages_g", "v_pages_g", "k_scale_g", "v_scale_g",
+                 "page_table_g", "lengths"):
+        cur, new = getattr(cache, name), getattr(one, name)
+        if cur is None:
+            continue
+        if name in _BATCH_AXIS0:
+            cur[i] = new[0]
+        else:
+            cur[:, i] = new[:, 0]
+    return cache
 
 
 # ---------------------------------------------------------------------------

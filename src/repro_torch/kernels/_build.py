@@ -26,7 +26,7 @@ _BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 class Library(NamedTuple):
@@ -49,6 +49,10 @@ LIBS: Dict[str, Library] = {
         _CSRC / "quant_gemv.cu", (),
         {"kvnand_quant_gemv": [_P] * 6 + [_I] * 7 + [_P],
          "kvnand_quant_gemv_splits": [_I] * 5}),
+    "flash_attention": Library(
+        _CSRC / "flash_attention.cu", (),
+        {"kvnand_flash_attention": [_P] * 4 + [_LL] * 9 + [_I] * 10
+         + [ctypes.c_float, _P]}),
 }
 
 _lock = threading.Lock()

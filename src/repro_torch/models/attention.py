@@ -2,9 +2,10 @@
 
 Weight layout is the reference's head-group-major one: wq [K, D, G·dh],
 wk/wv [K, D, dh], so head h = k·G + g and the kv head of h is h // G.
-Only the split phases the decode engine interposes the paged KV cache
-between (`project_qkv` / `project_out`) and a plain full-sequence
-attention for the reference forward are ported.
+The split phases the decode engine interposes the paged KV cache
+between (`project_qkv` / `project_out`) and the full-sequence attention
+of the one-shot prefill and the reference forward (`attention_train`
+through `sharded_flash_attention`, on one device) are ported.
 """
 from __future__ import annotations
 
@@ -14,9 +15,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import QuantizedWeight, dequantize
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import ParamInit, apply_rope, dense
-
-NEG_INF = -1e30
 
 
 def init_attention(b: ParamInit, cfg: ModelConfig):
@@ -68,21 +68,33 @@ def project_out(params: Dict[str, Any], cfg: ModelConfig,
     return dense(params, "wo", attn.reshape(B, S, cfg.q_dim), impl=impl)
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor) -> torch.Tensor:
-    """Plain causal softmax attention in float32 (the counterpart of the
-    reference's `flash_attention_ref`): q [B, S, H, dh], k/v [B, S, K, dh]
-    -> [B, S, H, dh].  Used by the reference forward only."""
-    B, S, H, dh = q.shape
-    K = k.shape[2]
-    G = H // K
-    qf = q.float().reshape(B, S, K, G, dh) * dh ** -0.5
-    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
-    pos = torch.arange(S, device=q.device)
-    mask = pos[None, :] <= pos[:, None]
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    p = p / p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(B, S, H, dh).to(q.dtype)
+def attention_train(params: Dict[str, Any], cfg: ModelConfig,
+                    x: torch.Tensor, *, window: Optional[int] = None,
+                    is_global=None, causal: bool = True, impl: str = "auto",
+                    positions: Optional[torch.Tensor] = None,
+                    kv_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention (prefill, and the reference forward):
+    x [B, S, D] -> [B, S, D].  `impl` picks the flash-attention path and
+    the quantized output projection's alike ("ref": the plain versions on
+    any device)."""
+    if kv_x is not None:
+        raise NotImplementedError(
+            "cross-attention (kv_x) belongs to the encoder-decoder family, "
+            "which is not ported yet (ROADMAP A15)")
+    q, k, v = project_qkv(params, cfg, x, positions)
+    out = sharded_flash_attention(q, k, v, causal=causal, window=window,
+                                  is_global=is_global, impl=impl)
+    return project_out(params, cfg, out, impl=impl)
+
+
+def sharded_flash_attention(q, k, v, *, causal=True, window=None,
+                            is_global=None, impl="auto", mesh=None):
+    """The reference's mesh-adaptive attention, single-device branch:
+    `flash_attention` (kernel B4 on a card).  Ring attention over a mesh
+    is not ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "sequence-parallel ring attention over a device mesh is not "
+            "ported yet (ROADMAP A17, multiple GPUs)")
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           is_global=is_global, impl=impl)

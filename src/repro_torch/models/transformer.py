@@ -22,6 +22,7 @@ from repro_torch.models.layers import (ParamInit, embed_lookup,
 @dataclasses.dataclass(frozen=True)
 class Runtime:
     activ_dtype: Any = torch.float32
+    attn_impl: str = "auto"          # flash attention dispatch
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -74,20 +75,19 @@ def lm_head_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             rt: Runtime) -> torch.Tensor:
-    """Plain full forward with plain causal attention -> logits [B, S, V].
+    """Plain full forward -> logits [B, S, V].
 
-    Kernel-free on every device (quantized weights take quant_gemv's plain
-    version, impl="ref"): the reference the engine and the served tokens
-    are held against, never the serving path."""
+    Kernel-free on every device (flash attention and quantized weights
+    take their plain versions, impl="ref", whatever `rt.attn_impl` says):
+    the reference the engine and the served tokens are held against,
+    never the serving path."""
     check_supported(cfg)
     x, positions = embed_inputs(params, cfg, batch, rt)
     for i in range(cfg.n_layers):
         pl_ = layer_slice(params["layers"], i)
         h = rms_norm(x, pl_["ln1"], cfg.norm_eps)
-        q, k, v = attn_mod.project_qkv(pl_["attn"], cfg, h, positions)
-        x = x + attn_mod.project_out(pl_["attn"], cfg,
-                                     attn_mod.causal_attention(q, k, v),
-                                     impl="ref")
+        x = x + attn_mod.attention_train(pl_["attn"], cfg, h, impl="ref",
+                                         positions=positions)
         h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
         x = x + mlp(pl_["mlp"], h, cfg.gated_mlp, impl="ref")
     return lm_head_logits(params, cfg, x)

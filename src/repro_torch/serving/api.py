@@ -17,11 +17,13 @@ codes (``EngineConfig(kv_quant=...)``).  Quantized weights are served as
 the reference serves them: the caller passes ``params`` from
 `core.quant.quantize_params` (W8A8 or W4A16), and every 2-D quantized
 matmul runs in the `quant_gemv` kernel; the server does not quantize on
-its own.  Configurations the port does not serve yet raise
-NotImplementedError at construction, naming their ROADMAP item: the
-splice scheduler, speculation, the overlapped pipeline, and (through the
-engine) tiered pools (``hot_pages``), the discrete variant, window archs
-and non-dense families.
+its own.  Two schedulers: "interleaved" (chunked prefill sharing each
+step with the decode batch, the default) and "splice" (the baseline:
+one-shot prefill at admit, then a slot splice).  Configurations the port
+does not serve yet raise NotImplementedError at construction, naming
+their ROADMAP item: speculation, the overlapped pipeline, and (through
+the engine) tiered pools (``hot_pages``), the discrete variant, window
+archs and non-dense families.
 """
 from __future__ import annotations
 
@@ -29,16 +31,20 @@ import dataclasses
 import time
 from typing import Dict, Iterator, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import EngineConfig, ModelConfig, get_config
 from repro_torch.models.registry import Model
 from repro_torch.models.transformer import Runtime
 from repro_torch.serving.sampler import SamplingParams
-from repro_torch.serving.scheduler import ContinuousBatcher, Request
+from repro_torch.serving.scheduler import (ContinuousBatcher, Request,
+                                           SpliceBatcher)
 
 __all__ = ["SamplingParams", "RequestOutput", "StreamEvent",
-           "ServerConfig", "KVNANDServer"]
+           "ServerConfig", "KVNANDServer", "latency_percentile"]
+
+_SCHEDULERS = {"interleaved": ContinuousBatcher, "splice": SpliceBatcher}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +54,7 @@ class ServerConfig:
     arch: str = "qwen1.5-0.5b"
     reduced: bool = False           # paper-scale vs CI-scale model dims
     engine: Optional[EngineConfig] = None   # None -> paged ragged default
-    scheduler: str = "interleaved"
+    scheduler: str = "interleaved"  # "interleaved" | "splice" (baseline)
     batch_slots: int = 4
     max_context: int = 256
     prefill_chunk_tokens: int = 64
@@ -60,11 +66,10 @@ class ServerConfig:
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.scheduler != "interleaved":
-            raise NotImplementedError(
-                f"scheduler={self.scheduler!r}: only the interleaved "
-                "continuous batcher is ported (the splice baseline is a "
-                "ROADMAP A16 item)")
+        if self.scheduler not in _SCHEDULERS:
+            raise ValueError(
+                f"unknown scheduler {self.scheduler!r}; pick one of "
+                f"{sorted(_SCHEDULERS)}")
         if self.speculation_k:
             raise NotImplementedError(
                 "speculative decoding is not ported yet (ROADMAP A11)")
@@ -135,7 +140,7 @@ class KVNANDServer:
         if params is None:
             gen = torch.Generator(device=device).manual_seed(config.seed)
             params = Model(cfg, rt).init(gen)
-        self._batcher = ContinuousBatcher(
+        self._batcher = _SCHEDULERS[config.scheduler](
             cfg, params, batch_slots=config.batch_slots,
             max_context=config.max_context, eng=config.engine, rt=rt,
             seed=config.seed,
@@ -288,3 +293,12 @@ class KVNANDServer:
         del self._streamed[uid]
         self._done_emitted.discard(uid)
         self._batcher.completed.pop(uid, None)
+
+
+def latency_percentile(vals: Sequence[float], q: float) -> float:
+    """Percentile over TTFT/TPOT samples (NaN when none exist — e.g.
+    every request aborted before its first token)."""
+    vals = [v for v in vals if v is not None]
+    if not vals:
+        return float("nan")
+    return float(np.percentile(np.asarray(vals, np.float64), q))

@@ -1,5 +1,6 @@
 """Continuous batching over the KVNAND engine (port of
-`repro.serving.scheduler.ContinuousBatcher`, synchronous).
+`repro.serving.scheduler`: `ContinuousBatcher`, synchronous, and the
+`SpliceBatcher` baseline).
 
   * a fixed decode batch of B slots; empty slots are refilled from the
     queue between steps, by (priority, deadline, submit order);
@@ -37,9 +38,11 @@ reference:
     names survive until LRU eviction reclaims them under pressure.
 
 `step()` is the reference's synchronous schedule (dispatch, then
-collect, back to back).  Not ported yet, and refused at construction:
-the tiered pool, speculative verify, the overlapped dispatch/collect
-pipeline and the splice baseline (ROADMAP).
+collect, back to back).  `SpliceBatcher` is the reference's measured
+baseline: each admit prefills the whole (bucketed) prompt in one shot
+(`engine.prefill`) and splices the one-row cache into its slot.  Not
+ported yet, and refused at construction: the tiered pool, speculative
+verify and the overlapped dispatch/collect pipeline (ROADMAP).
 """
 from __future__ import annotations
 
@@ -58,6 +61,8 @@ from repro_torch.core.page_alloc import OutOfPages, PageAllocator, PrefixCache
 from repro_torch.models.transformer import Runtime
 from repro_torch.serving.sampler import (SamplingParams, request_noise,
                                          sample_with_logprobs)
+
+MIN_PROMPT_BUCKET = 16
 
 
 @dataclasses.dataclass
@@ -79,6 +84,19 @@ class Request:
     finish_ts: Optional[float] = None
 
 
+def bucket_length(n: int, lo: int = MIN_PROMPT_BUCKET,
+                  hi: Optional[int] = None) -> int:
+    """Smallest power-of-two bucket (>= lo) holding n tokens, clamped to
+    `hi` — near-capacity prompts must not round up past the slot stripe
+    (the caller rejects n > hi at submit)."""
+    b = lo
+    while b < n:
+        b *= 2
+    if hi is not None:
+        b = min(b, hi)
+    return b
+
+
 @dataclasses.dataclass
 class _PrefillState:
     """Host-side carry-over of one slot's in-progress chunked prefill."""
@@ -93,6 +111,7 @@ class ContinuousBatcher:
     def __init__(self, cfg: ModelConfig, params, *, batch_slots: int = 4,
                  max_context: int = 512, eng: Optional[EngineConfig] = None,
                  rt: Optional[Runtime] = None, seed: int = 0,
+                 bucket_prompts: bool = True,
                  prefill_chunk_tokens: int = 64,
                  step_token_budget: Optional[int] = None, device="cuda"):
         eng = eng or EngineConfig(page_tokens=16, uniform_lengths=False)
@@ -116,6 +135,8 @@ class ContinuousBatcher:
         self.params = params
         self.B = batch_slots
         self.max_context = max_context
+        # pad one-shot prefills to power-of-two buckets (SpliceBatcher)
+        self.bucket_prompts = bucket_prompts
         self.chunk_tokens = prefill_chunk_tokens
         self.step_token_budget = (step_token_budget
                                   or prefill_chunk_tokens + batch_slots)
@@ -135,6 +156,7 @@ class ContinuousBatcher:
         self.completed: Dict[int, Request] = {}
         self.stats = {"steps": 0, "admits": 0, "prefill_chunks": 0,
                       "decode_steps": 0, "decode_tokens": 0,
+                      "decode_stall_tokens": 0,
                       "deadline_drops": 0, "prefix_hit_pages": 0,
                       "prompt_pages": 0, "cow_copies": 0,
                       "pool_peak_pages": 0, "pool_total_pages": 0}
@@ -588,3 +610,71 @@ class ContinuousBatcher:
             self.step()
             steps += 1
         return self.completed
+
+
+class SpliceBatcher(ContinuousBatcher):
+    """Admit-time full prefill + slot splice — the pre-interleave
+    baseline, kept as the measured reference beside the interleaved
+    scheduler.  Every admit stalls the whole decode batch for the full
+    prompt and writes its KV pages twice (one-row cache, then splice).
+
+    The reference's `stats["compiles"]` counts jit signatures; eager torch
+    compiles nothing, so it is left out."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        if self.shared:
+            raise ValueError(
+                "SpliceBatcher is the stripe-layout baseline: a shared "
+                "pool has no per-slot stripe to splice into (a B=1 "
+                "prefill cache owns a different pool entirely); use "
+                "ContinuousBatcher with shared_pool=True, or the stripe "
+                "layout for splice-baseline measurements")
+
+    def _admit(self):
+        for i in range(self.B):
+            if self.slots[i] is None and self.queue:
+                req = self.queue.popleft()
+                self.slots[i] = req
+                self._set_slot_params(i, req)
+                # decoders idle for the whole admit: in chunk units, the
+                # interleaved scheduler would have run this many decode
+                # steps over the currently active slots
+                n_dec = sum(1 for j, r in enumerate(self.slots)
+                            if r is not None and j != i)
+                span = len(self._padded(req))
+                self.stats["decode_stall_tokens"] += n_dec * (
+                    -(-span // self.chunk_tokens))
+                self.stats["admits"] += 1
+                self._splice_prefill(i, req)
+
+    def _padded(self, req: Request) -> List[int]:
+        n = len(req.prompt)
+        if not self.bucket_prompts:
+            return req.prompt
+        Sb = bucket_length(n, hi=self.max_context - 1)
+        return req.prompt + [0] * (Sb - n)
+
+    def _splice_prefill(self, i: int, req: Request):
+        """Prefill one sequence and splice its pools and length into slot
+        i (the reference's `_prefill_slot`, named apart as the engine's
+        helpers are: the static analyzer resolves methods by name)."""
+        n = len(req.prompt)
+        prompt = torch.as_tensor(self._padded(req), dtype=torch.long,
+                                 device=self.device)[None]
+        logits, one = self.engine.prefill(
+            self.params, {"tokens": prompt}, self.max_context,
+            prompt_len=n if self.bucket_prompts else None)
+        paged_kv.splice_slot(self.cache, one, i)
+        self._lengths[i] = n
+        toks, lps = self._sample(logits, [i], [len(req.output)])
+        self._emit_token(i, req, int(toks[0]), float(lps[0]))
+
+    def step(self) -> int:
+        """One decode step over all active slots (admits prefill eagerly
+        inside `_admit`, stalling the batch)."""
+        self._admit()
+        active = [i for i, r in enumerate(self.slots) if r is not None]
+        decoded = self._decode_batch(active)
+        self.stats["steps"] += 1
+        return decoded

@@ -1,7 +1,7 @@
 """PyTorch port on the card: the CUDA paged decode-attention kernels —
-B1 over per-slot stripes, B2 over the shared pool through page tables —
-and the quantized GEMV kernel B3, against their plain torch versions,
-their launch counters and their input checks.
+B1 over per-slot stripes, B2 over the shared pool through page tables —,
+the quantized GEMV kernel B3 and the flash-attention kernel B4, against
+their plain torch versions, their launch counters and their input checks.
 
 Every test needs a CUDA device; the `cuda_device` fixture skips it where
 `torch.cuda.is_available()` is False (decided inside the fixture, never
@@ -22,6 +22,11 @@ float32 scale multiplies differs); W4A16 within 4e-3 x max|y| of the plain
 version (which rounds the product to bf16, as the reference's
 `quant_gemv_ref` does) and within 1e-5 x max|y| of the TPU kernel's own
 function, `f32(bf16(x) @ w4) * scale`, taken here in float64.
+
+B4: the reference's flash-attention tolerances, 2e-5 (f32) and 2e-2
+(bf16), atol = rtol; a bf16 output also within one bf16 rounding (2^-8
+relative) + 2e-5 of the plain version on the inputs upcast to f32, the
+kernel's own arithmetic before its output is rounded.
 """
 import itertools
 
@@ -30,6 +35,7 @@ import torch
 
 from repro_torch.core.quant import (quantize_kv_page, quantize_params,
                                     quantize_weight, unpack_int4)
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import quant_gemv as tqg
 
@@ -332,3 +338,128 @@ def test_forward_launches_no_quant_gemv(cuda_device, scheme):
     te.decode_step(params, cache, tokens[:, :1])
     torch.cuda.synchronize()
     assert tqg.launches.value == 4 * cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# B4: flash attention (one-shot prefill)
+# ---------------------------------------------------------------------------
+
+FLASH_TOL = {"f32": 2e-5, "bf16": 2e-2}
+FLASH_HEADS = ((16, 16, 64), (32, 8, 128), (8, 1, 64))     # H, K, dh
+# (B, Sq, Sk, q_offset): ragged prompts, and queries before or at the end
+# of a longer key range
+FLASH_LENGTHS = ((1, 1, 1, 0), (3, 70, 70, 0), (1, 255, 255, 0),
+                 (3, 511, 511, 0), (1, 70, 255, 0), (1, 70, 255, 185))
+
+
+def _flash_inputs(B, Sq, Sk, H, K, dh, dtype, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(B, S, n, dh, generator=gen, device=dev)
+                 .to(dtype) for S, n in ((Sq, H), (Sk, K), (Sk, K)))
+
+
+@pytest.mark.parametrize("fmt,heads,causal,window,lengths", list(
+    itertools.product(("f32", "bf16"), FLASH_HEADS, (True, False),
+                      (None, 16, 64), FLASH_LENGTHS)))
+def test_flash_attention_matches_plain_version(cuda_device, fmt, heads,
+                                               causal, window, lengths):
+    (H, K, dh), (Bq, Sq, Sk, off) = heads, lengths
+    dt = torch.float32 if fmt == "f32" else torch.bfloat16
+    q, k, v = _flash_inputs(Bq, Sq, Sk, H, K, dh, dt, cuda_device)
+    kw = dict(causal=causal, window=window, q_offset=off)
+    got = tfa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = tfa.flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == dt and got.shape == want.shape
+    torch.testing.assert_close(got, want, atol=FLASH_TOL[fmt],
+                               rtol=FLASH_TOL[fmt])
+    if fmt == "bf16":
+        w32 = tfa.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+        bound = 2.0 ** -8 * w32.abs() + FLASH_TOL["f32"] * (1 + w32.abs())
+        assert bool(((got.float() - w32).abs() <= bound).all())
+
+
+def test_flash_attention_reads_strided_inputs(cuda_device):
+    """q, k, v as views of head-major [B, heads, S, dh] tensors (and v of
+    a fused QKV tensor): the kernel walks their strides, no copy."""
+    q, k, v = _flash_inputs(2, 100, 100, 8, 2, 64, torch.float32,
+                            cuda_device)
+    qs = q.transpose(1, 2).contiguous().transpose(1, 2)
+    ks = k.transpose(1, 2).contiguous().transpose(1, 2)
+    fused = torch.cat([v, v], dim=2)[:, :, 2:]
+    assert not qs.is_contiguous() and not fused.is_contiguous()
+    got = tfa.flash_attention_cuda(qs, ks, fused, causal=True)
+    want = tfa.flash_attention_cuda(q, k, v.contiguous(), causal=True)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_flash_attention_one_launch_per_call(cuda_device):
+    q, k, v = _flash_inputs(1, 70, 70, 4, 2, 64, torch.float32, cuda_device)
+    tfa.launches.reset()
+    tfa.flash_attention(q, k, v)
+    tfa.flash_attention(q, k, v, impl="ref")
+    tfa.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    tfa.flash_attention_cuda(q, k, v, causal=False, window=8)
+    assert tfa.launches.value == 2
+
+
+@pytest.mark.parametrize("bad", ["cpu", "dh", "dtype", "stride",
+                                 "is_global", "tensor_offset", "window"])
+def test_flash_attention_unsupported_inputs_raise(cuda_device, bad):
+    dh = 32 if bad == "dh" else 64
+    q, k, v = _flash_inputs(1, 16, 16, 4, 2, dh, torch.float32, cuda_device)
+    kw = {}
+    err = ValueError
+    if bad == "cpu":
+        q, k, v = q.cpu(), k.cpu(), v.cpu()
+        kw["impl"] = "cuda"
+    if bad == "dtype":
+        k = k.to(torch.bfloat16)
+    if bad == "stride":
+        q = q.transpose(2, 3).contiguous().transpose(2, 3)
+    if bad == "is_global":
+        kw.update(window=8, is_global=torch.tensor(True, device=q.device))
+        err = NotImplementedError
+    if bad == "tensor_offset":
+        kw["q_offset"] = torch.tensor(3, device=q.device)
+        err = NotImplementedError
+    if bad == "window":
+        kw["window"] = 0
+    with pytest.raises(err):
+        tfa.flash_attention(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "llama3.1-8b"])
+def test_prefill_launches_b4_once_per_layer(cuda_device, arch):
+    """`engine.prefill` on the card: one B4 launch per layer, logits and
+    pools as the same prefill on the CPU.  The reduced config at head dim
+    64 (B4 takes 64 and 128, the widths of the full-size archs)."""
+    import dataclasses
+    from repro_torch.configs import EngineConfig, get_config
+    from repro_torch.core.engine import KVNANDEngine
+    from repro_torch.models.registry import Model
+    cfg = dataclasses.replace(get_config(arch).reduced(), d_head=64)
+    params = Model(cfg).init(torch.Generator().manual_seed(0))
+    eng = EngineConfig(page_tokens=16, uniform_lengths=False,
+                       kv_dtype="float32")
+    toks = torch.randint(1, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    outs = {}
+    tfa.launches.reset()
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else _tree_to(params, dev)
+        e = KVNANDEngine(cfg, eng, device=dev)
+        outs[dev] = e.prefill(p, {"tokens": toks.to(dev)}, 96, prompt_len=50)
+    torch.cuda.synchronize()
+    assert tfa.launches.value == cfg.n_layers
+    (lc, cc), (lg, cg) = outs["cpu"], outs["cuda"]
+    assert float((lg.cpu() - lc).abs().max() / lc.abs().max()) < 1e-4
+    torch.testing.assert_close(cg.k_pages_g.cpu(), cc.k_pages_g, atol=1e-4,
+                               rtol=1e-4)
+    assert cg.lengths.tolist() == [50, 50]
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

@@ -4,8 +4,9 @@ Greedy tokens must be identical to the JAX `KVNANDServer` built from the
 same weights at a float32 pool, for an MHA (qwen1.5-0.5b) and a GQA
 (llama3.1-8b) reduced config — with more prompts than slots, prompts
 longer than one chunk (the past-page partial runs) and generations that
-cross page boundaries.  Also: abort mid-prefill, and the
-NotImplementedError guards of what this slice does not port."""
+cross page boundaries.  Also: abort mid-prefill, the
+NotImplementedError guards of what the port does not serve yet, and the
+ValueError for an unknown scheduler name."""
 import collections
 
 import jax
@@ -110,7 +111,6 @@ def test_abort_mid_prefill_frees_the_slot():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: ServerConfig(scheduler="splice", device="cpu"),
     lambda: ServerConfig(speculation_k=2, device="cpu"),
     lambda: ServerConfig(overlap=True, device="cpu"),
     lambda: _port_with_engine(shared_pool=True, hot_pages=4),
@@ -121,11 +121,16 @@ def test_abort_mid_prefill_frees_the_slot():
                                       device="cpu")),
     lambda: KVNANDEngine(tget("qwen1.5-0.5b").reduced(), mesh=object(),
                          device="cpu"),
-], ids=["splice", "speculation", "overlap", "hot_pages",
+], ids=["speculation", "overlap", "hot_pages",
         "discrete", "window_arch", "rwkv6", "mesh"])
 def test_unported_configurations_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make()
+
+
+def test_unknown_scheduler_raises():
+    with pytest.raises(ValueError, match="unknown scheduler"):
+        ServerConfig(scheduler="nope", device="cpu")
 
 
 def _port_with_engine(**eng_kw):
