@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py                    # every phase
     python3 chip_smoke.py --quant-servers    # the build and phase 8 only
+    python3 chip_smoke.py --wkv              # the build and phase 11 only
 
 Phases (each one fails the run when it fails):
 
-1. build    the four kernel libraries from src/repro_torch/csrc (B1 paged
+1. build    the five kernel libraries from src/repro_torch/csrc (B1 paged
             decode attention over per-slot stripes, B2 over the shared pool
             through page tables, B3 the quantized GEMV, B4 flash attention
-            for the one-shot prefill), one nvcc process per source, started
-            together, timed;
+            for the one-shot prefill, B5 the RWKV6 wkv recurrence), one nvcc
+            process per source, started together, timed;
 2. kernel   hold each kernel against its plain torch version on the card,
             {f32, bf16, kv8, kv4} pools x partitions {1, 16} x window
             {None, 64}.  B1: head shapes (K=16, G=1, dh=64) (qwen1.5-0.5b)
@@ -82,7 +83,26 @@ Phases (each one fails the run when it fails):
             500 tokens (its bucket clamps to 511); B4's counter must equal
             admits x 24, B1's decode steps x 24, B2's and B3's 0; served
             tokens pass the teacher-forced check with the argmax, and the
-            interleaved scheduler serves the same greedy tokens.
+            interleaved scheduler serves the same greedy tokens;
+11. B5      the RWKV6 wkv kernel against its plain versions on the card,
+            B {1, 3} x S {2, 31, 32, 33, 77, 256, 511} x H {1, 40} x dh
+            {16, 32, 64} x zero and random s0, decays drawn as the
+            reference's tests draw them: out and the final state within
+            WKV_TOL["chunked"] of the plain chunked form and
+            WKV_TOL["recurrent"] of the plain recurrence; at constant logw
+            -3.0 and -4.0 (where the plain chunked form overflows) within
+            WKV_TOL["recurrent"] of the recurrence; timed (kernel, plain
+            chunked form, bound; no PyTorch call computes wkv6) at the
+            serving shape (B=1, 256 tokens, H=40, dh=64: one rwkv6-3b
+            admit) and a long shape (B=1, 8192 tokens);
+12. R1      `KVNANDServer` at the full width of rwkv6-3b (32 layers,
+            d_model 2560, 40 heads x 64, random f32 weights from seed 0),
+            interleaved scheduler, 4 slots: the stripe prompts, one of 500
+            tokens and one of a single token (its admit runs the
+            recurrence), 16 greedy tokens each; B5's counter must equal 32
+            x the admits with >= 2 prompt tokens and B1-B4's stay 0; served
+            tokens pass the teacher-forced check with the argmax; the splice
+            scheduler serves the same tokens with the same B5 count.
 
 It needs a CUDA card (exits non-zero without one, printing no result),
 imports nothing of JAX, and prints the card's name and power limit, a
@@ -142,6 +162,14 @@ GEMV_TPU_TOL = 1e-5
 # kernel computes in f32 and rounds only its output to bf16
 FLASH_TOL = {"f32": 2e-5, "bf16": 2e-2}
 BF16_ROUNDING = 2.0 ** -8
+# B5 against its plain versions, |a - b| / (1 + |b|).  The plain chunked form
+# is the reference's factorization, whose e^{±65} factors amplify its own
+# rounding: on this phase's cases it departs from the recurrence by up to
+# 2.6e-4 (CPU, float32), so B5 is held to it at the reference's own 5e-4
+# between forms.  B5 pivots each chunk at its middle, which keeps its
+# factors small: a float32 emulation of its arithmetic stays within 4.6e-5
+# of the recurrence on these cases, so the recurrence holds it at 1e-4
+WKV_TOL = {"chunked": 5e-4, "recurrent": 1e-4}
 # cycles of torch.cuda._sleep queued ahead of each timed launch (~2.5 ms
 # at the H100's clock), so that the host has enqueued the whole timed
 # call before the start event fires and the window holds device time only
@@ -546,14 +574,15 @@ def serve(label, srv, prompts):
     request answers 16 tokens ("length"), or fewer where its prompt fills
     the slot first ("capacity")."""
     import torch
-    from repro_torch.kernels import flash_attention, quant_gemv
+    from repro_torch.kernels import flash_attention, quant_gemv, wkv6
     from repro_torch.kernels.paged_attention import launches, launches_shared
     from repro_torch.serving.api import SamplingParams
     steps0 = srv.stats["decode_steps"]
     chunks0 = srv.stats["prefill_chunks"]
     admits0 = srv.stats["admits"]
     counters = {"B1": launches, "B2": launches_shared,
-                "B3": quant_gemv.launches, "B4": flash_attention.launches}
+                "B3": quant_gemv.launches, "B4": flash_attention.launches,
+                "B5": wkv6.launches}
     for c in counters.values():
         c.reset()
     t0 = time.perf_counter()
@@ -652,7 +681,7 @@ def server_phase():
     outs, counts, steps, wall, tokens = serve("server (stripe)", srv, prompts)
     L = srv.cfg.n_layers
     check(steps > 0 and counts["B1"] == steps * L and counts["B2"] == 0
-          and counts["B3"] == 0 and counts["B4"] == 0,
+          and counts["B3"] == 0 and counts["B4"] == 0 and counts["B5"] == 0,
           f"stripe launches {counts} != (decode steps {steps} x {L}, 0, 0, "
           "0)")
     lp_err, gap = teacher_forced_check("stripe", srv, outs)
@@ -683,7 +712,7 @@ def shared_server_phase(kv_dtype: str):
           f"pool_peak_pages={st['pool_peak_pages']} of "
           f"{st['pool_total_pages']}")
     check(steps > 0 and counts["B2"] == steps * L and counts["B1"] == 0
-          and counts["B3"] == 0 and counts["B4"] == 0,
+          and counts["B3"] == 0 and counts["B4"] == 0 and counts["B5"] == 0,
           f"shared launches {counts} != (0, decode steps {steps} x {L}, 0, "
           "0)")
     check(st["prefix_hit_pages"] > 0, "the prefix cache never hit")
@@ -940,7 +969,7 @@ def quant_server_phase(label, scheme, kv_quant, shared, prompts_of):
     other = "B1" if shared else "B2"
     check(steps > 0 and counts["B3"] == 4 * L * (steps + chunks)
           and counts[paged] == steps * L and counts[other] == 0
-          and counts["B4"] == 0,
+          and counts["B4"] == 0 and counts["B5"] == 0,
           f"{label}: launches {counts} != (B3 4 x {L} x ({steps} decode "
           f"steps + {chunks} chunks), {paged} {steps} x {L}, {other} 0, B4 "
           "0)")
@@ -975,7 +1004,7 @@ def quant_server_phase(label, scheme, kv_quant, shared, prompts_of):
     cpu = build_server(params=tree_to(qparams, "cpu"), device="cpu", **eng)
     cpu_outs, cpu_counts, _, cpu_wall, _ = serve(f"{label} on the CPU", cpu,
                                                  prompts)
-    check(all(cpu_counts[k] == 0 for k in ("B1", "B2", "B3", "B4")),
+    check(all(cpu_counts[k] == 0 for k in ("B1", "B2", "B3", "B4", "B5")),
           f"{label}: the CPU run launched a kernel")
     lp_err, same, rows = compare_runs(outs, cpu_outs)
     gaps = prefill_gaps(srv, cpu, prompts)
@@ -1140,7 +1169,7 @@ def splice_server_phase():
           f"{wall:.3f} s")
     check(admits == len(prompts) and counts["B4"] == admits * L
           and counts["B1"] == steps * L and counts["B2"] == 0
-          and counts["B3"] == 0,
+          and counts["B3"] == 0 and counts["B5"] == 0,
           f"{label}: launches {counts} != (B1 decode steps {steps} x {L}, "
           f"B2 0, B3 0, B4 admits {admits} x {L})")
     lp_err, gap = teacher_forced_check("S1 splice", srv, outs)
@@ -1159,6 +1188,208 @@ def splice_server_phase():
             "logit_gap": gap}
 
 
+# ---------------------------------------------------------------------------
+# phases 11-12: the RWKV6 wkv kernel (B5) and the RWKV6 server
+# ---------------------------------------------------------------------------
+
+WKV_LENGTHS = (2, 31, 32, 33, 77, 256, 511)
+
+
+def wkv_inputs(B, S, H, dh, gen, logw=None, zero_state=False):
+    """r, k, v, logw, u, s0 on the card; decays as the reference's tests
+    draw them (-0.05 - 4·sigmoid(N(0, 1))) unless a constant is given."""
+    import torch
+    dev = "cuda"
+    r, k, v = (torch.randn(B, S, H, dh, generator=gen, device=dev)
+               for _ in range(3))
+    if logw is None:
+        lw = -0.05 - 4.0 * torch.sigmoid(
+            torch.randn(B, S, H, dh, generator=gen, device=dev))
+    else:
+        lw = torch.full((B, S, H, dh), float(logw), device=dev)
+    u = torch.randn(H, dh, generator=gen, device=dev) * 0.5
+    s0 = torch.randn(B, H, dh, dh, generator=gen, device=dev) * 0.1
+    return r, k, v, lw, u, torch.zeros_like(s0) if zero_state else s0
+
+
+def wkv_err(got, want) -> float:
+    """max |a - b| / (1 + |b|) over out and the final state."""
+    return max(float(((g - w).abs() / (1 + w.abs())).max())
+               for g, w in zip(got, want))
+
+
+def wkv_kernel_phase() -> float:
+    """B5 against the plain chunked form and the plain recurrence; returns
+    max |out - plain chunked out| over the reference-distribution cases."""
+    import itertools
+    import torch
+    from repro_torch.kernels.wkv6 import wkv6, wkv_chunked, wkv_recurrent
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst = {"chunked": 0.0, "recurrent": 0.0, "strong": 0.0}
+    max_abs, n = 0.0, 0
+    cases = [(B, S, H, dh, zero, None) for B, S, H, dh, zero in
+             itertools.product((1, 3), WKV_LENGTHS, (1, 40), (16, 32, 64),
+                               (True, False))]
+    cases += [(B, S, 40, dh, False, logw) for B, S, dh, logw in
+              itertools.product((1, 3), (33, 256, 511), (16, 64),
+                                (-3.0, -4.0))]
+    for B, S, H, dh, zero, logw in cases:
+        x = wkv_inputs(B, S, H, dh, gen, logw=logw, zero_state=zero)
+        got = wkv6(*x)
+        torch.cuda.synchronize()
+        label = (f"B5 B={B} S={S} H={H} dh={dh} s0={'zero' if zero else 'random'}"
+                 f" logw={'drawn' if logw is None else logw}")
+        check(got[0].shape == (B, S, H, dh) and got[1].shape == (B, H, dh, dh)
+              and all(bool(torch.isfinite(g).all()) for g in got),
+              f"{label}: bad output")
+        err_rec = wkv_err(got, wkv_recurrent(*x))
+        tol = WKV_TOL["recurrent"]
+        if logw is None:
+            chunked = wkv_chunked(*x)
+            err = wkv_err(got, chunked)
+            worst["chunked"] = max(worst["chunked"], err)
+            worst["recurrent"] = max(worst["recurrent"], err_rec)
+            max_abs = max(max_abs, float((got[0] - chunked[0]).abs().max()))
+            check(err <= WKV_TOL["chunked"], f"{label}: kernel disagrees with "
+                  f"the plain chunked form: {err:.3e} > "
+                  f"{WKV_TOL['chunked']:.0e}")
+        else:
+            worst["strong"] = max(worst["strong"], err_rec)
+        check(err_rec <= tol, f"{label}: kernel disagrees with the plain "
+              f"recurrence: {err_rec:.3e} > {tol:.0e}")
+        n += 1
+    print(f"B5 kernel phase: {n} cases within tolerance; worst vs the plain "
+          f"chunked form {worst['chunked']:.3e} (tol "
+          f"{WKV_TOL['chunked']:.0e}), vs the recurrence {worst['recurrent']:.3e}"
+          f" and at logw -3/-4 {worst['strong']:.3e} (tol "
+          f"{WKV_TOL['recurrent']:.0e}); max_abs_err={max_abs:.3e}")
+    return max_abs
+
+
+def wkv_timing_shape(label, B, S, H, dh, rate, flush, gen, reps):
+    """B5 at one shape, against the plain chunked form.  Bound: the chunked
+    form's 4·dh·(32 + dh) FLOPs per token and head at the float32 CUDA-core
+    peak, against r, k, v, logw and out moved once (plus u, s0 and sT) at
+    the HBM rate."""
+    from repro_torch.kernels.wkv6 import wkv6_cuda, wkv_chunked
+    x = wkv_inputs(B, S, H, dh, gen)
+    times = {"ms": time_ms(lambda: wkv6_cuda(*x), reps, flush),
+             "plain_ms": time_ms(lambda: wkv_chunked(*x), 3, flush)}
+    flops = 4 * dh * (32 + dh) * B * S * H
+    nbytes = 4 * (5 * B * S * H * dh + H * dh + 2 * B * H * dh * dh)
+    t_ops = flops / F32_FLOPS * 1e3
+    t_bytes = nbytes / rate * 1e3
+    res = {"shape": label, "B": B, "S": S, "H": H, "dh": dh,
+           "dtype": "float32", "library_ms": None,
+           "library": "none: no PyTorch call computes the wkv6 recurrence",
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flops": flops, "bytes": nbytes}
+    for key, t in times.items():
+        res[key] = statistics.median(t)
+        res[f"{key}_min_max"] = [t[0], t[-1]]
+    print(f"timing B5 {label} B={B} S={S} H={H} dh={dh} f32 (median [min, "
+          "max]): " + " ".join(f"{k}={res[k]:.6f} [{t[0]:.6f}, {t[-1]:.6f}]"
+                                for k, t in times.items())
+          + f" bound_ms={res['bound_ms']:.6f} ({res['bound_by']}, {flops} "
+          f"flops, {nbytes} bytes); library = {res['library']}")
+    return res
+
+
+def wkv_timing_phase(rate):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    return (wkv_timing_shape("serving", 1, 256, 40, 64, rate, flush, gen, 20),
+            wkv_timing_shape("long", 1, 8192, 40, 64, rate, flush, gen, 5))
+
+
+def rwkv_prompts(V):
+    """The stripe prompts, one of 500 tokens and one of a single token."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    return (stripe_prompts(V) + [rng.integers(0, V, 500).tolist()]
+            + [rng.integers(0, V, 1).tolist()])
+
+
+def build_rwkv_server(scheduler, params=None):
+    """Full-width rwkv6-3b on the card, float32 weights (random from seed
+    0, or `params`) and float32 token shifts."""
+    import torch
+    from repro_torch.configs import EngineConfig
+    from repro_torch.serving.api import KVNANDServer, ServerConfig
+    t0 = time.perf_counter()
+    eng = EngineConfig(page_tokens=16, uniform_lengths=False,
+                       kv_dtype="float32")
+    srv = KVNANDServer(ServerConfig(
+        arch="rwkv6-3b", reduced=False, engine=eng, batch_slots=4,
+        max_context=512, prefill_chunk_tokens=64, device="cuda",
+        scheduler=scheduler), params=params)
+    cfg = srv.cfg
+    check(cfg.family == "ssm" and cfg.n_layers == 32 and cfg.d_model == 2560
+          and cfg.n_heads == 40 and cfg.d_head == 64 and cfg.d_ff == 8960
+          and cfg.vocab_size == 65536, "not the full-width rwkv6-3b")
+    c = srv._batcher.cache
+    check(c.k_pages_g is None and c.rwkv_state.shape == (32, 4, 40, 64, 64),
+          "the RWKV6 cache is not a recurrent state")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(srv.params))
+    print(f"server: built {cfg.name} ({n / 1e9:.3f}B params, "
+          f"{4 * n / 1e9:.1f} GB float32, {eng}, {scheduler} scheduler) on "
+          f"the card in {time.perf_counter() - t0:.2f} s")
+    return srv, n
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def rwkv_server_phase():
+    """R1: full-width rwkv6-3b on the interleaved scheduler, then the same
+    requests on the splice scheduler.  Each admit of >= 2 prompt tokens is
+    one whole-prompt prefill, one B5 launch per layer; a one-token admit
+    and every decode step run the recurrence, which has no kernel."""
+    srv, n_params = build_rwkv_server("interleaved")
+    prompts = rwkv_prompts(srv.cfg.vocab_size)
+    L = srv.cfg.n_layers
+    multi = sum(len(p) >= 2 for p in prompts)
+    check(multi == len(prompts) - 1, "R1 needs exactly one 1-token prompt")
+    label = "R1 (rwkv6-3b, interleaved)"
+    outs, counts, steps, wall, tokens = serve(label, srv, prompts)
+    check(counts["admits"] == len(prompts)
+          and counts["prefill_chunks"] == len(prompts)
+          and counts["B5"] == L * multi
+          and all(counts[k] == 0 for k in ("B1", "B2", "B3", "B4")),
+          f"{label}: launches {counts} != (B5 {L} x {multi} admits of >= 2 "
+          "tokens, B1-B4 0, one chunk per admit)")
+    lp_err, gap = teacher_forced_check("R1 interleaved", srv, outs)
+    params = srv.params
+    del srv
+    splice, _ = build_rwkv_server("splice", params=params)
+    s_outs, s_counts, s_steps, s_wall, _ = serve(
+        "R1 on the splice scheduler", splice, prompts)
+    same = sum(a.token_ids == b.token_ids for a, b in zip(outs, s_outs))
+    print(f"check R1: {same} of {len(prompts)} requests served the same "
+          f"greedy tokens on the interleaved and the splice scheduler")
+    check(same == len(prompts) and s_counts["B5"] == L * multi
+          and all(s_counts[k] == 0 for k in ("B1", "B2", "B3", "B4")),
+          f"R1 splice: {same} of {len(prompts)} same tokens, launches "
+          f"{s_counts}")
+    s_lp_err, s_gap = teacher_forced_check("R1 splice", splice, s_outs)
+    return {"launches": counts["B5"], "admits": counts["admits"],
+            "admits_multi_token": multi, "params": n_params,
+            "decode_steps": steps, "wall_s": wall, "tokens": tokens,
+            "logprob_err": lp_err, "logit_gap": gap,
+            "splice_launches": s_counts["B5"], "splice_decode_steps": s_steps,
+            "splice_wall_s": s_wall, "splice_logprob_err": s_lp_err,
+            "splice_logit_gap": s_gap,
+            "splice_decode_stall_tokens": splice.stats["decode_stall_tokens"]}
+
+
 def kernel_entry(name, source, replaces, launches, max_abs, shapes, server):
     serving = shapes[0]
     return {"name": name, "route": "cuda", "source": source,
@@ -1172,7 +1403,7 @@ def kernel_entry(name, source, replaces, launches, max_abs, shapes, server):
 
 def main(argv) -> int:
     import torch
-    if argv not in ([], ["--quant-servers"]):
+    if argv not in ([], ["--quant-servers"], ["--wkv"]):
         print(__doc__, file=sys.stderr)
         return 2
     quant_only = argv == ["--quant-servers"]
@@ -1193,6 +1424,13 @@ def main(argv) -> int:
     print(f"build: {len(libs)} libraries "
           f"({', '.join(p.name for p in libs.values())}) in "
           f"{time.perf_counter() - t0:.2f} s (parallel nvcc)")
+    if argv == ["--wkv"]:
+        b5_err = wkv_kernel_phase()
+        b5_shapes = wkv_timing_phase(rate)
+        print(card)
+        print(json.dumps({"wkv6": {"max_abs_err": b5_err,
+                                   "shapes": list(b5_shapes)}}))
+        return 0
 
     if not quant_only:
         b1_err = kernel_phase()
@@ -1212,6 +1450,9 @@ def main(argv) -> int:
         b4_err = flash_kernel_phase()
         b4_shapes = flash_timing_phase(rate)
         s1 = splice_server_phase()
+        b5_err = wkv_kernel_phase()
+        b5_shapes = wkv_timing_phase(rate)
+        r1 = rwkv_server_phase()
     q1 = quant_server_phase("Q1 (w4a16, stripe, kv4)", "w4a16", "kv4",
                             False, stripe_prompts)
     q2 = quant_server_phase("Q2 (w8a8, shared, kv8)", "w8a8", "kv8", True,
@@ -1245,6 +1486,9 @@ def main(argv) -> int:
                      "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention/kernel.py:82",
                      s1["launches"], b4_err, b4_shapes, s1),
+        kernel_entry("wkv6", "src/repro_torch/csrc/wkv6.cu",
+                     "src/repro/kernels/wkv6/kernel.py:74", r1["launches"],
+                     b5_err, b5_shapes, r1),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

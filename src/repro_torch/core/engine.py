@@ -25,6 +25,13 @@ docstrings): the repo's static analyzer resolves `self.<method>` calls
 by class and method name, and a shared name would let this eager code
 feed its call graph of the jitted reference engine.
 
+An RWKV6 (`ssm`) model has no pool: each slot carries its per-layer
+recurrent state and token shifts (`core/paged_kv.py`).  Its decode step
+runs the token-by-token recurrence with inactive rows frozen; its prompt
+is prefilled whole, as one exact-length chunk (`prefill_chunk`, from the
+slot's state, or zero state when `first`) or one-shot (`prefill`, exact
+length only), through the chunked wkv (kernel B5 on the card).
+
 kv8/kv4 pools (`EngineConfig.kv_quant`) carry per-page scales beside the
 codes: appends requantize the touched page, fills quantize whole pages,
 and the decode kernels and the chunk's past partial dequantize as they
@@ -33,7 +40,8 @@ the params (`core.quant.quantize_params`), and `layers.dense` sends each
 2-D quantized weight through kernel B3; `EngineConfig.quant` is not read,
 as in the reference.  Not ported yet, and refused here: the
 discrete/head-group-pipelined variant, the tiered pool, window rings,
-non-dense families, speculative verify and a device mesh.
+the hybrid, MoE, VLM and encoder-decoder families, speculative verify
+and a device mesh.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ from repro_torch.core.paged_kv import DecodeCache
 from repro_torch.kernels.paged_attention import (paged_attention_partial,
                                                  paged_chunk_attention)
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rwkv6
 from repro_torch.models.layers import embed_lookup, layer_slice, mlp, rms_norm
 from repro_torch.models.transformer import (Runtime, check_supported,
                                             embed_inputs, lm_head_logits)
@@ -159,6 +168,21 @@ class KVNANDEngine:
         if active is not None and self.eng.uniform_lengths:
             raise ValueError("active-mask decode requires the ragged "
                              "(uniform_lengths=False) append path")
+        x = embed_lookup(params["embedding"], tokens, self.rt.activ_dtype)
+        if cfg.family == "ssm":
+            x = self._recurrent_layers(params, x, cache, slice(None),
+                                       fresh=False, active=active,
+                                       chunked=False)
+        else:
+            x = self._attention_decode_layers(params, x, cache, active)
+        cache.lengths += (1 if active is None
+                          else active.to(cache.lengths.dtype))
+        return lm_head_logits(params, cfg, x)[:, 0], cache
+
+    def _attention_decode_layers(self, params, x, cache: DecodeCache,
+                                 active):
+        """decode_step's layer loop over the paged pool."""
+        cfg = self.cfg
         lengths = cache.lengths
         base = self._page_bases(cache.page_table_g)
         # the writing rows of a shared pool or a requantizing append, read
@@ -166,16 +190,42 @@ class KVNANDEngine:
         row_writers = self.eng.shared_pool or self.eng.kv_quant != "none"
         rows = (active.nonzero()[:, 0]
                 if row_writers and active is not None else None)
-        x = embed_lookup(params["embedding"], tokens, self.rt.activ_dtype)
         for i in range(cfg.n_layers):
             pl_ = layer_slice(params["layers"], i)
             x = x + self._decode_attention(pl_, x, cache, i, lengths,
                                             base, active, rows)
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
             x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
-        cache.lengths += (1 if active is None
-                          else active.to(cache.lengths.dtype))
-        return lm_head_logits(params, cfg, x)[:, 0], cache
+        return x
+
+    # ------------------------------------------------------------------
+    # RWKV6: recurrent state in place of a pool
+    # ------------------------------------------------------------------
+    def _recurrent_layers(self, params, x, cache: DecodeCache, rows: slice,
+                          *, fresh: bool, active=None, chunked: bool = True):
+        """Every RWKV6 block over x [n, S, D] (the reference's
+        `_rwkv_decode_block` / `_rwkv_chunk_block` /
+        `_rwkv_prefill_block`): each layer starts from the state and
+        shifts of cache rows `rows` (zero when `fresh`) and stores its new
+        ones back there, rows with `active` False frozen.  chunked=True
+        runs a multi-token x through `wkv6` (kernel B5 on a card)."""
+        cfg = self.cfg
+        n = x.shape[0]
+        for i in range(cfg.n_layers):
+            pl_ = layer_slice(params["layers"], i)
+            if fresh:
+                st = torch.zeros((n,) + cache.rwkv_state.shape[2:],
+                                 dtype=torch.float32, device=x.device)
+                sh = sh2 = torch.zeros((n, cfg.d_model), dtype=x.dtype,
+                                       device=x.device)
+            else:
+                st, sh, sh2 = (leaf[i, rows] for leaf in (
+                    cache.rwkv_state, cache.rwkv_shift, cache.rwkv_shift2))
+            x, st, sh, sh2 = rwkv6.rwkv_block(pl_, cfg, x, st, sh, sh2,
+                                              chunked=chunked)
+            paged_kv.write_recurrent_state(cache, i, rows, st, sh, sh2,
+                                           active)
+        return x
 
     # ------------------------------------------------------------------
     # one-shot prefill
@@ -191,13 +241,22 @@ class KVNANDEngine:
         logits then come from the true last token, while the padding's
         K/V are written to the pages past it like any other token, as
         in the reference (masked by `lengths`, overwritten by decode
-        appends).  The reference's refusals for a tiered pool and for
-        recurrent state are made at construction here: the engine takes
-        neither a tiered pool nor a non-dense family."""
+        appends).  An RWKV6 model takes exact-length prompts only (the
+        padding would fold into its recurrent state), as in the reference;
+        its refusal of a tiered pool is made at construction here."""
         cfg, rt = self.cfg, self.rt
+        if prompt_len is not None and cfg.family == "ssm":
+            raise ValueError(
+                f"{cfg.family}: bucketed prefill would fold padding into "
+                "recurrent state; pass exact-length prompts instead")
         x, positions = embed_inputs(params, cfg, batch, rt)
         B, S = x.shape[:2]
         cache = self.init_cache(B, max(max_context, S + 1))
+        if cfg.family == "ssm":
+            x = self._recurrent_layers(params, x, cache, slice(None),
+                                       fresh=True)
+            cache.lengths.fill_(S)
+            return lm_head_logits(params, cfg, x[:, -1:])[:, 0], cache
         table = cache.page_table_g if self.eng.shared_pool else None
         fmt = self.eng.kv_quant
         for i in range(cfg.n_layers):
@@ -230,13 +289,32 @@ class KVNANDEngine:
         tail is padding); start: absolute position of the chunk's first
         token (a multiple of page_tokens); chunk_len: valid tokens.
         first=True skips the past-page partial.  Returns (logits [1, V]
-        at the chunk's last valid token, cache updated in place)."""
+        at the chunk's last valid token, cache updated in place).
+
+        An RWKV6 model carries the slot's recurrent state instead (zero
+        state when `first`): the scheduler sends its whole prompt as one
+        exact-length chunk."""
         cfg = self.cfg
         if first:
             x, _ = embed_inputs(params, cfg, batch, self.rt)
         else:
             x = embed_lookup(params["embedding"], batch["tokens"],
                              self.rt.activ_dtype)
+        if cfg.family == "ssm":
+            x = self._recurrent_layers(params, x, cache,
+                                       slice(slot, slot + 1), fresh=first)
+        else:
+            x = self._attention_chunk_layers(params, x, cache, slot, start,
+                                             chunk_len, first)
+        cache.lengths[slot] = start + chunk_len
+        x_last = x[:, chunk_len - 1:chunk_len]
+        return lm_head_logits(params, cfg, x_last)[:, 0], cache
+
+    def _attention_chunk_layers(self, params, x, cache: DecodeCache,
+                                slot: int, start: int, chunk_len: int,
+                                first: bool):
+        """prefill_chunk's layer loop over the paged pool."""
+        cfg = self.cfg
         S = x.shape[1]
         q_pos = start + torch.arange(S, device=x.device)
         positions = q_pos[None]
@@ -279,6 +357,4 @@ class KVNANDEngine:
                         kv_quant=fmt)
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
             x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
-        cache.lengths[slot] = start + chunk_len
-        x_last = x[:, chunk_len - 1:chunk_len]
-        return lm_head_logits(params, cfg, x_last)[:, 0], cache
+        return x

@@ -52,6 +52,11 @@ page's scale is taken over real and padding tokens alike, as in the
 reference); `splice_slot` copies a one-sequence prefill cache into one
 slot of the batch cache.
 
+An RWKV6 (`ssm`) cache holds no pool and no page table: each layer's
+recurrent state `rwkv_state` [L, B, H, dh, dh] (float32) and the time-mix
+and channel-mix token shifts `rwkv_shift` / `rwkv_shift2` [L, B, D] (the
+pool dtype), written per layer by `write_recurrent_state`.
+
 Not ported yet: window rings, span appends and tier staging (ROADMAP
 A10-A12).
 """
@@ -72,13 +77,18 @@ def ceil_div(a: int, b: int) -> int:
 
 @dataclass
 class DecodeCache:
-    """Decode state of the global-span layers (stripe or shared pool)."""
+    """Decode state: the global-span layers' pool (stripe or shared), or
+    an RWKV6 model's recurrent state."""
     k_pages_g: Optional[torch.Tensor] = None    # [L, B, K, NP, T, dh] or
     v_pages_g: Optional[torch.Tensor] = None    # shared [L, K, P, T, dh]
     page_table_g: Optional[torch.Tensor] = None  # [B, NP] logical -> physical
     # per-page × kv-head dequant scales (kv8/kv4 pools only)
     k_scale_g: Optional[torch.Tensor] = None    # [L, B, K, NP] float32 or
     v_scale_g: Optional[torch.Tensor] = None    # shared [L, K, P]
+    # recurrent state (ssm)
+    rwkv_state: Optional[torch.Tensor] = None   # [L, B, H, dh, dh] float32
+    rwkv_shift: Optional[torch.Tensor] = None   # [L, B, D] time-mix shift
+    rwkv_shift2: Optional[torch.Tensor] = None  # [L, B, D] channel-mix shift
     lengths: Optional[torch.Tensor] = None      # [B] int32
 
 
@@ -98,10 +108,22 @@ def init_cache(cfg: ModelConfig, eng: EngineConfig, batch: int,
     pool of P = total_pages or B·NP pages, tables of identity stripes mod
     P (slot b's logical page j on physical page (b·NP + j) mod P — the
     allocator-free default; the scheduler overwrites the tables from its
-    allocator).  `dtype` is the pool's dtype when kv_quant is "none"."""
+    allocator).  `dtype` is the pool's dtype when kv_quant is "none", and
+    the shifts' dtype of an RWKV6 cache, which has no pool (zero states
+    and shifts instead)."""
     check_supported(eng)
     T = eng.page_tokens
     K, dh, L = cfg.n_kv_heads, cfg.d_head, cfg.n_layers
+    lengths = torch.zeros(batch, dtype=torch.int32, device=device)
+    if cfg.family == "ssm":
+        H, D = cfg.n_heads, cfg.d_model
+        return DecodeCache(
+            rwkv_state=torch.zeros((L, batch, H, dh, dh), dtype=torch.float32,
+                                   device=device),
+            rwkv_shift=torch.zeros((L, batch, D), dtype=dtype, device=device),
+            rwkv_shift2=torch.zeros((L, batch, D), dtype=dtype,
+                                    device=device),
+            lengths=lengths)
     NP = eng.max_pages_per_seq or ceil_div(max_context, T)
     fmt = eng.kv_quant
     if fmt != "none":
@@ -128,7 +150,7 @@ def init_cache(cfg: ModelConfig, eng: EngineConfig, batch: int,
         page_table_g=table,
         k_scale_g=zeros(scales, torch.float32) if quantized else None,
         v_scale_g=zeros(scales, torch.float32) if quantized else None,
-        lengths=torch.zeros(batch, dtype=torch.int32, device=device))
+        lengths=lengths)
 
 
 # ---------------------------------------------------------------------------
@@ -294,13 +316,14 @@ _BATCH_AXIS0 = ("page_table_g", "lengths")
 def splice_slot(cache: DecodeCache, one: DecodeCache, i: int) -> DecodeCache:
     """Copy sequence 0 of a B=1 cache into slot i of the batch cache, in
     place: the slot's stripe of every pool, its kv8/kv4 scales, its table
-    row and its length.  Stripe layout only (a shared pool has no per-slot
-    stripe to copy)."""
-    if cache.k_pages_g.ndim != 6:
+    row, its recurrent state and shifts, and its length.  Stripe layout
+    only (a shared pool has no per-slot stripe to copy)."""
+    if cache.k_pages_g is not None and cache.k_pages_g.ndim != 6:
         raise ValueError("splice_slot copies per-slot stripes; a shared "
                          "pool has none")
     for name in ("k_pages_g", "v_pages_g", "k_scale_g", "v_scale_g",
-                 "page_table_g", "lengths"):
+                 "page_table_g", "rwkv_state", "rwkv_shift", "rwkv_shift2",
+                 "lengths"):
         cur, new = getattr(cache, name), getattr(one, name)
         if cur is None:
             continue
@@ -308,6 +331,27 @@ def splice_slot(cache: DecodeCache, one: DecodeCache, i: int) -> DecodeCache:
             cur[i] = new[0]
         else:
             cur[:, i] = new[:, 0]
+    return cache
+
+
+def write_recurrent_state(cache: DecodeCache, layer: int, rows: slice,
+                          state: torch.Tensor, shift: torch.Tensor,
+                          shift2: torch.Tensor,
+                          active: Optional[torch.Tensor] = None
+                          ) -> DecodeCache:
+    """Store one layer's recurrent state [n, H, dh, dh] and token shifts
+    [n, D] of the batch rows `rows` (n of them), in place.  Rows with
+    `active` False keep their current values (the reference's
+    `_mask_state`: a decode step must not disturb a slot that is empty or
+    mid-prefill)."""
+    for leaf, new in ((cache.rwkv_state, state), (cache.rwkv_shift, shift),
+                      (cache.rwkv_shift2, shift2)):
+        cur = leaf[layer, rows]
+        new = new.to(leaf.dtype)
+        if active is not None:
+            act = active.reshape((-1,) + (1,) * (new.ndim - 1))
+            new = torch.where(act, new, cur)
+        cur.copy_(new)
     return cache
 
 

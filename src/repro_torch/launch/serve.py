@@ -5,6 +5,7 @@ TTFT/TPOT reporting.
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --requests 8 --max-new 16 --scheduler splice
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
 
 Takes the reference's flags for what the port serves; the flags of paths
 not ported yet exit with an error naming their ROADMAP item.

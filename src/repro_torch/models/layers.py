@@ -25,7 +25,7 @@ from repro_torch.kernels.quant_gemv import quant_gemv
 class ParamInit:
     """Builds a parameter tree with the reference initializers.
 
-    `param` mirrors `ParamBuilder.param`: "zeros", or a fan-in
+    `param` mirrors `ParamBuilder.param`: "zeros", "ones", or a fan-in
     scaled normal (fan_in = shape[0] for 1-D, else shape[-2]) drawn in
     float32 on `device` from `generator`.
     `stack` prepends a layer axis WITHOUT changing fan-in, as the
@@ -43,6 +43,8 @@ class ParamInit:
         full = ((self.stack,) if self.stack else ()) + tuple(shape)
         if init == "zeros":
             val = torch.zeros(full, device=self.device)
+        elif init == "ones":
+            val = torch.ones(full, device=self.device)
         else:
             if scale is None:
                 fan_in = shape[0] if len(shape) == 1 else shape[-2]

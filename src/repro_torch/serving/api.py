@@ -19,11 +19,14 @@ the reference serves them: the caller passes ``params`` from
 matmul runs in the `quant_gemv` kernel; the server does not quantize on
 its own.  Two schedulers: "interleaved" (chunked prefill sharing each
 step with the decode batch, the default) and "splice" (the baseline:
-one-shot prefill at admit, then a slot splice).  Configurations the port
-does not serve yet raise NotImplementedError at construction, naming
-their ROADMAP item: speculation, the overlapped pipeline, and (through
-the engine) tiered pools (``hot_pages``), the discrete variant, window
-archs and non-dense families.
+one-shot prefill at admit, then a slot splice).  RWKV6
+(``arch="rwkv6-3b"``) is served on either scheduler from per-slot
+recurrent state instead of a KV pool, its prompts prefilled whole.
+Configurations the port does not serve yet raise NotImplementedError at
+construction, naming their ROADMAP item: speculation, the overlapped
+pipeline, and (through the engine) tiered pools (``hot_pages``), the
+discrete variant, window archs and the hybrid, MoE, VLM and
+encoder-decoder families.
 """
 from __future__ import annotations
 

@@ -37,6 +37,13 @@ reference:
   * completion drops the slot's references; pages the prefix cache still
     names survive until LRU eviction reclaims them under pressure.
 
+An RWKV6 (`ssm`) model carries recurrent state, which padding would
+pollute: its prompt is prefilled as ONE exact-length chunk (whatever
+`prefill_chunk_tokens` says; the budget charges its full length), the
+splice baseline prefills it unbucketed, and a shared-pool config builds
+no allocator and no prefix cache (there is no page pool), as in the
+reference.
+
 `step()` is the reference's synchronous schedule (dispatch, then
 collect, back to back).  `SpliceBatcher` is the reference's measured
 baseline: each admit prefills the whole (bucketed) prompt in one shot
@@ -57,7 +64,8 @@ import torch
 from repro_torch.configs.base import EngineConfig, ModelConfig
 from repro_torch.core import paged_kv
 from repro_torch.core.engine import KVNANDEngine
-from repro_torch.core.page_alloc import OutOfPages, PageAllocator, PrefixCache
+from repro_torch.core.page_alloc import (CacheHit, OutOfPages, PageAllocator,
+                                         PrefixCache)
 from repro_torch.models.transformer import Runtime
 from repro_torch.serving.sampler import (SamplingParams, request_noise,
                                          sample_with_logprobs)
@@ -135,8 +143,12 @@ class ContinuousBatcher:
         self.params = params
         self.B = batch_slots
         self.max_context = max_context
-        # pad one-shot prefills to power-of-two buckets (SpliceBatcher)
-        self.bucket_prompts = bucket_prompts
+        # pad one-shot prefills to power-of-two buckets (SpliceBatcher);
+        # recurrent prefill would fold padding into state -> exact length
+        recurrent = cfg.family == "ssm"
+        self.bucket_prompts = bucket_prompts and not recurrent
+        # ... and, chunked, prefills the whole prompt as one exact chunk
+        self._whole_prompt = recurrent
         self.chunk_tokens = prefill_chunk_tokens
         self.step_token_budget = (step_token_budget
                                   or prefill_chunk_tokens + batch_slots)
@@ -171,21 +183,25 @@ class ContinuousBatcher:
         """The reference's `_init_shared_pool`, without the tier and
         window-ring branches (not ported): an allocator over the pool's
         pages, zeroed host tables, per-slot maps and the prefix cache
-        (every ported arch is a global-pool dense arch, which is what
-        prefix sharing needs)."""
+        (for a global-pool dense arch, which is what prefix sharing
+        needs).  An RWKV6 cache has no pool: no allocator, no tables, no
+        prefix cache."""
         c = self.cache
-        self._NPg = c.page_table_g.shape[1]
-        self.alloc = PageAllocator(c.k_pages_g.shape[2])
-        self._table_np = np.zeros((self.B, self._NPg), np.int32)
-        self.stats["pool_total_pages"] = self.alloc.total
+        self._table_np = None
+        if c.k_pages_g is not None:
+            self._NPg = c.page_table_g.shape[1]
+            self.alloc = PageAllocator(c.k_pages_g.shape[2])
+            self._table_np = np.zeros((self.B, self._NPg), np.int32)
+            self.stats["pool_total_pages"] = self.alloc.total
         # per-slot maps: logical page -> physical; shared = mapped with
         # refcount > 1 (read-only until copied on write)
         self._slot_pages: List[Dict[int, int]] = [{} for _ in range(self.B)]
         self._slot_shared: List[Set[int]] = [set() for _ in range(self.B)]
         self._resv = np.zeros(self.B, np.int64)   # reserved, not yet alloc'd
         self._outstanding = 0
-        self.prefix_cache = PrefixCache(self.alloc,
-                                        self.engine.eng.page_tokens)
+        if self.alloc is not None:
+            self.prefix_cache = PrefixCache(self.alloc,
+                                            self.engine.eng.page_tokens)
         self._tables_dirty = True
         self._push_tables()
 
@@ -194,7 +210,9 @@ class ContinuousBatcher:
         mapping changed (a blocking copy: see `paged_kv.write_page_table`)."""
         if not self._tables_dirty:
             return
-        paged_kv.write_page_table(self.cache.page_table_g, self._table_np)
+        if self._table_np is not None:
+            paged_kv.write_page_table(self.cache.page_table_g,
+                                      self._table_np)
         self._tables_dirty = False
 
     def _alloc_g(self, logical: int) -> int:
@@ -249,7 +267,7 @@ class ContinuousBatcher:
     def _free_slot_pages(self, i: int):
         if not self.shared:
             return
-        if self._slot_pages[i]:
+        if self.alloc is not None and self._slot_pages[i]:
             self.alloc.free(list(self._slot_pages[i].values()))
         self._slot_pages[i] = {}
         self._slot_shared[i] = set()
@@ -394,7 +412,7 @@ class ContinuousBatcher:
                 f"capacity of {cap} (max_context={self.max_context} minus "
                 "1 decode token); truncate the prompt or enlarge "
                 "max_context")
-        if self.shared:
+        if self.shared and self.alloc is not None:
             need = self._pages_needed(req)
             if need > self.alloc.total:
                 raise ValueError(
@@ -444,9 +462,12 @@ class ContinuousBatcher:
 
     def _start_prefill(self, i: int, req: Request, pos: int = 0):
         n = len(req.prompt)
-        C = self.chunk_tokens
-        toks = np.zeros(-(-n // C) * C, np.int64)
-        toks[:n] = req.prompt
+        if self._whole_prompt:
+            toks = np.asarray(req.prompt, np.int64)
+        else:
+            C = self.chunk_tokens
+            toks = np.zeros(-(-n // C) * C, np.int64)
+            toks[:n] = req.prompt
         self._prefill_live[i] = _PrefillState(req, toks, n, pos=pos,
                                               order=self._admit_seq)
         self._admit_seq += 1
@@ -457,23 +478,27 @@ class ContinuousBatcher:
         only if the remainder fits free + evictable pages."""
         n = len(req.prompt)
         T = self.engine.eng.page_tokens
-        need = self._pages_needed(req)
-        hit = self.prefix_cache.lookup(req.prompt)
-        hit_pages = (hit.exact.pages if hit.exact is not None
-                     else hit.full_pages)
-        # mapping the hit PINS its pages: whatever part of the evictable
-        # pages they are stops being reclaimable once this request is
-        # admitted, so discount them all (conservative)
-        avail = (self.alloc.free_count
-                 + max(0, self.prefix_cache.evictable_pages()
-                       - len(hit_pages))
-                 - self._outstanding)
-        # fresh pages this slot may still allocate: decode growth, plus
-        # the copy of an exact hit's shared partial page
-        resv_needed = need - (n // T if hit.exact is not None
-                              else len(hit.full_pages))
-        if resv_needed > avail:
-            return False
+        need = self._pages_needed(req) if self.alloc is not None else 0
+        hit = CacheHit()
+        if self.prefix_cache is not None:
+            hit = self.prefix_cache.lookup(req.prompt)
+        if self.alloc is not None:
+            hit_pages = (hit.exact.pages if hit.exact is not None
+                         else hit.full_pages)
+            evictable = (self.prefix_cache.evictable_pages()
+                         if self.prefix_cache is not None else 0)
+            # mapping the hit PINS its pages: whatever part of the
+            # evictable pages they are stops being reclaimable once this
+            # request is admitted, so discount them all (conservative)
+            avail = (self.alloc.free_count
+                     + max(0, evictable - len(hit_pages))
+                     - self._outstanding)
+            # fresh pages this slot may still allocate: decode growth,
+            # plus the copy of an exact hit's shared partial page
+            resv_needed = need - (n // T if hit.exact is not None
+                                  else len(hit.full_pages))
+            if resv_needed > avail:
+                return False
 
         self.queue.remove(req)
         self.slots[i] = req
@@ -508,10 +533,13 @@ class ContinuousBatcher:
 
     def _prefill_tick(self, i: int, ps: _PrefillState):
         """Process ONE chunk of slot i's prompt into the cache."""
-        c0 = ps.pos
-        chunk = ps.tokens[c0:c0 + self.chunk_tokens]
-        cl = min(self.chunk_tokens, ps.n - c0)
-        if self.shared:
+        if self._whole_prompt:
+            chunk, c0, cl = ps.tokens, 0, ps.n
+        else:
+            c0 = ps.pos
+            chunk = ps.tokens[c0:c0 + self.chunk_tokens]
+            cl = min(self.chunk_tokens, ps.n - c0)
+        if self.shared and self.alloc is not None:
             # lazy page allocation: back every page this chunk will write
             T = self.engine.eng.page_tokens
             for lp in range(c0 // T, -(-(c0 + cl) // T)):
@@ -543,7 +571,7 @@ class ContinuousBatcher:
         chunks_done = 0
         for i, ps in sorted(self._prefill_live.items(),
                             key=lambda kv: kv[1].order):
-            cost = self.chunk_tokens
+            cost = ps.n if self._whole_prompt else self.chunk_tokens
             # always fund at least one chunk; extra chunks within budget
             if chunks_done and budget < cost:
                 break
@@ -570,7 +598,7 @@ class ContinuousBatcher:
         for i in active:
             tokens[i, 0] = self.slots[i].output[-1]
             mask[i] = True
-        if self.shared:
+        if self.shared and self.alloc is not None:
             # every active slot appends at its current position: make that
             # page exclusively writable (lazy allocation, or a copy off a
             # shared prefix/partial page) before the step runs

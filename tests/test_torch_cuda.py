@@ -1,7 +1,8 @@
 """PyTorch port on the card: the CUDA paged decode-attention kernels —
 B1 over per-slot stripes, B2 over the shared pool through page tables —,
-the quantized GEMV kernel B3 and the flash-attention kernel B4, against
-their plain torch versions, their launch counters and their input checks.
+the quantized GEMV kernel B3, the flash-attention kernel B4 and the RWKV6
+wkv kernel B5, against their plain torch versions, their launch counters
+and their input checks.
 
 Every test needs a CUDA device; the `cuda_device` fixture skips it where
 `torch.cuda.is_available()` is False (decided inside the fixture, never
@@ -27,6 +28,11 @@ B4: the reference's flash-attention tolerances, 2e-5 (f32) and 2e-2
 (bf16), atol = rtol; a bf16 output also within one bf16 rounding (2^-8
 relative) + 2e-5 of the plain version on the inputs upcast to f32, the
 kernel's own arithmetic before its output is rounded.
+
+B5: within 5e-4 of the plain chunked form and 1e-4 of the plain
+recurrence (|a - b| / (1 + |b|), `WKV_TOL`), decays drawn as the
+reference's tests draw them; at constant logw -3.0 to -4.05, where the
+plain chunked form overflows, within 1e-4 of the recurrence.
 """
 import itertools
 
@@ -463,3 +469,154 @@ def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# B5: the RWKV6 wkv recurrence
+# ---------------------------------------------------------------------------
+
+# B5 against the plain chunked form (the reference's factorization, whose
+# e^{±65} factors amplify its own rounding: up to 2.6e-4 from the
+# recurrence on chip_smoke.py's cases, so the reference's own 5e-4 between
+# forms) and against the recurrence (B5's mid-chunk pivot keeps its factors
+# small: within 4.6e-5 in a float32 emulation), |a - b| / (1 + |b|)
+WKV_TOL = {"chunked": 5e-4, "recurrent": 1e-4}
+
+
+def _wkv_inputs(B, S, H, dh, dev, seed=0, logw=None, zero_state=False):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (torch.randn(B, S, H, dh, generator=gen, device=dev)
+               for _ in range(3))
+    if logw is None:
+        lw = -0.05 - 4.0 * torch.sigmoid(
+            torch.randn(B, S, H, dh, generator=gen, device=dev))
+    else:
+        lw = torch.full((B, S, H, dh), float(logw), device=dev)
+    u = torch.randn(H, dh, generator=gen, device=dev) * 0.5
+    s0 = torch.randn(B, H, dh, dh, generator=gen, device=dev) * 0.1
+    return r, k, v, lw, u, torch.zeros_like(s0) if zero_state else s0
+
+
+def _wkv_err(got, want) -> float:
+    return max(float(((g - w).abs() / (1 + w.abs())).max())
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("B,S,H,dh,zero_state", list(itertools.product(
+    (1, 3), (1, 2, 31, 33, 77, 300), (1, 5), (16, 32, 64), (False, True))))
+def test_wkv6_matches_plain_versions(cuda_device, B, S, H, dh, zero_state):
+    from repro_torch.kernels import wkv6 as twkv
+    x = _wkv_inputs(B, S, H, dh, cuda_device, zero_state=zero_state)
+    got = twkv.wkv6(*x)
+    torch.cuda.synchronize()
+    assert got[0].shape == (B, S, H, dh) and got[1].shape == (B, H, dh, dh)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert _wkv_err(got, twkv.wkv_chunked(*x)) <= WKV_TOL["chunked"]
+    assert _wkv_err(got, twkv.wkv_recurrent(*x)) <= WKV_TOL["recurrent"]
+
+
+@pytest.mark.parametrize("logw", [-3.0, -4.0, -4.05])
+@pytest.mark.parametrize("S,dh", [(33, 16), (300, 64)])
+def test_wkv6_strong_decay_matches_recurrence(cuda_device, logw, S, dh):
+    """Where the plain chunked form overflows, B5 stays finite and holds
+    to the recurrence."""
+    from repro_torch.kernels import wkv6 as twkv
+    x = _wkv_inputs(2, S, 3, dh, cuda_device, logw=logw)
+    got = twkv.wkv6(*x)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(twkv.wkv_chunked(*x)[0]).all())
+    assert _wkv_err(got, twkv.wkv_recurrent(*x)) <= WKV_TOL["recurrent"]
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 16, 32, 64])
+def test_wkv6_chunk_sizes(cuda_device, chunk):
+    """Any chunk up to 32 computes the same function; 64 is clamped."""
+    from repro_torch.kernels import wkv6 as twkv
+    x = _wkv_inputs(2, 70, 3, 32, cuda_device)
+    got = twkv.wkv6(*x, chunk=chunk)
+    assert _wkv_err(got, twkv.wkv_recurrent(*x)) <= WKV_TOL["recurrent"]
+
+
+def test_wkv6_reads_strided_inputs(cuda_device):
+    """r/k/v as views of one fused [B, S, H, 3·dh] projection, logw of a
+    head-major tensor: the kernel walks their strides, no copy."""
+    from repro_torch.kernels import wkv6 as twkv
+    r, k, v, lw, u, s0 = _wkv_inputs(2, 45, 3, 64, cuda_device)
+    fused = torch.cat([r, k, v], dim=3)
+    rs, ks, vs = fused[..., :64], fused[..., 64:128], fused[..., 128:]
+    lws = lw.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not rs.is_contiguous() and not lws.is_contiguous()
+    got = twkv.wkv6_cuda(rs, ks, vs, lws, u, s0)
+    want = twkv.wkv6_cuda(r, k, v, lw, u, s0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+def test_wkv6_one_launch_per_call(cuda_device):
+    from repro_torch.kernels import wkv6 as twkv
+    x = _wkv_inputs(1, 40, 2, 32, cuda_device)
+    twkv.launches.reset()
+    twkv.wkv6(*x)
+    twkv.wkv6(*x, impl="ref")
+    twkv.wkv6(*x, impl="recurrent")
+    twkv.wkv6(*(a.cpu() for a in x))
+    twkv.wkv6_cuda(*x, chunk=8)
+    assert twkv.launches.value == 2
+
+
+@pytest.mark.parametrize("bad", ["cpu", "dh", "dtype", "stride", "shape",
+                                 "state", "chunk"])
+def test_wkv6_unsupported_inputs_raise(cuda_device, bad):
+    from repro_torch.kernels import wkv6 as twkv
+    dh = 128 if bad == "dh" else 32
+    r, k, v, lw, u, s0 = _wkv_inputs(1, 16, 2, dh, cuda_device)
+    kw = {}
+    if bad == "cpu":
+        r, k, v, lw, u, s0 = (a.cpu() for a in (r, k, v, lw, u, s0))
+    if bad == "dtype":
+        k = k.to(torch.bfloat16)
+    if bad == "stride":
+        v = v.transpose(2, 3).contiguous().transpose(2, 3)
+    if bad == "shape":
+        lw = lw[:, :8]
+    if bad == "state":
+        s0 = s0.transpose(2, 3)
+    if bad == "chunk":
+        kw["chunk"] = 0
+    with pytest.raises(ValueError):
+        twkv.wkv6_cuda(r, k, v, lw, u, s0, **kw)
+
+
+def test_rwkv_chunk_prefill_launches_b5_once_per_layer(cuda_device):
+    """`engine.prefill_chunk` of an RWKV6 prompt on the card: one B5
+    launch per layer, logits and state leaves as the same chunk on the
+    CPU; a one-token prompt and the decode step launch none."""
+    from repro_torch.configs import EngineConfig, get_config
+    from repro_torch.core.engine import KVNANDEngine
+    from repro_torch.kernels import wkv6 as twkv
+    from repro_torch.models.registry import Model
+    cfg = get_config("rwkv6-3b").reduced()
+    params = Model(cfg).init(torch.Generator().manual_seed(0))
+    eng = EngineConfig(page_tokens=16, uniform_lengths=False,
+                       kv_dtype="float32")
+    toks = torch.randint(1, cfg.vocab_size, (1, 77),
+                         generator=torch.Generator().manual_seed(1))
+    outs = {}
+    twkv.launches.reset()
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else _tree_to(params, dev)
+        e = KVNANDEngine(cfg, eng, device=dev)
+        cache = e.init_cache(2, 128)
+        lg, cache = e.prefill_chunk(p, cache, {"tokens": toks.to(dev)}, 1, 0,
+                                    77, first=True)
+        e.prefill_chunk(p, cache, {"tokens": toks[:, :1].to(dev)}, 0, 0, 1,
+                        first=True)
+        e.decode_step(p, cache, toks[:, :2].t().to(dev))
+        outs[dev] = (lg, cache)
+    torch.cuda.synchronize()
+    assert twkv.launches.value == cfg.n_layers
+    (lc, cc), (lg, cg) = outs["cpu"], outs["cuda"]
+    assert float((lg.cpu() - lc).abs().max() / lc.abs().max()) < 1e-4
+    torch.testing.assert_close(cg.rwkv_state.cpu(), cc.rwkv_state, atol=1e-4,
+                               rtol=1e-4)
+    assert cg.lengths.tolist() == [2, 78]
