@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it.
 
     python3 chip_smoke.py                    # every phase
+    python3 chip_smoke.py --paged            # the build and phases 2-3 only
+    python3 chip_smoke.py --paged-timing     # the build and phase 3 only
     python3 chip_smoke.py --quant-servers    # the build and phase 8 only
     python3 chip_smoke.py --wkv              # the build and phase 11 only
 
@@ -19,13 +21,18 @@ Phases (each one fails the run when it fails):
             length-1 row, a row with unwritten pages, an all-masked row.
             B2: head shapes G in {1, 4, 8} x dh in {64, 128}, tables that
             permute a larger pool, a row whose entries past its length name
-            pages other rows own, an all-masked row;
+            pages other rows own, an all-masked row.  Then both layouts at
+            every head dim they take (32, 64, 112, 128, 160, 256; K=4, G=4)
+            x the four formats x the cluster size S forced to 1, 2, 4 and
+            8 x window {None, 64}, 2 partitions, a one-token row (its
+            tokens all in rank 0) beside the rows above;
 3. timing   kernel, plain version and a library yardstick
             (scaled_dot_product_attention on K/V gathered beforehand; for
             B2 also gather + SDPA in one timed call) at the serving shape
             (B=4, 512 tokens, bf16) and a long shape (B=1, 100K tokens,
             bf16, 16 partitions), beside the HBM-byte bound; B2's tables
-            permute the pool;
+            permute the pool; the kernel also with S forced to each size,
+            and the S the host chooses printed beside the times;
 4. server   `KVNANDServer` at the full width of qwen1.5-0.5b (random
             weights from a seed), stripe pool: 6 greedy requests of 5-200
             prompt tokens x 16 new tokens; B1's launch counter must equal
@@ -67,8 +74,9 @@ Phases (each one fails the run when it fails):
             request's first differing token;
 9. B4       flash attention against its plain version on the card,
             {f32, bf16} x heads (H, K, dh) (16, 16, 64) (qwen1.5-0.5b),
-            (32, 8, 128) (llama3.1-8b) and (8, 1, 64) x causal {True,
-            False} x window {None, 16, 64} (16 is shorter than the
+            (32, 8, 128) (llama3.1-8b), (8, 1, 64) and (4, 2, 32) (every
+            reduced config's head dim, padded inside the kernel) x causal
+            {True, False} x window {None, 16, 64} (16 is shorter than the
             kernel's 64-key tile) x ragged Sq = Sk in {1, 70, 255, 511}
             and Sq = 70 < Sk = 255 (at q_offset 0 and 185) x B {1, 3},
             within FLASH_TOL (the reference's own tolerances); bf16 also
@@ -91,7 +99,9 @@ Phases (each one fails the run when it fails):
             WKV_TOL["chunked"] of the plain chunked form and
             WKV_TOL["recurrent"] of the plain recurrence; at constant logw
             -3.0 and -4.0 (where the plain chunked form overflows) within
-            WKV_TOL["recurrent"] of the recurrence; timed (kernel, plain
+            WKV_TOL["recurrent"] of the recurrence; bf16 r/k/v/logw through
+            `wkv6` (upcast for B5) against the plain chunked form on the
+            same inputs, within one bf16 ulp; timed (kernel, plain
             chunked form, bound; no PyTorch call computes wkv6) at the
             serving shape (B=1, 256 tokens, H=40, dh=64: one rwkv6-3b
             admit) and a long shape (B=1, 8192 tokens);
@@ -110,6 +120,7 @@ imports nothing of JAX, and prints the card's name and power limit, a
 """
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -378,6 +389,66 @@ def shared_kernel_phase() -> float:
     return max_abs
 
 
+def split_phase() -> dict:
+    """B1 and B2 at every head dim they take, with the cluster size S
+    forced to each of 1, 2, 4, 8: the kernel's partials (2 caller
+    partitions, each walked by S CTAs that merge through distributed
+    shared memory) merged as the engine merges them, against the plain
+    version.  Row 2 holds one token, so every rank but its first sees
+    nothing; row 3 has unwritten pages; row 4 attends nothing.  Returns
+    max |o - plain o| per kernel."""
+    import itertools
+    import torch
+    from repro_torch.kernels.paged_attention import (
+        HEAD_DIMS, SPLITS, merge_partials, paged_attention_cuda,
+        paged_attention_partial_ref, paged_attention_shared_cuda,
+        paged_attention_shared_ref)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    B, K, G, NP, T = 5, 4, 4, 32, 16
+    lengths = [512, 300, 1, 400, 0]
+    max_abs, n = {"B1": 0.0, "B2": 0.0}, 0
+    for layout, dh, fmt, S, window in itertools.product(
+            ("stripe", "shared"), HEAD_DIMS, ("f32", "bf16", "kv8", "kv4"),
+            SPLITS, (None, 64)):
+        kvq = kv_quant_of(fmt)
+        kw = dict(window=window, kv_quant=kvq, partitions=2, split=S)
+        if layout == "stripe":
+            q, kp, vp, base, length, ks, vs = make_inputs(
+                B, K, G, NP, T, dh, fmt, lengths, gen, unwritten_row=3)
+            ref = lambda kp_, vp_, **k_: paged_attention_partial_ref(  # noqa
+                q, kp_, vp_, base, length, window=window, **k_)
+            part = paged_attention_cuda(
+                q.reshape(B, K, G, dh).contiguous(), kp, vp, base, length,
+                k_scale=ks, v_scale=vs, **kw)
+        else:
+            q, kp, vp, table, base, length, ks, vs = make_shared_inputs(
+                B, K, G, NP, T, dh, fmt, lengths, gen, B * NP + 40,
+                alias_row=2)
+            ref = lambda kp_, vp_, **k_: paged_attention_shared_ref(  # noqa
+                q, kp_, vp_, table, base, length, window=window, **k_)
+            part = paged_attention_shared_cuda(
+                q.reshape(B, K, G, dh).contiguous(), kp, vp, table, base,
+                length, k_scale=ks, v_scale=vs, **kw)
+        torch.cuda.synchronize()
+        o, m, l = merge_partials(*part, axis=2)
+        got = (o.reshape(B, K * G, dh), m.reshape(B, K * G),
+               l.reshape(B, K * G))
+        want = ref(kp, vp, kv_quant=kvq, k_scale=ks, v_scale=vs)
+        want32 = ref(kp.float(), vp.float()) if fmt == "bf16" else None
+        check(bool((part[1][2, :, 1] == -1e30).all()
+                   and (part[2][2, :, 1] == 0).all()),
+              f"split S={S}: the one-token row's second partition is not "
+              "empty")
+        name = "B1" if layout == "stripe" else "B2"
+        max_abs[name] = max(max_abs[name], hold_case(
+            f"{name} split S={S} dh={dh:3d} {fmt:4s} window={window}", got,
+            want, fmt, want32, empty_row=4))
+        n += 1
+    print(f"B1/B2 split phase: {n} cases within tolerance, "
+          f"max_abs_err(o) B1 {max_abs['B1']:.3e}, B2 {max_abs['B2']:.3e}")
+    return max_abs
+
+
 # ---------------------------------------------------------------------------
 # phase 3: timing
 # ---------------------------------------------------------------------------
@@ -406,11 +477,11 @@ def time_ms(fn, reps: int, flush) -> list:
 
 
 def summarize(label, times: dict, *, B, K, G, NP, T, dh, lengths, P, rate,
-              table_bytes=0) -> dict:
+              table_bytes=0, split=None) -> dict:
     """Medians with [min, max], and the least time the card could take:
     each valid token's K and V read once (bf16), q read, the partials
     written, base/length (and the table) read; QK + PV multiply-adds in
-    f32."""
+    f32.  `split`: the cluster size the host chose for `ms`."""
     valid = sum(lengths)
     kv_bytes = valid * K * dh * 2 * 2
     io_bytes = (B * K * G * dh * 4 + B * K * P * G * (dh + 2) * 4
@@ -419,18 +490,19 @@ def summarize(label, times: dict, *, B, K, G, NP, T, dh, lengths, P, rate,
     t_bytes = (kv_bytes + io_bytes) / rate * 1e3
     t_ops = flops / F32_FLOPS * 1e3
     res = {"shape": label, "B": B, "K": K, "G": G, "dh": dh, "T": T,
-           "NP": NP, "tokens": lengths, "partitions": P, "pool": "bfloat16",
+           "NP": NP, "tokens": lengths, "partitions": P, "split": split,
+           "pool": "bfloat16",
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": kv_bytes + io_bytes, "flops": flops}
     for key, t in times.items():
         res[key] = statistics.median(t)
         res[f"{key}_min_max"] = [t[0], t[-1]]
-    print(f"timing {label} (median [min, max]): " + " ".join(
-        f"{k}={res[k]:.6f} [{t[0]:.6f}, {t[-1]:.6f}]"
-        for k, t in times.items())
-        + f" bound_ms={res['bound_ms']:.6f} ({res['bound_by']}, "
-        f"{res['bytes']} bytes)")
+    print(f"timing {label} (median [min, max]; chosen split S={split}): "
+          + " ".join(f"{k}={res[k]:.6f} [{t[0]:.6f}, {t[-1]:.6f}]"
+                     for k, t in times.items())
+          + f" bound_ms={res['bound_ms']:.6f} ({res['bound_by']}, "
+          f"{res['bytes']} bytes)")
     return res
 
 
@@ -444,6 +516,20 @@ def sdpa_operands(q, k_stripe, v_stripe, B, K, G, NP, T, dh, L):
         kc = kc.repeat_interleave(G, dim=1)
         vc = vc.repeat_interleave(G, dim=1)
     return q.to(torch.bfloat16)[:, :, None], kc.contiguous(), vc.contiguous()
+
+
+def split_times(kernel, B, K, NP, T, P, flush) -> tuple:
+    """The cluster size the host chooses for this launch, and the kernel's
+    times with each size forced ({} for a kernel without a split: an older
+    body timed beside this one)."""
+    import torch
+    from repro_torch.kernels import paged_attention as tpa
+    if not hasattr(tpa, "choose_split"):
+        return None, {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chosen = tpa.choose_split(B * K * P, NP // P * T, sms)
+    return chosen, {f"ms_split{S}": time_ms(
+        functools.partial(kernel, split=S), 20, flush) for S in tpa.SPLITS}
 
 
 def timing_shape(label, B, K, G, NP, T, dh, lengths, partitions, rate,
@@ -460,16 +546,22 @@ def timing_shape(label, B, K, G, NP, T, dh, lengths, partitions, rate,
     L = lengths[0]
     check(all(x == L for x in lengths), "timing rows must share a length")
     qc, kc, vc = sdpa_operands(q, kp, vp, B, K, G, NP, T, dh, L)
+
+    def kernel(**kw):
+        return paged_attention_cuda(q4, kp, vp, base, length, partitions=P,
+                                    **kw)
+
+    chosen, forced = split_times(kernel, B, K, NP, T, P, flush)
     times = {
-        "ms": time_ms(lambda: paged_attention_cuda(
-            q4, kp, vp, base, length, partitions=P), 20, flush),
+        "ms": time_ms(kernel, 20, flush),
+        **forced,
         "plain_ms": time_ms(lambda: paged_attention_partial_ref(
             q, kp, vp, base, length), 5, flush),
         "library_ms": time_ms(
             lambda: F.scaled_dot_product_attention(qc, kc, vc), 20, flush),
     }
     return summarize(f"B1 {label}", times, B=B, K=K, G=G, NP=NP, T=T, dh=dh,
-                     lengths=lengths, P=P, rate=rate)
+                     lengths=lengths, P=P, rate=rate, split=chosen)
 
 
 def shared_timing_shape(label, B, K, G, NP, T, dh, lengths, P_total,
@@ -497,9 +589,15 @@ def shared_timing_shape(label, B, K, G, NP, T, dh, lengths, P_total,
     # page b·NP + j of the pool): what the page indirection itself costs
     ident = torch.arange(B * NP, dtype=torch.int32,
                          device="cuda").reshape(B, NP) % P_total
+
+    def kernel(**kw):
+        return paged_attention_shared_cuda(q4, kp, vp, table, base, length,
+                                           partitions=P, **kw)
+
+    chosen, forced = split_times(kernel, B, K, NP, T, P, flush)
     times = {
-        "ms": time_ms(lambda: paged_attention_shared_cuda(
-            q4, kp, vp, table, base, length, partitions=P), 20, flush),
+        "ms": time_ms(kernel, 20, flush),
+        **forced,
         "ms_table_in_order": time_ms(lambda: paged_attention_shared_cuda(
             q4, kp, vp, ident, base, length, partitions=P), 20, flush),
         "plain_ms": time_ms(lambda: paged_attention_shared_ref(
@@ -510,7 +608,8 @@ def shared_timing_shape(label, B, K, G, NP, T, dh, lengths, P_total,
             lambda: F.scaled_dot_product_attention(*gathered()), 10, flush),
     }
     res = summarize(f"B2 {label}", times, B=B, K=K, G=G, NP=NP, T=T, dh=dh,
-                    lengths=lengths, P=P, rate=rate, table_bytes=B * NP * 4)
+                    lengths=lengths, P=P, rate=rate, table_bytes=B * NP * 4,
+                    split=chosen)
     res["P_total"] = P_total
     return res
 
@@ -1026,7 +1125,8 @@ def quant_server_phase(label, scheme, kv_quant, shared, prompts_of):
 # phases 9-10: flash attention (B4) and the splice scheduler
 # ---------------------------------------------------------------------------
 
-FLASH_HEADS = ((16, 16, 64), (32, 8, 128), (8, 1, 64))     # H, K, dh
+# H, K, dh: qwen1.5-0.5b, llama3.1-8b, MQA, and the reduced configs' 32
+FLASH_HEADS = ((16, 16, 64), (32, 8, 128), (8, 1, 64), (4, 2, 32))
 # (Sq, Sk, q_offset): ragged prompts, and queries placed before or at the
 # end of a longer key range
 FLASH_LENGTHS = ((1, 1, 0), (70, 70, 0), (255, 255, 0), (511, 511, 0),
@@ -1225,7 +1325,7 @@ def wkv_kernel_phase() -> float:
     import torch
     from repro_torch.kernels.wkv6 import wkv6, wkv_chunked, wkv_recurrent
     gen = torch.Generator(device="cuda").manual_seed(7)
-    worst = {"chunked": 0.0, "recurrent": 0.0, "strong": 0.0}
+    worst = {"chunked": 0.0, "recurrent": 0.0, "strong": 0.0, "bf16": 0.0}
     max_abs, n = 0.0, 0
     cases = [(B, S, H, dh, zero, None) for B, S, H, dh, zero in
              itertools.product((1, 3), WKV_LENGTHS, (1, 40), (16, 32, 64),
@@ -1258,11 +1358,39 @@ def wkv_kernel_phase() -> float:
         check(err_rec <= tol, f"{label}: kernel disagrees with the plain "
               f"recurrence: {err_rec:.3e} > {tol:.0e}")
         n += 1
+    # bf16 r/k/v/logw, as a server with bf16 activations hands them over:
+    # `wkv6` upcasts them for B5 and returns bf16; the plain chunked form
+    # on the same inputs upcasts inside too.  Both round the output to
+    # bf16, so they may land one bf16 ulp (2^-7 relative) apart
+    for B, S, dh in ((1, 2, 64), (3, 77, 32), (1, 511, 64)):
+        x = wkv_inputs(B, S, 40, dh, gen)
+        xb = tuple(a.to(torch.bfloat16) for a in x[:4]) + x[4:]
+        got = wkv6(*xb)
+        torch.cuda.synchronize()
+        want = wkv_chunked(*xb)
+        label = f"B5 bf16 B={B} S={S} H=40 dh={dh}"
+        check(got[0].dtype == torch.bfloat16
+              and got[1].dtype == torch.float32
+              and all(bool(torch.isfinite(g).all()) for g in got),
+              f"{label}: bad output")
+        tol = WKV_TOL["chunked"]
+        err_out = float(((got[0].float() - want[0].float()).abs()
+                         / (tol + (2.0 ** -7 + tol)
+                            * want[0].float().abs())).max())
+        err_state = wkv_err(got[1:], want[1:])
+        worst["bf16"] = max(worst["bf16"], err_out)
+        check(err_out <= 1 and err_state <= tol,
+              f"{label}: kernel disagrees with the plain chunked form on "
+              f"bf16 inputs: out {err_out:.3e} of one bf16 ulp + {tol:.0e}, "
+              f"state {err_state:.3e} > {tol:.0e}")
+        n += 1
     print(f"B5 kernel phase: {n} cases within tolerance; worst vs the plain "
           f"chunked form {worst['chunked']:.3e} (tol "
           f"{WKV_TOL['chunked']:.0e}), vs the recurrence {worst['recurrent']:.3e}"
           f" and at logw -3/-4 {worst['strong']:.3e} (tol "
-          f"{WKV_TOL['recurrent']:.0e}); max_abs_err={max_abs:.3e}")
+          f"{WKV_TOL['recurrent']:.0e}); bf16 inputs {worst['bf16']:.3e} of "
+          f"one bf16 ulp + {WKV_TOL['chunked']:.0e}; max_abs_err="
+          f"{max_abs:.3e}")
     return max_abs
 
 
@@ -1403,7 +1531,8 @@ def kernel_entry(name, source, replaces, launches, max_abs, shapes, server):
 
 def main(argv) -> int:
     import torch
-    if argv not in ([], ["--quant-servers"], ["--wkv"]):
+    if argv not in ([], ["--paged"], ["--paged-timing"], ["--quant-servers"],
+                    ["--wkv"]):
         print(__doc__, file=sys.stderr)
         return 2
     quant_only = argv == ["--quant-servers"]
@@ -1424,6 +1553,16 @@ def main(argv) -> int:
     print(f"build: {len(libs)} libraries "
           f"({', '.join(p.name for p in libs.values())}) in "
           f"{time.perf_counter() - t0:.2f} s (parallel nvcc)")
+    if argv in (["--paged"], ["--paged-timing"]):
+        paged = {}
+        if argv == ["--paged"]:
+            paged.update(B1_max_abs_err=kernel_phase(),
+                         B2_max_abs_err=shared_kernel_phase(),
+                         split_max_abs_err=split_phase())
+        paged["B1"], paged["B2"] = timing_phase(rate)
+        print(card)
+        print(json.dumps({"paged_attention": paged}))
+        return 0
     if argv == ["--wkv"]:
         b5_err = wkv_kernel_phase()
         b5_shapes = wkv_timing_phase(rate)
@@ -1435,6 +1574,9 @@ def main(argv) -> int:
     if not quant_only:
         b1_err = kernel_phase()
         b2_err = shared_kernel_phase()
+        split_err = split_phase()
+        b1_err = max(b1_err, split_err["B1"])
+        b2_err = max(b2_err, split_err["B2"])
         b1_shapes, b2_shapes = timing_phase(rate)
         stripe = server_phase()
         shared = shared_server_phase("bfloat16")

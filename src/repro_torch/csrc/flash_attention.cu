@@ -15,7 +15,12 @@
 //   k  [B, Sk, K, dh]  the same type,       strides (k_b, k_s, k_h, 1)
 //   v  [B, Sk, K, dh]                       strides (v_b, v_s, v_h, 1)
 //   o  [B, Sq, H, dh]  q's type, contiguous
-// dh is 64 or 128; every row start is 16-byte aligned (the wrapper checks).
+// dh is 32, 64, 112, 128, 160 or 256; every row start is 16-byte aligned (the
+// wrapper checks).  A kernel instance computes at a width DH of 64, 128 or
+// 256 and takes any dh up to it: the tile loads zero-fill the head dims at
+// and past dh (so they add nothing to q·kᵀ) and the store skips them, which
+// is the reference's padding of dh to its 128-wide lanes done in shared
+// memory instead of in copies (q is scaled by the caller's dh^-0.5).
 // Query row i sits at position q_offset + i, key j at position j; key j is
 // visible to row i when j < Sk, (causal) j <= pos_i and (window w > 0)
 // j > pos_i - w.
@@ -47,8 +52,9 @@
 //     memory (q already scaled); rows past Sq / Sk are zero-filled and
 //     masked, so ragged tails need no padding by the caller; the score tile
 //     P reuses the K tile's shared memory;
-//   * 51 KB (dh 64) / 100 KB (dh 128) of dynamic shared memory, two CTAs an
-//     SM at dh 128, so one CTA's tile loads overlap the other's arithmetic.
+//   * 51 KB (DH 64) / 100 KB (DH 128) of dynamic shared memory, two CTAs an
+//     SM at DH 128, so one CTA's tile loads overlap the other's arithmetic
+//     (194 KB and one CTA an SM at DH 256).
 // What it leaves on the table: no cp.async/TMA double buffering inside a
 // CTA, no tensor cores (a bf16 wgmma version is later work), and few CTAs at
 // small prompts (B=1, 16 heads, 256 tokens is 64 CTAs on 132 SMs).
@@ -76,7 +82,7 @@ struct Args {
   const void* v;
   void* o;
   long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h;
-  int Sq, Sk, H, G, causal, window, q_offset;
+  int Sq, Sk, H, G, causal, window, q_offset, dh;
   float scale;
 };
 
@@ -110,18 +116,19 @@ __device__ __forceinline__ void load_chunk(const __nv_bfloat16* src,
 }
 
 // ROWS x DH elements from `src` (row stride `stride` elements) into `dst`
-// (row stride `ld` floats); rows at or past `valid` are zero-filled.
+// (row stride `ld` floats); rows at or past `valid` and head dims at or past
+// `dh` are zero-filled.
 template <typename T, int DH, int ROWS>
 __device__ __forceinline__ void load_tile(const T* src, long long stride,
-                                          int valid, float* dst, int ld,
-                                          float mul) {
+                                          int valid, int dh, float* dst,
+                                          int ld, float mul) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kPerRow = DH / kVec;
   for (int c = threadIdx.x; c < ROWS * kPerRow; c += kThreads) {
     const int r = c / kPerRow;
     const int col = (c % kPerRow) * kVec;
     float* d = dst + r * ld + col;
-    if (r < valid) {
+    if (r < valid && col < dh) {
       load_chunk(src + r * stride + col, d, mul);
     } else {
 #pragma unroll
@@ -162,7 +169,8 @@ constexpr int smem_bytes() {
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd(const Args a) {
+__global__ void __launch_bounds__(kThreads, DH >= 256 ? 1 : 2)
+flash_fwd(const Args a) {
   constexpr int kLd = DH + 4;       // q and k tile row stride, floats
   constexpr int kNE = DH / 16;      // output columns per thread
   static_assert(kBQ * kLdP <= kBK * kLd, "P must fit in the K tile");
@@ -183,7 +191,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(const Args a) {
                 h * a.q_h;
   const T* kp = static_cast<const T*>(a.k) + b * a.k_b + kh * a.k_h;
   const T* vp = static_cast<const T*>(a.v) + b * a.v_b + kh * a.v_h;
-  load_tile<T, DH, kBQ>(qp, a.q_s, a.Sq - q0, Qs, kLd, a.scale);
+  load_tile<T, DH, kBQ>(qp, a.q_s, a.Sq - q0, a.dh, Qs, kLd, a.scale);
 
   // the keys any row of this tile can see: [k_lo, k_hi)
   const int q_first = a.q_offset + q0;
@@ -204,8 +212,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(const Args a) {
 
   for (int k0 = k_lo / kBK * kBK; k0 < k_hi; k0 += kBK) {
     __syncthreads();    // the last tile's P and V reads are done
-    load_tile<T, DH, kBK>(kp + k0 * a.k_s, a.k_s, a.Sk - k0, Ks, kLd, 1.f);
-    load_tile<T, DH, kBK>(vp + k0 * a.v_s, a.v_s, a.Sk - k0, Vs, DH, 1.f);
+    load_tile<T, DH, kBK>(kp + k0 * a.k_s, a.k_s, a.Sk - k0, a.dh, Ks, kLd,
+                          1.f);
+    load_tile<T, DH, kBK>(vp + k0 * a.v_s, a.v_s, a.Sk - k0, a.dh, Vs, DH,
+                          1.f);
     __syncthreads();
 
     // S = (q·scale) kᵀ: rows ty*4 + i, keys tx + 16 j
@@ -304,9 +314,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(const Args a) {
     const int row = q0 + ty * 4 + i;
     if (row >= a.Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = o + (((long long)b * a.Sq + row) * a.H + h) * DH + tx * 4;
+    T* orow = o + (((long long)b * a.Sq + row) * a.H + h) * a.dh + tx * 4;
 #pragma unroll
     for (int u = 0; u < kNE / 4; ++u) {
+      if (64 * u + tx * 4 >= a.dh) continue;   // padded head dims
       float x[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) x[e] = acc[i][4 * u + e] / den;
@@ -334,9 +345,10 @@ int launch(const Args& a, int B, void* stream) {
 }  // namespace
 
 // See the layouts above.  window <= 0 means no window; causal is 0 or 1;
-// bf16 selects bfloat16 inputs and output (else float32).  Returns
-// cudaGetLastError() after the launch (or the attribute call's error), or
-// -1 for a head dim other than 64 / 128.
+// bf16 selects bfloat16 inputs and output (else float32); scale multiplies
+// q (the caller's dh^-0.5).  Returns cudaGetLastError() after the launch (or
+// the attribute call's error), or -1 for a head dim not in 32, 64, 112, 128,
+// 160, 256.
 extern "C" int kvnand_flash_attention(
     const void* q, const void* k, const void* v, void* o, long long q_b,
     long long q_s, long long q_h, long long k_b, long long k_s, long long k_h,
@@ -345,12 +357,21 @@ extern "C" int kvnand_flash_attention(
     void* stream) {
   const Args a{q,   k,   v,   o,   q_b, q_s, q_h,    k_b,      k_s,
                k_h, v_b, v_s, v_h, Sq,  Sk,  H,   H / K, causal, window,
-               q_offset, scale};
-  if (dh == 64)
-    return bf16 ? launch<__nv_bfloat16, 64>(a, B, stream)
-                : launch<float, 64>(a, B, stream);
-  if (dh == 128)
-    return bf16 ? launch<__nv_bfloat16, 128>(a, B, stream)
-                : launch<float, 128>(a, B, stream);
-  return -1;
+               q_offset, dh, scale};
+  switch (dh) {
+    case 32:
+    case 64:
+      return bf16 ? launch<__nv_bfloat16, 64>(a, B, stream)
+                  : launch<float, 64>(a, B, stream);
+    case 112:
+    case 128:
+      return bf16 ? launch<__nv_bfloat16, 128>(a, B, stream)
+                  : launch<float, 128>(a, B, stream);
+    case 160:
+    case 256:
+      return bf16 ? launch<__nv_bfloat16, 256>(a, B, stream)
+                  : launch<float, 256>(a, B, stream);
+    default:
+      return -1;
+  }
 }

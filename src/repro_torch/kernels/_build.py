@@ -40,11 +40,11 @@ class Library(NamedTuple):
 LIBS: Dict[str, Library] = {
     "paged_attention": Library(
         _CSRC / "paged_attention.cu", (_CSRC / "paged_attention.cuh",),
-        {"kvnand_paged_attention": [_P] * 10 + [_I] * 9 + [_P]}),
+        {"kvnand_paged_attention": [_P] * 10 + [_I] * 10 + [_P]}),
     "paged_attention_shared": Library(
         _CSRC / "paged_attention_shared.cu",
         (_CSRC / "paged_attention.cuh",),
-        {"kvnand_paged_attention_shared": [_P] * 11 + [_I] * 10 + [_P]}),
+        {"kvnand_paged_attention_shared": [_P] * 11 + [_I] * 11 + [_P]}),
     "quant_gemv": Library(
         _CSRC / "quant_gemv.cu", (),
         {"kvnand_quant_gemv": [_P] * 6 + [_I] * 7 + [_P],

@@ -4,8 +4,10 @@
 kernel `repro/kernels/flash_attention/kernel.py::flash_attention_pallas`.
 It reads q [B, Sq, H, dh] and k/v [B, Sk, K, dh] in place through their
 strides (no transposed or padded copy: the kernel masks the ragged tails
-itself and takes dh as it is, where the TPU path pads dh to its 128-wide
-lanes), accumulates in float32 and writes o [B, Sq, H, dh] in q's dtype.
+itself, and pads dh to its compute width of 64, 128 or 256 inside shared
+memory, where the TPU path pads dh to its 128-wide lanes in copies),
+scales q by the unpadded dh^-0.5, accumulates in float32 and writes
+o [B, Sq, H, dh] in q's dtype.
 The source builds into its own library (`kernels/_build.py`, in parallel
 with the other kernels, at first use); importing this module builds
 nothing and needs neither nvcc nor a card.
@@ -21,6 +23,8 @@ from repro_torch.kernels._build import LaunchCount, entry
 launches = LaunchCount()          # B4
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# every d_head of the port's configs (the reduced ones are 32)
+HEAD_DIMS = (32, 64, 112, 128, 160, 256)
 
 
 def _check(cond: bool, msg: str):
@@ -33,7 +37,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          window: Optional[int] = None,
                          q_offset: int = 0) -> torch.Tensor:
     """Launch B4.  q [B, Sq, H, dh], k/v [B, Sk, K, dh], float32 or
-    bfloat16 alike, dh 64 or 128, H a multiple of K; any strides whose
+    bfloat16 alike, dh in HEAD_DIMS, H a multiple of K; any strides whose
     head dim is contiguous and whose rows start 16-byte aligned.  Query
     row i sits at position q_offset + i.  Returns o [B, Sq, H, dh] in q's
     dtype.  Checks device, dtype, shape and strides and raises on
@@ -43,7 +47,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            "q, k and v must be [B, S, heads, dh]")
     B, Sq, H, dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
-    _check(dh in (64, 128), f"head dim {dh} not in (64, 128)")
+    _check(dh in HEAD_DIMS, f"head dim {dh} not in {HEAD_DIMS}")
     _check(q.dtype in _DTYPES and k.dtype == q.dtype and v.dtype == q.dtype,
            f"q, k, v must all be float32 or all bfloat16, got {q.dtype}, "
            f"{k.dtype}, {v.dtype}")

@@ -1,4 +1,7 @@
 from repro_torch.kernels.paged_attention.kernel import (  # noqa: F401
+    HEAD_DIMS,
+    SPLITS,
+    choose_split,
     launches,
     launches_shared,
     paged_attention_cuda,

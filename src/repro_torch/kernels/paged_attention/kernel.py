@@ -9,12 +9,18 @@ Two kernels share one body (`csrc/paged_attention.cuh`):
     replaces `paged_attention_pallas_shared` (one shared pool reached
     through per-slot page tables).
 
+Each caller partition of the page walk is split inside the launch over
+a thread-block cluster of S CTAs (`choose_split`, or `split=` forced),
+which merge their partials through distributed shared memory, so the
+output is one (o, m, l) per caller partition whatever S is.
+
 Each source builds into its own library (`kernels/_build.py`, which
 compiles every kernel library of the port in parallel at first use).
 Importing this module builds nothing and needs neither nvcc nor a card.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -23,6 +29,10 @@ from repro_torch.kernels._build import LaunchCount, entry
 
 _FMT = {"none": None, "kv8": 2, "kv4": 3}
 _POOL_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+
+HEAD_DIMS = (32, 64, 112, 128, 160, 256)
+SPLITS = (1, 2, 4, 8)             # cluster sizes the kernels take
+TILE_TOKENS = 32                  # token slots a warp stages at once
 
 launches = LaunchCount()          # B1, the stripe kernel
 launches_shared = LaunchCount()   # B2, the shared-pool kernel
@@ -33,13 +43,45 @@ def _check(cond: bool, msg: str):
         raise ValueError(f"paged_attention_cuda: {msg}")
 
 
+def choose_split(ctas: int, partition_tokens: int, sms: int = 132) -> int:
+    """Cluster size S that splits each caller partition's page walk.
+
+    `ctas` = B·K·P is the launch's grid without a split and
+    `partition_tokens` = (NP / P)·T the token slots one partition walks.
+    S is the largest of 1, 2, 4, 8 that keeps the grid at one CTA an SM
+    or fewer and hands every CTA at least one tile of TILE_TOKENS slots;
+    so S = 1 where the grid already has a CTA for every SM.  (Measured on
+    an H100: a CTA's fixed chain of memory round trips and merges costs
+    more than a second CTA on the SM saves, so a grid past one CTA an SM
+    runs slower.)"""
+    s = 1
+    while (s < SPLITS[-1] and ctas * 2 * s <= sms
+           and partition_tokens >= 2 * s * TILE_TOKENS):
+        s *= 2
+    return s
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _split_of(split: int, q, NP: int, T: int, partitions: int) -> int:
+    if split:
+        _check(split in SPLITS, f"split={split} not in {SPLITS}")
+        return split
+    B, K = q.shape[:2]
+    return choose_split(B * K * partitions, NP // partitions * T,
+                        _sm_count(q.device.index or 0))
+
+
 def _check_inputs(q, k_pages, v_pages, page_base, length, *, pool_shape,
                   scale_shape, NP, window, kv_quant, k_scale, v_scale,
                   partitions) -> int:
     """The checks both kernels share; returns the C format code."""
     B, K, G, dh = q.shape
     dev = q.device
-    _check(dh in (32, 64, 128), f"head dim {dh} not in (32, 64, 128)")
+    _check(dh in HEAD_DIMS, f"head dim {dh} not in {HEAD_DIMS}")
     _check(1 <= G <= 8, f"query group {G} not in 1..8")
     _check(partitions >= 1 and NP % partitions == 0,
            f"partitions={partitions} must divide the page count {NP}")
@@ -107,10 +149,12 @@ def paged_attention_cuda(
     k_scale: Optional[torch.Tensor] = None,   # [B, K, NP] float32
     v_scale: Optional[torch.Tensor] = None,
     partitions: int = 1,
+    split: int = 0,           # cluster size S; 0 = choose_split
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch B1 (stripe pools); returns partials o [B, K, P, G, dh],
-    m / l [B, K, P, G] (float32).  Checks device, dtype, shape and
-    contiguity and raises on anything the kernel does not take."""
+    m / l [B, K, P, G] (float32), one per caller partition whatever the
+    split.  Checks device, dtype, shape and contiguity and raises on
+    anything the kernel does not take."""
     _check(kv_quant in _FMT, f"unknown kv_quant {kv_quant!r}")
     _check(q.is_cuda, "tensors must be on a CUDA device")
     B, K, G, dh = q.shape
@@ -124,12 +168,13 @@ def paged_attention_cuda(
     o, m, l = _partials(q, partitions)
     if B == 0:
         return o, m, l
+    S = _split_of(split, q, NP, T, partitions)
     fn = entry("kvnand_paged_attention")
     _raise_on(fn(
         _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
         _ptr(page_base), _ptr(length), _ptr(o), _ptr(m), _ptr(l),
         B, K, NP, T, G, dh, partitions, -1 if window is None else int(window),
-        fmt, torch.cuda.current_stream(q.device).cuda_stream))
+        S, fmt, torch.cuda.current_stream(q.device).cuda_stream))
     launches.value += 1
     return o, m, l
 
@@ -147,9 +192,11 @@ def paged_attention_shared_cuda(
     k_scale: Optional[torch.Tensor] = None,   # [K, P_total] float32
     v_scale: Optional[torch.Tensor] = None,
     partitions: int = 1,
+    split: int = 0,           # cluster size S; 0 = choose_split
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch B2 (shared pool through page tables); returns partials
-    o [B, K, P, G, dh], m / l [B, K, P, G] (float32).
+    o [B, K, P, G, dh], m / l [B, K, P, G] (float32), one per caller
+    partition whatever the split.
 
     Precondition, not checked (it would cost a device sync per launch):
     every table entry lies in [0, P_total).  The kernel addresses pages
@@ -176,12 +223,13 @@ def paged_attention_shared_cuda(
     o, m, l = _partials(q, partitions)
     if B == 0:
         return o, m, l
+    S = _split_of(split, q, NP, T, partitions)
     fn = entry("kvnand_paged_attention_shared")
     _raise_on(fn(
         _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
         _ptr(page_table), _ptr(page_base), _ptr(length), _ptr(o), _ptr(m),
         _ptr(l), B, K, NP, P_total, T, G, dh, partitions,
-        -1 if window is None else int(window), fmt,
+        -1 if window is None else int(window), S, fmt,
         torch.cuda.current_stream(q.device).cuda_stream))
     launches_shared.value += 1
     return o, m, l

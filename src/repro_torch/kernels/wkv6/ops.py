@@ -7,7 +7,9 @@ fallback between the two.  impl="ref" (the chunked form) and
 impl="recurrent" ask for a plain version on any device; impl="cuda" for
 the kernel.  Inputs stay in the model's [B, S, H, dh] layout: B5 reads
 them through their strides and masks the ragged tail itself, where the
-reference pads S and transposes for its TPU kernel.
+reference pads S and transposes for its TPU kernel.  r/k/v/logw in any
+float dtype (the activation dtype) are upcast to float32 for B5, which
+reads float32 only; the output comes back in r's dtype.
 """
 from __future__ import annotations
 
@@ -28,8 +30,9 @@ def wkv6(r, k, v, logw, u, state, *, impl: str = "auto",
         return wkv_recurrent(r, k, v, logw, u, state)
     if impl != "cuda":
         raise ValueError(f"wkv6: unknown impl {impl!r}")
-    # the kernel's chunk, clamped as the reference clamps its TPU kernel's
-    out, sT = wkv6_cuda(r, k, v, logw, u.float().contiguous(),
-                        state.float().contiguous(),
+    # the kernel reads float32, as the reference's kernel upcasts inside;
+    # its chunk is clamped as the reference clamps its TPU kernel's
+    out, sT = wkv6_cuda(*(a.float() for a in (r, k, v, logw)),
+                        u.float().contiguous(), state.float().contiguous(),
                         chunk=min(chunk, MAX_CHUNK))
     return out.to(r.dtype), sT

@@ -16,7 +16,9 @@ contracted in f32 on both sides), 3e-2 for bf16 pools, where the plain
 version rounds q and p to bf16 and the kernel keeps them in f32.  A bf16
 pool is also held at 2e-5 against the plain version on the same pages
 upcast to f32, which is the kernel's own arithmetic.  B2 is held to the
-same tolerances against `paged_attention_shared_ref`.
+same tolerances against `paged_attention_shared_ref`.  Both are swept
+over every head dim they take and, with the cluster size S forced to 1,
+2, 4 and 8, over walks whose valid tokens fall in one rank.
 
 B3: W8A8 within 1e-6 x max|y| of the plain version (only the order of the
 float32 scale multiplies differs); W4A16 within 4e-3 x max|y| of the plain
@@ -32,7 +34,12 @@ kernel's own arithmetic before its output is rounded.
 B5: within 5e-4 of the plain chunked form and 1e-4 of the plain
 recurrence (|a - b| / (1 + |b|), `WKV_TOL`), decays drawn as the
 reference's tests draw them; at constant logw -3.0 to -4.05, where the
-plain chunked form overflows, within 1e-4 of the recurrence.
+plain chunked form overflows, within 1e-4 of the recurrence.  bf16
+inputs: the output within one bf16 ulp (2^-7 relative) plus those
+tolerances, the float32 state within them.
+
+The reduced qwen1.5-0.5b splice server (head dim 32, which B4 pads inside
+shared memory) serves the CPU server's greedy tokens on the card.
 """
 import itertools
 
@@ -77,7 +84,7 @@ def _inputs(fmt, G, dh, dev, seed=0):
 
 
 @pytest.mark.parametrize("fmt,G,dh,window,partitions", list(itertools.product(
-    ("f32", "bf16", "kv8", "kv4"), (1, 3, 8), (32, 64, 128), (None, 40),
+    ("f32", "bf16", "kv8", "kv4"), (1, 3, 8), tpa.HEAD_DIMS, (None, 40),
     (1, 4))))
 def test_kernel_matches_plain_version(cuda_device, fmt, G, dh, window,
                                       partitions):
@@ -155,7 +162,7 @@ def _shared_inputs(fmt, G, dh, dev, seed=0):
 
 
 @pytest.mark.parametrize("fmt,G,dh,window,partitions", list(itertools.product(
-    ("f32", "bf16", "kv8", "kv4"), (1, 3, 8), (32, 64, 128), (None, 40),
+    ("f32", "bf16", "kv8", "kv4"), (1, 3, 8), tpa.HEAD_DIMS, (None, 40),
     (1, 4))))
 def test_shared_kernel_matches_plain_version(cuda_device, fmt, G, dh, window,
                                              partitions):
@@ -235,6 +242,107 @@ def test_shared_unsupported_inputs_raise(cuda_device, bad):
     with pytest.raises(ValueError):
         tpa.paged_attention_shared_cuda(q4, kp, vp, table, base, length,
                                         kv_quant=kvq, k_scale=ks, v_scale=vs)
+
+
+# ---------------------------------------------------------------------------
+# B1/B2 with the cluster size forced
+# ---------------------------------------------------------------------------
+
+SPLIT_NP = 32                       # 512 slots: a warp's ring turns over
+SPLIT_LENGTHS = (512, 300, 1, 0, 20)
+
+
+def _split_inputs(layout, fmt, dh, dev, seed):
+    """Row 0 full, row 1 ragged with unwritten pages past page 20, row 2
+    one token (all in rank 0 of every split), row 3 empty, row 4 within
+    the first two pages; shared: tables permute a larger pool and row 2's
+    entries past its token name row 0's pages."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B_, G, NP_ = len(SPLIT_LENGTHS), 4, SPLIT_NP
+    q = torch.randn(B_, 2 * G, dh, generator=gen, device=dev)
+    P_tot = B_ * NP_ + 9
+    shape = (B_, 2, NP_, T, dh) if layout == "stripe" else (2, P_tot, T, dh)
+    kd = torch.randn(shape, generator=gen, device=dev)
+    vd = torch.randn(shape, generator=gen, device=dev)
+    base = (torch.arange(NP_, dtype=torch.int32, device=dev) * T)[None]
+    base = base.repeat(B_, 1).contiguous()
+    base[1, 20:] = -1
+    table = None
+    if layout == "shared":
+        perm = torch.randperm(P_tot, generator=torch.Generator()
+                              .manual_seed(seed))[:B_ * NP_]
+        table = perm.reshape(B_, NP_).to(torch.int32).to(dev)
+        table[2, 1:] = table[0, 1:]
+    length = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device=dev)
+    if fmt in ("kv8", "kv4"):
+        kp, ks = quantize_kv_page(kd, fmt)
+        vp, vs = quantize_kv_page(vd, fmt)
+        return q, kp, vp, table, base, length, ks, vs, fmt
+    dt = torch.float32 if fmt == "f32" else torch.bfloat16
+    return q, kd.to(dt), vd.to(dt), table, base, length, None, None, "none"
+
+
+@pytest.mark.parametrize("layout,fmt,dh,split,window", list(
+    itertools.product(("stripe", "shared"), ("f32", "bf16", "kv8", "kv4"),
+                      tpa.HEAD_DIMS, tpa.SPLITS, (None, 100))))
+def test_forced_split_matches_plain_version(cuda_device, layout, fmt, dh,
+                                            split, window):
+    """Every cluster size on every head dim: the S ranks' partials merged
+    through distributed shared memory give the plain version's (o, m, l)
+    per caller partition (2 here), rows whose tokens all fall in one
+    rank and an all-masked row included."""
+    q, kp, vp, table, base, length, ks, vs, kvq = _split_inputs(
+        layout, fmt, dh, cuda_device, seed=dh + split)
+    B_, H, _ = q.shape
+    q4 = q.reshape(B_, 2, H // 2, dh).contiguous()
+    kw = dict(window=window, kv_quant=kvq, k_scale=ks, v_scale=vs,
+              partitions=2, split=split)
+    if layout == "stripe":
+        o, m, l = tpa.paged_attention_cuda(q4, kp, vp, base, length, **kw)
+        want = tpa.paged_attention_partial_ref(
+            q, kp, vp, base, length, window=window, kv_quant=kvq,
+            k_scale=ks, v_scale=vs)
+    else:
+        o, m, l = tpa.paged_attention_shared_cuda(q4, kp, vp, table, base,
+                                                  length, **kw)
+        want = tpa.paged_attention_shared_ref(
+            q, kp, vp, table, base, length, window=window, kv_quant=kvq,
+            k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert o.shape == (B_, 2, 2, H // 2, dh)
+    got = tpa.merge_partials(o, m, l, axis=2)
+    got = (got[0].reshape(B_, H, dh), got[1].reshape(B_, H),
+           got[2].reshape(B_, H))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=TOL[fmt], rtol=TOL[fmt])
+    assert torch.all(o[3] == 0) and torch.all(l[3] == 0)
+    assert torch.all(m[3] == -1e30)
+    # row 2's one token lies in the first partition: the second is empty
+    assert torch.all(m[2, :, 1] == -1e30) and torch.all(l[2, :, 1] == 0)
+
+
+def test_split_does_not_change_the_stripe_result(cuda_device):
+    """One function whatever S: the four cluster sizes agree with each
+    other to float32 summation order."""
+    q, kp, vp, _, base, length, *_ = _split_inputs("stripe", "bf16", 64,
+                                                   cuda_device, seed=3)
+    B_, H, dh = q.shape
+    q4 = q.reshape(B_, 2, H // 2, dh).contiguous()
+    outs = [tpa.paged_attention_cuda(q4, kp, vp, base, length, split=s)
+            for s in tpa.SPLITS]
+    for o in outs[1:]:
+        for a, b in zip(o, outs[0]):
+            torch.testing.assert_close(a, b, atol=2e-6, rtol=2e-6)
+
+
+@pytest.mark.parametrize("split", [3, 16])
+def test_unknown_split_raises(cuda_device, split):
+    q, kp, vp, base, length, *_ = _inputs("f32", 1, 64, cuda_device)
+    tpa.launches.reset()
+    with pytest.raises(ValueError, match="split"):
+        tpa.paged_attention_cuda(q.reshape(B, K, 1, 64), kp, vp, base,
+                                 length, split=split)
+    assert tpa.launches.value == 0
 
 
 # ---------------------------------------------------------------------------
@@ -351,7 +459,10 @@ def test_forward_launches_no_quant_gemv(cuda_device, scheme):
 # ---------------------------------------------------------------------------
 
 FLASH_TOL = {"f32": 2e-5, "bf16": 2e-2}
-FLASH_HEADS = ((16, 16, 64), (32, 8, 128), (8, 1, 64))     # H, K, dh
+# H, K, dh: qwen1.5-0.5b, llama3.1-8b, MQA, and the head dims B4 pads
+# inside shared memory (32 of every reduced config, 112, 160, 256)
+FLASH_HEADS = ((16, 16, 64), (32, 8, 128), (8, 1, 64), (4, 2, 32),
+               (4, 2, 112), (4, 2, 160), (8, 4, 256))
 # (B, Sq, Sk, q_offset): ragged prompts, and queries before or at the end
 # of a longer key range
 FLASH_LENGTHS = ((1, 1, 1, 0), (3, 70, 70, 0), (1, 255, 255, 0),
@@ -409,10 +520,29 @@ def test_flash_attention_one_launch_per_call(cuda_device):
     assert tfa.launches.value == 2
 
 
+def test_flash_attention_padded_head_dim_keeps_its_scale(cuda_device):
+    """dh 32 runs in the 64-wide instance and dh 160 in the 256-wide one:
+    the softmax scale stays the unpadded dh^-0.5 (zero-padding q and k by
+    hand and running the padded width gives the same output only with
+    the scale of the true dh)."""
+    for dh, wide in ((32, 64), (160, 256)):
+        q, k, v = _flash_inputs(1, 40, 40, 4, 2, dh, torch.float32,
+                                cuda_device)
+        got = tfa.flash_attention_cuda(q, k, v, causal=True)
+        pad = lambda t: torch.nn.functional.pad(t, (0, wide - dh))  # noqa
+        padded = tfa.flash_attention_cuda(pad(q) * (wide / dh) ** 0.5,
+                                          pad(k), pad(v), causal=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, padded[..., :dh], atol=2e-5,
+                                   rtol=2e-5)
+        torch.testing.assert_close(got, tfa.flash_attention_ref(
+            q, k, v, causal=True), atol=2e-5, rtol=2e-5)
+
+
 @pytest.mark.parametrize("bad", ["cpu", "dh", "dtype", "stride",
                                  "is_global", "tensor_offset", "window"])
 def test_flash_attention_unsupported_inputs_raise(cuda_device, bad):
-    dh = 32 if bad == "dh" else 64
+    dh = 48 if bad == "dh" else 64
     q, k, v = _flash_inputs(1, 16, 16, 4, 2, dh, torch.float32, cuda_device)
     kw = {}
     err = ValueError
@@ -435,16 +565,18 @@ def test_flash_attention_unsupported_inputs_raise(cuda_device, bad):
         tfa.flash_attention(q, k, v, **kw)
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "llama3.1-8b"])
-def test_prefill_launches_b4_once_per_layer(cuda_device, arch):
+@pytest.mark.parametrize("arch,d_head", [("qwen1.5-0.5b", 64),
+                                         ("llama3.1-8b", 64),
+                                         ("qwen1.5-0.5b", 32)])
+def test_prefill_launches_b4_once_per_layer(cuda_device, arch, d_head):
     """`engine.prefill` on the card: one B4 launch per layer, logits and
-    pools as the same prefill on the CPU.  The reduced config at head dim
-    64 (B4 takes 64 and 128, the widths of the full-size archs)."""
+    pools as the same prefill on the CPU.  The reduced config at its own
+    head dim 32 and at 64, the width of the full-size archs."""
     import dataclasses
     from repro_torch.configs import EngineConfig, get_config
     from repro_torch.core.engine import KVNANDEngine
     from repro_torch.models.registry import Model
-    cfg = dataclasses.replace(get_config(arch).reduced(), d_head=64)
+    cfg = dataclasses.replace(get_config(arch).reduced(), d_head=d_head)
     params = Model(cfg).init(torch.Generator().manual_seed(0))
     eng = EngineConfig(page_tokens=16, uniform_lengths=False,
                        kv_dtype="float32")
@@ -513,6 +645,31 @@ def test_wkv6_matches_plain_versions(cuda_device, B, S, H, dh, zero_state):
     assert all(bool(torch.isfinite(g).all()) for g in got)
     assert _wkv_err(got, twkv.wkv_chunked(*x)) <= WKV_TOL["chunked"]
     assert _wkv_err(got, twkv.wkv_recurrent(*x)) <= WKV_TOL["recurrent"]
+
+
+@pytest.mark.parametrize("S,dh", [(2, 64), (77, 32), (300, 64)])
+def test_wkv6_bf16_inputs_match_plain_version(cuda_device, S, dh):
+    """r/k/v/logw in bf16, as an RWKV6 server with bf16 activations hands
+    them over: `wkv6` upcasts them for B5, which reads float32, and
+    returns bf16; held against the plain chunked form on the same bf16
+    inputs (which upcasts inside as well)."""
+    from repro_torch.kernels import wkv6 as twkv
+    x = _wkv_inputs(2, S, 3, dh, cuda_device, seed=S)
+    xb = tuple(a.to(torch.bfloat16) for a in x[:4]) + x[4:]
+    twkv.launches.reset()
+    out, sT = twkv.wkv6(*xb)
+    torch.cuda.synchronize()
+    assert twkv.launches.value == 1
+    assert out.dtype == torch.bfloat16 and sT.dtype == torch.float32
+    w_out, w_sT = twkv.wkv_chunked(*xb)
+    bf16_ulp = 2.0 ** -7
+    err = ((out.float() - w_out.float()).abs()
+           / (WKV_TOL["chunked"] + (bf16_ulp + WKV_TOL["chunked"])
+              * w_out.float().abs()))
+    assert float(err.max()) <= 1
+    assert _wkv_err((sT,), (w_sT,)) <= WKV_TOL["chunked"]
+    r_out, r_sT = twkv.wkv_recurrent(*(a.float() for a in xb[:4]), *xb[4:])
+    assert _wkv_err((sT,), (r_sT,)) <= WKV_TOL["recurrent"]
 
 
 @pytest.mark.parametrize("logw", [-3.0, -4.0, -4.05])
@@ -620,3 +777,49 @@ def test_rwkv_chunk_prefill_launches_b5_once_per_layer(cuda_device):
     torch.testing.assert_close(cg.rwkv_state.cpu(), cc.rwkv_state, atol=1e-4,
                                rtol=1e-4)
     assert cg.lengths.tolist() == [2, 78]
+
+
+# ---------------------------------------------------------------------------
+# The reduced splice server (head dim 32) on the card
+# ---------------------------------------------------------------------------
+
+def test_reduced_splice_server_serves_the_cpu_tokens(cuda_device):
+    """The reduced splice server on the card: every admit one B4 launch a
+    layer at head dim 32, and the greedy tokens of the same server (the
+    same weights, float32 pools) on the CPU."""
+    from repro_torch.configs import EngineConfig, get_config
+    from repro_torch.models.registry import Model
+    from repro_torch.serving.api import (KVNANDServer, SamplingParams,
+                                         ServerConfig)
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    assert cfg.d_head == 32
+    params = Model(cfg).init(torch.Generator().manual_seed(0))
+    prompts = [[(7 * i + 3 * j) % 500 + 1 for j in range(n)]
+               for i, n in enumerate((5, 23, 40, 64, 90))]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        tfa.launches.reset()
+        srv = KVNANDServer(ServerConfig(
+            arch="qwen1.5-0.5b", reduced=True, batch_slots=2,
+            max_context=128, device=dev, scheduler="splice",
+            engine=EngineConfig(page_tokens=16, uniform_lengths=False,
+                                kv_dtype="float32")),
+            params=params if dev == "cpu" else _tree_to(params, dev))
+        outs[dev] = srv.generate(prompts, SamplingParams(max_new_tokens=8))
+    torch.cuda.synchronize()
+    assert tfa.launches.value == srv.stats["admits"] * cfg.n_layers > 0
+    for c, g in zip(outs["cpu"], outs["cuda"]):
+        assert g.token_ids == c.token_ids and len(g.token_ids) == 8
+
+
+def test_launch_serve_reduced_splice_completes(cuda_device, capsys):
+    """`python -m repro_torch.launch.serve --reduced --scheduler splice`,
+    in process, on the card (its default device)."""
+    from repro_torch.launch.serve import serve
+    tfa.launches.reset()
+    outs = serve(["--reduced", "--scheduler", "splice", "--requests", "4",
+                  "--max-new", "4"])
+    assert len(outs) == 4 and all(len(o.token_ids) == 4
+                                  for o in outs.values())
+    assert tfa.launches.value > 0
+    assert "tok/s on" in capsys.readouterr().out

@@ -1,10 +1,14 @@
 """PyTorch port: paged decode attention (the CUDA kernel's plain version),
 the LSE merge core and the chunk partial against the JAX reference, on
 the same numpy inputs.  The JAX side runs both its jnp oracle
-(impl="ref") and its Pallas kernel in interpret mode.
+(impl="ref") and its Pallas kernel in interpret mode.  The head dims of
+the port's wider configs (112 kimi-k2, 160 pixtral-12b, 256 gemma3-12b)
+are held on both layouts, and `choose_split` (the cluster size that
+splits each partition's walk inside the kernel launch) is pinned.
 
 Tolerances are the reference's own: 2e-5 at float32 (kv8/kv4 codes are
-contracted in float32 on both sides), 3e-2 for bf16 pools."""
+contracted in float32 on both sides), 3e-2 for bf16 pools; the shared
+pool 3e-5, as the reference's `test_shared_kernel_matches_gather_ref`."""
 import itertools
 import os
 import subprocess
@@ -30,11 +34,11 @@ B, K, NP, T, DH = 4, 2, 8, 16, 32
 LENGTHS = (128, 37, 1, 0)           # full, ragged, a single token, empty
 
 
-def _inputs(G, fmt, seed=0):
+def _inputs(G, fmt, seed=0, dh=DH):
     r = np.random.default_rng(seed)
-    q = r.standard_normal((B, K * G, DH)).astype(np.float32)
-    kd = r.standard_normal((B, K, NP, T, DH)).astype(np.float32)
-    vd = r.standard_normal((B, K, NP, T, DH)).astype(np.float32)
+    q = r.standard_normal((B, K * G, dh)).astype(np.float32)
+    kd = r.standard_normal((B, K, NP, T, dh)).astype(np.float32)
+    vd = r.standard_normal((B, K, NP, T, dh)).astype(np.float32)
     base = np.broadcast_to(np.arange(NP, dtype=np.int32) * T, (B, NP)).copy()
     base[1, 5:] = -1                # unwritten pages past row 1's length
     length = np.asarray(LENGTHS, np.int32)
@@ -81,6 +85,97 @@ def test_decode_partial_matches_reference(fmt, window, partitions, G, impl):
     o, m, l = to
     assert torch.all(o[3] == 0) and torch.all(l[3] == 0)
     assert torch.all(m[3] == -1e30)
+
+
+WIDE = list(itertools.product(("none", "kv8", "kv4"), (112, 160, 256),
+                              (1, 4, 8)))
+
+
+@pytest.mark.parametrize("fmt,dh,G", WIDE)
+def test_decode_partial_wide_heads_matches_reference(fmt, dh, G):
+    """Head dims past 128, and 112 (3.5 x 32), through the stripe plain
+    version, with a window and two partitions."""
+    q, kp, vp, base, length, ks, vs = _inputs(G, fmt, seed=5, dh=dh)
+    kw = dict(window=24, kv_quant=fmt, partitions=2)
+    jo = paged_attention_partial(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(base),
+        jnp.asarray(length), impl="ref", k_scale=_jnp(ks), v_scale=_jnp(vs),
+        **kw)
+    to = tpa.paged_attention_partial(
+        _t(q), _t(kp), _t(vp), _t(base), _t(length), k_scale=_t(ks),
+        v_scale=_t(vs), **kw)
+    for t, j in zip(to, jo):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=2e-5,
+                                   rtol=2e-5)
+    o, m, l = to
+    assert o.shape == (B, K * G, dh)
+    assert torch.all(o[3] == 0) and torch.all(m[3] == -1e30)
+
+
+P_TOTAL = B * NP + 6
+
+
+@pytest.mark.parametrize("fmt,dh,G", WIDE)
+def test_shared_decode_partial_wide_heads_matches_reference(fmt, dh, G):
+    """The same head dims through the shared pool: tables permute a
+    larger pool, row 2's entries past its one token name row 0's pages,
+    row 3 is all masked."""
+    r = np.random.default_rng(6)
+    q = r.standard_normal((B, K * G, dh)).astype(np.float32)
+    kd = r.standard_normal((K, P_TOTAL, T, dh)).astype(np.float32)
+    vd = r.standard_normal((K, P_TOTAL, T, dh)).astype(np.float32)
+    table = r.permutation(P_TOTAL)[:B * NP].reshape(B, NP).astype(np.int32)
+    table[2, 1:] = table[0, 1:]
+    base = np.broadcast_to(np.arange(NP, dtype=np.int32) * T, (B, NP)).copy()
+    length = np.asarray(LENGTHS, np.int32)
+    ks = vs = None
+    if fmt != "none":
+        kd, ks = (np.asarray(a) for a in quantize_kv_page(jnp.asarray(kd),
+                                                          fmt))
+        vd, vs = (np.asarray(a) for a in quantize_kv_page(jnp.asarray(vd),
+                                                          fmt))
+    kw = dict(window=24, kv_quant=fmt, partitions=2)
+    jo = paged_attention_partial(
+        jnp.asarray(q), jnp.asarray(kd), jnp.asarray(vd), jnp.asarray(base),
+        jnp.asarray(length), impl="ref", k_scale=_jnp(ks), v_scale=_jnp(vs),
+        page_table=jnp.asarray(table), **kw)
+    to = tpa.paged_attention_partial(
+        _t(q), _t(kd), _t(vd), _t(base), _t(length), k_scale=_t(ks),
+        v_scale=_t(vs), page_table=_t(table), **kw)
+    for t, j in zip(to, jo):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=3e-5,
+                                   rtol=3e-5)
+    assert torch.all(to[0][3] == 0) and torch.all(to[1][3] == -1e30)
+
+
+@pytest.mark.parametrize("ctas,tokens,sms,want", [
+    (64, 512, 132, 2),        # the serving shape: B=4 x K=16, 32 pages
+    (16, 512, 132, 8),        # one slot: capped at 8
+    (256, 6400, 132, 1),      # the long shape (16 partitions) fills it
+    (132, 64, 132, 1),        # a CTA for every SM already
+    (100, 4096, 132, 1),      # a doubling would pass one CTA an SM
+    (33, 4096, 132, 4),
+    (4, 64, 132, 2),          # 64 token slots: two tiles, two CTAs
+    (4, 48, 132, 1),          # under two tiles: no split
+    (8, 16, 132, 1),          # under one tile
+    (64, 512, 66, 1),         # a card half the size
+])
+def test_choose_split(ctas, tokens, sms, want):
+    assert tpa.choose_split(ctas, tokens, sms) == want
+
+
+@pytest.mark.parametrize("ctas", [1, 3, 16, 50, 64, 131, 132, 500])
+@pytest.mark.parametrize("tokens", [16, 32, 64, 100, 512, 100_000])
+def test_choose_split_bounds(ctas, tokens):
+    """S is one of the kernel's cluster sizes, 1 where the grid fills the
+    card, never past one CTA an SM once split, and never less than one
+    32-slot tile a CTA once split."""
+    s = tpa.choose_split(ctas, tokens)
+    assert s in tpa.SPLITS and s <= 8
+    if ctas >= 132:
+        assert s == 1
+    if s > 1:
+        assert ctas * s <= 132 and tokens >= s * 32
 
 
 @pytest.mark.parametrize("impl", ["ref", "interpret"])

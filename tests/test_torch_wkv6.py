@@ -141,6 +141,49 @@ def test_chunk_is_clamped_at_32_for_the_kernel(monkeypatch):
     _close(got, jwkv6(*_j(x), impl="interpret", chunk=128), **FORMS)
 
 
+@pytest.mark.parametrize("S", [2, 77])
+def test_plain_chunked_bf16_inputs_match_reference(S):
+    """r/k/v/logw in the bf16 activation dtype: both plain chunked forms
+    upcast to float32 inside, so they see the same bf16-rounded inputs.
+    The output is rounded to bf16 on both sides, so a value that the two
+    float32 results straddle a rounding boundary of lands one bf16 ulp
+    (2^-7 relative) apart: within that plus the float32 tolerance between
+    two chunked forms; the float32 state within the latter."""
+    x = _inputs(2, S, 3, 32, seed=6)
+    jx = tuple(jnp.asarray(a).astype(jnp.bfloat16) for a in x[:4]) \
+        + tuple(jnp.asarray(a) for a in x[4:])
+    tx = tuple(torch.from_numpy(a).to(torch.bfloat16) for a in x[:4]) \
+        + tuple(torch.from_numpy(a) for a in x[4:])
+    out, sT = twkv.wkv_chunked(*tx)
+    assert out.dtype == torch.bfloat16 and sT.dtype == torch.float32
+    for want in (jrwkv.wkv_chunked(*jx), jwkv6(*jx, impl="interpret")):
+        w_out = np.asarray(want[0].astype(jnp.float32))
+        np.testing.assert_allclose(out.float().numpy(), w_out,
+                                   atol=5e-4, rtol=2.0 ** -7 + 5e-4)
+        np.testing.assert_allclose(sT.numpy(), np.asarray(want[1]), **FORMS)
+
+
+def test_kernel_dispatch_upcasts_bf16_inputs(monkeypatch):
+    """`wkv6` hands the kernel float32 r/k/v/logw (the kernel reads
+    float32 only, as the reference's kernel upcasts inside) and returns
+    the output in r's dtype."""
+    seen = []
+
+    def fake_kernel(r, k, v, logw, u, state, *, chunk):
+        seen.append(tuple(a.dtype for a in (r, k, v, logw, u, state)))
+        return twkv.wkv_chunked(r, k, v, logw, u, state, chunk=chunk)
+
+    monkeypatch.setattr(tops, "wkv6_cuda", fake_kernel)
+    x = _inputs(1, 40, 2, 16, seed=7)
+    tx = tuple(torch.from_numpy(a).to(torch.bfloat16) for a in x[:4]) \
+        + tuple(torch.from_numpy(a) for a in x[4:])
+    out, sT = twkv.wkv6(*tx, impl="cuda")
+    assert seen == [(torch.float32,) * 6]
+    assert out.dtype == torch.bfloat16 and sT.dtype == torch.float32
+    want = twkv.wkv_chunked(*tx)
+    assert torch.equal(out, want[0]) and torch.equal(sT, want[1])
+
+
 def test_cpu_tensors_take_the_plain_chunked_form():
     x = _t(_inputs(2, 40, 3, 32, seed=4))
     twkv.launches.reset()
