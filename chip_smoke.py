@@ -6,6 +6,8 @@
     python3 chip_smoke.py --paged-timing     # the build and phase 3 only
     python3 chip_smoke.py --quant-servers    # the build and phase 8 only
     python3 chip_smoke.py --wkv              # the build and phase 11 only
+    python3 chip_smoke.py --gemv             # the build and phase 7 only
+    python3 chip_smoke.py --gemv-ab OLD.cu   # B3's CUDA-core body vs the current
 
 Phases (each one fails the run when it fails):
 
@@ -51,14 +53,22 @@ Phases (each one fails the run when it fails):
             LOGIT_GAP_TOL, except on the shared bf16 run, which reports
             its largest gap: see `shared_server_phase`);
 7. B3       the quantized GEMV against its plain version on the card,
-            {w4a16, w8a8} x M in {1, 4, 64} x (D, F) of qwen1.5-0.5b
-            (1024->1024, 1024->2816, 2816->1024), llama3.1-8b
-            (4096->14336, 14336->4096) and a ragged (130, 77): W8A8
-            within 1e-6 x max|y|, W4A16 within 4e-3 x max|y| (the plain
-            version rounds the product to bf16) and within 1e-5 x max|y|
-            of the TPU kernel's function f32(bf16(x) @ w4) x scale;
-            timed (kernel, plain, library, bound) at M = 4 and 64 on
-            qwen1.5-0.5b's gate projection and llama3.1-8b's down one;
+            {w4a16, w8a8} x M in {1, 4, 8, 16, 64, 70} and the crossover
+            +-1 (`STREAM_MAX_M`, the largest M of the stream path) x (D, F)
+            of qwen1.5-0.5b (1024->1024, 1024->2816, 2816->1024),
+            llama3.1-8b (4096->14336, 14336->4096), rwkv6-3b (2560->2560,
+            2560->8960, 8960->2560) and a ragged (130, 77): W8A8 within
+            1e-6 x max|y|, W4A16 within 4e-3 x max|y| (the plain version
+            rounds the product to bf16) and within 1e-5 x max|y| of the TPU
+            kernel's function f32(bf16(x) @ w4) x scale; each case launched
+            twice, with the same bits; timed (kernel, plain, library, a
+            plain torch read of the packed weight, bound) at M = 4 and 64
+            on qwen1.5-0.5b's gate projection and llama3.1-8b's down one,
+            and both paths forced at M 8-32 (the crossover).  `--gemv-ab
+            OLD.cu` times B3's earlier CUDA-core body (built from OLD.cu, e.g.
+            `git show 3411943:src/repro_torch/csrc/quant_gemv.cu`) beside
+            the current one at the 8 timed shapes, old, new, new, old, in
+            one process;
 8. Q1, Q2   the quantized deployments at the full width of qwen1.5-0.5b:
             Q1 W4A16 weights, stripe pool, kv4 pages (the design-space
             search's fallback); Q2 W8A8 weights, shared pool, kv8 pages
@@ -842,7 +852,25 @@ GEMV_SHAPES = (("qwen1.5-0.5b wo", 1024, 1024),
                ("qwen1.5-0.5b down", 2816, 1024),
                ("llama3.1-8b gate/up", 4096, 14336),
                ("llama3.1-8b down", 14336, 4096),
+               ("rwkv6-3b att", 2560, 2560),
+               ("rwkv6-3b ffn key", 2560, 8960),
+               ("rwkv6-3b ffn value", 8960, 2560),
                ("ragged", 130, 77))
+# the timed shapes: the serving shape first (W4A16, qwen1.5-0.5b's gate
+# projection at the 4 decode slots), then the long one (llama3.1-8b's down
+# projection) and both at the 64-row prefill chunk
+GEMV_TIMED = (("qwen1.5-0.5b gate, serving", 4, 1024, 2816),
+              ("llama3.1-8b down, long", 4, 14336, 4096),
+              ("qwen1.5-0.5b gate, prefill", 64, 1024, 2816),
+              ("llama3.1-8b down, prefill", 64, 14336, 4096))
+
+
+def gemv_rows():
+    """The sweep's M: one row, the decode slots, the stream path's two
+    instances, the prefill chunk, two row tiles, and the crossover +-1."""
+    from repro_torch.kernels.quant_gemv.kernel import STREAM_MAX_M
+    return sorted({1, 4, 8, 16, 64, 70, STREAM_MAX_M - 1, STREAM_MAX_M,
+                   STREAM_MAX_M + 1})
 
 
 def gemv_case(scheme, M, D, F, gen):
@@ -863,24 +891,32 @@ def rel_err(a, b) -> float:
 def quant_kernel_phase() -> float:
     """B3 against `quant_gemv_ref`, and W4A16 also against the TPU
     kernel's function (float32 accumulation of bf16(x) · w4, taken in
-    float64 here)."""
+    float64 here); a second launch on the same inputs must give the same
+    bits (the split-D sum is ordered, not atomic)."""
     import torch
     from repro_torch.core.quant import unpack_int4
     from repro_torch.kernels.quant_gemv import quant_gemv, quant_gemv_ref
+    from repro_torch.kernels.quant_gemv.kernel import choose_gemv_plan
     gen = torch.Generator(device="cuda").manual_seed(3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     max_abs, n = 0.0, 0
     for scheme in ("w4a16", "w8a8"):
-        for M in (1, 4, 64):
+        for M in gemv_rows():
             for label, D, F in GEMV_SHAPES:
                 x, qw = gemv_case(scheme, M, D, F, gen)
                 got = quant_gemv(x, qw)
+                again = quant_gemv(x, qw)
                 torch.cuda.synchronize()
                 want = quant_gemv_ref(x, qw.q, qw.scale, scheme)
                 err = rel_err(got, want)
-                msg = (f"B3 {scheme} M={M:2d} {label} [{D}->{F}]: "
+                plan = choose_gemv_plan(M, D, F, scheme, sms)
+                msg = (f"B3 {scheme} M={M:2d} {label} [{D}->{F}] "
+                       f"({plan.path}, {plan.rows} rows, S={plan.splits}): "
                        f"rel_err={err:.3e} (tol {GEMV_TOL[scheme]:.0e})")
                 check(bool(torch.isfinite(got).all())
                       and got.shape == (M, F), f"{msg}: bad output")
+                check(torch.equal(got, again),
+                      f"{msg}: a second launch gave other bits")
                 if scheme == "w4a16":
                     tpu = ((x.to(torch.bfloat16).double()
                             @ unpack_int4(qw.q).double())
@@ -893,9 +929,43 @@ def quant_kernel_phase() -> float:
                 check(err <= GEMV_TOL[scheme], msg)
                 max_abs = max(max_abs, float((got - want).abs().max()))
                 n += 1
-    print(f"B3 kernel phase: {n} cases within tolerance, "
-          f"max_abs_err={max_abs:.3e}")
+    print(f"B3 kernel phase: {n} cases within tolerance, each launched "
+          f"twice with the same bits, max_abs_err={max_abs:.3e}")
     return max_abs
+
+
+def gemv_bound(scheme, M, D, F, rate) -> dict:
+    """Packed weight + scale + x + out bytes at the HBM rate vs 2·M·D·F
+    operations at the dense tensor-core peak of the input type."""
+    nbytes = (D * F // (2 if scheme == "w4a16" else 1) + 4 * F
+              + M * D * (2 if scheme == "w4a16" else 1) + 4 * M * F)
+    ops = 2 * M * D * F
+    t_bytes = nbytes / rate * 1e3
+    t_ops = ops / TC_OPS[scheme] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def timed_result(head: str, res: dict, times: dict) -> dict:
+    for key, t in times.items():
+        res[key] = statistics.median(t)
+        res[f"{key}_min_max"] = [t[0], t[-1]]
+    print(f"timing {head} (median [min, max]): "
+          + " ".join(f"{k}={res[k]:.6f} [{t[0]:.6f}, {t[-1]:.6f}]"
+                     for k, t in times.items())
+          + f" bound_ms={res['bound_ms']:.6f} ({res['bound_by']}, "
+          f"{res['bytes']} bytes, {res['ops']} ops)")
+    return res
+
+
+def gemv_kernel_input(scheme, x):
+    """x as B3 receives it: bf16, or int8 codes and their scales."""
+    import torch
+    from repro_torch.core.quant import quantize_activations_int8
+    if scheme == "w8a8":
+        return quantize_activations_int8(x)
+    return x.to(torch.bfloat16), None
 
 
 def quant_timing_shape(label, scheme, M, D, F, rate, flush, gen):
@@ -904,17 +974,15 @@ def quant_timing_shape(label, scheme, M, D, F, rate, flush, gen):
     quantization included), and the library yardstick: torch._int_mm
     plus the two scales (W8A8 at M > 16, where that call exists), else a
     dense bf16 torch.matmul on the weight dequantized beforehand — the
-    product the quantized weight replaces.  Bound: packed weight + scale
-    + x + out bytes at the HBM rate vs 2·M·D·F operations at the dense
-    tensor-core peak of the input type."""
+    product the quantized weight replaces.  read_ms: one torch sum over
+    the packed weight's bytes (as float32 words, NaN or not), what a
+    single read of them costs in practice under this timing: a yardstick
+    beside the bound, not a gate."""
     import torch
-    from repro_torch.core.quant import dequantize, quantize_activations_int8
+    from repro_torch.core.quant import dequantize
     from repro_torch.kernels.quant_gemv import quant_gemv_cuda, quant_gemv_ref
     x, qw = gemv_case(scheme, M, D, F, gen)
-    if scheme == "w8a8":
-        xk, xs = quantize_activations_int8(x)
-    else:
-        xk = x.to(torch.bfloat16)
+    xk, xs = gemv_kernel_input(scheme, x)
     times = {
         "ms": time_ms(lambda: quant_gemv_cuda(xk, qw.q, qw.scale, scheme),
                       20, flush),
@@ -936,43 +1004,123 @@ def quant_timing_shape(label, scheme, M, D, F, rate, flush, gen):
         xb = x.to(torch.bfloat16)
         times["library_ms"] = time_ms(lambda: torch.matmul(xb, wd), 20,
                                       flush)
-    nbytes = (qw.q.numel() + 4 * F + M * D * (2 if scheme == "w4a16" else 1)
-              + 4 * M * F)
-    ops = 2 * M * D * F
-    t_bytes = nbytes / rate * 1e3
-    t_ops = ops / TC_OPS[scheme] * 1e3
+    words = qw.q.view(torch.float32)
+    times["read_ms"] = time_ms(lambda: words.sum(), 20, flush)
     res = {"shape": label, "scheme": scheme, "M": M, "D": D, "F": F,
-           "library": library, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bytes": nbytes, "ops": ops}
-    for key, t in times.items():
-        res[key] = statistics.median(t)
-        res[f"{key}_min_max"] = [t[0], t[-1]]
-    print(f"timing B3 {scheme} {label} M={M} [{D}->{F}] (median [min, max]): "
-          + " ".join(f"{k}={res[k]:.6f} [{t[0]:.6f}, {t[-1]:.6f}]"
-                     for k, t in times.items())
-          + f" bound_ms={res['bound_ms']:.6f} ({res['bound_by']}, "
-          f"{nbytes} bytes, {ops} ops); library = {library}")
-    return res
+           "library": library, **gemv_bound(scheme, M, D, F, rate)}
+    return timed_result(f"B3 {scheme} {label} M={M} [{D}->{F}]", res,
+                        times)
+
+
+def crossover_timing(rate, flush, gen) -> list:
+    """Both paths forced at the M around the crossover, on the two timed
+    weights: where the tile path overtakes the stream path."""
+    import torch
+    from repro_torch.kernels.quant_gemv.kernel import (choose_gemv_plan,
+                                                       quant_gemv_cuda)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for scheme in ("w4a16", "w8a8"):
+        for label, _, D, F in GEMV_TIMED[:2]:
+            for M in (8, 16, 24, 32):
+                x, qw = gemv_case(scheme, M, D, F, gen)
+                xk, _ = gemv_kernel_input(scheme, x)
+                times = {}
+                for path in ("stream", "tile"):
+                    plan = choose_gemv_plan(M, D, F, scheme, sms, path=path)
+                    times[f"{path}_ms"] = time_ms(
+                        lambda: quant_gemv_cuda(xk, qw.q, qw.scale, scheme,
+                                                plan=plan), 20, flush)
+                res = {"shape": label.split(",")[0], "scheme": scheme,
+                       "M": M, "D": D, "F": F,
+                       **gemv_bound(scheme, M, D, F, rate)}
+                rows.append(timed_result(
+                    f"B3 crossover {scheme} {res['shape']} M={M}", res,
+                    times))
+    return rows
 
 
 def quant_timing_phase(rate):
-    """The serving shape first (W4A16, qwen1.5-0.5b's gate projection at
-    the 4 decode slots), then the long shape (llama3.1-8b's down
-    projection) and the 64-row prefill chunk, for both schemes."""
+    """The four timed shapes for both schemes, then the crossover."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(4)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    shapes = []
+    shapes = [quant_timing_shape(label, scheme, M, D, F, rate, flush, gen)
+              for scheme in ("w4a16", "w8a8")
+              for label, M, D, F in GEMV_TIMED]
+    return shapes, crossover_timing(rate, flush, gen)
+
+
+def old_gemv_launcher(source: str):
+    """B3's earlier CUDA-core body (its C interface: splits chosen in C, x
+    rows padded to a multiple of 4), built by nvcc from `source` into
+    build/ and bound beside the current one, for a one-process A/B."""
+    import ctypes
+    import hashlib
+    import torch
+    from repro_torch.kernels import _build
+    src = Path(source).resolve()
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = _build._BUILD_DIR / f"quant_gemv_old-{digest}.so"
+    if not out.exists():
+        _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build._nvcc(), *_build._NVCC_FLAGS, "-o", str(out),
+                        str(src)], check=True)
+    lib = ctypes.CDLL(str(out))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    gemv, splits_of = lib.kvnand_quant_gemv, lib.kvnand_quant_gemv_splits
+    gemv.argtypes, gemv.restype = [P] * 6 + [I] * 7 + [P], I
+    splits_of.argtypes, splits_of.restype = [I] * 5, I
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tickets = torch.zeros(1 << 16, dtype=torch.int32, device="cuda")
+
+    def launch(x, q, scale, scheme):
+        M, D = x.shape
+        F = q.shape[-1]
+        check(D % 4 == 0 and F % 4 == 0, "the A/B shapes need no padding")
+        code = 0 if scheme == "w4a16" else 1
+        out = torch.empty((M, F), dtype=torch.float32, device="cuda")
+        s = splits_of(M, D, F, code, sms)
+        ws = torch.empty((s, M, F), dtype=torch.float32, device="cuda")
+        rc = gemv(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                  out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), M, D, F,
+                  D, code, s, 1, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"old B3 launch failed: CUDA error {rc}")
+        return out
+    return launch
+
+
+def gemv_ab_phase(source: str, rate) -> list:
+    """The old body (from `source`) and the current one at the 8 timed
+    shapes, in one process, in the order old, new, new, old; both are
+    first held against each other (W8A8 exactly, W4A16 within the TPU
+    function's tolerance)."""
+    import torch
+    from repro_torch.kernels.quant_gemv import quant_gemv_cuda
+    old = old_gemv_launcher(source)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rows = []
     for scheme in ("w4a16", "w8a8"):
-        for label, M, D, F in (("qwen1.5-0.5b gate, serving", 4, 1024, 2816),
-                               ("llama3.1-8b down, long", 4, 14336, 4096),
-                               ("qwen1.5-0.5b gate, prefill", 64, 1024, 2816),
-                               ("llama3.1-8b down, prefill", 64, 14336,
-                                4096)):
-            shapes.append(quant_timing_shape(label, scheme, M, D, F, rate,
-                                             flush, gen))
-    return shapes
+        for label, M, D, F in GEMV_TIMED:
+            x, qw = gemv_case(scheme, M, D, F, gen)
+            xk, _ = gemv_kernel_input(scheme, x)
+            fns = {"old": lambda: old(xk, qw.q, qw.scale, scheme),
+                   "new": lambda: quant_gemv_cuda(xk, qw.q, qw.scale,
+                                                  scheme)}
+            err = rel_err(fns["new"](), fns["old"]())
+            check(err <= (0 if scheme == "w8a8" else GEMV_TPU_TOL),
+                  f"A/B {scheme} {label}: old and new bodies differ by "
+                  f"{err:.3e}")
+            times = {}
+            for i, which in enumerate(("old", "new", "new", "old")):
+                times[f"{which}{i}_ms"] = time_ms(fns[which], 20, flush)
+            res = {"shape": label, "scheme": scheme, "M": M, "D": D, "F": F,
+                   "old_vs_new_rel_err": err,
+                   **gemv_bound(scheme, M, D, F, rate)}
+            rows.append(timed_result(f"B3 A/B {scheme} {label} M={M}", res,
+                                     times))
+    return rows
 
 
 def tree_to(tree, device):
@@ -1531,8 +1679,9 @@ def kernel_entry(name, source, replaces, launches, max_abs, shapes, server):
 
 def main(argv) -> int:
     import torch
-    if argv not in ([], ["--paged"], ["--paged-timing"], ["--quant-servers"],
-                    ["--wkv"]):
+    if (argv not in ([], ["--paged"], ["--paged-timing"], ["--quant-servers"],
+                     ["--wkv"], ["--gemv"])
+            and not (len(argv) == 2 and argv[0] == "--gemv-ab")):
         print(__doc__, file=sys.stderr)
         return 2
     quant_only = argv == ["--quant-servers"]
@@ -1563,6 +1712,19 @@ def main(argv) -> int:
         print(card)
         print(json.dumps({"paged_attention": paged}))
         return 0
+    if argv == ["--gemv"]:
+        b3_err = quant_kernel_phase()
+        b3_shapes, crossover = quant_timing_phase(rate)
+        print(card)
+        print(json.dumps({"quant_gemv": {"max_abs_err": b3_err,
+                                         "shapes": b3_shapes,
+                                         "crossover": crossover}}))
+        return 0
+    if argv[:1] == ["--gemv-ab"]:
+        rows = gemv_ab_phase(argv[1], rate)
+        print(card)
+        print(json.dumps({"quant_gemv_ab": rows}))
+        return 0
     if argv == ["--wkv"]:
         b5_err = wkv_kernel_phase()
         b5_shapes = wkv_timing_phase(rate)
@@ -1588,7 +1750,7 @@ def main(argv) -> int:
         for r in (shared, shared32):
             del r["token_ids"]
         b3_err = quant_kernel_phase()
-        b3_shapes = quant_timing_phase(rate)
+        b3_shapes, b3_crossover = quant_timing_phase(rate)
         b4_err = flash_kernel_phase()
         b4_shapes = flash_timing_phase(rate)
         s1 = splice_server_phase()
@@ -1623,7 +1785,12 @@ def main(argv) -> int:
         kernel_entry("quant_gemv", "src/repro_torch/csrc/quant_gemv.cu",
                      "src/repro/kernels/quant_gemv/kernel.py:68",
                      q1["launches"] + q2["launches"], b3_err, b3_shapes,
-                     [q1, q2]),
+                     [q1, q2]) | {
+            "design": "tensor-core mma.sync (bf16 / s8) with the weights "
+                      "dequantized into the A operand; stream path (M <= "
+                      "STREAM_MAX_M, 8 or 16 rows a CTA) and tile path (64 "
+                      "rows) over a 4-stage cp.async ring; ordered split-D "
+                      "sum", "crossover": b3_crossover},
         kernel_entry("flash_attention",
                      "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention/kernel.py:82",

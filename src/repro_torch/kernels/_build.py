@@ -47,8 +47,7 @@ LIBS: Dict[str, Library] = {
         {"kvnand_paged_attention_shared": [_P] * 11 + [_I] * 11 + [_P]}),
     "quant_gemv": Library(
         _CSRC / "quant_gemv.cu", (),
-        {"kvnand_quant_gemv": [_P] * 6 + [_I] * 7 + [_P],
-         "kvnand_quant_gemv_splits": [_I] * 5}),
+        {"kvnand_quant_gemv": [_P] * 6 + [_I] * 14 + [_P]}),
     "flash_attention": Library(
         _CSRC / "flash_attention.cu", (),
         {"kvnand_flash_attention": [_P] * 4 + [_LL] * 9 + [_I] * 10

@@ -24,7 +24,10 @@ B3: W8A8 within 1e-6 x max|y| of the plain version (only the order of the
 float32 scale multiplies differs); W4A16 within 4e-3 x max|y| of the plain
 version (which rounds the product to bf16, as the reference's
 `quant_gemv_ref` does) and within 1e-5 x max|y| of the TPU kernel's own
-function, `f32(bf16(x) @ w4) * scale`, taken here in float64.
+function, `f32(bf16(x) @ w4) * scale`, taken here in float64; both of its
+paths (stream and tile, forced through `plan=`) on x rows off a 16-byte
+boundary and on the ragged (130, 77), M at the recorded crossover +-1,
+repeated launches bit-identical, and the split-D tickets left at zero.
 
 B4: the reference's flash-attention tolerances, 2e-5 (f32) and 2e-2
 (bf16), atol = rtol; a bf16 output also within one bf16 rounding (2^-8
@@ -46,7 +49,8 @@ import itertools
 import pytest
 import torch
 
-from repro_torch.core.quant import (quantize_kv_page, quantize_params,
+from repro_torch.core.quant import (quantize_activations_int8,
+                                    quantize_kv_page, quantize_params,
                                     quantize_weight, unpack_int4)
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import paged_attention as tpa
@@ -396,6 +400,107 @@ def test_quant_gemv_reads_no_padding_rows(cuda_device):
     torch.testing.assert_close(
         got, tqg.quant_gemv_cuda(x.to(torch.bfloat16), qw.q, qw.scale,
                                  "w4a16"), atol=0, rtol=0)
+
+
+def _tpu_function(x, qw):
+    """The TPU kernel's W4A16 function, f32(bf16(x) @ w4) * scale, in
+    float64."""
+    return ((x.to(torch.bfloat16).double() @ unpack_int4(qw.q).double())
+            * qw.scale.double())
+
+
+def _hold_gemv(got, x, qw, scheme):
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, tqg.quant_gemv_ref(x, qw.q, qw.scale, scheme)) \
+        <= GEMV_TOL[scheme]
+    if scheme == "w4a16":
+        assert _rel(got, _tpu_function(x, qw)) <= 1e-5
+
+
+def _kernel_input(scheme, x):
+    if scheme == "w8a8":
+        return quantize_activations_int8(x)
+    return x.to(torch.bfloat16), None
+
+
+@pytest.mark.parametrize("scheme", ["w4a16", "w8a8"])
+@pytest.mark.parametrize("dM", [-1, 0, 1])
+@pytest.mark.parametrize("D,F", [(1024, 2816), (130, 77), (8960, 2560)])
+def test_quant_gemv_at_the_crossover(cuda_device, scheme, dM, D, F):
+    """M one below, at and one above the largest M of the stream path:
+    each takes the path the plan names and matches the plain version."""
+    from repro_torch.kernels.quant_gemv.kernel import (STREAM_MAX_M,
+                                                       choose_gemv_plan)
+    M = STREAM_MAX_M + dM
+    assert choose_gemv_plan(M, D, F, scheme).path == (
+        "stream" if dM <= 0 else "tile")
+    x, qw = _gemv_case(scheme, M, D, F, cuda_device)
+    got = tqg.quant_gemv(x, qw)
+    torch.cuda.synchronize()
+    _hold_gemv(got, x, qw, scheme)
+
+
+@pytest.mark.parametrize("scheme", ["w4a16", "w8a8"])
+@pytest.mark.parametrize("M,D,F", [(4, 14336, 4096), (64, 14336, 4096),
+                                   (70, 1024, 2816), (1, 130, 77)])
+def test_quant_gemv_repeated_launches_are_bit_identical(cuda_device, scheme,
+                                                        M, D, F):
+    """The split-D partials are summed in split order by the last split,
+    not by float atomics: five launches give the same bits."""
+    x, qw = _gemv_case(scheme, M, D, F, cuda_device)
+    xk, _ = _kernel_input(scheme, x)
+    first = tqg.quant_gemv_cuda(xk, qw.q, qw.scale, scheme)
+    for _ in range(4):
+        assert torch.equal(tqg.quant_gemv_cuda(xk, qw.q, qw.scale, scheme),
+                           first)
+
+
+@pytest.mark.parametrize("scheme", ["w4a16", "w8a8"])
+@pytest.mark.parametrize("path", ["stream", "tile"])
+def test_quant_gemv_split_launch_leaves_tickets_at_zero(cuda_device, scheme,
+                                                        path):
+    from repro_torch.kernels.quant_gemv import kernel as k
+    M, D, F = (4 if path == "stream" else 64), 4096, 1024
+    plan = k.choose_gemv_plan(M, D, F, scheme, path=path)
+    assert plan.splits > 1
+    x, qw = _gemv_case(scheme, M, D, F, cuda_device)
+    xk, _ = _kernel_input(scheme, x)
+    got = tqg.quant_gemv_cuda(xk, qw.q, qw.scale, scheme, plan=plan)
+    torch.cuda.synchronize()
+    # the stream path's splits meet through tickets, the tile path's in a
+    # thread-block cluster, which takes none
+    assert plan.cluster == (path == "tile")
+    stream = torch.cuda.current_stream(cuda_device)
+    tickets = k._tickets.get((xk.device, stream.cuda_stream))
+    assert path == "tile" or tickets is not None
+    assert tickets is None or int(tickets.abs().sum()) == 0
+    assert torch.equal(tqg.quant_gemv_cuda(xk, qw.q, qw.scale, scheme,
+                                           plan=plan), got)
+
+
+@pytest.mark.parametrize("scheme", ["w4a16", "w8a8"])
+@pytest.mark.parametrize("path", ["stream", "tile"])
+@pytest.mark.parametrize("M", [3, 64, 70])
+@pytest.mark.parametrize("D,F", [(130, 77), (1024, 2816), (2560, 8960)])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_quant_gemv_both_paths_take_misaligned_and_ragged_inputs(
+        cuda_device, scheme, path, M, D, F, splits):
+    """Each path, forced, on x whose rows start off a 16-byte boundary (a
+    view one element into a wider buffer) and on the ragged (130, 77)."""
+    from repro_torch.kernels.quant_gemv import kernel as k
+    x, qw = _gemv_case(scheme, M, D, F, cuda_device)
+    xk, xs = _kernel_input(scheme, x)
+    wide = torch.zeros((M, D + 3), dtype=xk.dtype, device=cuda_device)
+    wide[:, 1:D + 1] = xk
+    view = wide[:, 1:D + 1]
+    assert view.data_ptr() % 16 and view.stride(1) == 1
+    plan = k.choose_gemv_plan(M, D, F, scheme, path=path)
+    plan = plan._replace(splits=splits, grid=plan.grid[:2] + (splits,))
+    got = tqg.quant_gemv_cuda(view, qw.q, qw.scale, scheme, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tqg.quant_gemv_cuda(xk.contiguous(), qw.q,
+                                                qw.scale, scheme, plan=plan))
+    _hold_gemv(got if xs is None else got * xs, x, qw, scheme)
 
 
 def test_quant_gemv_expert_batched_weight_raises(cuda_device):

@@ -139,3 +139,80 @@ def test_dense_and_qkv_projections_take_quantized_leaves(scheme):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
                                    rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# B3's launch plan (`choose_gemv_plan`): decided on the host, so held here
+# ---------------------------------------------------------------------------
+
+PLAN_SHAPES = [(1, 1024, 2816), (4, 14336, 4096), (8, 130, 77),
+               (15, 2560, 8960), (16, 8960, 2560), (17, 1024, 1024),
+               (64, 1024, 2816), (64, 14336, 4096), (70, 130, 77),
+               (200, 4096, 14336), (3, 2, 1), (64, 64, 1)]
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("M,D,F", PLAN_SHAPES)
+def test_plan_grid_covers_every_row_and_column(scheme, M, D, F):
+    plan = tqg.kernel.choose_gemv_plan(M, D, F, scheme, sms=132)
+    gx, gy, gz = plan.grid
+    cols = 32 * plan.warps
+    assert (gx - 1) * cols < F <= gx * cols
+    assert (gy - 1) * plan.rows < M <= gy * plan.rows
+    assert gz == plan.splits
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("M,D,F", PLAN_SHAPES)
+@pytest.mark.parametrize("sms", [1, 132])
+def test_plan_splits_lie_between_one_and_the_chunks(scheme, M, D, F, sms):
+    """Every split walks at least one ring stage of D, and the splits
+    together walk all of them: the kernel's split c takes stages
+    [c·per, min((c+1)·per, chunks)) with per = ceil(chunks / splits)."""
+    plan = tqg.kernel.choose_gemv_plan(M, D, F, scheme, sms=sms)
+    chunks = -(-D // plan.kc)
+    per = -(-chunks // plan.splits)
+    assert 1 <= plan.splits <= chunks
+    assert (plan.splits - 1) * per < chunks <= plan.splits * per
+    # the tile path's splits are one thread-block cluster
+    assert plan.cluster == (plan.path == "tile")
+    assert not plan.cluster or plan.splits <= tqg.kernel.MAX_CLUSTER
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_plan_path_follows_the_recorded_crossover(scheme):
+    k = tqg.kernel
+    for M in range(1, 3 * k.TILE_ROWS):
+        plan = k.choose_gemv_plan(M, 4096, 4096, scheme)
+        if M <= k.STREAM_MAX_M:
+            assert plan.path == "stream"
+            assert plan.rows == (8 if M <= 8 else 16)
+            assert (plan.warps, plan.kc, plan.stages,
+                    plan.ctas) == k.STREAM[scheme]
+        else:
+            assert plan.path == "tile" and plan.rows == k.TILE_ROWS
+            assert (plan.warps, plan.kc, plan.stages,
+                    plan.ctas) == k.TILE[scheme]
+    for path in ("stream", "tile"):
+        assert k.choose_gemv_plan(4, 4096, 4096, scheme,
+                                  path=path).path == path
+    with pytest.raises(ValueError, match="path"):
+        k.choose_gemv_plan(4, 4096, 4096, scheme, path="wide")
+
+
+def test_plan_instances_are_compiled():
+    """Every instance a plan can name is one `csrc/quant_gemv.cu`
+    compiles (the C entry point refuses any other)."""
+    import pathlib
+    import re
+    k = tqg.kernel
+    src = (pathlib.Path(k.__file__).resolve().parents[2] / "csrc"
+           / "quant_gemv.cu").read_text()
+    compiled = {tuple(int(v) for v in m) for m in re.findall(
+        r"B3_INSTANCE\((\d), (\d+), (\d+), (\d+), (\d+), (\d+)\)", src)}
+    assert len(compiled) == 6
+    for code, scheme in enumerate(SCHEMES):
+        for M, path in ((1, None), (9, None), (64, None), (4, "tile"),
+                        (64, "stream")):
+            p = k.choose_gemv_plan(M, 4096, 4096, scheme, path=path)
+            assert (code, p.warps, p.rows, p.kc, p.stages, p.ctas) in compiled
