@@ -8,6 +8,9 @@
     python3 chip_smoke.py --wkv              # the build and phase 11 only
     python3 chip_smoke.py --gemv             # the build and phase 7 only
     python3 chip_smoke.py --gemv-ab OLD.cu   # B3's CUDA-core body vs the current
+    python3 chip_smoke.py --flash            # the build and phase 9 only
+    python3 chip_smoke.py --flash-timing     # the build and B4's timing only
+    python3 chip_smoke.py --flash-ab OLD.cu  # B4's CUDA-core body vs the current
 
 Phases (each one fails the run when it fails):
 
@@ -84,18 +87,26 @@ Phases (each one fails the run when it fails):
             request's first differing token;
 9. B4       flash attention against its plain version on the card,
             {f32, bf16} x heads (H, K, dh) (16, 16, 64) (qwen1.5-0.5b),
-            (32, 8, 128) (llama3.1-8b), (8, 1, 64) and (4, 2, 32) (every
-            reduced config's head dim, padded inside the kernel) x causal
-            {True, False} x window {None, 16, 64} (16 is shorter than the
-            kernel's 64-key tile) x ragged Sq = Sk in {1, 70, 255, 511}
-            and Sq = 70 < Sk = 255 (at q_offset 0 and 185) x B {1, 3},
-            within FLASH_TOL (the reference's own tolerances); bf16 also
-            within one bf16 rounding of the plain version on the inputs
-            upcast to f32, which is the kernel's own arithmetic; timed
-            (kernel, plain, SDPA, bound) at the serving shape (B=1, 256
+            (32, 8, 128) (llama3.1-8b), (8, 1, 64), (4, 2, 32) (every
+            reduced config's head dim) and (4, 2, 112), (4, 2, 160),
+            (8, 4, 256) (padded inside the kernel; every instance runs) x
+            causal {True, False} x window {None, 16, 64} (16 is shorter
+            than a key tile) x ragged Sq = Sk in {1, 70, 255, 511} and
+            Sq = 70 < Sk = 255 (at q_offset 0 and 185) x B {1, 3}, each
+            under the host's plan and with the cluster size S forced to 1,
+            2, 4 and 8, each launched twice for the same bits, within
+            FLASH_TOL (the reference's own tolerances); bf16 also within
+            one bf16 rounding of the plain version on the inputs upcast to
+            f32; timed (kernel, plain, SDPA in the same dtype, bound and
+            the CUDA-core bound beside it) at the serving shape (B=1, 256
             tokens, H=K=16, dh=64, f32, causal: a bucketed admit of
-            qwen1.5-0.5b) and a long shape (B=1, 8192 tokens, H=32, K=8,
-            dh=128, f32, causal);
+            qwen1.5-0.5b), the 64-token bucket, and a long shape (B=1,
+            8192 tokens, H=32, K=8, dh=128, causal) in f32 and bf16, with
+            every S forced at the two short ones.  `--flash-ab OLD.cu`
+            times B4's earlier CUDA-core body (e.g. `git show
+            fbf4a59:src/repro_torch/csrc/flash_attention.cu`) beside the
+            current one at the four timed shapes, old, new, new, old, in
+            one process;
 10. S1      the splice scheduler (`scheduler="splice"`) at the full width
             of qwen1.5-0.5b, stripe f32 pool: the stripe prompts plus one of
             500 tokens (its bucket clamps to 511); B4's counter must equal
@@ -1273,12 +1284,23 @@ def quant_server_phase(label, scheme, kv_quant, shared, prompts_of):
 # phases 9-10: flash attention (B4) and the splice scheduler
 # ---------------------------------------------------------------------------
 
-# H, K, dh: qwen1.5-0.5b, llama3.1-8b, MQA, and the reduced configs' 32
-FLASH_HEADS = ((16, 16, 64), (32, 8, 128), (8, 1, 64), (4, 2, 32))
+# H, K, dh: qwen1.5-0.5b, llama3.1-8b, MQA, the reduced configs' 32, and
+# the head dims B4 pads inside shared memory (112, 160 and 256, which
+# gemma3-12b serves), so every instance (width 64, 128, 256 x f32, bf16)
+# runs
+FLASH_HEADS = ((16, 16, 64), (32, 8, 128), (8, 1, 64), (4, 2, 32),
+               (4, 2, 112), (4, 2, 160), (8, 4, 256))
 # (Sq, Sk, q_offset): ragged prompts, and queries placed before or at the
 # end of a longer key range
 FLASH_LENGTHS = ((1, 1, 0), (70, 70, 0), (255, 255, 0), (511, 511, 0),
                  (70, 255, 0), (70, 255, 185))
+# the plans each sweep case runs under: the host's choice, then every
+# cluster size forced
+FLASH_PLANS = (None, 1, 2, 4, 8)
+# dense tensor-core peaks (NVIDIA H100 SXM data sheet): B4's f32 products
+# run as three TF32 products each, its bf16 ones on bf16
+TF32_FLOPS = 494.7e12
+BF16_FLOPS = 989e12
 
 
 def flash_inputs(B, Sq, Sk, H, K, dh, dtype, gen):
@@ -1289,44 +1311,70 @@ def flash_inputs(B, Sq, Sk, H, K, dh, dtype, gen):
             torch.randn(B, Sk, K, dh, generator=gen, device="cuda").to(dtype))
 
 
+def flash_plan(q, k, split, **kw):
+    """The host's plan for this call, or one with `split` forced."""
+    import torch
+    from repro_torch.kernels.flash_attention import choose_flash_plan
+    B, Sq, H, dh = q.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return choose_flash_plan(B, Sq, k.shape[1], H, kw["causal"],
+                             kw["window"], sms, q_offset=kw["q_offset"],
+                             dh=dh, dtype=q.dtype, split=split)
+
+
 def flash_kernel_phase() -> float:
-    """B4 against `flash_attention_ref`; returns max |o - plain o|."""
+    """B4 against `flash_attention_ref` under the host's plan and every
+    forced cluster size, each plan launched twice for the same bits;
+    returns max |o - plain o|."""
     import itertools
     import torch
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_ref)
     gen = torch.Generator(device="cuda").manual_seed(5)
     max_abs, n = 0.0, 0
     worst = {"f32": 0.0, "bf16": 0.0, "bf16 vs f32": 0.0}
+    chosen = {}
     for fmt, (H, K, dh), causal, window, (Sq, Sk, off), B in \
             itertools.product(("f32", "bf16"), FLASH_HEADS, (True, False),
                               (None, 16, 64), FLASH_LENGTHS, (1, 3)):
         dt = torch.float32 if fmt == "f32" else torch.bfloat16
         q, k, v = flash_inputs(B, Sq, Sk, H, K, dh, dt, gen)
         kw = dict(causal=causal, window=window, q_offset=off)
-        got = flash_attention(q, k, v, **kw)
-        torch.cuda.synchronize()
         want = flash_attention_ref(q, k, v, **kw)
-        label = (f"B4 {fmt} H={H} K={K} dh={dh} causal={causal} "
-                 f"window={window} B={B} Sq={Sq} Sk={Sk} q_offset={off}")
-        check(got.shape == want.shape and got.dtype == dt
-              and bool(torch.isfinite(got).all()), f"{label}: bad output")
-        err = close_err(got, want, FLASH_TOL[fmt])
-        worst[fmt] = max(worst[fmt], err)
-        check(err <= FLASH_TOL[fmt], f"{label}: kernel disagrees with plain "
-              f"version: {err:.3e} > {FLASH_TOL[fmt]:.0e}")
-        if fmt == "bf16":
-            w32 = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
-            bound = BF16_ROUNDING * w32.abs() + FLASH_TOL["f32"] * (
-                1 + w32.abs())
-            err32 = float(((got.float() - w32).abs() / bound).max())
-            worst["bf16 vs f32"] = max(worst["bf16 vs f32"], err32)
-            check(err32 <= 1, f"{label}: bf16 kernel disagrees with its own "
-                  f"arithmetic: {err32:.3e} of one bf16 rounding + 2e-5")
-        max_abs = max(max_abs, float((got.float() - want.float()).abs()
-                                     .max()))
-        n += 1
-    print(f"B4 kernel phase: {n} cases within tolerance; worst rel_err f32 "
+        w32 = (flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+               if fmt == "bf16" else None)
+        for split in FLASH_PLANS:
+            plan = flash_plan(q, k, split, **kw)
+            got = flash_attention_cuda(q, k, v, plan=plan, **kw)
+            again = flash_attention_cuda(q, k, v, plan=plan, **kw)
+            torch.cuda.synchronize()
+            label = (f"B4 {fmt} H={H} K={K} dh={dh} causal={causal} "
+                     f"window={window} B={B} Sq={Sq} Sk={Sk} q_offset={off} "
+                     f"S={plan.split}{'' if split else ' (chosen)'}")
+            if split is None:
+                chosen[plan.split] = chosen.get(plan.split, 0) + 1
+            check(got.shape == want.shape and got.dtype == dt
+                  and bool(torch.isfinite(got).all()), f"{label}: bad output")
+            check(torch.equal(got, again),
+                  f"{label}: a repeated launch gave other bits")
+            err = close_err(got, want, FLASH_TOL[fmt])
+            worst[fmt] = max(worst[fmt], err)
+            check(err <= FLASH_TOL[fmt], f"{label}: kernel disagrees with "
+                  f"plain version: {err:.3e} > {FLASH_TOL[fmt]:.0e}")
+            if fmt == "bf16":
+                bound = BF16_ROUNDING * w32.abs() + FLASH_TOL["f32"] * (
+                    1 + w32.abs())
+                err32 = float(((got.float() - w32).abs() / bound).max())
+                worst["bf16 vs f32"] = max(worst["bf16 vs f32"], err32)
+                check(err32 <= 1, f"{label}: bf16 kernel disagrees with its "
+                      f"own arithmetic: {err32:.3e} of one bf16 rounding + "
+                      "2e-5")
+            max_abs = max(max_abs, float((got.float() - want.float()).abs()
+                                         .max()))
+            n += 1
+    print(f"B4 kernel phase: {n} cases within tolerance (each launched "
+          f"twice with the same bits; the host chose S "
+          f"{dict(sorted(chosen.items()))}); worst rel_err f32 "
           f"{worst['f32']:.3e} (tol {FLASH_TOL['f32']:.0e}), bf16 "
           f"{worst['bf16']:.3e} (tol {FLASH_TOL['bf16']:.0e}), bf16 vs the "
           f"f32-upcast plain version {worst['bf16 vs f32']:.3e} of one bf16 "
@@ -1334,21 +1382,42 @@ def flash_kernel_phase() -> float:
     return max_abs
 
 
-def flash_timing_shape(label, B, S, H, K, dh, rate, flush, gen, reps):
-    """B4 at one causal f32 shape: kernel, plain version, and one SDPA call
-    on the same tensors (K/V expanded to H heads beforehand, [B, H, S, dh]
-    copies).  Bound: 4·B·H·dh FLOPs per visible (query, key) pair at the
-    float32 CUDA-core peak against q, k, v and o moved once at the HBM
-    rate."""
+def flash_bound(B, S, H, K, dh, dtype, rate) -> dict:
+    """The least time the card could take for one causal prompt (Sq = Sk
+    = S): 4·dh FLOPs per visible (query, key) pair at the fastest exact
+    route of the input type (f32: three TF32 products at the TF32 peak;
+    bf16: the bf16 peak), against q, k, v and o moved once at the HBM
+    rate; and the same FLOPs at the f32 CUDA-core peak beside it."""
+    pairs = S * (S + 1) // 2
+    flops = 4 * B * H * dh * pairs
+    f32 = dtype == "float32"
+    nbytes = (4 if f32 else 2) * B * S * dh * (2 * H + 2 * K)
+    t_ops = (3 * flops / TF32_FLOPS if f32 else flops / BF16_FLOPS) * 1e3
+    t_bytes = nbytes / rate * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_cuda_core_ms": flops / F32_FLOPS * 1e3,
+            "flops": flops, "bytes": nbytes}
+
+
+def flash_timing_shape(label, B, S, H, K, dh, dtype, rate, flush, gen, reps,
+                       splits=()):
+    """B4 at one causal shape: the kernel under the host's plan (and, for
+    each of `splits`, with S forced), the plain version, and one SDPA call
+    in the same dtype on the same tensors (K/V expanded to H heads
+    beforehand, [B, H, S, dh] copies)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_ref)
-    q, k, v = flash_inputs(B, S, S, H, K, dh, torch.float32, gen)
+    dt = getattr(torch, dtype)
+    q, k, v = flash_inputs(B, S, S, H, K, dh, dt, gen)
     G = H // K
     qs = q.transpose(1, 2).contiguous()
     ks = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
     vs = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    kw = dict(causal=True, window=None, q_offset=0)
+    plan = flash_plan(q, k, None, **kw)
     times = {
         "ms": time_ms(lambda: flash_attention_cuda(q, k, v, causal=True),
                       reps, flush),
@@ -1357,37 +1426,117 @@ def flash_timing_shape(label, B, S, H, K, dh, rate, flush, gen, reps):
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, is_causal=True), reps, flush),
     }
-    pairs = S * (S + 1) // 2                       # causal, Sq = Sk = S
-    flops = 4 * B * H * dh * pairs
-    nbytes = 4 * B * S * dh * (2 * H + 2 * K)
-    t_ops = flops / F32_FLOPS * 1e3
-    t_bytes = nbytes / rate * 1e3
+    for split in splits:
+        forced = flash_plan(q, k, split, **kw)
+        times[f"S{split}_ms"] = time_ms(
+            lambda: flash_attention_cuda(q, k, v, causal=True, plan=forced),
+            reps, flush)
     res = {"shape": label, "B": B, "S": S, "H": H, "K": K, "dh": dh,
-           "dtype": "float32", "causal": True,
-           "library": "scaled_dot_product_attention(is_causal=True)",
-           "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "flops": flops, "bytes": nbytes}
+           "dtype": dtype, "causal": True, "split": plan.split,
+           "library": f"scaled_dot_product_attention(is_causal=True), "
+                      f"{dtype}",
+           **flash_bound(B, S, H, K, dh, dtype, rate)}
     for key, t in times.items():
         res[key] = statistics.median(t)
         res[f"{key}_min_max"] = [t[0], t[-1]]
-    print(f"timing B4 {label} B={B} S={S} H={H} K={K} dh={dh} f32 causal "
-          "(median [min, max]): " + " ".join(
+    print(f"timing B4 {label} B={B} S={S} H={H} K={K} dh={dh} {dtype} causal "
+          f"(median [min, max]; chosen split S={plan.split}): " + " ".join(
               f"{k}={res[k]:.6f} [{t[0]:.6f}, {t[-1]:.6f}]"
               for k, t in times.items())
-          + f" bound_ms={res['bound_ms']:.6f} ({res['bound_by']}, {flops} "
-          f"flops, {nbytes} bytes); library = {res['library']}")
+          + f" bound_ms={res['bound_ms']:.6f} ({res['bound_by']}, "
+          f"{res['flops']} flops, {res['bytes']} bytes) "
+          f"bound_cuda_core_ms={res['bound_cuda_core_ms']:.6f}; library = "
+          f"{res['library']}")
     return res
 
 
 def flash_timing_phase(rate):
+    """The serving shape (a bucketed qwen1.5-0.5b admit), the 64-token
+    bucket, and the long shape (llama3.1-8b heads) in f32 and bf16; every
+    cluster size forced at the two short ones."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(6)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    return (flash_timing_shape("serving", 1, 256, 16, 16, 64, rate, flush,
-                               gen, 20),
-            flash_timing_shape("long", 1, 8192, 32, 8, 128, rate, flush, gen,
-                               5))
+    return (flash_timing_shape("serving", 1, 256, 16, 16, 64, "float32",
+                               rate, flush, gen, 20, splits=(1, 2, 4, 8)),
+            flash_timing_shape("bucket64", 1, 64, 16, 16, 64, "float32",
+                               rate, flush, gen, 20, splits=(1, 2)),
+            flash_timing_shape("long", 1, 8192, 32, 8, 128, "float32", rate,
+                               flush, gen, 5),
+            flash_timing_shape("long bf16", 1, 8192, 32, 8, 128, "bfloat16",
+                               rate, flush, gen, 5))
+
+
+def old_flash_launcher(source: str):
+    """B4's body before its tensor-core redesign (its C interface: no
+    split argument), built by nvcc from `source` into build/ and bound
+    beside the current one, for a one-process A/B."""
+    import ctypes
+    import hashlib
+    import torch
+    from repro_torch.kernels import _build
+    src = Path(source).resolve()
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = _build._BUILD_DIR / f"flash_attention_old-{digest}.so"
+    if not out.exists():
+        _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build._nvcc(), *_build._NVCC_FLAGS, "-o", str(out),
+                        str(src)], check=True)
+    fn = ctypes.CDLL(str(out)).kvnand_flash_attention
+    P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn.argtypes = [P] * 4 + [LL] * 9 + [I] * 10 + [ctypes.c_float, P]
+    fn.restype = I
+
+    def launch(q, k, v):
+        B, Sq, H, dh = q.shape
+        out = torch.empty_like(q)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], B, Sq,
+                k.shape[1], H, k.shape[2], dh, 1, 0, 0,
+                int(q.dtype == torch.bfloat16), dh ** -0.5,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"old B4 launch failed: CUDA error {rc}")
+        return out
+    return launch
+
+
+def flash_ab_phase(source: str, rate) -> list:
+    """The old body (from `source`) and the current one at the four timed
+    shapes, causal, in one process, in the order old, new, new, old; both
+    are first held against each other within FLASH_TOL."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    old = old_flash_launcher(source)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rows = []
+    for label, B, S, H, K, dh, dtype, reps in (
+            ("serving", 1, 256, 16, 16, 64, "float32", 20),
+            ("bucket64", 1, 64, 16, 16, 64, "float32", 20),
+            ("long", 1, 8192, 32, 8, 128, "float32", 5),
+            ("long bf16", 1, 8192, 32, 8, 128, "bfloat16", 5)):
+        q, k, v = flash_inputs(B, S, S, H, K, dh, getattr(torch, dtype), gen)
+        fns = {"old": lambda: old(q, k, v),
+               "new": lambda: flash_attention_cuda(q, k, v, causal=True)}
+        fmt = "f32" if dtype == "float32" else "bf16"
+        err = close_err(fns["new"](), fns["old"](), FLASH_TOL[fmt])
+        check(err <= FLASH_TOL[fmt], f"A/B B4 {label}: old and new bodies "
+              f"differ by {err:.3e}")
+        times = {}
+        for i, which in enumerate(("old", "new", "new", "old")):
+            times[f"{which}{i}_ms"] = time_ms(fns[which], reps, flush)
+        res = {"shape": label, "B": B, "S": S, "H": H, "K": K, "dh": dh,
+               "dtype": dtype, "old_vs_new_rel_err": err,
+               **flash_bound(B, S, H, K, dh, dtype, rate)}
+        for key, t in times.items():
+            res[key] = statistics.median(t)
+            res[f"{key}_min_max"] = [t[0], t[-1]]
+        print(f"timing B4 A/B {label} (median [min, max]): " + " ".join(
+            f"{k}={res[k]:.6f} [{t[0]:.6f}, {t[-1]:.6f}]"
+            for k, t in times.items())
+            + f" bound_ms={res['bound_ms']:.6f} old_vs_new_rel_err={err:.3e}")
+        rows.append(res)
+    return rows
 
 
 def splice_prompts(V):
@@ -1680,8 +1829,10 @@ def kernel_entry(name, source, replaces, launches, max_abs, shapes, server):
 def main(argv) -> int:
     import torch
     if (argv not in ([], ["--paged"], ["--paged-timing"], ["--quant-servers"],
-                     ["--wkv"], ["--gemv"])
-            and not (len(argv) == 2 and argv[0] == "--gemv-ab")):
+                     ["--wkv"], ["--gemv"], ["--flash"],
+                     ["--flash-timing"])
+            and not (len(argv) == 2
+                     and argv[0] in ("--gemv-ab", "--flash-ab"))):
         print(__doc__, file=sys.stderr)
         return 2
     quant_only = argv == ["--quant-servers"]
@@ -1724,6 +1875,18 @@ def main(argv) -> int:
         rows = gemv_ab_phase(argv[1], rate)
         print(card)
         print(json.dumps({"quant_gemv_ab": rows}))
+        return 0
+    if argv in (["--flash"], ["--flash-timing"]):
+        b4_err = flash_kernel_phase() if argv == ["--flash"] else None
+        b4_shapes = flash_timing_phase(rate)
+        print(card)
+        print(json.dumps({"flash_attention": {"max_abs_err": b4_err,
+                                              "shapes": list(b4_shapes)}}))
+        return 0
+    if argv[:1] == ["--flash-ab"]:
+        rows = flash_ab_phase(argv[1], rate)
+        print(card)
+        print(json.dumps({"flash_attention_ab": rows}))
         return 0
     if argv == ["--wkv"]:
         b5_err = wkv_kernel_phase()
@@ -1794,7 +1957,12 @@ def main(argv) -> int:
         kernel_entry("flash_attention",
                      "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention/kernel.py:82",
-                     s1["launches"], b4_err, b4_shapes, s1),
+                     s1["launches"], b4_err, b4_shapes, s1) | {
+            "bound_cuda_core_ms": b4_shapes[0]["bound_cuda_core_ms"],
+            "design": "f32 as 3xTF32 mma.sync (hi/lo split, f32-exact), "
+                      "bf16 on bf16 mma.sync, cp.async K/V ring, each q "
+                      "tile's key range split over a cluster of S CTAs "
+                      "(choose_flash_plan)"},
         kernel_entry("wkv6", "src/repro_torch/csrc/wkv6.cu",
                      "src/repro/kernels/wkv6/kernel.py:74", r1["launches"],
                      b5_err, b5_shapes, r1),

@@ -51,7 +51,7 @@ LIBS: Dict[str, Library] = {
     "flash_attention": Library(
         _CSRC / "flash_attention.cu", (),
         {"kvnand_flash_attention": [_P] * 4 + [_LL] * 9 + [_I] * 10
-         + [ctypes.c_float, _P]}),
+         + [ctypes.c_float, _I, _P]}),
     "wkv6": Library(
         _CSRC / "wkv6.cu", (),
         {"kvnand_wkv6": [_P] * 8 + [_LL] * 12 + [_I] * 5 + [_P]}),

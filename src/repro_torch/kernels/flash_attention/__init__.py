@@ -1,6 +1,8 @@
 """Flash attention (prefill): kernel B4, its plain versions and the
 dispatching entry point (port of `repro.kernels.flash_attention`)."""
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: F401
+    FlashPlan,
+    choose_flash_plan,
     flash_attention_cuda,
     launches,
 )

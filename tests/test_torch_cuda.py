@@ -32,7 +32,9 @@ repeated launches bit-identical, and the split-D tickets left at zero.
 B4: the reference's flash-attention tolerances, 2e-5 (f32) and 2e-2
 (bf16), atol = rtol; a bf16 output also within one bf16 rounding (2^-8
 relative) + 2e-5 of the plain version on the inputs upcast to f32, the
-kernel's own arithmetic before its output is rounded.
+kernel's own arithmetic before its output is rounded.  Under the host's
+plan and with every cluster size S forced through `plan=`, repeated
+launches bit-identical.
 
 B5: within 5e-4 of the plain chunked form and 1e-4 of the plain
 recurrence (|a - b| / (1 + |b|), `WKV_TOL`), decays drawn as the
@@ -599,6 +601,65 @@ def test_flash_attention_matches_plain_version(cuda_device, fmt, heads,
         w32 = tfa.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
         bound = 2.0 ** -8 * w32.abs() + FLASH_TOL["f32"] * (1 + w32.abs())
         assert bool(((got.float() - w32).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("fmt,heads,split,causal,window,lengths", list(
+    itertools.product(("f32", "bf16"), FLASH_HEADS, (1, 2, 4, 8),
+                      (True, False), (None, 16), FLASH_LENGTHS)))
+def test_flash_attention_forced_plan_matches_plain_version(
+        cuda_device, fmt, heads, split, causal, window, lengths):
+    """Every cluster size S forced through `plan=`, at every head dim
+    (the padded ones through the split path too): within the same
+    tolerances as the host's plan, and a repeated launch gives the same
+    bits (the S partials merge in rank order)."""
+    (H, K, dh), (Bq, Sq, Sk, off) = heads, lengths
+    dt = torch.float32 if fmt == "f32" else torch.bfloat16
+    q, k, v = _flash_inputs(Bq, Sq, Sk, H, K, dh, dt, cuda_device, seed=1)
+    kw = dict(causal=causal, window=window, q_offset=off)
+    plan = tfa.choose_flash_plan(Bq, Sq, Sk, H, causal, window, q_offset=off,
+                                 dh=dh, dtype=dt, split=split)
+    got = tfa.flash_attention_cuda(q, k, v, plan=plan, **kw)
+    again = tfa.flash_attention_cuda(q, k, v, plan=plan, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = tfa.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got, want, atol=FLASH_TOL[fmt],
+                               rtol=FLASH_TOL[fmt])
+    if fmt == "bf16":
+        w32 = tfa.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+        bound = 2.0 ** -8 * w32.abs() + FLASH_TOL["f32"] * (1 + w32.abs())
+        assert bool(((got.float() - w32).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("dh", [32, 112, 160, 256])
+@pytest.mark.parametrize("fmt", ["f32", "bf16"])
+def test_flash_attention_split_path_at_padded_head_dims(cuda_device, dh,
+                                                        fmt):
+    """A B=1 short prompt, where the host splits the key range (S > 1),
+    at each head dim B4 pads inside shared memory; the split result
+    equals the plain version and does not depend on S beyond rounding."""
+    dt = torch.float32 if fmt == "f32" else torch.bfloat16
+    q, k, v = _flash_inputs(1, 256, 256, 4, 2, dh, dt, cuda_device, seed=2)
+    plan = tfa.choose_flash_plan(1, 256, 256, 4, True, None, dh=dh, dtype=dt)
+    assert plan.split > 1
+    got = tfa.flash_attention_cuda(q, k, v, causal=True)
+    one = tfa.flash_attention_cuda(q, k, v, causal=True,
+                                   plan=plan._replace(split=1))
+    torch.cuda.synchronize()
+    want = tfa.flash_attention_ref(q, k, v, causal=True)
+    for out in (got, one):
+        torch.testing.assert_close(out, want, atol=FLASH_TOL[fmt],
+                                   rtol=FLASH_TOL[fmt])
+
+
+def test_flash_attention_bad_plan_raises(cuda_device):
+    q, k, v = _flash_inputs(1, 16, 16, 4, 2, 64, torch.float32, cuda_device)
+    plan = tfa.choose_flash_plan(1, 16, 16, 4, True, None, dh=128)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_cuda(q, k, v, plan=plan)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_cuda(q, k, v, plan=plan._replace(
+            split=3, block_k=64))
 
 
 def test_flash_attention_reads_strided_inputs(cuda_device):

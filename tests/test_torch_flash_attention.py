@@ -193,3 +193,136 @@ def test_attention_train_matches_reference():
     got = tattn.attention_train(tp, tget("llama3.1-8b").reduced(),
                                 torch.from_numpy(x))
     _close(got, want, 2e-5)
+
+
+# ---------------------------------------------------------------------------
+# B4's host-side launch plan (`choose_flash_plan`): the cluster size S that
+# splits each 64-row q tile's key range
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.flash_attention import kernel as tfk  # noqa: E402
+
+
+def _walk_tiles(Sq, Sk, causal, window, q_offset, block_k):
+    """The longest q tile's walk, counted from the mask itself: the key
+    tiles from the first to the last that hold a key some row of the q
+    tile can see."""
+    most = 0
+    for q0 in range(0, Sq, tfk.BLOCK_Q):
+        pos = q_offset + np.arange(q0, min(q0 + tfk.BLOCK_Q, Sq))[:, None]
+        key = np.arange(Sk)[None, :]
+        ok = np.ones((pos.shape[0], Sk), bool)
+        if causal:
+            ok &= key <= pos
+        if window:
+            ok &= key > pos - window
+        seen = np.nonzero(ok.any(axis=0))[0]
+        if seen.size:
+            most = max(most, seen[-1] // block_k - seen[0] // block_k + 1)
+    return most
+
+
+PLAN_SHAPES = [
+    # B, Sq, Sk, H, causal, window, q_offset, dh, dtype
+    (1, 16, 16, 16, True, None, 0, 64, "float32"),
+    (1, 64, 64, 16, True, None, 0, 64, "float32"),
+    (1, 256, 256, 16, True, None, 0, 64, "float32"),
+    (1, 511, 511, 16, True, None, 0, 64, "float32"),
+    (1, 256, 256, 16, False, None, 0, 64, "bfloat16"),
+    (1, 511, 511, 16, True, 64, 0, 64, "float32"),
+    (1, 511, 511, 16, True, 16, 0, 64, "bfloat16"),
+    (1, 70, 255, 4, True, None, 185, 32, "float32"),
+    (1, 70, 255, 4, False, 16, 185, 112, "float32"),
+    (1, 200, 900, 8, True, 100, 700, 160, "bfloat16"),
+    (3, 70, 70, 4, True, None, 0, 256, "float32"),
+    (1, 8192, 8192, 32, True, None, 0, 128, "float32"),
+    (2, 1, 1, 4, True, None, 0, 64, "float32"),
+]
+
+
+@pytest.mark.parametrize("case", PLAN_SHAPES)
+def test_flash_plan_key_tiles_follow_the_mask(case):
+    """The walk the plan measures is the one the causal and window masks
+    leave (a brute-force count over every (row, key) pair)."""
+    B, Sq, Sk, H, causal, window, off, dh, dtype = case
+    block_k = tfk.instance(dh, getattr(torch, dtype))[0]
+    assert tfk.key_tiles(Sq, Sk, causal, window, off, block_k) == \
+        _walk_tiles(Sq, Sk, causal, window, off, block_k)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16])
+@pytest.mark.parametrize("case", PLAN_SHAPES)
+def test_flash_plan_never_splits_past_the_walk(case, sms):
+    """S is in SPLITS, never more than the longest walk's key tiles (each
+    rank keeps MIN_SPLIT_TILES), and the split grid fits the card."""
+    B, Sq, Sk, H, causal, window, off, dh, dtype = case
+    dt = getattr(torch, dtype)
+    plan = tfk.choose_flash_plan(B, Sq, Sk, H, causal, window, sms,
+                                 q_offset=off, dh=dh, dtype=dt)
+    tiles = _walk_tiles(Sq, Sk, causal, window, off, plan.block_k)
+    assert plan.split in tfk.SPLITS
+    assert plan[1:4] == tfk.instance(dh, dt)
+    assert plan.grid == (-(-Sq // 64) * plan.split, H, B)
+    if plan.split > 1:
+        assert tiles >= plan.split * tfk.MIN_SPLIT_TILES
+        assert B * H * -(-Sq // 64) * plan.split <= sms * plan.ctas
+
+
+@pytest.mark.parametrize("B,Sq,H,dh,dtype", [
+    (1, 8192, 32, 128, "float32"), (1, 8192, 32, 128, "bfloat16"),
+    (4, 512, 16, 64, "float32"), (8, 256, 16, 64, "bfloat16"),
+    (2, 1024, 16, 64, "float32"), (1, 2048, 32, 256, "float32")])
+def test_flash_plan_does_not_split_a_full_grid(B, Sq, H, dh, dtype):
+    """Where B·H·q tiles already give every SM its CTAs, S = 1."""
+    plan = tfk.choose_flash_plan(B, Sq, Sq, H, True, None, 132, dh=dh,
+                                 dtype=getattr(torch, dtype))
+    assert plan.split == 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [256, 511])
+def test_flash_plan_splits_short_buckets_at_b1(S, dtype):
+    """A B=1 admit of qwen1.5-0.5b (16 heads x 64) at a short bucket has
+    64 CTAs or fewer: the plan splits its key range."""
+    plan = tfk.choose_flash_plan(1, S, S, 16, True, None, 132, dh=64,
+                                 dtype=getattr(torch, dtype))
+    assert plan.split > 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plan_window_bounds_the_split(dtype):
+    """A 16-token window leaves every q tile a walk of two key tiles, so
+    a short prompt with room on the card splits at most in two; without
+    the window the same prompt walks eight and splits further."""
+    dt = getattr(torch, dtype)
+    win = tfk.choose_flash_plan(1, 511, 511, 4, True, 16, 132, dh=64,
+                                dtype=dt)
+    full = tfk.choose_flash_plan(1, 511, 511, 4, True, None, 132, dh=64,
+                                 dtype=dt)
+    assert _walk_tiles(511, 511, True, 16, 0, win.block_k) == 2
+    assert _walk_tiles(511, 511, True, None, 0, full.block_k) == 8
+    assert win.split <= max(1, 2 // tfk.MIN_SPLIT_TILES) < full.split
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_flash_plan_forced_split(split):
+    plan = tfk.choose_flash_plan(1, 70, 70, 4, True, None, 132, dh=112,
+                                 split=split)
+    assert plan.split == split and plan.block_k == 32
+    assert plan.grid == (2 * split, 4, 1)
+
+
+@pytest.mark.parametrize("bad", [dict(split=3), dict(split=16),
+                                 dict(dh=48), dict(dtype=torch.float16)])
+def test_flash_plan_refusals(bad):
+    kw = dict(dh=64, dtype=torch.float32) | bad
+    with pytest.raises(ValueError):
+        tfk.choose_flash_plan(1, 64, 64, 4, True, None, 132, **kw)
+
+
+def test_flash_plan_instances_cover_every_head_dim():
+    """Every head dim runs in the narrowest compiled width that holds it."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh in tfk.HEAD_DIMS:
+            width = 64 if dh <= 64 else 128 if dh <= 128 else 256
+            assert tfk.instance(dh, dtype) == tfk.INSTANCES[(dtype, width)]
