@@ -6,6 +6,8 @@
     python3 chip_smoke.py --paged-timing     # the build and phase 3 only
     python3 chip_smoke.py --quant-servers    # the build and phase 8 only
     python3 chip_smoke.py --wkv              # the build and phase 11 only
+    python3 chip_smoke.py --wkv-ab OLD.cu    # B5's walk-the-chunks body vs the current
+    python3 chip_smoke.py --wkv-timing       # the build and B5's timing only
     python3 chip_smoke.py --gemv             # the build and phase 7 only
     python3 chip_smoke.py --gemv-ab OLD.cu   # B3's CUDA-core body vs the current
     python3 chip_smoke.py --flash            # the build and phase 9 only
@@ -114,18 +116,29 @@ Phases (each one fails the run when it fails):
             tokens pass the teacher-forced check with the argmax, and the
             interleaved scheduler serves the same greedy tokens;
 11. B5      the RWKV6 wkv kernel against its plain versions on the card,
-            B {1, 3} x S {2, 31, 32, 33, 77, 256, 511} x H {1, 40} x dh
-            {16, 32, 64} x zero and random s0, decays drawn as the
-            reference's tests draw them: out and the final state within
-            WKV_TOL["chunked"] of the plain chunked form and
-            WKV_TOL["recurrent"] of the plain recurrence; at constant logw
-            -3.0 and -4.0 (where the plain chunked form overflows) within
-            WKV_TOL["recurrent"] of the recurrence; bf16 r/k/v/logw through
+            B {1, 3} x S {1, 2, 31, 32, 33, 64, 65, 77, 256, 257, 511}
+            (one chunk, a chunk exactly, n chunks, n chunks + 1) x H {1,
+            40} x dh {16, 32, 64} x zero and random s0, decays drawn as
+            the reference's tests draw them; chunks 1, 7 and 16 at S = 70;
+            one long case (S = 8192, H = 40, dh = 64): out and the final
+            state, each, within WKV_TOL["chunked"] of the plain chunked
+            form and WKV_TOL["recurrent"] of the plain recurrence and of
+            the plain version of B5's own split (`wkv_chunk_parallel`); at
+            constant logw -3.0 and -4.0 (where the plain chunked form
+            overflows) within WKV_TOL["recurrent"] of the recurrence; every
+            case under the host's carry width and each forced one, each
+            launched twice, all with the same bits; constant logw -0.05
+            (the state carries over many chunks) the same way; bf16 r/k/v/logw through
             `wkv6` (upcast for B5) against the plain chunked form on the
-            same inputs, within one bf16 ulp; timed (kernel, plain
-            chunked form, bound; no PyTorch call computes wkv6) at the
-            serving shape (B=1, 256 tokens, H=40, dh=64: one rwkv6-3b
-            admit) and a long shape (B=1, 8192 tokens);
+            same inputs, within one bf16 ulp; timed (kernel under the
+            host's carry width and each forced one, plain chunked form,
+            bound, the 3xTF32 bound and the bytes of B5's intermediates;
+            no PyTorch call computes wkv6) at the serving shape (B=1, 256
+            tokens, H=40, dh=64: one rwkv6-3b admit), a long shape (B=1,
+            8192 tokens), one chunk (32 tokens) and R1's 500-token prompt.
+            `--wkv-ab OLD.cu` times B5's earlier body (e.g. `git show
+            ecc8d28:src/repro_torch/csrc/wkv6.cu`) beside the current one
+            at the four timed shapes, old, new, new, old, in one process;
 12. R1      `KVNANDServer` at the full width of rwkv6-3b (32 layers,
             d_model 2560, 40 heads x 64, random f32 weights from seed 0),
             interleaved scheduler, 4 slots: the stripe prompts, one of 500
@@ -1589,7 +1602,13 @@ def splice_server_phase():
 # phases 11-12: the RWKV6 wkv kernel (B5) and the RWKV6 server
 # ---------------------------------------------------------------------------
 
-WKV_LENGTHS = (2, 31, 32, 33, 77, 256, 511)
+WKV_LENGTHS = (1, 2, 31, 32, 33, 64, 65, 77, 256, 257, 511)
+# chunk sizes other than the model's 32, at S = 70 (several chunks, a tail)
+WKV_CHUNKS = (1, 7, 16)
+# the timed shapes: (label, B, S, H, dh, reps), 40 heads x 64 as rwkv6-3b
+WKV_TIMED = (("serving", 1, 256, 40, 64, 20), ("long", 1, 8192, 40, 64, 5),
+             ("one chunk", 1, 32, 40, 64, 20),
+             ("500 tokens", 1, 500, 40, 64, 20))
 
 
 def wkv_inputs(B, S, H, dh, gen, logw=None, zero_state=False):
@@ -1609,51 +1628,102 @@ def wkv_inputs(B, S, H, dh, gen, logw=None, zero_state=False):
     return r, k, v, lw, u, torch.zeros_like(s0) if zero_state else s0
 
 
-def wkv_err(got, want) -> float:
-    """max |a - b| / (1 + |b|) over out and the final state."""
-    return max(float(((g - w).abs() / (1 + w.abs())).max())
-               for g, w in zip(got, want))
+def wkv_errs(got, want) -> tuple:
+    """(out, final state) of max |a - b| / (1 + |b|)."""
+    return tuple(float(((g.float() - w.float()).abs()
+                        / (1 + w.float().abs())).max())
+                 for g, w in zip(got, want))
+
+
+def wkv_hold(label, got, want, tol, name, worst) -> None:
+    """Check out and the state against `want` separately; keep the worst
+    of each in worst[name]."""
+    err = wkv_errs(got, want)
+    worst[name] = [max(a, b) for a, b in zip(worst[name], err)]
+    check(err[0] <= tol and err[1] <= tol, f"{label}: kernel disagrees with "
+          f"the plain {name}: out {err[0]:.3e}, state {err[1]:.3e} (tol "
+          f"{tol:.0e})")
+
+
+def wkv_plans(S, dh, chunk) -> list:
+    """The host's carry width (None), then every width forced; a prompt of
+    one chunk has no carry, so its one plan is the host's."""
+    from repro_torch.kernels.wkv6.kernel import CARRY_COLS
+    if S <= chunk:
+        return [None]
+    return [None] + [c for c in CARRY_COLS if c <= dh]
+
+
+def wkv_launch_all(label, x, chunk):
+    """B5 under every carry plan, each launched twice; every launch must
+    give the same bits (a warp's columns take the same path whatever the
+    CTA's width).  Returns the first result."""
+    import torch
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+    B, S, H, dh = x[0].shape
+    first = None
+    for cols in wkv_plans(S, dh, chunk):
+        got = wkv6_cuda(*x, chunk=chunk, carry_cols=cols)
+        again = wkv6_cuda(*x, chunk=chunk, carry_cols=cols)
+        torch.cuda.synchronize()
+        tag = f"{label} carry_cols={cols or 'chosen'}"
+        check(got[0].shape == (B, S, H, dh) and got[1].shape == (B, H, dh, dh)
+              and all(bool(torch.isfinite(g).all()) for g in got),
+              f"{tag}: bad output")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{tag}: a repeated launch gave other bits")
+        if first is None:
+            first = got
+        check(all(torch.equal(a, b) for a, b in zip(got, first)),
+              f"{tag}: other bits than under the host's carry width")
+    return first
 
 
 def wkv_kernel_phase() -> float:
-    """B5 against the plain chunked form and the plain recurrence; returns
-    max |out - plain chunked out| over the reference-distribution cases."""
+    """B5 against the plain chunked form, the plain recurrence and the
+    plain version of its own split (`wkv_chunk_parallel`), out and state
+    held and reported separately, under every carry plan, each launched
+    twice; returns max |out - plain chunked out| over the
+    reference-distribution cases."""
     import itertools
     import torch
-    from repro_torch.kernels.wkv6 import wkv6, wkv_chunked, wkv_recurrent
+    from repro_torch.kernels.wkv6 import (wkv6, wkv_chunk_parallel,
+                                          wkv_chunked, wkv_recurrent)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    worst = {"chunked": 0.0, "recurrent": 0.0, "strong": 0.0, "bf16": 0.0}
+    worst = {name: [0.0, 0.0] for name in
+             ("chunked form", "recurrence", "chunk-parallel form",
+              "recurrence at logw -3/-4", "bf16")}
     max_abs, n = 0.0, 0
-    cases = [(B, S, H, dh, zero, None) for B, S, H, dh, zero in
+    cases = [(B, S, H, dh, zero, None, 32) for B, S, H, dh, zero in
              itertools.product((1, 3), WKV_LENGTHS, (1, 40), (16, 32, 64),
                                (True, False))]
-    cases += [(B, S, 40, dh, False, logw) for B, S, dh, logw in
+    cases += [(B, S, 40, dh, False, logw, 32) for B, S, dh, logw in
               itertools.product((1, 3), (33, 256, 511), (16, 64),
-                                (-3.0, -4.0))]
-    for B, S, H, dh, zero, logw in cases:
+                                (-3.0, -4.0, -0.05))]
+    cases += [(2, 70, 3, dh, False, logw, chunk) for logw, dh, chunk in
+              itertools.product((None, -4.0, -0.05), (16, 32, 64),
+                                WKV_CHUNKS)]
+    cases += [(1, 8192, 40, 64, False, None, 32)]
+    for B, S, H, dh, zero, logw, chunk in cases:
         x = wkv_inputs(B, S, H, dh, gen, logw=logw, zero_state=zero)
-        got = wkv6(*x)
-        torch.cuda.synchronize()
-        label = (f"B5 B={B} S={S} H={H} dh={dh} s0={'zero' if zero else 'random'}"
-                 f" logw={'drawn' if logw is None else logw}")
-        check(got[0].shape == (B, S, H, dh) and got[1].shape == (B, H, dh, dh)
-              and all(bool(torch.isfinite(g).all()) for g in got),
-              f"{label}: bad output")
-        err_rec = wkv_err(got, wkv_recurrent(*x))
+        label = (f"B5 B={B} S={S} H={H} dh={dh} chunk={chunk} "
+                 f"s0={'zero' if zero else 'random'} "
+                 f"logw={'drawn' if logw is None else logw}")
+        got = wkv_launch_all(label, x, chunk)
         tol = WKV_TOL["recurrent"]
-        if logw is None:
-            chunked = wkv_chunked(*x)
-            err = wkv_err(got, chunked)
-            worst["chunked"] = max(worst["chunked"], err)
-            worst["recurrent"] = max(worst["recurrent"], err_rec)
-            max_abs = max(max_abs, float((got[0] - chunked[0]).abs().max()))
-            check(err <= WKV_TOL["chunked"], f"{label}: kernel disagrees with "
-                  f"the plain chunked form: {err:.3e} > "
-                  f"{WKV_TOL['chunked']:.0e}")
-        else:
-            worst["strong"] = max(worst["strong"], err_rec)
-        check(err_rec <= tol, f"{label}: kernel disagrees with the plain "
-              f"recurrence: {err_rec:.3e} > {tol:.0e}")
+        strong = logw is not None and logw <= -3.0
+        wkv_hold(label, got, wkv_recurrent(*x), tol,
+                 "recurrence at logw -3/-4" if strong else "recurrence",
+                 worst)
+        wkv_hold(label, got, wkv_chunk_parallel(*x, chunk=chunk), tol,
+                 "chunk-parallel form", worst)
+        if not strong:
+            chunked = wkv_chunked(*x, chunk=chunk)
+            wkv_hold(label, got, chunked, WKV_TOL["chunked"], "chunked form",
+                     worst)
+            if logw is None:
+                max_abs = max(max_abs, float((got[0] - chunked[0]).abs()
+                                             .max()))
         n += 1
     # bf16 r/k/v/logw, as a server with bf16 activations hands them over:
     # `wkv6` upcasts them for B5 and returns bf16; the plain chunked form
@@ -1674,50 +1744,81 @@ def wkv_kernel_phase() -> float:
         err_out = float(((got[0].float() - want[0].float()).abs()
                          / (tol + (2.0 ** -7 + tol)
                             * want[0].float().abs())).max())
-        err_state = wkv_err(got[1:], want[1:])
-        worst["bf16"] = max(worst["bf16"], err_out)
+        err_state = wkv_errs(got[1:], want[1:])[0]
+        worst["bf16"] = [max(worst["bf16"][0], err_out),
+                         max(worst["bf16"][1], err_state)]
         check(err_out <= 1 and err_state <= tol,
               f"{label}: kernel disagrees with the plain chunked form on "
               f"bf16 inputs: out {err_out:.3e} of one bf16 ulp + {tol:.0e}, "
               f"state {err_state:.3e} > {tol:.0e}")
         n += 1
-    print(f"B5 kernel phase: {n} cases within tolerance; worst vs the plain "
-          f"chunked form {worst['chunked']:.3e} (tol "
-          f"{WKV_TOL['chunked']:.0e}), vs the recurrence {worst['recurrent']:.3e}"
-          f" and at logw -3/-4 {worst['strong']:.3e} (tol "
-          f"{WKV_TOL['recurrent']:.0e}); bf16 inputs {worst['bf16']:.3e} of "
-          f"one bf16 ulp + {WKV_TOL['chunked']:.0e}; max_abs_err="
-          f"{max_abs:.3e}")
+    print(f"B5 kernel phase: {n} cases within tolerance (each under every "
+          "carry plan, launched twice, with the same bits); worst (out, "
+          "state): " + "; ".join(
+              f"vs the plain {k} ({v[0]:.3e}, {v[1]:.3e})"
+              for k, v in worst.items() if k != "bf16")
+          + f" (tol {WKV_TOL['chunked']:.0e} for the chunked form, "
+          f"{WKV_TOL['recurrent']:.0e} the others); bf16 inputs "
+          f"({worst['bf16'][0]:.3e} of one bf16 ulp + "
+          f"{WKV_TOL['chunked']:.0e}, {worst['bf16'][1]:.3e}); "
+          f"max_abs_err={max_abs:.3e}")
     return max_abs
 
 
+def wkv_bound(B, S, H, dh, rate, chunk=32) -> dict:
+    """The least time the card could take: the chunked form's
+    4·dh·(32 + dh) FLOPs per token and head at the float32 CUDA-core peak,
+    against r, k, v, logw and out moved once (plus u, s0 and sT) at the HBM
+    rate.  Beside it: the same FLOPs as three TF32 products at the TF32
+    peak (`bound_tc_ms`), and the bytes B5's split adds (rs, dS and e^{tot}
+    of every chunk and the intra rows of out, each written and read once
+    more; none for one chunk) with the time of all its bytes
+    (`bound_design_ms`)."""
+    flops = 4 * dh * (32 + dh) * B * S * H
+    nbytes = 4 * (5 * B * S * H * dh + H * dh + 2 * B * H * dh * dh)
+    n = -(-S // chunk)
+    extra = 0 if n < 2 else 2 * 4 * B * H * (
+        n * chunk * dh + n * dh * dh + n * dh + S * dh)
+    t_ops = flops / F32_FLOPS * 1e3
+    t_bytes = nbytes / rate * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_tc_ms": 3 * flops / TF32_FLOPS * 1e3,
+            "design_bytes": extra,
+            "bound_design_ms": (nbytes + extra) / rate * 1e3,
+            "flops": flops, "bytes": nbytes}
+
+
 def wkv_timing_shape(label, B, S, H, dh, rate, flush, gen, reps):
-    """B5 at one shape, against the plain chunked form.  Bound: the chunked
-    form's 4·dh·(32 + dh) FLOPs per token and head at the float32 CUDA-core
-    peak, against r, k, v, logw and out moved once (plus u, s0 and sT) at
-    the HBM rate."""
+    """B5 at one shape under the host's carry width and each forced one,
+    against the plain chunked form."""
+    import torch
     from repro_torch.kernels.wkv6 import wkv6_cuda, wkv_chunked
+    from repro_torch.kernels.wkv6.kernel import _sm_count, choose_carry_cols
     x = wkv_inputs(B, S, H, dh, gen)
     times = {"ms": time_ms(lambda: wkv6_cuda(*x), reps, flush),
              "plain_ms": time_ms(lambda: wkv_chunked(*x), 3, flush)}
-    flops = 4 * dh * (32 + dh) * B * S * H
-    nbytes = 4 * (5 * B * S * H * dh + H * dh + 2 * B * H * dh * dh)
-    t_ops = flops / F32_FLOPS * 1e3
-    t_bytes = nbytes / rate * 1e3
+    for cols in wkv_plans(S, dh, 32)[1:]:
+        times[f"cols{cols}_ms"] = time_ms(
+            lambda: wkv6_cuda(*x, carry_cols=cols), reps, flush)
     res = {"shape": label, "B": B, "S": S, "H": H, "dh": dh,
            "dtype": "float32", "library_ms": None,
+           "carry_cols": (choose_carry_cols(B, H, dh, _sm_count(0))
+                          if S > 32 else None),
            "library": "none: no PyTorch call computes the wkv6 recurrence",
-           "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "flops": flops, "bytes": nbytes}
+           **wkv_bound(B, S, H, dh, rate)}
     for key, t in times.items():
         res[key] = statistics.median(t)
         res[f"{key}_min_max"] = [t[0], t[-1]]
     print(f"timing B5 {label} B={B} S={S} H={H} dh={dh} f32 (median [min, "
-          "max]): " + " ".join(f"{k}={res[k]:.6f} [{t[0]:.6f}, {t[-1]:.6f}]"
-                                for k, t in times.items())
-          + f" bound_ms={res['bound_ms']:.6f} ({res['bound_by']}, {flops} "
-          f"flops, {nbytes} bytes); library = {res['library']}")
+          f"max]; carry_cols {res['carry_cols']}): "
+          + " ".join(f"{k}={res[k]:.6f} [{t[0]:.6f}, {t[-1]:.6f}]"
+                     for k, t in times.items())
+          + f" bound_ms={res['bound_ms']:.6f} ({res['bound_by']}, "
+          f"{res['flops']} flops, {res['bytes']} bytes) bound_tc_ms="
+          f"{res['bound_tc_ms']:.6f} design_bytes={res['design_bytes']} "
+          f"bound_design_ms={res['bound_design_ms']:.6f}; library = "
+          f"{res['library']}")
     return res
 
 
@@ -1725,8 +1826,74 @@ def wkv_timing_phase(rate):
     import torch
     gen = torch.Generator(device="cuda").manual_seed(8)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    return (wkv_timing_shape("serving", 1, 256, 40, 64, rate, flush, gen, 20),
-            wkv_timing_shape("long", 1, 8192, 40, 64, rate, flush, gen, 5))
+    return tuple(wkv_timing_shape(label, B, S, H, dh, rate, flush, gen, reps)
+                 for label, B, S, H, dh, reps in WKV_TIMED)
+
+
+def old_wkv_launcher(source: str):
+    """B5's body before its chunk-parallel redesign (its C interface: no
+    scratch, no carry width), built by nvcc from `source` into build/ and
+    bound beside the current one, for a one-process A/B."""
+    import ctypes
+    import hashlib
+    import torch
+    from repro_torch.kernels import _build
+    src = Path(source).resolve()
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = _build._BUILD_DIR / f"wkv6_old-{digest}.so"
+    if not out.exists():
+        _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build._nvcc(), *_build._NVCC_FLAGS, "-o", str(out),
+                        str(src)], check=True)
+    fn = ctypes.CDLL(str(out)).kvnand_wkv6
+    P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn.argtypes = [P] * 8 + [LL] * 12 + [I] * 5 + [P]
+    fn.restype = I
+
+    def launch(r, k, v, lw, u, s0):
+        B, S, H, dh = r.shape
+        o = torch.empty_like(r)
+        sT = torch.empty_like(s0)
+        rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+                u.data_ptr(), s0.data_ptr(), o.data_ptr(), sT.data_ptr(),
+                *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *lw.stride()[:3], B, S, H, dh, 32,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"old B5 launch failed: CUDA error {rc}")
+        return o, sT
+    return launch
+
+
+def wkv_ab_phase(source: str, rate) -> list:
+    """The old body (from `source`) and the current one at the timed
+    shapes, in one process, in the order old, new, new, old; both are
+    first held against each other within WKV_TOL["chunked"]."""
+    import torch
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+    old = old_wkv_launcher(source)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rows = []
+    for label, B, S, H, dh, reps in WKV_TIMED:
+        x = wkv_inputs(B, S, H, dh, gen)
+        fns = {"old": lambda: old(*x), "new": lambda: wkv6_cuda(*x)}
+        err = max(wkv_errs(fns["new"](), fns["old"]()))
+        check(err <= WKV_TOL["chunked"], f"A/B B5 {label}: old and new "
+              f"bodies differ by {err:.3e}")
+        times = {}
+        for i, which in enumerate(("old", "new", "new", "old")):
+            times[f"{which}{i}_ms"] = time_ms(fns[which], reps, flush)
+        res = {"shape": label, "B": B, "S": S, "H": H, "dh": dh,
+               "old_vs_new_rel_err": err, **wkv_bound(B, S, H, dh, rate)}
+        for key, t in times.items():
+            res[key] = statistics.median(t)
+            res[f"{key}_min_max"] = [t[0], t[-1]]
+        print(f"timing B5 A/B {label} (median [min, max]): " + " ".join(
+            f"{k}={res[k]:.6f} [{t[0]:.6f}, {t[-1]:.6f}]"
+            for k, t in times.items())
+            + f" bound_ms={res['bound_ms']:.6f} old_vs_new_rel_err={err:.3e}")
+        rows.append(res)
+    return rows
 
 
 def rwkv_prompts(V):
@@ -1829,10 +1996,10 @@ def kernel_entry(name, source, replaces, launches, max_abs, shapes, server):
 def main(argv) -> int:
     import torch
     if (argv not in ([], ["--paged"], ["--paged-timing"], ["--quant-servers"],
-                     ["--wkv"], ["--gemv"], ["--flash"],
+                     ["--wkv"], ["--wkv-timing"], ["--gemv"], ["--flash"],
                      ["--flash-timing"])
             and not (len(argv) == 2
-                     and argv[0] in ("--gemv-ab", "--flash-ab"))):
+                     and argv[0] in ("--gemv-ab", "--flash-ab", "--wkv-ab"))):
         print(__doc__, file=sys.stderr)
         return 2
     quant_only = argv == ["--quant-servers"]
@@ -1888,12 +2055,17 @@ def main(argv) -> int:
         print(card)
         print(json.dumps({"flash_attention_ab": rows}))
         return 0
-    if argv == ["--wkv"]:
-        b5_err = wkv_kernel_phase()
+    if argv in (["--wkv"], ["--wkv-timing"]):
+        b5_err = wkv_kernel_phase() if argv == ["--wkv"] else None
         b5_shapes = wkv_timing_phase(rate)
         print(card)
         print(json.dumps({"wkv6": {"max_abs_err": b5_err,
                                    "shapes": list(b5_shapes)}}))
+        return 0
+    if argv[:1] == ["--wkv-ab"]:
+        rows = wkv_ab_phase(argv[1], rate)
+        print(card)
+        print(json.dumps({"wkv6_ab": rows}))
         return 0
 
     if not quant_only:
@@ -1965,7 +2137,17 @@ def main(argv) -> int:
                       "(choose_flash_plan)"},
         kernel_entry("wkv6", "src/repro_torch/csrc/wkv6.cu",
                      "src/repro/kernels/wkv6/kernel.py:74", r1["launches"],
-                     b5_err, b5_shapes, r1),
+                     b5_err, b5_shapes, r1) | {
+            "bound_tc_ms": b5_shapes[0]["bound_tc_ms"],
+            "design_bytes": b5_shapes[0]["design_bytes"],
+            "design": "two launches: a local pass over every (b, h, chunk) "
+                      "at once (mid-chunk pivot, float64 decay scan, lower "
+                      "score tiles, A·v and the state delta on 3xTF32 "
+                      "mma.sync), then a carry per (b, h, carry_cols value "
+                      "columns) walking the chunks with the state in "
+                      "registers through a 4-stage cp.async ring "
+                      "(choose_carry_cols); one chunk: the local pass "
+                      "alone"},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -49,12 +49,12 @@ LIBS: Dict[str, Library] = {
         _CSRC / "quant_gemv.cu", (),
         {"kvnand_quant_gemv": [_P] * 6 + [_I] * 14 + [_P]}),
     "flash_attention": Library(
-        _CSRC / "flash_attention.cu", (),
+        _CSRC / "flash_attention.cu", (_CSRC / "mma_tf32.cuh",),
         {"kvnand_flash_attention": [_P] * 4 + [_LL] * 9 + [_I] * 10
          + [ctypes.c_float, _I, _P]}),
     "wkv6": Library(
-        _CSRC / "wkv6.cu", (),
-        {"kvnand_wkv6": [_P] * 8 + [_LL] * 12 + [_I] * 5 + [_P]}),
+        _CSRC / "wkv6.cu", (_CSRC / "mma_tf32.cuh",),
+        {"kvnand_wkv6": [_P] * 11 + [_LL] * 12 + [_I] * 7 + [_P]}),
 }
 
 _lock = threading.Lock()

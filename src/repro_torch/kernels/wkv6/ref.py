@@ -17,6 +17,11 @@ reference kept here so the two packages agree.  `wkv_chunked` is the CPU
 path of `wkv6` and the version kernel B5 is held against on the card;
 at strong decay B5 is held against `wkv_recurrent`.
 
+`wkv_chunk_parallel` is the plain version of B5's own split (the
+pivoted local pass of every chunk at once, the state carry over chunks,
+the correction of each chunk's output by its incoming state), finite
+over the model's whole decay range.
+
 Layouts are the reference's: r/k/v/logw [B, S, H, dh], u [H, dh], state
 [B, H, dh, dh]; both return (out [B, S, H, dh] in r's dtype, state f32).
 """
@@ -81,4 +86,76 @@ def wkv_chunked(r, k, v, logw, u, state, chunk: int = CHUNK):
         S0 = torch.exp(total[:, c])[..., None] * S0 + kv
     out = intra + torch.stack(inters, 1)
     out = out.reshape(B, n * chunk, H, dh)[:, :S]
+    return out.to(r.dtype), S0
+
+
+def pivot_row(chunk: int) -> int:
+    """The row whose cumulative decay B5 factors each chunk around."""
+    return max(chunk // 2 - 1, 0)
+
+
+def wkv_chunk_parallel(r, k, v, logw, u, state, chunk: int = CHUNK):
+    """Kernel B5's decomposition in plain torch.
+
+    Local pass, for every chunk c at once (cum the inclusive cumulative
+    log-decay inside the chunk, ce = cum - logw the exclusive one, p the
+    cum of row `pivot_row(chunk)`, tot the chunk's total):
+
+        intra_c = (A ⊙ tril) v + diag(r·u·k) v,  A = ra kbᵀ,
+                  ra = r e^{ce - p}, kb = k e^{p - cum}
+        rs_c    = r e^{ce}
+        dS_c    = (k e^{tot - cum})ᵀ v
+
+    Each factor spans at most half a chunk of decay, so none overflows
+    where the reference's e^{-cum} does; the pairs s >= t are discarded
+    by a select.  The decay is scanned in float64 and taken relative to
+    the pivot before it is rounded to float32, d = f32(cum - p): a
+    float32 cumsum carries an error of ~eps·|cum| into every exponent
+    (|cum| reaches 130 in a chunk of 32), which the near-diagonal scores,
+    whose true exponent is near 0, would take as a relative error of up
+    to ~1e-4.  Then, in float32 as the kernel does it: ce - p = d of the
+    row before (-p at row 0), ce = (ce - p) + p, tot - cum = (tot - p) -
+    d.  The carry walks the chunks from S_0 = state: out_c = intra_c +
+    rs_c S_c, S_{c+1} = e^{tot_c} S_c + dS_c (a lone chunk: B5's local
+    pass does this step itself).  A ragged S is zero-padded (no decay, no
+    value), so the returned state is the one after the last valid
+    token."""
+    B, S, H, dh = r.shape
+    pad = (-S) % chunk
+    if pad:
+        r, k, v, logw = (F.pad(a, (0, 0, 0, 0, 0, pad))
+                         for a in (r, k, v, logw))
+    n = r.shape[1] // chunk
+    shp = (B, n, chunk, H, dh)
+    rf, kf, vf, lw = (a.float().reshape(shp) for a in (r, k, v, logw))
+
+    cum = torch.cumsum(lw.double(), dim=2)
+    piv = cum[:, :, pivot_row(chunk)][:, :, None]
+    d = (cum - piv).float()                                   # cum - p
+    dex = torch.cat([(-piv).float(), d[:, :, :-1]], dim=2)    # ce - p
+    p32 = piv.float()
+    tot_p = (cum[:, :, -1:] - piv).float()                    # tot - p
+
+    ra = rf * torch.exp(dex)
+    kb = kf * torch.exp(-d)
+    rs = rf * torch.exp(dex + p32)
+    kl = kf * torch.exp(tot_p - d)
+    etot = torch.exp(cum[:, :, -1].float())                   # [B, n, H, dh]
+
+    A = torch.einsum("bnthd,bnihd->bnhti", ra, kb)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), diagonal=-1)
+    A = torch.where(tri, A, torch.zeros((), device=r.device))
+    intra = torch.einsum("bnhti,bnihd->bnthd", A, vf)
+    diag = torch.einsum("bnthk,hk,bnthk->bnth", rf, u.float(), kf)
+    intra = intra + diag[..., None] * vf
+    dS = torch.einsum("bnthk,bnthv->bnhkv", kl, vf)           # [B, n, H, dh, dh]
+
+    S0 = state.float()
+    outs = []
+    for c in range(n):
+        outs.append(intra[:, c] + torch.einsum("bthk,bhkv->bthv", rs[:, c],
+                                               S0))
+        S0 = etot[:, c][..., None] * S0 + dS[:, c]
+    out = torch.stack(outs, 1).reshape(B, n * chunk, H, dh)[:, :S]
     return out.to(r.dtype), S0

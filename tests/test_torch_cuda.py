@@ -37,11 +37,13 @@ plan and with every cluster size S forced through `plan=`, repeated
 launches bit-identical.
 
 B5: within 5e-4 of the plain chunked form and 1e-4 of the plain
-recurrence (|a - b| / (1 + |b|), `WKV_TOL`), decays drawn as the
-reference's tests draw them; at constant logw -3.0 to -4.05, where the
-plain chunked form overflows, within 1e-4 of the recurrence.  bf16
-inputs: the output within one bf16 ulp (2^-7 relative) plus those
-tolerances, the float32 state within them.
+recurrence and of the plain version of its own split (|a - b| / (1 + |b|),
+`WKV_TOL`), out and state each, decays drawn as the reference's tests
+draw them; at constant logw -3.0 to -4.05, where the plain chunked form
+overflows, within 1e-4 of the recurrence.  bf16 inputs: the output
+within one bf16 ulp (2^-7 relative) plus those tolerances, the float32
+state within them.  Repeated launches, and launches under every carry
+width, give the same bits.
 
 The reduced qwen1.5-0.5b splice server (head dim 32, which B4 pads inside
 shared memory) serves the CPU server's greedy tokens on the card.
@@ -796,21 +798,75 @@ def _wkv_inputs(B, S, H, dh, dev, seed=0, logw=None, zero_state=False):
 
 
 def _wkv_err(got, want) -> float:
-    return max(float(((g - w).abs() / (1 + w.abs())).max())
-               for g, w in zip(got, want))
+    return max(_wkv_errs(got, want))
+
+
+def _wkv_errs(got, want) -> tuple:
+    """(out, state) of max |a - b| / (1 + |b|)."""
+    return tuple(float(((g.float() - w.float()).abs()
+                        / (1 + w.float().abs())).max())
+                 for g, w in zip(got, want))
+
+
+def _wkv_within(got, want, tol):
+    err_out, err_state = _wkv_errs(got, want)
+    assert err_out <= tol, f"out {err_out:.3e} > {tol:.0e}"
+    assert err_state <= tol, f"state {err_state:.3e} > {tol:.0e}"
 
 
 @pytest.mark.parametrize("B,S,H,dh,zero_state", list(itertools.product(
-    (1, 3), (1, 2, 31, 33, 77, 300), (1, 5), (16, 32, 64), (False, True))))
+    (1, 3), (1, 2, 31, 32, 33, 64, 65, 77, 300), (1, 5), (16, 32, 64),
+    (False, True))))
 def test_wkv6_matches_plain_versions(cuda_device, B, S, H, dh, zero_state):
     from repro_torch.kernels import wkv6 as twkv
     x = _wkv_inputs(B, S, H, dh, cuda_device, zero_state=zero_state)
     got = twkv.wkv6(*x)
+    again = twkv.wkv6(*x)
     torch.cuda.synchronize()
     assert got[0].shape == (B, S, H, dh) and got[1].shape == (B, H, dh, dh)
     assert all(bool(torch.isfinite(g).all()) for g in got)
-    assert _wkv_err(got, twkv.wkv_chunked(*x)) <= WKV_TOL["chunked"]
-    assert _wkv_err(got, twkv.wkv_recurrent(*x)) <= WKV_TOL["recurrent"]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _wkv_within(got, twkv.wkv_chunked(*x), WKV_TOL["chunked"])
+    _wkv_within(got, twkv.wkv_recurrent(*x), WKV_TOL["recurrent"])
+    _wkv_within(got, twkv.wkv_chunk_parallel(*x), WKV_TOL["recurrent"])
+
+
+@pytest.mark.parametrize("B,S,dh", [(1, 70, 64), (3, 257, 32), (2, 33, 16),
+                                    (1, 64, 64)])
+def test_wkv6_every_carry_width_gives_the_same_bits(cuda_device, B, S, dh):
+    """A warp's 8 state columns take the same path whatever the carry
+    CTA's width, so every width the host can choose gives the host's
+    bits."""
+    from repro_torch.kernels import wkv6 as twkv
+    from repro_torch.kernels.wkv6.kernel import CARRY_COLS
+    x = _wkv_inputs(B, S, 5, dh, cuda_device, seed=S)
+    want = twkv.wkv6_cuda(*x)
+    for cols in (c for c in CARRY_COLS if c <= dh):
+        got = twkv.wkv6_cuda(*x, carry_cols=cols)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), cols
+    _wkv_within(want, twkv.wkv_recurrent(*x), WKV_TOL["recurrent"])
+
+
+@pytest.mark.parametrize("logw", [-0.05, -0.5])
+@pytest.mark.parametrize("dh", [16, 64])
+def test_wkv6_weak_decay_carries_the_state(cuda_device, logw, dh):
+    """At logw -0.05 a chunk's state keeps e^{-1.6} of the one before it,
+    so the carry's decay reaches back over many chunks."""
+    from repro_torch.kernels import wkv6 as twkv
+    x = _wkv_inputs(2, 300, 3, dh, cuda_device, seed=dh, logw=logw)
+    got = twkv.wkv6(*x)
+    _wkv_within(got, twkv.wkv_recurrent(*x), WKV_TOL["recurrent"])
+    _wkv_within(got, twkv.wkv_chunk_parallel(*x), WKV_TOL["recurrent"])
+    _wkv_within(got, twkv.wkv_chunked(*x), WKV_TOL["chunked"])
+
+
+def test_wkv6_long_prompt(cuda_device):
+    """8192 tokens of one rwkv6-3b row: 256 chunks through the carry."""
+    from repro_torch.kernels import wkv6 as twkv
+    x = _wkv_inputs(1, 8192, 40, 64, cuda_device, seed=11)
+    got = twkv.wkv6(*x)
+    _wkv_within(got, twkv.wkv_recurrent(*x), WKV_TOL["recurrent"])
+    _wkv_within(got, twkv.wkv_chunked(*x), WKV_TOL["chunked"])
 
 
 @pytest.mark.parametrize("S,dh", [(2, 64), (77, 32), (300, 64)])
@@ -857,7 +913,9 @@ def test_wkv6_chunk_sizes(cuda_device, chunk):
     from repro_torch.kernels import wkv6 as twkv
     x = _wkv_inputs(2, 70, 3, 32, cuda_device)
     got = twkv.wkv6(*x, chunk=chunk)
-    assert _wkv_err(got, twkv.wkv_recurrent(*x)) <= WKV_TOL["recurrent"]
+    _wkv_within(got, twkv.wkv_recurrent(*x), WKV_TOL["recurrent"])
+    _wkv_within(got, twkv.wkv_chunk_parallel(*x, chunk=min(chunk, 32)),
+                WKV_TOL["recurrent"])
 
 
 def test_wkv6_reads_strided_inputs(cuda_device):
@@ -870,6 +928,25 @@ def test_wkv6_reads_strided_inputs(cuda_device):
     lws = lw.transpose(1, 2).contiguous().transpose(1, 2)
     assert not rs.is_contiguous() and not lws.is_contiguous()
     got = twkv.wkv6_cuda(rs, ks, vs, lws, u, s0)
+    want = twkv.wkv6_cuda(r, k, v, lw, u, s0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+def test_wkv6_reads_rows_off_16_byte_boundaries(cuda_device):
+    """Rows of r/k/v/logw that do not start 16-byte aligned (a row stride
+    of 3·dh + 1 floats) are staged by 4-byte copies, with the same bits
+    as the aligned tensors."""
+    from repro_torch.kernels import wkv6 as twkv
+    r, k, v, lw, u, s0 = _wkv_inputs(2, 45, 3, 32, cuda_device)
+    wide = torch.zeros(2, 45, 3, 4 * 32 + 1, device=cuda_device)
+    views = []
+    for i, t in enumerate((r, k, v, lw)):
+        sl = wide[..., 1 + 32 * i:1 + 32 * (i + 1)]
+        sl.copy_(t)
+        views.append(sl)
+    assert views[0].data_ptr() % 16 != 0
+    got = twkv.wkv6_cuda(*views, u, s0)
     want = twkv.wkv6_cuda(r, k, v, lw, u, s0)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=0, rtol=0)
@@ -888,7 +965,7 @@ def test_wkv6_one_launch_per_call(cuda_device):
 
 
 @pytest.mark.parametrize("bad", ["cpu", "dh", "dtype", "stride", "shape",
-                                 "state", "chunk"])
+                                 "state", "chunk", "carry"])
 def test_wkv6_unsupported_inputs_raise(cuda_device, bad):
     from repro_torch.kernels import wkv6 as twkv
     dh = 128 if bad == "dh" else 32
@@ -906,6 +983,8 @@ def test_wkv6_unsupported_inputs_raise(cuda_device, bad):
         s0 = s0.transpose(2, 3)
     if bad == "chunk":
         kw["chunk"] = 0
+    if bad == "carry":
+        kw["carry_cols"] = 64          # wider than dh = 32
     with pytest.raises(ValueError):
         twkv.wkv6_cuda(r, k, v, lw, u, s0, **kw)
 

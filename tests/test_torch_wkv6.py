@@ -18,7 +18,17 @@ decay (ROADMAP §C), and the port's plain copy with it — at logw = -3.0
 both turn non-finite in the same places, where the recurrence is finite;
 the dispatch by device and the chunk clamp of `wkv6`; the state carried
 across a split sequence.  Kernel B5 itself is held against these plain
-versions on the card (`tests/test_torch_cuda.py`, `chip_smoke.py`)."""
+versions on the card (`tests/test_torch_cuda.py`, `chip_smoke.py`).
+
+`wkv_chunk_parallel`, the plain version of B5's own split (pivoted local
+pass, carry, correction), is held against the reference's recurrence at
+2e-5 — its float64 decay scan keeps it within 1e-5 on these inputs
+(measured <= 9.7e-6), where a float32 scan reaches 8.8e-5 on SWEEP's
+(1, 128, 4, 64) — including logw -3.0 to -4.05, where the reference's
+chunked form overflows; against the reference's Pallas kernel in
+interpret mode at 5e-4, the tolerance between chunked forms; at weak
+decay too, where the state carries across chunks.  B5's host-side carry
+width, `choose_carry_cols`, is checked against its definition."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -41,6 +51,7 @@ SWEEP = [
 ]
 EXACT = dict(atol=1e-5, rtol=1e-5)
 FORMS = dict(atol=5e-4, rtol=5e-4)
+PIVOTED = dict(atol=2e-5, rtol=2e-5)    # chunk-parallel vs the recurrence
 
 
 def _inputs(B, S, H, dh, seed=1, logw=None):
@@ -221,3 +232,102 @@ def test_reference_factorization_fault_is_shared(logw, finite):
             np.testing.assert_allclose(g, w, **FORMS)
             np.testing.assert_allclose(g, r, **FORMS)
     assert np.isfinite(got[0].numpy()).all() == finite
+
+
+@pytest.mark.parametrize("case", SWEEP)
+@pytest.mark.parametrize("reference", ["recurrent", "interpret"])
+def test_plain_chunk_parallel_matches_reference(case, reference):
+    """B5's split in plain torch against the reference's recurrence (2e-5)
+    and its Pallas kernel in interpret mode (5e-4: the kernel's own
+    factorization errs by up to 9.7e-5 here)."""
+    B, S, H, dh, chunk = case
+    x = _inputs(B, S, H, dh)
+    got = twkv.wkv_chunk_parallel(*_t(x), chunk=chunk)
+    assert got[0].shape == (B, S, H, dh) and got[1].shape == (B, H, dh, dh)
+    if reference == "recurrent":
+        _close(got, jrwkv.wkv_recurrent(*_j(x)), **PIVOTED)
+    else:
+        _close(got, jwkv6(*_j(x), impl="interpret", chunk=chunk), **FORMS)
+
+
+@pytest.mark.parametrize("S", [1, 2, 31, 32, 33, 64, 65])
+def test_plain_chunk_parallel_ragged_tail(S):
+    """Chunk seams and ragged tails: one chunk (folded with s0, no carry),
+    exactly one and two chunks, one token past them."""
+    x = _inputs(2, S, 3, 32, seed=3)
+    got = twkv.wkv_chunk_parallel(*_t(x))
+    assert got[0].shape == (2, S, 3, 32)
+    _close(got, jrwkv.wkv_recurrent(*_j(x)), **PIVOTED)
+
+
+@pytest.mark.parametrize("logw", [-3.0, -4.0, -4.05])
+def test_plain_chunk_parallel_strong_decay(logw):
+    """Where the reference's chunked form overflows, the pivoted split
+    stays finite and holds to the recurrence."""
+    x = _inputs(1, 64, 2, 16, logw=logw)
+    assert not np.isfinite(np.asarray(jrwkv.wkv_chunked(*_j(x))[0])).all()
+    got = twkv.wkv_chunk_parallel(*_t(x))
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    _close(got, jrwkv.wkv_recurrent(*_j(x)), **PIVOTED)
+
+
+@pytest.mark.parametrize("logw", [-0.05, -0.5])
+def test_plain_chunk_parallel_weak_decay(logw):
+    """Weak decay: at logw = -0.05 a chunk's state keeps e^{-1.6} of the
+    one before it, so the carry reaches back over many chunks (at the
+    drawn decays e^{tot} ~ e^{-65} erases a state within a chunk)."""
+    x = _inputs(1, 300, 2, 32, seed=8, logw=logw)
+    got = twkv.wkv_chunk_parallel(*_t(x))
+    _close(got, jrwkv.wkv_recurrent(*_j(x)), **PIVOTED)
+    _close(got, jrwkv.wkv_chunked(*_j(x)), **FORMS)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 16])
+def test_plain_chunk_parallel_chunk_sizes(chunk):
+    """Any chunk computes the same function (the pivot row moves with
+    it: row chunk/2 - 1, row 0 below 4)."""
+    x = _inputs(2, 70, 3, 32, seed=5)
+    got = twkv.wkv_chunk_parallel(*_t(x), chunk=chunk)
+    _close(got, jrwkv.wkv_recurrent(*_j(x)), **PIVOTED)
+
+
+def test_plain_chunk_parallel_carries_the_state():
+    """Splitting a prompt and chaining the states == one shot, as the
+    engine's decode after a prefill chains them."""
+    r, k, v, lw, u, s0 = _t(_inputs(1, 90, 2, 16, seed=9))
+    o1, sm = twkv.wkv_chunk_parallel(r[:, :41], k[:, :41], v[:, :41],
+                                     lw[:, :41], u, s0)
+    o2, s2 = twkv.wkv_chunk_parallel(r[:, 41:], k[:, 41:], v[:, 41:],
+                                     lw[:, 41:], u, sm)
+    want = twkv.wkv_recurrent(r, k, v, lw, u, s0)
+    _close((torch.cat([o1, o2], 1), s2), want, **PIVOTED)
+
+
+@pytest.mark.parametrize("B,H,dh,sms,want", [
+    (1, 40, 64, 132, 16),      # one rwkv6-3b row: 160 CTAs
+    (3, 40, 64, 132, 32),      # 240 CTAs
+    (4, 40, 64, 132, 64),      # 160 CTAs of a whole head each
+    (1, 1, 64, 132, 8),        # no width covers the card: the narrowest
+    (1, 40, 16, 132, 8),
+    (2, 40, 32, 132, 16),
+    (1, 40, 64, 78, 32),       # a card of fewer SMs
+])
+def test_choose_carry_cols_cases(B, H, dh, sms, want):
+    from repro_torch.kernels.wkv6.kernel import choose_carry_cols
+    assert choose_carry_cols(B, H, dh, sms) == want
+
+
+@settings(max_examples=60, deadline=None)
+@given(B=st.integers(1, 8), H=st.integers(1, 64),
+       dh=st.sampled_from([16, 32, 64]), sms=st.integers(1, 264))
+def test_choose_carry_cols_is_the_widest_covering_width(B, H, dh, sms):
+    """The chosen width is a compiled one, at most dh; its grid covers the
+    SMs whenever some width's does, and no wider width's does."""
+    from repro_torch.kernels.wkv6.kernel import CARRY_COLS, choose_carry_cols
+    cols = choose_carry_cols(B, H, dh, sms)
+    assert cols in CARRY_COLS and cols <= dh
+    covers = [c for c in CARRY_COLS if c <= dh and B * H * (dh // c) >= sms]
+    if covers:
+        assert B * H * (dh // cols) >= sms and cols == max(covers)
+    else:
+        assert cols == CARRY_COLS[0]
