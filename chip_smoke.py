@@ -126,13 +126,12 @@ Phases (each one fails the run when it fails):
             the plain version of B5's own split (`wkv_chunk_parallel`); at
             constant logw -3.0 and -4.0 (where the plain chunked form
             overflows) within WKV_TOL["recurrent"] of the recurrence; every
-            case under the host's carry width and each forced one, each
-            launched twice, all with the same bits; constant logw -0.05
+            case launched twice, with the same bits; constant logw -0.05
             (the state carries over many chunks) the same way; bf16 r/k/v/logw through
             `wkv6` (upcast for B5) against the plain chunked form on the
-            same inputs, within one bf16 ulp; timed (kernel under the
-            host's carry width and each forced one, plain chunked form,
-            bound, the 3xTF32 bound and the bytes of B5's intermediates;
+            same inputs, within one bf16 ulp; timed (kernel, plain
+            chunked form, bound; the 3xTF32 bound and the bytes of B5's
+            intermediates printed and in `--wkv`'s JSON only;
             no PyTorch call computes wkv6) at the serving shape (B=1, 256
             tokens, H=40, dh=64: one rwkv6-3b admit), a long shape (B=1,
             8192 tokens), one chunk (32 tokens) and R1's 500-token prompt.
@@ -1645,46 +1644,29 @@ def wkv_hold(label, got, want, tol, name, worst) -> None:
           f"{tol:.0e})")
 
 
-def wkv_plans(S, dh, chunk) -> list:
-    """The host's carry width (None), then every width forced; a prompt of
-    one chunk has no carry, so its one plan is the host's."""
-    from repro_torch.kernels.wkv6.kernel import CARRY_COLS
-    if S <= chunk:
-        return [None]
-    return [None] + [c for c in CARRY_COLS if c <= dh]
-
-
-def wkv_launch_all(label, x, chunk):
-    """B5 under every carry plan, each launched twice; every launch must
-    give the same bits (a warp's columns take the same path whatever the
-    CTA's width).  Returns the first result."""
+def wkv_launch_twice(label, x, chunk):
+    """B5 launched twice; both launches must give the same bits.  Returns
+    the first result."""
     import torch
     from repro_torch.kernels.wkv6 import wkv6_cuda
     B, S, H, dh = x[0].shape
-    first = None
-    for cols in wkv_plans(S, dh, chunk):
-        got = wkv6_cuda(*x, chunk=chunk, carry_cols=cols)
-        again = wkv6_cuda(*x, chunk=chunk, carry_cols=cols)
-        torch.cuda.synchronize()
-        tag = f"{label} carry_cols={cols or 'chosen'}"
-        check(got[0].shape == (B, S, H, dh) and got[1].shape == (B, H, dh, dh)
-              and all(bool(torch.isfinite(g).all()) for g in got),
-              f"{tag}: bad output")
-        check(all(torch.equal(a, b) for a, b in zip(got, again)),
-              f"{tag}: a repeated launch gave other bits")
-        if first is None:
-            first = got
-        check(all(torch.equal(a, b) for a, b in zip(got, first)),
-              f"{tag}: other bits than under the host's carry width")
-    return first
+    got = wkv6_cuda(*x, chunk=chunk)
+    again = wkv6_cuda(*x, chunk=chunk)
+    torch.cuda.synchronize()
+    check(got[0].shape == (B, S, H, dh) and got[1].shape == (B, H, dh, dh)
+          and all(bool(torch.isfinite(g).all()) for g in got),
+          f"{label}: bad output")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{label}: a repeated launch gave other bits")
+    return got
 
 
 def wkv_kernel_phase() -> float:
     """B5 against the plain chunked form, the plain recurrence and the
     plain version of its own split (`wkv_chunk_parallel`), out and state
-    held and reported separately, under every carry plan, each launched
-    twice; returns max |out - plain chunked out| over the
-    reference-distribution cases."""
+    held and reported separately, each case launched twice; returns
+    max |out - plain chunked out| over the reference-distribution
+    cases."""
     import itertools
     import torch
     from repro_torch.kernels.wkv6 import (wkv6, wkv_chunk_parallel,
@@ -1709,7 +1691,7 @@ def wkv_kernel_phase() -> float:
         label = (f"B5 B={B} S={S} H={H} dh={dh} chunk={chunk} "
                  f"s0={'zero' if zero else 'random'} "
                  f"logw={'drawn' if logw is None else logw}")
-        got = wkv_launch_all(label, x, chunk)
+        got = wkv_launch_twice(label, x, chunk)
         tol = WKV_TOL["recurrent"]
         strong = logw is not None and logw <= -3.0
         wkv_hold(label, got, wkv_recurrent(*x), tol,
@@ -1752,9 +1734,8 @@ def wkv_kernel_phase() -> float:
               f"bf16 inputs: out {err_out:.3e} of one bf16 ulp + {tol:.0e}, "
               f"state {err_state:.3e} > {tol:.0e}")
         n += 1
-    print(f"B5 kernel phase: {n} cases within tolerance (each under every "
-          "carry plan, launched twice, with the same bits); worst (out, "
-          "state): " + "; ".join(
+    print(f"B5 kernel phase: {n} cases within tolerance (each launched "
+          "twice, with the same bits); worst (out, state): " + "; ".join(
               f"vs the plain {k} ({v[0]:.3e}, {v[1]:.3e})"
               for k, v in worst.items() if k != "bf16")
           + f" (tol {WKV_TOL['chunked']:.0e} for the chunked form, "
@@ -1763,6 +1744,11 @@ def wkv_kernel_phase() -> float:
           f"{WKV_TOL['chunked']:.0e}, {worst['bf16'][1]:.3e}); "
           f"max_abs_err={max_abs:.3e}")
     return max_abs
+
+
+# bounds beside B5's `bound_ms`, computed from the shape, printed and kept
+# in `--wkv`'s JSON, left out of the {"kernels": ...} line
+WKV_DESIGN_BOUNDS = ("bound_tc_ms", "design_bytes", "bound_design_ms")
 
 
 def wkv_bound(B, S, H, dh, rate, chunk=32) -> dict:
@@ -1790,28 +1776,20 @@ def wkv_bound(B, S, H, dh, rate, chunk=32) -> dict:
 
 
 def wkv_timing_shape(label, B, S, H, dh, rate, flush, gen, reps):
-    """B5 at one shape under the host's carry width and each forced one,
-    against the plain chunked form."""
-    import torch
+    """B5 at one shape against the plain chunked form."""
     from repro_torch.kernels.wkv6 import wkv6_cuda, wkv_chunked
-    from repro_torch.kernels.wkv6.kernel import _sm_count, choose_carry_cols
     x = wkv_inputs(B, S, H, dh, gen)
     times = {"ms": time_ms(lambda: wkv6_cuda(*x), reps, flush),
              "plain_ms": time_ms(lambda: wkv_chunked(*x), 3, flush)}
-    for cols in wkv_plans(S, dh, 32)[1:]:
-        times[f"cols{cols}_ms"] = time_ms(
-            lambda: wkv6_cuda(*x, carry_cols=cols), reps, flush)
     res = {"shape": label, "B": B, "S": S, "H": H, "dh": dh,
            "dtype": "float32", "library_ms": None,
-           "carry_cols": (choose_carry_cols(B, H, dh, _sm_count(0))
-                          if S > 32 else None),
            "library": "none: no PyTorch call computes the wkv6 recurrence",
            **wkv_bound(B, S, H, dh, rate)}
     for key, t in times.items():
         res[key] = statistics.median(t)
         res[f"{key}_min_max"] = [t[0], t[-1]]
     print(f"timing B5 {label} B={B} S={S} H={H} dh={dh} f32 (median [min, "
-          f"max]; carry_cols {res['carry_cols']}): "
+          f"max]): "
           + " ".join(f"{k}={res[k]:.6f} [{t[0]:.6f}, {t[-1]:.6f}]"
                      for k, t in times.items())
           + f" bound_ms={res['bound_ms']:.6f} ({res['bound_by']}, "
@@ -1832,7 +1810,7 @@ def wkv_timing_phase(rate):
 
 def old_wkv_launcher(source: str):
     """B5's body before its chunk-parallel redesign (its C interface: no
-    scratch, no carry width), built by nvcc from `source` into build/ and
+    scratch), built by nvcc from `source` into build/ and
     bound beside the current one, for a one-process A/B."""
     import ctypes
     import hashlib
@@ -2137,17 +2115,16 @@ def main(argv) -> int:
                       "(choose_flash_plan)"},
         kernel_entry("wkv6", "src/repro_torch/csrc/wkv6.cu",
                      "src/repro/kernels/wkv6/kernel.py:74", r1["launches"],
-                     b5_err, b5_shapes, r1) | {
-            "bound_tc_ms": b5_shapes[0]["bound_tc_ms"],
-            "design_bytes": b5_shapes[0]["design_bytes"],
+                     b5_err, [{k: v for k, v in s.items()
+                               if k not in WKV_DESIGN_BOUNDS}
+                              for s in b5_shapes], r1) | {
             "design": "two launches: a local pass over every (b, h, chunk) "
                       "at once (mid-chunk pivot, float64 decay scan, lower "
                       "score tiles, A·v and the state delta on 3xTF32 "
-                      "mma.sync), then a carry per (b, h, carry_cols value "
-                      "columns) walking the chunks with the state in "
-                      "registers through a 4-stage cp.async ring "
-                      "(choose_carry_cols); one chunk: the local pass "
-                      "alone"},
+                      "mma.sync), then a carry per (b, h, 16 value columns) "
+                      "walking the chunks with the state in registers "
+                      "through a 4-stage cp.async ring; one chunk: the "
+                      "local pass alone"},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -25,14 +25,14 @@
 //     and rs_c, dS_c and e^{tot_c} into scratch.  A prompt of one chunk
 //     (S <= T) is done here: the CTA folds s0 in itself (out += rs s0,
 //     sT = e^{tot} s0 + dS), and no second launch is issued;
-//   * the carry, one CTA per (b, h, block of `carry_cols` value columns),
-//     walking the chunks from s0 with its slice of the state in registers:
-//     out_c += rs_c S_c (one product), then S <- e^{tot_c} ⊙ S + dS_c.  The
-//     state's value columns are independent, so the columns split over
-//     CTAs at no repeated cost (the state-independent work has left the
-//     chain).  The loads of the next chunks (rs, dS, e^{tot} and the intra
-//     rows of out) stream through a 4-stage cp.async ring, so no step waits
-//     on memory; a step's time is its product's latency;
+//   * the carry, one CTA per (b, h, block of kCarryCols = 16 value
+//     columns), walking the chunks from s0 with its slice of the state in
+//     registers: out_c += rs_c S_c (one product), then S <- e^{tot_c} ⊙ S +
+//     dS_c.  The state's value columns are independent, so the columns
+//     split over CTAs at no repeated cost (the state-independent work has
+//     left the chain).  The loads of the next chunks (rs, dS, e^{tot} and
+//     the intra rows of out) stream through a 4-stage cp.async ring, so no
+//     step waits on memory; a step's time is its product's latency;
 // All of it is deterministic: no atomics, every sum in a fixed order.
 //
 // Layouts (element strides, the head dim contiguous):
@@ -72,9 +72,10 @@
 // dh²·4 bytes a chunk and head (16 KB at dh 64, 40% of the chunk's own
 // r, k, v, logw and out), written once and read once, and rs and the
 // intra rows of out once more each: 2.6x the function's bytes in all
-// (chip_smoke.py prints them beside the bound).  The products (scores, A·v, dS, and rs·S in the carry)
-// run on the tensor cores as 3xTF32 (mma.sync m16n8k8, `mma3`), float32-
-// exact; the exps (four a (token, channel)) on the CUDA cores.
+// (chip_smoke.py prints them beside the bound).  The products (scores,
+// A·v, dS, and rs·S in the carry) run on the tensor cores as 3xTF32
+// (mma.sync m16n8k8, `mma3`), float32-exact; the exps (four a (token,
+// channel)) on the CUDA cores.
 //
 // The local pass, 256 threads: cp.async stages r, k, logw and v (16-byte
 // copies where every row is 16-byte aligned, else 4-byte ones); two
@@ -86,7 +87,10 @@
 // intra output (each m-tile's k-steps stop at the diagonal) and dS (k-steps
 // stop at the last valid row).  Rows are padded so the fragment loads are
 // bank-conflict-free.  The carry: two warps an 8-column n-tile, one a row
-// m-tile, so a step is one m-tile's 8 k-steps of 3xTF32 in 4 chains.
+// m-tile, so a step is one m-tile's 8 k-steps of 3xTF32 in 4 chains.  Its
+// width, 16 columns a CTA (160 CTAs at rwkv6-3b's B=1, H=40, dh=64), was
+// the fastest of 8/16/32/64 at 8192 tokens on an H100 and within 1% of the
+// fastest at 256 and 500 tokens (PERF.md §6).
 // What it leaves on the table (PERF.md §6): every step of the carry and
 // every phase of the local pass waits on its own latency (a step ~0.7 µs,
 // a local CTA ~10 µs, few warps an SM), not on bytes or FLOPs.
@@ -118,7 +122,8 @@ struct Args {
   float* ds;     // scratch [B, H, n, dh, dh]
   float* etot;   // scratch [B, H, n, dh]
   long long r_b, r_s, r_h, k_b, k_s, k_h, v_b, v_s, v_h, w_b, w_s, w_h;
-  int S, H, T, n, vec16;
+  int S, H, T, n;
+  bool vec16;    // every row of r/k/v/logw starts 16-byte aligned
 };
 
 // The local pass's shared memory (floats).  Row strides: LA = DH + 4 for
@@ -238,7 +243,7 @@ __global__ void __launch_bounds__(kLocalThreads) wkv6_local(Args a) {
   const int n = min(T, a.S - t0);            // valid rows of this chunk
   const int pivot = T / 2 - 1 > 0 ? T / 2 - 1 : 0;
   const long long bh = (long long)b * a.H + h;
-  const bool vec16 = a.vec16 != 0;
+  const bool vec16 = a.vec16;
   const bool fold = a.n == 1;                // a lone chunk folds s0 in
 
   stage_rows<DH, LA, kLocalThreads>(
@@ -496,18 +501,20 @@ __global__ void __launch_bounds__(kLocalThreads) wkv6_local(Args a) {
       a.etot[(bh * a.n + c) * DH + i] = set[i];
 }
 
-// The carry's CTA: NT n-tiles of 8 value columns (JC = 8·NT), two warps
-// each, one a row m-tile of the chunk (rows 0-15, 16-31): a warp's step is
-// one m-tile's product, and both warps of an n-tile keep the same state
-// columns.  Its ring stage (floats): rs [kMaxT][LA], dS [DH][LC], e^{tot}
-// [DH], the intra rows of out [kMaxT][LC].  LC = 8 (JC = 8) or JC + 8
-// keeps q·LC + g, the B-fragment reads of dS, on 32 distinct banks.
-template <int DH, int NT>
+// The carry's CTA: NT n-tiles of 8 value columns (JC = kCarryCols), two
+// warps each, one a row m-tile of the chunk (rows 0-15, 16-31): a warp's
+// step is one m-tile's product, and both warps of an n-tile keep the same
+// state columns.  Its ring stage (floats): rs [kMaxT][LA], dS [DH][LC],
+// e^{tot} [DH], the intra rows of out [kMaxT][LC].  LC = JC + 8 keeps
+// q·LC + g, the B-fragment reads of dS, on 32 distinct banks.
+constexpr int kCarryCols = 16;
+template <int DH>
 struct Carry {
-  static constexpr int JC = 8 * NT;
+  static constexpr int JC = kCarryCols;
+  static constexpr int NT = JC / 8;
   static constexpr int kThreads = 64 * NT;
   static constexpr int LA = DH + 4;
-  static constexpr int LC = JC == 8 ? 8 : JC + 8;
+  static constexpr int LC = JC + 8;
   static constexpr int kRs = 0;
   static constexpr int kDs = kRs + kMaxT * LA;
   static constexpr int kEt = kDs + DH * LC;
@@ -535,11 +542,11 @@ __device__ __forceinline__ void copy16(float* dst, const float* src, Off off,
 }
 
 // chunk c's rs, dS slice, e^{tot} and intra rows into ring stage `st`
-template <int DH, int NT>
+template <int DH>
 __device__ __forceinline__ void carry_issue(const Args& a, float* st, int c,
                                             long long bh, int b, int h,
                                             int col0) {
-  using K = Carry<DH, NT>;
+  using K = Carry<DH>;
   constexpr int kThreads = K::kThreads;
   constexpr int kQ = K::JC / 4;              // 16-byte pieces a row slice
   const int t0 = c * a.T;
@@ -573,9 +580,9 @@ __device__ __forceinline__ void carry_issue(const Args& a, float* st, int c,
       [n](int e) { return e / kQ < n; });
 }
 
-template <int DH, int NT>
-__global__ void __launch_bounds__(64 * NT) wkv6_carry(Args a) {
-  using K = Carry<DH, NT>;
+template <int DH>
+__global__ void __launch_bounds__(Carry<DH>::kThreads) wkv6_carry(Args a) {
+  using K = Carry<DH>;
   constexpr int KS = DH / 8;
   constexpr int LA = K::LA;
   constexpr int LC = K::LC;
@@ -592,7 +599,7 @@ __global__ void __launch_bounds__(64 * NT) wkv6_carry(Args a) {
   const bool rows = 16 * mt < a.T;           // the chunk reaches this m-tile
 
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n) carry_issue<DH, NT>(a, smem + s * K::kStage, s, bh, b, h, col0);
+    if (s < n) carry_issue<DH>(a, smem + s * K::kStage, s, bh, b, h, col0);
     cp_async_commit();
   }
 
@@ -614,8 +621,8 @@ __global__ void __launch_bounds__(64 * NT) wkv6_carry(Args a) {
     {
       const int cn = c + kStages - 1;
       if (cn < n)
-        carry_issue<DH, NT>(a, smem + (cn % kStages) * K::kStage, cn, bh, b,
-                            h, col0);
+        carry_issue<DH>(a, smem + (cn % kStages) * K::kStage, cn, bh, b, h,
+                        col0);
       cp_async_commit();
     }
     const float* stg = smem + (c % kStages) * K::kStage;
@@ -680,51 +687,43 @@ int set_smem(Kernel kernel, int bytes, bool& done) {
   return 0;
 }
 
-template <int DH, int NT>
-int launch_carry(const Args& a, int B, cudaStream_t stream) {
-  using K = Carry<DH, NT>;
-  constexpr int bytes = K::kFloats * (int)sizeof(float);
-  static bool attr = false;       // one attribute call per instance
-  if (const int e = set_smem(wkv6_carry<DH, NT>, bytes, attr)) return e;
-  const dim3 grid(DH / K::JC, a.H, B);
-  wkv6_carry<DH, NT><<<grid, K::kThreads, bytes, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int DH>
-int launch(const Args& a, int B, int carry_cols, cudaStream_t stream) {
+int launch(const Args& a, int B, cudaStream_t stream) {
   constexpr int bytes = Local<DH>::kFloats * (int)sizeof(float);
-  static bool attr = false;
+  static bool attr = false;       // one attribute call per instance
   if (const int e = set_smem(wkv6_local<DH>, bytes, attr)) return e;
   wkv6_local<DH><<<dim3(a.n, a.H, B), kLocalThreads, bytes, stream>>>(a);
   if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
   if (a.n == 1) return 0;         // a lone chunk wrote sT itself
-  if (carry_cols == 8) return launch_carry<DH, 1>(a, B, stream);
-  if constexpr (DH >= 16)
-    if (carry_cols == 16) return launch_carry<DH, 2>(a, B, stream);
-  if constexpr (DH >= 32)
-    if (carry_cols == 32) return launch_carry<DH, 4>(a, B, stream);
-  if constexpr (DH >= 64)
-    if (carry_cols == 64) return launch_carry<DH, 8>(a, B, stream);
-  return -1;
+  using K = Carry<DH>;
+  constexpr int cbytes = K::kFloats * (int)sizeof(float);
+  static bool cattr = false;
+  if (const int e = set_smem(wkv6_carry<DH>, cbytes, cattr)) return e;
+  wkv6_carry<DH><<<dim3(DH / K::JC, a.H, B), K::kThreads, cbytes, stream>>>(
+      a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rows of [B, S, H, dh] at `p` with strides (x_b, x_s, x_h, 1) all start
+// 16-byte aligned
+bool rows_16b(const void* p, long long x_b, long long x_s, long long x_h) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && x_b % 4 == 0 &&
+         x_s % 4 == 0 && x_h % 4 == 0;
 }
 
 }  // namespace
 
-// See the layouts above.  `carry_cols` (8, 16, 32 or 64, at most dh) is the
-// carry's value columns a CTA (kernels/wkv6/kernel.py::choose_carry_cols).
-// `vec16` says every row of r/k/v/logw starts 16-byte aligned.  rs, ds and
-// etot are the scratch of n = ceil(S / chunk) chunks (unread when n <= 1).
-// Returns cudaGetLastError() after the launches (or an attribute call's
-// error), or -1 for a head dim other than 16 / 32 / 64, a chunk outside
-// 1..32 or a carry width the head dim does not take.
+// See the layouts above.  rs, ds and etot are the scratch of n = ceil(S /
+// chunk) chunks (unread when n <= 1).  Returns cudaGetLastError() after the
+// launches (or an attribute call's error), or -1 for a head dim other than
+// 16 / 32 / 64 or a chunk outside 1..32.
 extern "C" int kvnand_wkv6(
     const void* r, const void* k, const void* v, const void* lw,
     const void* u, const void* s0, void* out, void* sT, void* rs, void* ds,
     void* etot, long long r_b, long long r_s, long long r_h, long long k_b,
     long long k_s, long long k_h, long long v_b, long long v_s, long long v_h,
     long long w_b, long long w_s, long long w_h, int B, int S, int H, int dh,
-    int chunk, int carry_cols, int vec16, void* stream) {
+    int chunk, void* stream) {
   if (chunk < 1 || chunk > kMaxT) return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S == 0)                     // no token: the state passes through
@@ -738,9 +737,11 @@ extern "C" int kvnand_wkv6(
                static_cast<float*>(rs),       static_cast<float*>(ds),
                static_cast<float*>(etot),
                r_b, r_s, r_h, k_b, k_s, k_h, v_b, v_s, v_h, w_b, w_s, w_h,
-               S, H, chunk, (S + chunk - 1) / chunk, vec16};
-  if (dh == 16) return launch<16>(a, B, carry_cols, st);
-  if (dh == 32) return launch<32>(a, B, carry_cols, st);
-  if (dh == 64) return launch<64>(a, B, carry_cols, st);
+               S, H, chunk, (S + chunk - 1) / chunk,
+               rows_16b(r, r_b, r_s, r_h) && rows_16b(k, k_b, k_s, k_h) &&
+                   rows_16b(v, v_b, v_s, v_h) && rows_16b(lw, w_b, w_s, w_h)};
+  if (dh == 16) return launch<16>(a, B, st);
+  if (dh == 32) return launch<32>(a, B, st);
+  if (dh == 64) return launch<64>(a, B, st);
   return -1;
 }

@@ -54,7 +54,7 @@ LIBS: Dict[str, Library] = {
          + [ctypes.c_float, _I, _P]}),
     "wkv6": Library(
         _CSRC / "wkv6.cu", (_CSRC / "mma_tf32.cuh",),
-        {"kvnand_wkv6": [_P] * 11 + [_LL] * 12 + [_I] * 7 + [_P]}),
+        {"kvnand_wkv6": [_P] * 11 + [_LL] * 12 + [_I] * 5 + [_P]}),
 }
 
 _lock = threading.Lock()

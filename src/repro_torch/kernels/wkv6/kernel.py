@@ -12,15 +12,13 @@ with the state on chip and adds each chunk's share of it (see the
 source).  Each chunk is factored around a mid-chunk pivot, so B5 stays
 finite over the model's whole decay range where the reference's
 factorization overflows; `ref.wkv_chunk_parallel` is the same arithmetic
-in plain torch.  `choose_carry_cols` picks the carry's value columns a
-CTA; `carry_cols=` forces one.  The source builds into its own library
+in plain torch.  The source builds into its own library
 (`kernels/_build.py`, in parallel with the other kernels, at first use);
 importing this module builds nothing and needs neither nvcc nor a card.
 """
 from __future__ import annotations
 
-import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -30,7 +28,6 @@ launches = LaunchCount()          # B5: one per `wkv6_cuda` call
 
 HEAD_DIMS = (16, 32, 64)
 MAX_CHUNK = 32
-CARRY_COLS = (8, 16, 32, 64)      # the carry's instances (8 columns a warp)
 
 
 def _check(cond: bool, msg: str):
@@ -38,38 +35,17 @@ def _check(cond: bool, msg: str):
         raise ValueError(f"wkv6_cuda: {msg}")
 
 
-def choose_carry_cols(B: int, H: int, dh: int, sms: int = 132) -> int:
-    """Value columns a carry CTA walks the chunks for: the widest of
-    `CARRY_COLS` (at most dh) whose grid, B·H·dh/cols CTAs, still covers
-    the card's `sms` SMs, else the narrowest.  Every CTA walks the whole
-    chain of chunks, so the carry takes one chain's time as long as every
-    CTA has an SM; a wider CTA shares its chunk's rs rows over more warps
-    (one load, fewer L2 reads)."""
-    fits = [c for c in CARRY_COLS if c <= dh and B * H * (dh // c) >= sms]
-    return fits[-1] if fits else CARRY_COLS[0]
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _rows_16b_aligned(t: torch.Tensor) -> bool:
-    return t.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in t.stride()[:3])
-
-
 def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor, *,
-              chunk: int = MAX_CHUNK, carry_cols: Optional[int] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch B5.  r/k/v/logw [B, S, H, dh] float32 with a contiguous head
     dim (any other strides); u [H, dh] and state [B, H, dh, dh] float32,
-    contiguous; dh 16, 32 or 64; chunk 1..32; `carry_cols` forces a
-    `choose_carry_cols` result.  Returns (out [B, S, H, dh], the state
-    after the last token [B, H, dh, dh]), both float32.  Checks device,
-    dtype, shape and strides and raises on anything the kernel does not
-    take.  The carry's scratch (rs, dS and e^{tot} of every chunk) is
-    allocated here, and only when the prompt spans two chunks or more."""
+    contiguous; dh 16, 32 or 64; chunk 1..32.  Returns (out [B, S, H,
+    dh], the state after the last token [B, H, dh, dh]), both float32.
+    Checks device, dtype, shape and strides and raises on anything the
+    kernel does not take.  The carry's scratch (rs, dS and e^{tot} of
+    every chunk) is allocated here, and only when the prompt spans two
+    chunks or more."""
     _check(r.is_cuda, "tensors must be on a CUDA device")
     _check(r.ndim == 4, f"r must be [B, S, H, dh], got {tuple(r.shape)}")
     B, S, H, dh = r.shape
@@ -91,10 +67,6 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                f"got {t.dtype} {tuple(t.shape)} strides {t.stride()}")
     n = -(-S // chunk)
     _check(n < 2 ** 31 and max(H, B) < 2 ** 16, "sizes past the grid")
-    if carry_cols is None:
-        carry_cols = choose_carry_cols(B, H, dh, _sm_count(r.device.index))
-    _check(carry_cols in CARRY_COLS and carry_cols <= dh,
-           f"carry_cols={carry_cols!r} not in {CARRY_COLS} up to dh={dh}")
     out = torch.empty((B, S, H, dh), dtype=torch.float32, device=r.device)
     sT = torch.empty((B, H, dh, dh), dtype=torch.float32, device=r.device)
     if B * H == 0:
@@ -104,13 +76,12 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scratch = [torch.empty(shape, dtype=torch.float32, device=r.device)
                    for shape in ((B, H, n, chunk, dh), (B, H, n, dh, dh),
                                  (B, H, n, dh))]
-    vec16 = all(_rows_16b_aligned(t) for t in (r, k, v, logw))
     rc = entry("kvnand_wkv6")(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
         u.data_ptr(), state.data_ptr(), out.data_ptr(), sT.data_ptr(),
         *([t.data_ptr() for t in scratch] or [None] * 3),
         *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *logw.stride()[:3], B, S, H, dh, chunk, carry_cols, int(vec16),
+        *logw.stride()[:3], B, S, H, dh, chunk,
         torch.cuda.current_stream(r.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {rc}")

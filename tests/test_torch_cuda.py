@@ -42,8 +42,7 @@ recurrence and of the plain version of its own split (|a - b| / (1 + |b|),
 draw them; at constant logw -3.0 to -4.05, where the plain chunked form
 overflows, within 1e-4 of the recurrence.  bf16 inputs: the output
 within one bf16 ulp (2^-7 relative) plus those tolerances, the float32
-state within them.  Repeated launches, and launches under every carry
-width, give the same bits.
+state within them.  Repeated launches give the same bits.
 
 The reduced qwen1.5-0.5b splice server (head dim 32, which B4 pads inside
 shared memory) serves the CPU server's greedy tokens on the card.
@@ -831,22 +830,6 @@ def test_wkv6_matches_plain_versions(cuda_device, B, S, H, dh, zero_state):
     _wkv_within(got, twkv.wkv_chunk_parallel(*x), WKV_TOL["recurrent"])
 
 
-@pytest.mark.parametrize("B,S,dh", [(1, 70, 64), (3, 257, 32), (2, 33, 16),
-                                    (1, 64, 64)])
-def test_wkv6_every_carry_width_gives_the_same_bits(cuda_device, B, S, dh):
-    """A warp's 8 state columns take the same path whatever the carry
-    CTA's width, so every width the host can choose gives the host's
-    bits."""
-    from repro_torch.kernels import wkv6 as twkv
-    from repro_torch.kernels.wkv6.kernel import CARRY_COLS
-    x = _wkv_inputs(B, S, 5, dh, cuda_device, seed=S)
-    want = twkv.wkv6_cuda(*x)
-    for cols in (c for c in CARRY_COLS if c <= dh):
-        got = twkv.wkv6_cuda(*x, carry_cols=cols)
-        assert all(torch.equal(a, b) for a, b in zip(got, want)), cols
-    _wkv_within(want, twkv.wkv_recurrent(*x), WKV_TOL["recurrent"])
-
-
 @pytest.mark.parametrize("logw", [-0.05, -0.5])
 @pytest.mark.parametrize("dh", [16, 64])
 def test_wkv6_weak_decay_carries_the_state(cuda_device, logw, dh):
@@ -965,7 +948,7 @@ def test_wkv6_one_launch_per_call(cuda_device):
 
 
 @pytest.mark.parametrize("bad", ["cpu", "dh", "dtype", "stride", "shape",
-                                 "state", "chunk", "carry"])
+                                 "state", "chunk", "u"])
 def test_wkv6_unsupported_inputs_raise(cuda_device, bad):
     from repro_torch.kernels import wkv6 as twkv
     dh = 128 if bad == "dh" else 32
@@ -983,8 +966,8 @@ def test_wkv6_unsupported_inputs_raise(cuda_device, bad):
         s0 = s0.transpose(2, 3)
     if bad == "chunk":
         kw["chunk"] = 0
-    if bad == "carry":
-        kw["carry_cols"] = 64          # wider than dh = 32
+    if bad == "u":
+        u = u[:1]
     with pytest.raises(ValueError):
         twkv.wkv6_cuda(r, k, v, lw, u, s0, **kw)
 

@@ -27,8 +27,7 @@ pass, carry, correction), is held against the reference's recurrence at
 (1, 128, 4, 64) — including logw -3.0 to -4.05, where the reference's
 chunked form overflows; against the reference's Pallas kernel in
 interpret mode at 5e-4, the tolerance between chunked forms; at weak
-decay too, where the state carries across chunks.  B5's host-side carry
-width, `choose_carry_cols`, is checked against its definition."""
+decay too, where the state carries across chunks."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -250,10 +249,10 @@ def test_plain_chunk_parallel_matches_reference(case, reference):
         _close(got, jwkv6(*_j(x), impl="interpret", chunk=chunk), **FORMS)
 
 
-@pytest.mark.parametrize("S", [1, 2, 31, 32, 33, 64, 65])
+@pytest.mark.parametrize("S", [1, 2, 31, 32, 33, 64, 65, 96, 97])
 def test_plain_chunk_parallel_ragged_tail(S):
     """Chunk seams and ragged tails: one chunk (folded with s0, no carry),
-    exactly one and two chunks, one token past them."""
+    exactly one, two and three chunks, one token past them."""
     x = _inputs(2, S, 3, 32, seed=3)
     got = twkv.wkv_chunk_parallel(*_t(x))
     assert got[0].shape == (2, S, 3, 32)
@@ -261,10 +260,12 @@ def test_plain_chunk_parallel_ragged_tail(S):
 
 
 @pytest.mark.parametrize("logw", [-3.0, -4.0, -4.05])
-def test_plain_chunk_parallel_strong_decay(logw):
+@pytest.mark.parametrize("dh", [16, 32, 64])
+def test_plain_chunk_parallel_strong_decay(logw, dh):
     """Where the reference's chunked form overflows, the pivoted split
-    stays finite and holds to the recurrence."""
-    x = _inputs(1, 64, 2, 16, logw=logw)
+    stays finite and holds to the recurrence, at every head dim B5
+    takes."""
+    x = _inputs(1, 64, 2, dh, logw=logw)
     assert not np.isfinite(np.asarray(jrwkv.wkv_chunked(*_j(x))[0])).all()
     got = twkv.wkv_chunk_parallel(*_t(x))
     assert all(bool(torch.isfinite(g).all()) for g in got)
@@ -301,33 +302,3 @@ def test_plain_chunk_parallel_carries_the_state():
                                      lw[:, 41:], u, sm)
     want = twkv.wkv_recurrent(r, k, v, lw, u, s0)
     _close((torch.cat([o1, o2], 1), s2), want, **PIVOTED)
-
-
-@pytest.mark.parametrize("B,H,dh,sms,want", [
-    (1, 40, 64, 132, 16),      # one rwkv6-3b row: 160 CTAs
-    (3, 40, 64, 132, 32),      # 240 CTAs
-    (4, 40, 64, 132, 64),      # 160 CTAs of a whole head each
-    (1, 1, 64, 132, 8),        # no width covers the card: the narrowest
-    (1, 40, 16, 132, 8),
-    (2, 40, 32, 132, 16),
-    (1, 40, 64, 78, 32),       # a card of fewer SMs
-])
-def test_choose_carry_cols_cases(B, H, dh, sms, want):
-    from repro_torch.kernels.wkv6.kernel import choose_carry_cols
-    assert choose_carry_cols(B, H, dh, sms) == want
-
-
-@settings(max_examples=60, deadline=None)
-@given(B=st.integers(1, 8), H=st.integers(1, 64),
-       dh=st.sampled_from([16, 32, 64]), sms=st.integers(1, 264))
-def test_choose_carry_cols_is_the_widest_covering_width(B, H, dh, sms):
-    """The chosen width is a compiled one, at most dh; its grid covers the
-    SMs whenever some width's does, and no wider width's does."""
-    from repro_torch.kernels.wkv6.kernel import CARRY_COLS, choose_carry_cols
-    cols = choose_carry_cols(B, H, dh, sms)
-    assert cols in CARRY_COLS and cols <= dh
-    covers = [c for c in CARRY_COLS if c <= dh and B * H * (dh // c) >= sms]
-    if covers:
-        assert B * H * (dh // cols) >= sms and cols == max(covers)
-    else:
-        assert cols == CARRY_COLS[0]
