@@ -13,6 +13,8 @@
     python3 chip_smoke.py --flash            # the build and phase 9 only
     python3 chip_smoke.py --flash-timing     # the build and B4's timing only
     python3 chip_smoke.py --flash-ab OLD.cu  # B4's CUDA-core body vs the current
+    python3 chip_smoke.py --dse              # the build and phases 13-15 only
+    python3 chip_smoke.py --verify-ab        # V1's verify attention, the port's form vs the reference's
 
 Phases (each one fails the run when it fails):
 
@@ -145,7 +147,34 @@ Phases (each one fails the run when it fails):
             recurrence), 16 greedy tokens each; B5's counter must equal 32
             x the admits with >= 2 prompt tokens and B1-B4's stay 0; served
             tokens pass the teacher-forced check with the argmax; the splice
-            scheduler serves the same tokens with the same B5 count.
+            scheduler serves the same tokens with the same B5 count;
+13. heads   B1 and B2 walking one head group at a time, as the discrete
+            variant (KVNAND-D) launches them: B1 over a head range of the
+            whole stripe pool (`head0`, no copy), B2 over the group's
+            contiguous slice of the shared pool; {f32, bf16, kv8, kv4} x
+            window {None, 64} x (K, G, dh) (32, 1, 128) (llama2-7b) and
+            (8, 4, 128) (llama3.1-8b) x two row sets: phase 2's rows at
+            partitions {1, 16}, and D1's launch shape (4 slots x 8 pages,
+            ragged) at partitions {1, 2}, where a group's launch takes a
+            cluster split of 4 (2): every group against its plain version
+            (TOL), the groups side by side against one all-heads launch
+            (HEAD_RANGE_TOL); at D1's launch shape (one of 32 kv heads,
+            dh 128, kv8, B=4 x 128 tokens) the timed group held against
+            its plain version and the all-heads launch, then timed beside
+            the latter;
+14. D1      full-width llama2-7b (32 layers, d_model 4096, 32 heads x 128,
+            d_ff 11008; random f32 weights from seed 0) under the
+            design-space search's pick at max_context 128 (asserted:
+            discrete, kv8) with `launch/serve.py --use-dse`'s overrides, 4
+            slots, 6 greedy requests of 5-60 prompt tokens (one repeats a
+            segment) x 16 new tokens: stripe pool, B1 launches = decode
+            steps x 32 x 32; the compact variant on the same params and
+            prompts serves the same tokens (or differs only at a near-tie,
+            see `dse_server_phase`); the shared pool, B2 launches = decode
+            steps x 32 x 32, the allocator's invariants after the drain;
+15. V1      D1's stripe deployment with speculation_k = 4 (prompt-lookup
+            draft-and-verify): the same tokens as D1's sequential run, at
+            least one verify step, and the acceptance counts printed.
 
 It needs a CUDA card (exits non-zero without one, printing no result),
 imports nothing of JAX, and prints the card's name and power limit, a
@@ -1960,6 +1989,551 @@ def rwkv_server_phase():
             "splice_decode_stall_tokens": splice.stats["decode_stall_tokens"]}
 
 
+# ---------------------------------------------------------------------------
+# phases 13-15: the design-space deployment (KVNAND-D) and speculation
+# ---------------------------------------------------------------------------
+
+# the head shapes of the head-range sweep: llama2-7b (MHA, the model the
+# DSE picks the discrete variant for) and llama3.1-8b (GQA)
+HEAD_RANGE_SHAPES = ((32, 1, 128), (8, 4, 128))
+# the row sets of the sweep: (label, B, NP, lengths, partitions, a row
+# with unwritten pages (stripe), a row of at most one page whose table
+# entries past it are stale (shared), an all-masked row).  Phase 2's rows (ragged over 32 pages, a one-token row), and D1's
+# launch shape: 4 slots x 8 pages of 16 tokens (the pool at max_context
+# 128), ragged as D1's requests are, where `choose_split` gives one
+# group's grid of B CTAs a cluster split S = 4 at P=1 (2 at P=2) and the
+# all-heads launch S = 1
+HEAD_RANGE_ROWS = (
+    ("phase-2 rows", 5, 32, (512, 300, 1, 400, 0), (1, 16), 3, 2, 4),
+    ("D1 rows", 4, 8, (128, 76, 9, 0), (1, 2), 1, 2, 3),
+)
+# one head group's launches against one all-heads launch of the same
+# kernel: both compute in float32, and the host may pick another cluster
+# split for a grid of B CTAs than for B·K (`choose_split`), so the two
+# agree to float32 summation order, not bitwise
+HEAD_RANGE_TOL = 2e-5
+LLAMA2_CTX = 128         # --max-context at which the DSE picks KVNAND-D
+
+
+def head_range_phase() -> dict:
+    """B1 and B2 walking one head group at a time, as the discrete
+    variant launches them: B1 reads group i's heads of the whole stripe
+    pool in place (`head0`), B2 takes the group's slice of the shared
+    pool (a contiguous view).  {f32, bf16, kv8, kv4} x window {None, 64}
+    x (K, G, dh) in HEAD_RANGE_SHAPES x the row sets of HEAD_RANGE_ROWS,
+    each at its partitions (ragged rows, a one-token or short row,
+    unwritten pages, an all-masked row).  Each group against its plain
+    version (TOL; a bf16 pool also within TOL["f32"] of the plain version
+    on the pools upcast), and the K groups side by side against one
+    all-heads launch within HEAD_RANGE_TOL.  Returns max |o - plain o|
+    per kernel."""
+    import itertools
+    import torch
+    from repro_torch.kernels.paged_attention import (
+        choose_split, paged_attention_partial)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    T = 16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst = {"B1": 0.0, "B2": 0.0}
+    worst_cat = 0.0
+    n = 0
+    for rows_set, layout, (K, G, dh), fmt, window in itertools.product(
+            HEAD_RANGE_ROWS, ("stripe", "shared"), HEAD_RANGE_SHAPES,
+            ("f32", "bf16", "kv8", "kv4"), (None, 64)):
+        rows_label, B, NP, lengths, parts, unwritten, alias, empty = rows_set
+        kvq = kv_quant_of(fmt)
+        shared = layout == "shared"
+        table = None
+        if shared:
+            q, kp, vp, table, base, length, ks, vs = make_shared_inputs(
+                B, K, G, NP, T, dh, fmt, list(lengths), gen, B * NP + 40,
+                alias_row=alias)
+        else:
+            q, kp, vp, base, length, ks, vs = make_inputs(
+                B, K, G, NP, T, dh, fmt, list(lengths), gen,
+                unwritten_row=unwritten)
+        ax = 0 if shared else 1
+        name = "B2" if shared else "B1"
+        for P in parts:
+            kw = dict(window=window, kv_quant=kvq, page_table=table,
+                      partitions=P)
+            compact = paged_attention_partial(q, kp, vp, base, length,
+                                              k_scale=ks, v_scale=vs, **kw)
+            groups = [paged_attention_partial(
+                q[:, i * G:(i + 1) * G].contiguous(), kp, vp, base, length,
+                k_scale=ks, v_scale=vs, kv_heads=(i, 1), **kw)
+                for i in range(K)]
+            torch.cuda.synchronize()
+            splits = (choose_split(B * P, NP // P * T, sms),
+                      choose_split(B * K * P, NP // P * T, sms))
+            label = (f"{name} head range {rows_label} K={K} G={G} dh={dh} "
+                     f"{fmt:4s} P={P:2d} window={window} S={splits[0]} "
+                     f"(all heads S={splits[1]})")
+            err, err32, abs_o = hold_groups(
+                label, groups, q, kp, vp, ks, vs, table, base, length,
+                window, kvq, fmt, G, ax, empty)
+            cat = [torch.cat([g[j] for g in groups], dim=1)
+                   for j in range(3)]
+            err_cat = max(close_err(a, b, HEAD_RANGE_TOL)
+                          for a, b in zip(cat, compact))
+            print(f"{label}: {K} groups vs plain rel_err={err:.3e} (tol "
+                  f"{TOL[fmt]:.0e})"
+                  + (f", vs plain on f32-upcast pools {err32:.3e}"
+                     if fmt == "bf16" else "")
+                  + f", max_abs_err(o)={abs_o:.3e}; groups side by side vs "
+                  f"one all-heads launch rel_err={err_cat:.3e} (tol "
+                  f"{HEAD_RANGE_TOL:.0e})")
+            check(err <= TOL[fmt], f"{label}: a group disagrees with its "
+                  f"plain version: {err:.3e}")
+            check(err32 <= TOL["f32"], f"{label}: bf16 group disagrees "
+                  f"with its own arithmetic: {err32:.3e}")
+            check(err_cat <= HEAD_RANGE_TOL, f"{label}: the groups disagree "
+                  f"with the all-heads launch: {err_cat:.3e}")
+            worst[name] = max(worst[name], abs_o)
+            worst_cat = max(worst_cat, err_cat)
+            n += 1
+    print(f"head-range phase: {n} cases within tolerance, max_abs_err(o) "
+          f"B1 {worst['B1']:.3e}, B2 {worst['B2']:.3e}; groups vs all "
+          f"heads rel_err {worst_cat:.3e}")
+    return {**worst, "groups_vs_all_heads": worst_cat, "cases": n}
+
+
+def hold_groups(label, groups, q, kp, vp, ks, vs, table, base, length,
+                window, kvq, fmt, G, ax, empty):
+    """Each group's partials against the plain version on the group's
+    slice of the pool (and, for a bf16 pool, on the slice upcast to f32);
+    finite, and the all-masked row `empty` o=0, m=-1e30, l=0.  Returns
+    (rel_err, rel_err on the upcast pools, max |o - plain o|)."""
+    import torch
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_partial_ref, paged_attention_shared_ref)
+
+    def plain(i, kp_, vp_, **k_):
+        qi = q[:, i * G:(i + 1) * G]
+        kpi, vpi = kp_.narrow(ax, i, 1), vp_.narrow(ax, i, 1)
+        if table is not None:
+            return paged_attention_shared_ref(
+                qi, kpi, vpi, table, base, length, window=window, **k_)
+        return paged_attention_partial_ref(qi, kpi, vpi, base, length,
+                                           window=window, **k_)
+
+    err = err32 = abs_o = 0.0
+    for i, got in enumerate(groups):
+        sc = {} if ks is None else dict(
+            k_scale=ks.narrow(ax, i, 1), v_scale=vs.narrow(ax, i, 1))
+        want = plain(i, kp, vp, kv_quant=kvq, **sc)
+        err = max(err, max(close_err(a, b, TOL[fmt])
+                           for a, b in zip(got, want)))
+        if fmt == "bf16":
+            want32 = plain(i, kp.float(), vp.float())
+            err32 = max(err32, max(close_err(a, b, TOL["f32"])
+                                   for a, b in zip(got, want32)))
+        abs_o = max(abs_o, float((got[0] - want[0]).abs().max()))
+        o, m, l = got
+        check(bool(torch.isfinite(o).all() and torch.isfinite(m).all()
+                   and torch.isfinite(l).all()),
+              f"{label}: group {i} output not finite")
+        check(bool((o[empty] == 0).all() and (l[empty] == 0).all()
+                   and (m[empty] == -1e30).all()),
+              f"{label}: group {i}: all-masked row is not o=0, m=-1e30, "
+              "l=0")
+    return err, err32, abs_o
+
+
+def group_timing_phase(rate):
+    """B1 and B2 at the discrete variant's launch shape in D1: one head
+    group (kv head 31 of llama2-7b's 32, dh 128) of a kv8 pool of 4 slots
+    x 128 tokens, beside one all-heads launch over the same pool (the
+    compact variant's launch; a decode step launches 32 of the first per
+    layer, or one of the second).  The group is first held against its
+    plain version (TOL) and the all-heads launch's head (HEAD_RANGE_TOL)
+    on the timed inputs.  Plain = the plain version on the
+    group's pool slice; library = SDPA on the group's K/V dequantized to
+    bf16 beforehand.  Bound = the group's kv8 codes and scales, q, the
+    partials and base/length (and the table) at the card's HBM rate."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import (
+        gather_table_pages, paged_attention_cuda, paged_attention_partial_ref,
+        paged_attention_shared_cuda, paged_attention_shared_ref)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    B, K, G, dh, T = 4, 32, 1, 128, 16
+    NP = LLAMA2_CTX // T
+    h = K - 1
+    lengths = [LLAMA2_CTX] * B
+    rows = []
+    for layout in ("stripe", "shared"):
+        shared = layout == "shared"
+        if shared:
+            q, kp, vp, table, base, length, ks, vs = make_shared_inputs(
+                B, K, G, NP, T, dh, "kv8", lengths, gen, B * NP)
+        else:
+            q, kp, vp, base, length, ks, vs = make_inputs(
+                B, K, G, NP, T, dh, "kv8", lengths, gen)
+        ax = 0 if shared else 1
+        q4 = q.reshape(B, K, G, dh).contiguous()
+        qg = q4[:, h:h + 1].contiguous()
+        kv = dict(kv_quant="kv8")
+        gk, gv = kp.narrow(ax, h, 1), vp.narrow(ax, h, 1)
+        gks, gvs = ks.narrow(ax, h, 1), vs.narrow(ax, h, 1)
+        if shared:
+            group = functools.partial(
+                paged_attention_shared_cuda, qg, gk, gv, table, base, length,
+                k_scale=gks, v_scale=gvs, **kv)
+            allh = functools.partial(
+                paged_attention_shared_cuda, q4, kp, vp, table, base, length,
+                k_scale=ks, v_scale=vs, **kv)
+            plain = functools.partial(
+                paged_attention_shared_ref, q[:, h:h + 1], gk, gv, table,
+                base, length, k_scale=gks, v_scale=gvs, **kv)
+            kd = gather_table_pages(gk, table).float() * gather_table_pages(
+                gks, table)[..., None, None]
+            vd = gather_table_pages(gv, table).float() * gather_table_pages(
+                gvs, table)[..., None, None]
+            kd, vd = kd.to(torch.bfloat16), vd.to(torch.bfloat16)
+        else:
+            group = functools.partial(
+                paged_attention_cuda, qg, kp, vp, base, length, k_scale=ks,
+                v_scale=vs, head0=h, **kv)
+            allh = functools.partial(
+                paged_attention_cuda, q4, kp, vp, base, length, k_scale=ks,
+                v_scale=vs, **kv)
+            plain = functools.partial(
+                paged_attention_partial_ref, q[:, h:h + 1], gk, gv, base,
+                length, k_scale=gks, v_scale=gvs, **kv)
+            kd = (gk.float() * gks[..., None, None]).to(torch.bfloat16)
+            vd = (gv.float() * gvs[..., None, None]).to(torch.bfloat16)
+        qc, kc, vc = sdpa_operands(q[:, h:h + 1], kd, vd, B, 1, G, NP, T,
+                                   dh, LLAMA2_CTX)
+        got, want, every = group(), plain(), allh()
+        err = max(close_err(a.reshape(b.shape), b, TOL["kv8"])
+                  for a, b in zip(got, want))
+        err_all = max(close_err(a, b[:, h:h + 1], HEAD_RANGE_TOL)
+                      for a, b in zip(got, every))
+        label = f"timing {'B2' if shared else 'B1'} group"
+        print(f"{label}: kv head {h} vs plain rel_err={err:.3e} (tol "
+              f"{TOL['kv8']:.0e}), vs the all-heads launch's head {h} "
+              f"rel_err={err_all:.3e} (tol {HEAD_RANGE_TOL:.0e})")
+        check(err <= TOL["kv8"], f"{label}: disagrees with its plain "
+              f"version: {err:.3e}")
+        check(err_all <= HEAD_RANGE_TOL, f"{label}: disagrees with the "
+              f"all-heads launch: {err_all:.3e}")
+        times = {
+            "ms": time_ms(group, 20, flush),
+            "ms_all_heads": time_ms(allh, 20, flush),
+            "plain_ms": time_ms(plain, 5, flush),
+            "library_ms": time_ms(
+                lambda: F.scaled_dot_product_attention(qc, kc, vc), 20,
+                flush),
+        }
+        valid = sum(lengths)
+        nbytes = (valid * dh * 2 + B * NP * 2 * 4 + B * G * dh * 4
+                  + B * G * (dh + 2) * 4 + B * NP * 4 + B * 4
+                  + (B * NP * 4 if shared else 0))
+        flops = 4 * valid * G * dh
+        t_bytes, t_ops = nbytes / rate * 1e3, flops / F32_FLOPS * 1e3
+        res = {"shape": f"{'B2' if shared else 'B1'} discrete group "
+               "(llama2-7b D1: 1 of 32 kv heads, dh 128, kv8, B=4 x 128 "
+               "tokens)", "B": B, "K": 1, "K_pool": K, "G": G, "dh": dh,
+               "T": T, "NP": NP, "tokens": lengths, "partitions": 1,
+               "pool": "kv8", "bytes": nbytes, "flops": flops,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        for key, t in times.items():
+            res[key] = statistics.median(t)
+            res[f"{key}_min_max"] = [t[0], t[-1]]
+        print(f"timing {res['shape']}: "
+              + " ".join(f"{k}={res[k]:.6f}" for k in times)
+              + f" bound_ms={res['bound_ms']:.6f} ({res['bound_by']}); 32 "
+              f"group launches {32 * res['ms']:.6f} ms vs one all-heads "
+              f"launch {res['ms_all_heads']:.6f} ms")
+        rows.append(res)
+    return rows
+
+
+def llama2_prompts(V, seed=4):
+    """6 prompts of 5-60 tokens; the last repeats a 6-token segment, so
+    prompt-lookup drafts have something to match."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(0, V, 6).tolist()
+    rep = rng.integers(0, V, 6).tolist() + seg * 9
+    return [rng.integers(0, V, n).tolist() for n in (5, 17, 29, 41, 60)] + [
+        rep]
+
+
+def build_llama2_server(params=None, speculation_k=None, **over):
+    """Full-width llama2-7b on the card under the design-space search's
+    pick at max_context LLAMA2_CTX, with `launch/serve.py --use-dse`'s
+    overrides (page_tokens 16, ragged appends, float weights) and `over`;
+    random float32 weights from seed 0, or `params`."""
+    import torch
+    from repro_torch.configs import EngineConfig
+    from repro_torch.core.dse import recommend_engine_config
+    from repro_torch.serving.api import KVNANDServer, ServerConfig
+    t0 = time.perf_counter()
+    pick = recommend_engine_config("llama2-7b", LLAMA2_CTX)
+    check(pick.variant == "discrete" and pick.kv_quant == "kv8",
+          f"the DSE's llama2-7b pick at {LLAMA2_CTX} is not discrete + kv8:"
+          f" {pick}")
+    eng = EngineConfig(**{**pick.__dict__, "page_tokens": 16,
+                          "uniform_lengths": False, "quant": "none",
+                          **over})
+    srv = KVNANDServer(ServerConfig(
+        arch="llama2-7b", reduced=False, engine=eng, batch_slots=4,
+        max_context=LLAMA2_CTX, prefill_chunk_tokens=64, device="cuda",
+        speculation_k=speculation_k), params=params)
+    cfg = srv.cfg
+    check(cfg.n_layers == 32 and cfg.d_model == 4096 and cfg.n_heads == 32
+          and cfg.n_kv_heads == 32 and cfg.d_head == 128
+          and cfg.d_ff == 11008, "not the full-width llama2-7b")
+    check(srv._batcher.cache.k_pages_g.dtype == torch.int8,
+          "the KV pool is not kv8")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(srv.params))
+    print(f"server: built {cfg.name} ({n / 1e9:.3f}B params, "
+          f"{4 * n / 1e9:.1f} GB float32, {eng}, speculation_k="
+          f"{srv._batcher.spec_k}) on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return srv
+
+
+def dse_server_phase():
+    """D1: full-width llama2-7b under the DSE's KVNAND-D pick (discrete,
+    kv8), stripe pool: B1 launches = decode steps x 32 layers x 32 head
+    groups, B2-B5 0.  The same prompts on the same params with the
+    compact variant (one B1 launch a layer): greedy tokens equal, or, at
+    a request's first differing token, a near-tie: the two runs condition
+    on the same tokens there, each served its own argmax, and the gap
+    between the two tokens' logprobs (what separates them in the
+    discrete run's logits, to the runs' float32 summation order) is
+    within LOGIT_GAP_TOL; served logprobs before it within LOGPROB_TOL.
+    Then the shared pool (B2 launches = decode steps x 32 x 32, B1 0,
+    the allocator's invariants after the drain).  Returns the results,
+    the params and the stripe run's outputs (V1 serves against them)."""
+    srv = build_llama2_server()
+    cfg = srv.cfg
+    L, K = cfg.n_layers, cfg.n_kv_heads
+    prompts = llama2_prompts(cfg.vocab_size)
+    label = "D1 (llama2-7b, KVNAND-D, stripe, kv8)"
+    outs, counts, steps, wall, tokens = serve(label, srv, prompts)
+    check(steps > 0 and counts["B1"] == steps * L * K
+          and all(counts[k] == 0 for k in ("B2", "B3", "B4", "B5")),
+          f"{label}: launches {counts} != (B1 decode steps {steps} x {L} x "
+          f"{K}, B2-B5 0)")
+    params = srv.params
+    del srv
+    comp = build_llama2_server(params, variant="compact", hg_pipeline=False)
+    c_outs, c_counts, c_steps, c_wall, _ = serve(
+        "D1 compact (same prompts, one launch a layer)", comp, prompts)
+    check(c_counts["B1"] == c_steps * L and c_counts["B2"] == 0,
+          f"D1 compact: launches {c_counts} != (decode steps {c_steps} x "
+          f"{L}, 0)")
+    del comp
+    _, same, rows = compare_runs(outs, c_outs)
+    lp_err = max(before for _, before, _ in rows)
+    gap_max = max((at for n, _, at in rows if n is not None), default=0.0)
+    for o, c, (n, _, at) in zip(outs, c_outs, rows):
+        if n is not None:
+            print(f"check D1: request {o.uid} differs at token {n}: "
+                  f"discrete {o.token_ids[n]}, compact {c.token_ids[n]}, "
+                  f"logprob gap {at:.3e}")
+    print(f"check D1: {same} of {len(prompts)} requests served the same "
+          f"greedy tokens as the compact variant; max |logprob difference| "
+          f"before a divergence {lp_err:.3e} (tol {LOGPROB_TOL:.0e}); max "
+          f"gap at a divergence {gap_max:.3e} (tol {LOGIT_GAP_TOL:.0e})")
+    check(lp_err <= LOGPROB_TOL, "D1: discrete and compact logprobs "
+          "disagree")
+    check(gap_max <= LOGIT_GAP_TOL, "D1: discrete and compact served "
+          "different tokens where neither is a near-tie")
+    sh = build_llama2_server(params, shared_pool=True)
+    s_label = "D1 shared (llama2-7b, KVNAND-D, shared pool, kv8)"
+    s_outs, s_counts, s_steps, s_wall, s_tokens = serve(s_label, sh, prompts)
+    check(s_steps > 0 and s_counts["B2"] == s_steps * L * K
+          and all(s_counts[k] == 0 for k in ("B1", "B3", "B4", "B5")),
+          f"{s_label}: launches {s_counts} != (B2 decode steps {s_steps} x "
+          f"{L} x {K}, B1/B3-B5 0)")
+    b = sh._batcher
+    b.alloc.check()
+    check(b.alloc.live_count == b.prefix_cache.evictable_pages(),
+          "D1 shared: pages still mapped after the drain")
+    s_same = sum(a.token_ids == c.token_ids for a, c in zip(outs, s_outs))
+    print(f"D1 shared: {s_same} of {len(prompts)} requests served the "
+          "stripe run's tokens")
+    del sh
+    return ({"launches_B1": counts["B1"], "decode_steps": steps,
+             "wall_s": wall, "tokens": tokens,
+             "compact_launches_B1": c_counts["B1"],
+             "compact_decode_steps": c_steps, "compact_wall_s": c_wall,
+             "same_as_compact": same, "logprob_err_vs_compact": lp_err,
+             "max_gap_at_divergence": gap_max,
+             "shared_launches_B2": s_counts["B2"],
+             "shared_decode_steps": s_steps, "shared_wall_s": s_wall,
+             "shared_same_as_stripe": s_same}, params, prompts, outs)
+
+
+def spec_server_phase(params, prompts, d1_outs):
+    """V1: D1's deployment with speculation_k = 4: every decode step a
+    prompt-lookup draft-and-verify step (the verify forward's past
+    partial is plain torch, as in the reference; a step where no slot
+    may draft runs the discrete decode step, B1 = those steps x 32 x 32).
+    Served tokens must equal D1's sequential ones, and a verify step must
+    have run."""
+    srv = build_llama2_server(params, speculation_k=4)
+    cfg = srv.cfg
+    L, K = cfg.n_layers, cfg.n_kv_heads
+    st = srv.stats
+    v0 = st["verify_steps"]
+    label = "V1 (llama2-7b, KVNAND-D, kv8, speculation_k=4)"
+    outs, counts, steps, wall, tokens = serve(label, srv, prompts)
+    verify = st["verify_steps"] - v0
+    same = sum(a.token_ids == b.token_ids for a, b in zip(outs, d1_outs))
+    print(f"V1: {verify} verify steps, {steps} sequential decode steps; "
+          f"spec_steps={st['spec_steps']} spec_drafted={st['spec_drafted']} "
+          f"spec_accepted={st['spec_accepted']}; {same} of {len(prompts)} "
+          "requests served D1's sequential tokens")
+    lp_err, _, rows = compare_runs(outs, d1_outs)
+    for o, d, (n, _, at) in zip(outs, d1_outs, rows):
+        if n is not None:
+            print(f"check V1: request {o.uid} differs at token {n}: "
+                  f"speculative {o.token_ids[n]}, sequential "
+                  f"{d.token_ids[n]}, logprob gap {at:.3e}")
+    print(f"V1: max |served logprob - D1's| {lp_err:.3e}")
+    check(verify > 0, "V1: no verify step ran")
+    check(counts["B1"] == steps * L * K
+          and all(counts[k] == 0 for k in ("B2", "B3", "B4", "B5")),
+          f"{label}: launches {counts} != (B1 decode steps {steps} x {L} x "
+          f"{K}, B2-B5 0)")
+    check(same == len(prompts), "V1: speculative tokens differ from "
+          "sequential ones")
+    return {"verify_steps": verify, "decode_steps": steps,
+            "launches_B1": counts["B1"], "wall_s": wall, "tokens": tokens,
+            "spec_steps": st["spec_steps"],
+            "spec_drafted": st["spec_drafted"],
+            "spec_accepted": st["spec_accepted"],
+            "same_as_sequential": same, "logprob_err_vs_sequential": lp_err}
+
+
+# prompt seeds of the verify A/B (4 is D1's and V1's)
+VERIFY_AB_SEEDS = (4, 5, 6, 7)
+
+
+def reference_span_attention(engine):
+    """The reference's verify attention over a kv8/kv4 pool
+    (`src/repro/core/engine.py:652-673`), for `engine`: a causal in-span
+    partial over the span's own K/V in full precision, merged with the
+    past partial over the slot's pages up to `lengths`.  Takes the place
+    of the port's `_span_quant_attention` in the verify A/B only."""
+    import torch
+    from repro_torch.core import seqpar
+    from repro_torch.kernels.paged_attention import paged_chunk_attention
+    eng = engine.eng
+
+    def attend(q, k, v, kp, vp, ks, vs, base, page_table, lengths,
+               positions):
+        span = seqpar._attn_block_partial(
+            q, k, v, torch.arange(q.shape[1], device=q.device), 0,
+            causal=True, window=None, scale=engine.cfg.d_head ** -0.5)
+        past = paged_chunk_attention(
+            q, kp, vp, base, lengths, positions, kv_quant=eng.kv_quant,
+            k_scale=ks, v_scale=vs,
+            page_table=page_table if eng.shared_pool else None,
+            partitions=eng.attn_partitions)
+        return seqpar.merge_two(*span, *past)
+    return attend
+
+
+def timed_verify(engine, times: list):
+    """Wrap `engine.verify_step` so that each call's host wall, the card
+    synchronized before and after, lands in `times`."""
+    import torch
+    inner = engine.verify_step
+
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+    engine.verify_step = run
+
+
+def verify_ab_phase() -> dict:
+    """V1's verify attention over the kv8 pool in two forms, on D1's
+    deployment and the prompt sets of VERIFY_AB_SEEDS: the port's (the
+    span's pages as the requantizing appends leave them,
+    `_span_quant_attention`) and the reference's
+    (`reference_span_attention`).  Per form and seed: the requests that
+    serve D1's sequential tokens for the same prompts, each first
+    differing token with its logprob gap, the spec counters, and the
+    median host wall of a verify step.  Only the port's form is checked
+    (its tokens must equal the sequential ones, as V1 holds them); the
+    reference form's are reported."""
+    import torch
+    seq = build_llama2_server()
+    params = seq.params
+    forms = {"port": build_llama2_server(params, speculation_k=4),
+             "reference": build_llama2_server(params, speculation_k=4)}
+    eng = forms["reference"]._batcher.engine
+    eng._span_quant_attention = reference_span_attention(eng)
+    times = {f: [] for f in forms}
+    for f, srv in forms.items():
+        timed_verify(srv._batcher.engine, times[f])
+    res = {f: {"same": 0, "requests": 0, "divergences": [],
+               "verify_steps": 0, "spec_drafted": 0, "spec_accepted": 0}
+           for f in forms}
+    for seed in VERIFY_AB_SEEDS:
+        prompts = llama2_prompts(seq.cfg.vocab_size, seed)
+        want, *_ = serve(f"verify A/B seed {seed}: sequential", seq,
+                         prompts)
+        for f, srv in forms.items():
+            st = dict(srv.stats)
+            outs, *_ = serve(f"verify A/B seed {seed}: {f} form", srv,
+                             prompts)
+            _, same, rows = compare_runs(outs, want)
+            r = res[f]
+            r["same"] += same
+            r["requests"] += len(prompts)
+            for key in ("verify_steps", "spec_drafted", "spec_accepted"):
+                r[key] += srv.stats[key] - st[key]
+            for o, w, (n, _, at) in zip(outs, want, rows):
+                if n is not None:
+                    print(f"verify A/B seed {seed}: {f} form: request "
+                          f"{o.uid} differs at token {n}: speculative "
+                          f"{o.token_ids[n]}, sequential {w.token_ids[n]}, "
+                          f"logprob gap {at:.3e}")
+                    r["divergences"].append({"seed": seed, "request": o.uid,
+                                             "token": n, "gap": at})
+    for f, r in res.items():
+        t = sorted(times[f])
+        r["verify_ms_median"] = 1e3 * statistics.median(t)
+        r["verify_ms_min_max"] = [1e3 * t[0], 1e3 * t[-1]]
+        print(f"verify A/B {f} form: {r['same']} of {r['requests']} requests "
+              f"served the sequential tokens; {r['verify_steps']} verify "
+              f"steps, median {r['verify_ms_median']:.3f} ms (min "
+              f"{r['verify_ms_min_max'][0]:.3f}, max "
+              f"{r['verify_ms_min_max'][1]:.3f}); {r['spec_accepted']} of "
+              f"{r['spec_drafted']} drafts accepted")
+    check(res["port"]["same"] == res["port"]["requests"],
+          "verify A/B: the port's form served other tokens than sequential "
+          "decode")
+    del seq, forms
+    torch.cuda.empty_cache()
+    return res
+
+
+def dse_phases(rate) -> dict:
+    """Phases 13-15, in the order `--dse` runs them."""
+    head = head_range_phase()
+    group_rows = group_timing_phase(rate)
+    d1, params, prompts, d1_outs = dse_server_phase()
+    v1 = spec_server_phase(params, prompts, d1_outs)
+    return {"head_range": head, "group_timing": group_rows, "D1": d1,
+            "V1": v1}
+
+
 def kernel_entry(name, source, replaces, launches, max_abs, shapes, server):
     serving = shapes[0]
     return {"name": name, "route": "cuda", "source": source,
@@ -1975,7 +2549,7 @@ def main(argv) -> int:
     import torch
     if (argv not in ([], ["--paged"], ["--paged-timing"], ["--quant-servers"],
                      ["--wkv"], ["--wkv-timing"], ["--gemv"], ["--flash"],
-                     ["--flash-timing"])
+                     ["--flash-timing"], ["--dse"], ["--verify-ab"])
             and not (len(argv) == 2
                      and argv[0] in ("--gemv-ab", "--flash-ab", "--wkv-ab"))):
         print(__doc__, file=sys.stderr)
@@ -2045,6 +2619,16 @@ def main(argv) -> int:
         print(card)
         print(json.dumps({"wkv6_ab": rows}))
         return 0
+    if argv == ["--verify-ab"]:
+        ab = verify_ab_phase()
+        print(card)
+        print(json.dumps({"verify_ab": ab}))
+        return 0
+    if argv == ["--dse"]:
+        dse = dse_phases(rate)
+        print(card)
+        print(json.dumps({"dse": dse}))
+        return 0
 
     if not quant_only:
         b1_err = kernel_phase()
@@ -2085,16 +2669,24 @@ def main(argv) -> int:
         print(card)
         print(json.dumps({"quant_servers": [q1, q2]}))
         return 0
+    dse = dse_phases(rate)
+    d1, v1, head = dse["D1"], dse["V1"], dse["head_range"]
+    b1_err = max(b1_err, head["B1"])
+    b2_err = max(b2_err, head["B2"])
     kernels = [
         kernel_entry("paged_attention", "src/repro_torch/csrc/"
                      "paged_attention.cu",
                      "src/repro/kernels/paged_attention/kernel.py:311",
-                     stripe["launches"], b1_err, b1_shapes, stripe),
+                     stripe["launches"] + d1["launches_B1"]
+                     + v1["launches_B1"], b1_err,
+                     list(b1_shapes) + dse["group_timing"][:1],
+                     [stripe, {"D1": d1, "V1": v1}]),
         kernel_entry("paged_attention_shared", "src/repro_torch/csrc/"
                      "paged_attention_shared.cu",
                      "src/repro/kernels/paged_attention/kernel.py:209",
-                     shared["launches"], b2_err, b2_shapes,
-                     [shared, shared32]),
+                     shared["launches"] + d1["shared_launches_B2"], b2_err,
+                     list(b2_shapes) + dse["group_timing"][1:],
+                     [shared, shared32, {"D1 shared": d1}]),
         kernel_entry("quant_gemv", "src/repro_torch/csrc/quant_gemv.cu",
                      "src/repro/kernels/quant_gemv/kernel.py:68",
                      q1["launches"] + q2["launches"], b3_err, b3_shapes,

@@ -1,5 +1,6 @@
-"""KVNAND engine: one-shot and chunked prefill + decode over the paged
-KV pool (port of `repro.core.engine`, single device, compact variant).
+"""KVNAND engine: one-shot and chunked prefill, decode and speculative
+verify over the paged KV pool (port of `repro.core.engine`, single
+device).
 
 `decode_step` runs one token per slot through every layer: QKV
 projection, an in-place append of the new K/V into the slot's page,
@@ -17,6 +18,20 @@ Two pool layouts (`core/paged_kv.py`): the per-slot stripe, and the
 shared pool (`EngineConfig.shared_pool`), where every slot walks its
 LOGICAL pages through its row of `page_table_g` — appends, fills and
 attention all go through the table, and logical page j's base is j·T.
+
+Two decode variants, as in the reference: compact (KVNAND-C) attends
+every head in one launch; discrete (KVNAND-D, `variant="discrete"` or
+`hg_pipeline`) walks the layer's kv heads one group at a time, issuing
+the q projection of group i + 1 before group i's attention on the one
+stream (the reference's issue order), each group's attention one launch
+over its heads of the pool, read in place.
+
+`verify_step` scores a drafted span of S tokens a slot in one forward
+pass (speculative draft-and-verify): an in-span causal partial over the
+span's own K/V and a past partial over the slot's pages, merged by
+log-sum-exp; the caller's `accept` callback says how many drafts each
+slot keeps, and only the kept positions' K/V are appended (the rollback
+is "never written").
 
 The layer loop is a Python loop (the reference's `lax.scan`), and the
 pools are mutated in place through `core/paged_kv.py`.  The private
@@ -38,22 +53,23 @@ and the decode kernels and the chunk's past partial dequantize as they
 read.  Quantized weights need no engine setting: the format travels with
 the params (`core.quant.quantize_params`), and `layers.dense` sends each
 2-D quantized weight through kernel B3; `EngineConfig.quant` is not read,
-as in the reference.  Not ported yet, and refused here: the
-discrete/head-group-pipelined variant, the tiered pool, window rings,
-the hybrid, MoE, VLM and encoder-decoder families, speculative verify
+as in the reference.  Not ported yet, and refused here: the tiered
+pool, window rings, the hybrid, MoE, VLM and encoder-decoder families
 and a device mesh.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import EngineConfig, ModelConfig
 from repro_torch.core import paged_kv, seqpar
 from repro_torch.core.paged_kv import DecodeCache
 from repro_torch.kernels.paged_attention import (paged_attention_partial,
-                                                 paged_chunk_attention)
+                                                 paged_chunk_attention,
+                                                 paged_chunk_attention_ref)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import rwkv6
 from repro_torch.models.layers import embed_lookup, layer_slice, mlp, rms_norm
@@ -74,10 +90,9 @@ class KVNANDEngine:
         self.device = torch.device(device)
         check_supported(cfg)
         paged_kv.check_supported(self.eng)
-        if self.eng.variant != "compact" or self.eng.hg_pipeline:
-            raise NotImplementedError(
-                "the discrete head-group-pipelined variant is not ported "
-                "yet (ROADMAP A15)")
+        # the reference's selection (`_decode_attn_layer`)
+        self._discrete = (self.eng.variant == "discrete"
+                          or self.eng.hg_pipeline)
 
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_context: int) -> DecodeCache:
@@ -116,6 +131,33 @@ class KVNANDEngine:
             partitions=self.eng.attn_partitions)
         return o
 
+    def _attend_groups(self, pl_, h, kp, vp, base, lengths, table=None,
+                       ks=None, vs=None):
+        """Head-group pipelined attention (KVNAND-D, the reference's
+        `_attend_discrete`): group i's q projection and its attention over
+        kv head i of the already-appended layer pool, in the reference's
+        issue order (group i + 1's q projection before group i's
+        attention; nothing between them depends on the other).  Returns
+        o [B, H, dh]."""
+        cfg = self.cfg
+        K = cfg.n_kv_heads
+        x_tok = h[:, 0]
+        fmt = self.eng.kv_quant if ks is not None else "none"
+        length = lengths + 1
+        q_cur = attn_mod.project_q_group(pl_["attn"], cfg, x_tok, 0, lengths)
+        outs = []
+        for i in range(K):
+            q_next = (attn_mod.project_q_group(pl_["attn"], cfg, x_tok,
+                                               i + 1, lengths)
+                      if i + 1 < K else None)
+            o, _, _ = paged_attention_partial(
+                q_cur, kp, vp, base, length, kv_quant=fmt, k_scale=ks,
+                v_scale=vs, page_table=table,
+                partitions=self.eng.attn_partitions, kv_heads=(i, 1))
+            outs.append(o)
+            q_cur = q_next
+        return torch.cat(outs, dim=1)
+
     def _decode_attention(self, pl_, x, cache: DecodeCache, layer: int,
                            lengths, base, active, rows):
         """One layer's decode attention (the reference's
@@ -126,9 +168,15 @@ class KVNANDEngine:
         cfg = self.cfg
         h = rms_norm(x, pl_["ln1"], cfg.norm_eps)
         # one projection serves the append (k, v) and the attention (q);
-        # the reference projects twice with identical results
-        q, k_new, v_new = attn_mod.project_qkv(pl_["attn"], cfg, h,
+        # the reference projects twice with identical results.  The
+        # discrete variant projects q a head group at a time instead
+        if self._discrete:
+            q = None
+            k_new, v_new = attn_mod.project_kv(pl_["attn"], cfg, h,
                                                lengths[:, None])
+        else:
+            q, k_new, v_new = attn_mod.project_qkv(pl_["attn"], cfg, h,
+                                                   lengths[:, None])
         T = self.eng.page_tokens
         NP = cache.page_table_g.shape[1]
         logical = (lengths // T).long().clamp(max=NP - 1)
@@ -152,9 +200,12 @@ class KVNANDEngine:
         ks = vs = None
         if fmt != "none":
             ks, vs = cache.k_scale_g[layer], cache.v_scale_g[layer]
-        o = self._attend_heads(q, cache.k_pages_g[layer],
-                               cache.v_pages_g[layer], base, lengths, table,
-                               ks, vs)
+        kp, vp = cache.k_pages_g[layer], cache.v_pages_g[layer]
+        if self._discrete:
+            o = self._attend_groups(pl_, h, kp, vp, base, lengths, table, ks,
+                                    vs)
+        else:
+            o = self._attend_heads(q, kp, vp, base, lengths, table, ks, vs)
         return attn_mod.project_out(pl_["attn"], cfg, o[:, None])
 
     def decode_step(self, params, cache: DecodeCache, tokens: torch.Tensor,
@@ -197,6 +248,176 @@ class KVNANDEngine:
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
             x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
         return x
+
+    # ------------------------------------------------------------------
+    # speculative decode: draft-and-verify over an S-token span
+    # ------------------------------------------------------------------
+    def verify_step(self, params, cache: DecodeCache, tokens: torch.Tensor,
+                    *, accept, active: Optional[torch.Tensor] = None):
+        """Score a drafted span in one forward pass and append only the
+        kept prefix (the reference's `verify_step`).
+
+        tokens: [B, S] — per slot, the last emitted token, then S - 1
+        drafts; logits at span position j are the target distribution of
+        the token after tokens[:, j].  The span attends through the
+        two-partial merge of chunked prefill: a causal in-span partial
+        over the span's own K/V in relative coordinates (one call serves
+        every slot whatever its length), and a past partial over the
+        slot's pages (`paged_chunk_attention`, per-row start and query
+        positions; plain torch on every device, as in the reference),
+        merged by log-sum-exp.  A float pool's span K/V (and q) are
+        rounded through the pool dtype first, since sequential decode
+        would read them back from the pool.  Over a kv8/kv4 pool the span
+        reads its pages as the requantizing appends would leave them
+        after each position (`_span_quant_attention`), where the
+        reference reads the span's K/V in full precision: the verify
+        forward then sees sequential decode's values in every format.
+
+        accept: ``logits [B, S, V] -> (n_acc [B], aux)``, the scheduler's
+        sampler (`speculative_accept`).  Then ``n_acc + 1`` span tokens of
+        each active slot (the last emitted token's K/V and the accepted
+        drafts) are appended through the span writers, and `lengths`
+        advance by that count; rejected positions are never written.
+        Inactive slots append nothing and keep their length.  Returns
+        (aux, cache updated in place)."""
+        cfg = self.cfg
+        if cfg.family in ("ssm", "hybrid"):
+            raise ValueError(
+                f"{cfg.family}: speculative verification cannot roll back "
+                "carried recurrent state; decode sequentially")
+        if cfg.window is not None:
+            raise NotImplementedError(
+                "speculative verify over window rings is not ported yet "
+                "(ROADMAP A10, window rings)")
+        if self.eng.uniform_lengths:
+            raise ValueError("verify_step requires the ragged "
+                             "(uniform_lengths=False) append path: slots "
+                             "accept different span lengths")
+        B, S = tokens.shape
+        dev = tokens.device
+        lengths = cache.lengths
+        shared = self.eng.shared_pool
+        fmt = self.eng.kv_quant
+        scale = cfg.d_head ** -0.5
+        base = self._page_bases(cache.page_table_g)
+        table = cache.page_table_g if shared else None
+        rel = torch.arange(S, device=dev)
+        positions = lengths[:, None] + rel[None].to(lengths.dtype)
+        x = embed_lookup(params["embedding"], tokens, self.rt.activ_dtype)
+        span_k, span_v = [], []
+        for i in range(cfg.n_layers):
+            pl_ = layer_slice(params["layers"], i)
+            h = rms_norm(x, pl_["ln1"], cfg.norm_eps)
+            q, k, v = attn_mod.project_qkv(pl_["attn"], cfg, h, positions)
+            kp, vp, ks, vs = (None if a is None else a[i] for a in (
+                cache.k_pages_g, cache.v_pages_g, cache.k_scale_g,
+                cache.v_scale_g))
+            if fmt == "none":
+                kv_dt = getattr(torch, self.eng.kv_dtype)
+                o, m, l = seqpar._attn_block_partial(
+                    (q.float() * scale).to(kv_dt), k.to(kv_dt), v.to(kv_dt),
+                    rel, 0, causal=True, window=None, scale=1.0)
+                o2, m2, l2 = paged_chunk_attention(
+                    q, kp, vp, base, lengths, positions, kv_quant=fmt,
+                    page_table=table, partitions=self.eng.attn_partitions)
+                o, m, l = seqpar.merge_two(o, m, l, o2, m2, l2)
+            else:
+                o, m, l = self._span_quant_attention(
+                    q, k, v, kp, vp, ks, vs, base, cache.page_table_g,
+                    lengths, positions)
+            x = x + attn_mod.project_out(pl_["attn"], cfg, o.to(h.dtype))
+            h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
+            x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
+            span_k.append(k)
+            span_v.append(v)
+        logits = lm_head_logits(params, cfg, x)                 # [B, S, V]
+
+        n_acc, aux = accept(logits)
+        n_write = (torch.as_tensor(n_acc, device=dev).to(lengths.dtype)
+                   + 1).clamp(0, S)
+        if active is not None:
+            n_write = torch.where(active, n_write, torch.zeros_like(n_write))
+        self._append_kept_span(cache, span_k, span_v, n_write)
+        cache.lengths += n_write
+        return aux, cache
+
+    def _span_quant_attention(self, q, k, v, kp, vp, ks, vs, base,
+                              page_table, lengths, positions):
+        """The span's attention over a kv8/kv4 pool with the values
+        sequential decode would read: keys before the page holding each
+        row's first span position come from the pool (the past partial,
+        start = that page's base), and the span's pages from the
+        requantizing appends' chain after each position
+        (`paged_kv.span_page_chain`), one query position at a time, merged
+        by log-sum-exp.  (The reference attends the span's own K/V in full
+        precision here, which can differ from sequential decode by the
+        format's quantization noise and so flip a near-tie; this keeps
+        speculative tokens equal to sequential ones.)"""
+        T = self.eng.page_tokens
+        fmt = self.eng.kv_quant
+        shared = self.eng.shared_pool
+        B, S = q.shape[:2]
+        slot0 = lengths % T
+        first = lengths - slot0
+        past = paged_chunk_attention(
+            q, kp, vp, base, first, positions, kv_quant=fmt, k_scale=ks,
+            v_scale=vs, page_table=page_table if shared else None,
+            partitions=self.eng.attn_partitions)
+        logical = (lengths // T).long().clamp(max=page_table.shape[1] - 1)
+        phys0 = torch.gather(page_table.long(), 1, logical[:, None])[:, 0]
+        if shared:
+            k0, v0 = kp[:, phys0].transpose(0, 1), vp[:, phys0].transpose(0, 1)
+            ks0, vs0 = ks[:, phys0].t(), vs[:, phys0].t()
+        else:
+            rows = torch.arange(B, device=q.device)
+            k0, v0 = kp[rows, :, phys0], vp[rows, :, phys0]
+            ks0, vs0 = ks[rows, :, phys0], vs[rows, :, phys0]
+        kc, ksc = paged_kv.span_page_chain(k0, ks0, slot0, k, fmt, T)
+        vc, vsc = paged_kv.span_page_chain(v0, vs0, slot0, v, fmt, T)
+        n = kc.shape[3]
+        page_base = (first[:, None] + torch.arange(
+            n, device=q.device, dtype=first.dtype)[None] * T).to(torch.int32)
+        parts = [paged_chunk_attention_ref(
+            q[:, j:j + 1], kc[j], vc[j], page_base, lengths + j + 1,
+            positions[:, j:j + 1], kv_quant=fmt, k_scale=ksc[j],
+            v_scale=vsc[j]) for j in range(S)]
+        span = [torch.cat(x, dim=1) for x in zip(*parts)]
+        return seqpar.merge_two(*past, *span)
+
+    def _append_kept_span(self, cache: DecodeCache, span_k, span_v,
+                          n_write: torch.Tensor):
+        """Append span positions s < n_write[b] of each row b, every
+        layer (the reference's gated `append_body`).  The kept rows of
+        each position are read to the host once (one device-to-host sync
+        a verify step) and every writer takes them as its row subset."""
+        T = self.eng.page_tokens
+        S = span_k[0].shape[1]
+        dev = n_write.device
+        keep = n_write.cpu().numpy()
+        rows = [torch.as_tensor(np.flatnonzero(keep > s), device=dev)
+                for s in range(int(keep.max(initial=0)))]
+        if not rows:
+            return
+        table = cache.page_table_g
+        pos = (cache.lengths[None, :].long()
+               + torch.arange(S, device=dev)[:, None])         # [S, B]
+        logical = (pos // T).clamp(max=table.shape[1] - 1)
+        phys = torch.gather(table.long().t(), 0, logical)       # [S, B]
+        slot = pos % T
+        shared = self.eng.shared_pool
+        fmt = self.eng.kv_quant
+        for i, (k, v) in enumerate(zip(span_k, span_v)):
+            for pool, sc, val in ((cache.k_pages_g, cache.k_scale_g, k),
+                                  (cache.v_pages_g, cache.v_scale_g, v)):
+                if fmt != "none":
+                    append = (paged_kv.append_span_quant_shared if shared
+                              else paged_kv.append_span_quant)
+                    append(pool, sc, i, phys, slot, val, fmt, rows)
+                elif shared:
+                    paged_kv.append_span_shared(pool, i, phys, slot, val,
+                                                rows)
+                else:
+                    paged_kv.append_span(pool, i, phys, slot, val, rows)
 
     # ------------------------------------------------------------------
     # RWKV6: recurrent state in place of a pool

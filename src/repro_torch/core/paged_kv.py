@@ -57,8 +57,15 @@ recurrent state `rwkv_state` [L, B, H, dh, dh] (float32) and the time-mix
 and channel-mix token shifts `rwkv_shift` / `rwkv_shift2` [L, B, D] (the
 pool dtype), written per layer by `write_recurrent_state`.
 
-Not ported yet: window rings, span appends and tier staging (ROADMAP
-A10-A12).
+The span writers (`append_span*`) append a speculative verify step's
+kept positions: position s of the span is written for the rows in
+`rows[s]` only (a row keeps a prefix of its span), in span order, through
+the one-token writers — so a kv8/kv4 page replays sequential decode's
+requantizing chain, and a rejected draft never reaches a page.
+`span_page_chain` computes that chain's page states beside the pool, so
+the verify forward reads the values sequential decode would read.
+
+Not ported yet: window rings and tier staging (ROADMAP A10, A12).
 """
 from __future__ import annotations
 
@@ -421,6 +428,102 @@ def fill_chunk_global_at_shared(pool: torch.Tensor, kv_chunk: torch.Tensor,
         if s is not None:
             scale[layer][:, phys] = s
     return pool
+
+
+# ---------------------------------------------------------------------------
+# Speculative-decode span appends (multi-token, accept-gated)
+# ---------------------------------------------------------------------------
+#
+# `KVNANDEngine.verify_step` scores an S-token span in one forward pass
+# and only then learns how many drafts each row keeps.  phys/slot: [S, B]
+# page and in-page token of each span position; vals: [B, S, K, dh] the
+# span's K or V; rows: S int64 index tensors, rows[s] the rows that keep
+# position s.  Rejected and inactive positions are never written: that is
+# the rollback on every layout (the reference gates them to its drop
+# sentinel).  Within one position every writing row owns its page (the
+# scheduler backed it before the step), so no two writes of one scatter
+# name one cell.
+
+def span_page_chain(codes: torch.Tensor, scales: torch.Tensor,
+                    slot0: torch.Tensor, vals: torch.Tensor, fmt: str,
+                    page_tokens: int):
+    """The kv8/kv4 pages a verify step's span would leave after each of
+    its positions, had it been appended token by token: the requantizing
+    appends' chain (`_requantize_with_token`), computed beside the pool
+    without writing it.
+
+    codes [B, K, Ts, dh] / scales [B, K]: each row's page holding its
+    first span position, as the pool holds it now; slot0 [B]: that
+    position's in-page token; vals [B, S, K, dh]: the span's K or V.
+    The span covers n = (T + S - 2) // T + 1 pages from there; returns
+    (codes [S, B, K, n, Ts, dh], scales [S, B, K, n]): after position j,
+    page r of row b as sequential decode would read it (pages past the
+    one holding position j are zero and not yet reached)."""
+    T = page_tokens
+    B, S = vals.shape[:2]
+    n = (T + S - 2) // T + 1
+    pages = [(codes, scales)] + [(torch.zeros_like(codes),
+                                  torch.zeros_like(scales))
+                                 for _ in range(n - 1)]
+    out_c, out_s = [], []
+    for j in range(S):
+        slot = (slot0.long() + j) % T
+        rel = (slot0.long() + j) // T
+        for r in range(n):
+            c2, s2 = _requantize_with_token(pages[r][0], pages[r][1], slot,
+                                            vals[:, j], fmt)
+            hit = rel == r
+            pages[r] = (torch.where(hit[:, None, None, None], c2,
+                                    pages[r][0]),
+                        torch.where(hit[:, None], s2, pages[r][1]))
+        out_c.append(torch.stack([c for c, _ in pages], dim=2))
+        out_s.append(torch.stack([sc for _, sc in pages], dim=2))
+    return torch.stack(out_c), torch.stack(out_s)
+
+
+def append_span(pool: torch.Tensor, layer: int, phys: torch.Tensor,
+                slot: torch.Tensor, vals: torch.Tensor, rows
+                ) -> torch.Tensor:
+    """Span append into a stripe pool [L, B, K, NP, T, dh], position by
+    position as S sequential decode appends would land."""
+    pool_l = pool[layer]
+    for s, r in enumerate(rows):
+        pool_l[r, :, phys[s, r].long(), slot[s, r].long()] = \
+            vals[r, s].to(pool.dtype)
+    return pool
+
+
+def append_span_shared(pool: torch.Tensor, layer: int, phys: torch.Tensor,
+                       slot: torch.Tensor, vals: torch.Tensor, rows
+                       ) -> torch.Tensor:
+    """`append_span` for a shared pool [L, K, P, T, dh] (physical pages
+    from the table)."""
+    for s, r in enumerate(rows):
+        append_global_shared(pool, layer, phys[s], slot[s], vals[:, s], r)
+    return pool
+
+
+def append_span_quant(pool: torch.Tensor, scale: torch.Tensor, layer: int,
+                      phys: torch.Tensor, slot: torch.Tensor,
+                      vals: torch.Tensor, fmt: str, rows):
+    """Requantizing span append into a stripe pool: one
+    `append_token_quant` per kept position, the page chain of sequential
+    decode."""
+    for s, r in enumerate(rows):
+        append_token_quant(pool, scale, layer, phys[s], slot[s], vals[:, s],
+                           fmt, r)
+    return pool, scale
+
+
+def append_span_quant_shared(pool: torch.Tensor, scale: torch.Tensor,
+                             layer: int, phys: torch.Tensor,
+                             slot: torch.Tensor, vals: torch.Tensor,
+                             fmt: str, rows):
+    """Shared-pool requantizing span append (see `append_span_quant`)."""
+    for s, r in enumerate(rows):
+        append_token_quant_shared(pool, scale, layer, phys[s], slot[s],
+                                  vals[:, s], fmt, r)
+    return pool, scale
 
 
 def copy_page_shared(pool: torch.Tensor, src: int, dst: int) -> torch.Tensor:

@@ -16,14 +16,19 @@
 // merge.  The two layouts differ only in where a page's bytes live, which
 // is the `Walk` policy:
 //
-//   StripeWalk  k, v [B, K, NP, Ts, DH], scales [B, K, NP]: logical page j
-//               of the (b, k) walk is page j of the (b, k) stripe.
+//   StripeWalk  k, v [B, Kp, NP, Ts, DH], scales [B, Kp, NP]: logical page
+//               j of the (b, k) walk is page j of the (b, k0 + k) stripe.
+//               A launch may cover a range of the pool's Kp kv heads,
+//               [k0, k0 + K): one head group of the discrete variant
+//               (KVNAND-D) walks its heads of the layer's whole pool in
+//               place, addressed with the pool's own strides, so no
+//               narrowed copy of the pool is made.
 //   TableWalk   k, v [K, P_total, Ts, DH], scales [K, P_total], table
 //               [B, NP]: logical page j sits on physical page table[b, j].
 //
 // (Ts = T, except kv4: Ts = T/2, token 2i in the high nibble and 2i+1 in
 // the low nibble of one packed row, offset 8.)  Other layouts (contiguous):
-//   q      [B, K, G, DH] float32 (unscaled)
+//   q      [B, K, G, DH] float32 (unscaled; K = the heads of the launch)
 //   base   [B, NP] int32: absolute position of each (logical) page's slot
 //          0, < 0 = unwritten; length [B] int32
 //   o      [B, K, P, G, DH] float32, m / l [B, K, P, G] float32
@@ -222,10 +227,10 @@ __device__ __forceinline__ void decode16(const uint4& u, bool odd,
 template <int FMT, int DH>
 struct StripeWalk {
   long page0, scale0, page_elems;
-  __device__ StripeWalk(const int* /*table*/, int b, int k, int K, int NP,
+  __device__ StripeWalk(const int* /*table*/, int b, int k, int Kp, int NP,
                         int Ts, long /*P_total*/)
-      : page0((static_cast<long>(b) * K + k) * NP),
-        scale0((static_cast<long>(b) * K + k) * NP),
+      : page0((static_cast<long>(b) * Kp + k) * NP),
+        scale0((static_cast<long>(b) * Kp + k) * NP),
         page_elems(static_cast<long>(Ts) * DH) {}
   __device__ __forceinline__ int entry(int /*page*/) const { return 0; }
   __device__ __forceinline__ long offset(int page, int /*entry*/) const {
@@ -453,8 +458,8 @@ paged_attention_kernel(const float* __restrict__ q,
                        float* __restrict__ o_out,
                        float* __restrict__ m_out,
                        float* __restrict__ l_out,
-                       int K, int NP, int T, int G, int P, int S,
-                       long P_total, int window, float scale) {
+                       int K, int Kp, int k0, int NP, int T, int G, int P,
+                       int S, long P_total, int window, float scale) {
   using Gm = Geo<FMT, DH>;
   using Sm = Smem<FMT, DH, GM>;
   constexpr int NW = Gm::kWarps, NT = Gm::kThreads, DJ = Gm::kDJ;
@@ -484,7 +489,7 @@ paged_attention_kernel(const float* __restrict__ q,
   const int pg_hi = min(pg_lo + share, (p + 1) * npp);
 
   const int Ts = FMT == kKV4 ? T / 2 : T;
-  const Walk walk(table, b, k, K, NP, Ts, P_total);
+  const Walk walk(table, b, k0 + k, Kp, NP, Ts, P_total);
   const int* base_b = base + static_cast<long>(b) * NP;
   Walker c{ofs_s, base_s, ks_s, vs_s, q_s, p_s + warp * GM * kTile,
            tiles + warp * Gm::kWarpBytes,
@@ -647,6 +652,7 @@ struct Args {
   int B, K, NP, T, G, P, S;
   long P_total;           // TableWalk only
   int window;             // < 0: no window
+  int Kp, k0;             // the pool's kv heads; the launch's first head
 };
 
 template <int FMT, int DH, int GM, template <int, int> class Walk>
@@ -683,7 +689,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
       static_cast<const int*>(a.table), static_cast<const int*>(a.base),
       static_cast<const int*>(a.length), static_cast<float*>(a.o),
-      static_cast<float*>(a.m), static_cast<float*>(a.l), a.K, a.NP, a.T,
+      static_cast<float*>(a.m), static_cast<float*>(a.l), a.K, a.Kp, a.k0,
+      a.NP, a.T,
       a.G, a.P, a.S, a.P_total, a.window, scale);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
@@ -715,7 +722,7 @@ template <template <int, int> class Walk>
 int dispatch(int fmt, int dh, const Args& a, void* stream) {
   if (a.B < 1 || a.K < 1 || a.NP < 1 || a.T < 1 || a.G < 1 || a.G > 8 ||
       a.P < 1 || a.NP % a.P != 0 || (fmt == kKV4 && a.T % 2 != 0) ||
-      a.K > 65535 || a.B > 65535 ||
+      a.K > 65535 || a.B > 65535 || a.k0 < 0 || a.k0 + a.K > a.Kp ||
       (a.S != 1 && a.S != 2 && a.S != 4 && a.S != kMaxSplit) ||
       static_cast<long>(a.S) * a.P > 0x7fffffffL)
     return static_cast<int>(cudaErrorInvalidValue);

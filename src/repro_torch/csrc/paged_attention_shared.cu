@@ -28,6 +28,6 @@ extern "C" int kvnand_paged_attention_shared(
   if (P_total < 1) return static_cast<int>(cudaErrorInvalidValue);
   const kvnand::Args a{q, k, v, ks, vs, table, base, length, o, m, l,
                        B, K, NP, T, G, P, split,
-                       static_cast<long>(P_total), window};
+                       static_cast<long>(P_total), window, K, 0};
   return kvnand::dispatch<kvnand::TableWalk>(fmt, dh, a, stream);
 }

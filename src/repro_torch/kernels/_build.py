@@ -40,7 +40,7 @@ class Library(NamedTuple):
 LIBS: Dict[str, Library] = {
     "paged_attention": Library(
         _CSRC / "paged_attention.cu", (_CSRC / "paged_attention.cuh",),
-        {"kvnand_paged_attention": [_P] * 10 + [_I] * 10 + [_P]}),
+        {"kvnand_paged_attention": [_P] * 10 + [_I] * 12 + [_P]}),
     "paged_attention_shared": Library(
         _CSRC / "paged_attention_shared.cu",
         (_CSRC / "paged_attention.cuh",),

@@ -4,7 +4,10 @@ Two kernels share one body (`csrc/paged_attention.cuh`):
 
   * B1 `paged_attention_cuda` (`csrc/paged_attention.cu`) replaces the
     TPU kernel `repro/kernels/paged_attention/kernel.py::
-    paged_attention_pallas` (per-slot stripe pools);
+    paged_attention_pallas` (per-slot stripe pools).  It walks a range of
+    the pool's kv heads (`head0` and q's head count): one head group of
+    the discrete variant reads its heads of the layer's whole pool in
+    place, since a head slice of a stripe pool is not contiguous;
   * B2 `paged_attention_shared_cuda` (`csrc/paged_attention_shared.cu`)
     replaces `paged_attention_pallas_shared` (one shared pool reached
     through per-slot page tables).
@@ -139,30 +142,34 @@ def _raise_on(rc: int):
 
 def paged_attention_cuda(
     q: torch.Tensor,          # [B, K, G, dh] float32
-    k_pages: torch.Tensor,    # [B, K, NP, Ts, dh]
+    k_pages: torch.Tensor,    # [B, Kp, NP, Ts, dh], Kp >= head0 + K
     v_pages: torch.Tensor,
     page_base: torch.Tensor,  # [B, NP] int32
     length: torch.Tensor,     # [B] int32
     *,
     window: Optional[int] = None,
     kv_quant: str = "none",
-    k_scale: Optional[torch.Tensor] = None,   # [B, K, NP] float32
+    k_scale: Optional[torch.Tensor] = None,   # [B, Kp, NP] float32
     v_scale: Optional[torch.Tensor] = None,
     partitions: int = 1,
     split: int = 0,           # cluster size S; 0 = choose_split
+    head0: int = 0,           # the pool's kv head that q's head 0 reads
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch B1 (stripe pools); returns partials o [B, K, P, G, dh],
-    m / l [B, K, P, G] (float32), one per caller partition whatever the
-    split.  Checks device, dtype, shape and contiguity and raises on
-    anything the kernel does not take."""
+    """Launch B1 (stripe pools) over the pool's kv heads [head0, head0 +
+    K); returns partials o [B, K, P, G, dh], m / l [B, K, P, G] (float32),
+    one per caller partition whatever the split.  Checks device, dtype,
+    shape and contiguity and raises on anything the kernel does not
+    take."""
     _check(kv_quant in _FMT, f"unknown kv_quant {kv_quant!r}")
     _check(q.is_cuda, "tensors must be on a CUDA device")
     B, K, G, dh = q.shape
-    NP, Ts = k_pages.shape[2], k_pages.shape[3]
+    Kp, NP, Ts = k_pages.shape[1], k_pages.shape[2], k_pages.shape[3]
     T = 2 * Ts if kv_quant == "kv4" else Ts
+    _check(0 <= head0 and head0 + K <= Kp,
+           f"heads [{head0}, {head0 + K}) outside the pool's {Kp}")
     fmt = _check_inputs(q, k_pages, v_pages, page_base, length,
-                        pool_shape=(B, K, NP, Ts, dh),
-                        scale_shape=(B, K, NP), NP=NP, window=window,
+                        pool_shape=(B, Kp, NP, Ts, dh),
+                        scale_shape=(B, Kp, NP), NP=NP, window=window,
                         kv_quant=kv_quant, k_scale=k_scale, v_scale=v_scale,
                         partitions=partitions)
     o, m, l = _partials(q, partitions)
@@ -173,8 +180,9 @@ def paged_attention_cuda(
     _raise_on(fn(
         _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
         _ptr(page_base), _ptr(length), _ptr(o), _ptr(m), _ptr(l),
-        B, K, NP, T, G, dh, partitions, -1 if window is None else int(window),
-        S, fmt, torch.cuda.current_stream(q.device).cuda_stream))
+        B, K, Kp, head0, NP, T, G, dh, partitions,
+        -1 if window is None else int(window), S, fmt,
+        torch.cuda.current_stream(q.device).cuda_stream))
     launches.value += 1
     return o, m, l
 

@@ -14,6 +14,14 @@ pool [K, P_total, ...]: the plain version gathers each partition's slice
 of the slot's pages through the table before the stripe oracle runs, the
 kernel walks the table itself (no gathered copy).
 
+`kv_heads=(head0, n)` attends q's heads to the pool's kv heads [head0,
+head0 + n) only (one head group of the discrete variant, KVNAND-D): the
+plain version and the shared-pool kernel take the head slice of the pool
+as a view (contiguous on the shared pool, whose kv-head axis leads); the
+stripe kernel walks the layer's whole pool from `head0` in place, since a
+head slice of a stripe is not contiguous and copying it would copy the
+layer's pool once per group.
+
 `paged_chunk_attention` (the past-context partial of chunked prefill)
 has no kernel in the reference either and stays plain torch on every
 device.  The reference's TPU-only `pages_per_block` blocking is not
@@ -95,14 +103,21 @@ def paged_attention_partial(
     v_scale: Optional[torch.Tensor] = None,
     page_table: Optional[torch.Tensor] = None,  # [B, NP] shared-pool tables
     partitions: int = 0,      # 0 = auto from page count; must divide NP
+    kv_heads: Optional[Tuple[int, int]] = None,  # (head0, n): a head range
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (o [B, H, dh] locally normalized, m [B, H], l [B, H])."""
     B, H, dh = q.shape
     shared = page_table is not None
-    K = k_pages.shape[0] if shared else k_pages.shape[1]
+    head_axis = 0 if shared else 1
+    head0, K = kv_heads or (0, k_pages.shape[head_axis])
     NP = page_table.shape[1] if shared else k_pages.shape[2]
     G = H // K
     P = resolve_partitions(partitions, NP)
+    if kv_heads is not None and (shared or q.device.type == "cpu"):
+        k_pages, v_pages, k_scale, v_scale = (
+            None if a is None else a.narrow(head_axis, head0, K)
+            for a in (k_pages, v_pages, k_scale, v_scale))
+        head0 = 0
 
     if q.device.type == "cpu":
         def piece(lo, npp):
@@ -131,7 +146,7 @@ def paged_attention_partial(
     else:
         o, m, l = paged_attention_cuda(
             q4, k_pages, v_pages, page_base.to(torch.int32),
-            length.to(torch.int32), **kw)
+            length.to(torch.int32), head0=head0, **kw)
     if P > 1:
         o, m, l = merge_partials(o, m, l, axis=2)
     else:

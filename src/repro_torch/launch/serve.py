@@ -6,9 +6,16 @@ TTFT/TPOT reporting.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --requests 8 --max-new 16 --scheduler splice
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
+      --use-dse --max-context 128
+  PYTHONPATH=src python -m repro_torch.launch.serve --speculation-k 2
 
-Takes the reference's flags for what the port serves; the flags of paths
-not ported yet exit with an error naming their ROADMAP item.
+Takes the reference's flags for what the port serves.  `--use-dse` takes
+the variant, kv_quant and speculation_k from the design-space search
+(`core/dse.recommend_engine_config`) and serves float weights, as the
+reference does.  The flags of paths not ported yet, and a configuration
+the port does not serve yet, exit with an error naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -19,16 +26,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs import EngineConfig
+from repro_torch.core.dse import recommend_engine_config
 from repro_torch.kernels import _build
 from repro_torch.serving.api import (KVNANDServer, SamplingParams,
-                                     ServerConfig, latency_percentile)
+                                     ServerConfig, accepted_tokens_per_step,
+                                     latency_percentile)
 
 # flag -> (the value that leaves it off, the ROADMAP item that ports it)
 _UNPORTED = {
-    "use_dse": (False, "A19, the design-space search"),
     "hot_pages": (0, "A12, tiered pool"),
     "no_tier_prefetch": (False, "A12, tiered pool"),
-    "speculation_k": (None, "A11, speculative verify"),
     "overlap": (False, "A13, overlapped dispatch"),
     "http": (False, "A13, HTTP front end"),
     "port": (None, "A13, HTTP front end"),
@@ -66,10 +73,15 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="where the weights, the KV pool and the kernels "
                     "live (cpu runs the kernels' plain versions)")
-    ap.add_argument("--use-dse", action="store_true")
+    ap.add_argument("--use-dse", action="store_true",
+                    help="pick the variant, kv_quant and speculation_k from "
+                    "the design-space search (float weights)")
     ap.add_argument("--hot-pages", type=int, default=0)
     ap.add_argument("--no-tier-prefetch", action="store_true")
-    ap.add_argument("--speculation-k", type=int, default=None)
+    ap.add_argument("--speculation-k", type=int, default=None,
+                    help="draft tokens verified per decode step (prompt "
+                    "lookup); 0 decodes sequentially, unset takes the "
+                    "EngineConfig's (e.g. a --use-dse pick)")
     ap.add_argument("--overlap", action="store_true")
     ap.add_argument("--http", action="store_true")
     ap.add_argument("--port", type=int, default=None)
@@ -86,20 +98,32 @@ def serve(argv=None):
     ap = _parser()
     args = ap.parse_args(argv)
     for flag, (off, item) in _UNPORTED.items():
-        value = getattr(args, flag)
-        # --speculation-k 0 asks for sequential decode, which is ported
-        if value != off and not (flag == "speculation_k" and value == 0):
+        if getattr(args, flag) != off:
             ap.error(f"--{flag.replace('_', '-')} is not ported yet "
                      f"(ROADMAP {item})")
 
-    eng = EngineConfig(page_tokens=16, uniform_lengths=False,
-                       shared_pool=args.shared_pool,
-                       total_pages=args.total_pages)
-    server = KVNANDServer(ServerConfig(
-        arch=args.arch, reduced=args.reduced, engine=eng,
-        scheduler=args.scheduler, batch_slots=args.slots,
-        max_context=args.max_context,
-        prefill_chunk_tokens=args.chunk_tokens, device=args.device))
+    pool_kw = dict(shared_pool=args.shared_pool,
+                   total_pages=args.total_pages)
+    if args.use_dse:
+        eng = recommend_engine_config(args.arch, args.max_context)
+        eng = EngineConfig(**{**eng.__dict__, "page_tokens": 16,
+                              "uniform_lengths": False, "quant": "none",
+                              **pool_kw})
+        print(f"[serve] DSE picked variant={eng.variant} "
+              f"kv_quant={eng.kv_quant}")
+    else:
+        eng = EngineConfig(page_tokens=16, uniform_lengths=False, **pool_kw)
+    spec_k = (args.speculation_k if args.speculation_k is not None
+              else eng.speculation_k)
+    try:
+        server = KVNANDServer(ServerConfig(
+            arch=args.arch, reduced=args.reduced, engine=eng,
+            scheduler=args.scheduler, batch_slots=args.slots,
+            max_context=args.max_context,
+            prefill_chunk_tokens=args.chunk_tokens,
+            speculation_k=args.speculation_k, device=args.device))
+    except NotImplementedError as e:
+        ap.error(str(e))
     cfg = server.cfg
     where = _device_name(torch.device(args.device))
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
@@ -128,6 +152,13 @@ def serve(argv=None):
           f"{latency_percentile(ttfts, 95) * 1e3:.0f} ms, "
           f"TPOT p50/p95 {latency_percentile(tpots, 50) * 1e3:.0f}/"
           f"{latency_percentile(tpots, 95) * 1e3:.0f} ms (on {where})")
+    if spec_k > 0 and st["spec_steps"]:
+        per_step = accepted_tokens_per_step(st["spec_accepted"],
+                                            st["spec_steps"])
+        print(f"[serve] speculation k={spec_k}: "
+              f"{per_step:.2f} tokens/verify-step "
+              f"({st['spec_accepted']}/{st['spec_drafted']} drafts "
+              "accepted)")
     if args.shared_pool and st["pool_total_pages"]:
         hit_rate = st["prefix_hit_pages"] / max(st["prompt_pages"], 1)
         print(f"[serve] shared pool: peak {st['pool_peak_pages']}/"

@@ -3,7 +3,9 @@
 Weight layout is the reference's head-group-major one: wq [K, D, G·dh],
 wk/wv [K, D, dh], so head h = k·G + g and the kv head of h is h // G.
 The split phases the decode engine interposes the paged KV cache
-between (`project_qkv` / `project_out`) and the full-sequence attention
+between (`project_qkv` / `project_out`; for the discrete variant
+`project_kv` and one head group's `project_q_group`) and the
+full-sequence attention
 of the one-shot prefill and the reference forward (`attention_train`
 through `sharded_flash_attention`, on one device) are ported.
 """
@@ -46,19 +48,49 @@ def _proj(p, name: str, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _positions(x: torch.Tensor, positions: Optional[torch.Tensor]):
+    if positions is None:
+        return torch.arange(x.shape[1], device=x.device)[None, :]
+    return positions
+
+
+def project_kv(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
+               positions: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, D] -> k/v [B, S, K, dh] (RoPE applied to k)."""
+    k = apply_rope(_proj(params, "wk", x), _positions(x, positions),
+                   cfg.rope_theta)
+    return k, _proj(params, "wv", x)
+
+
 def project_qkv(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
                 positions: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> q [B, S, H, dh], k/v [B, S, K, dh] (RoPE applied)."""
     B, S, _ = x.shape
-    K, G, dh = cfg.n_kv_heads, cfg.group_size, cfg.d_head
-    q = _proj(params, "wq", x).reshape(B, S, K * G, dh)
-    k = _proj(params, "wk", x)
-    v = _proj(params, "wv", x)
-    if positions is None:
-        positions = torch.arange(S, device=x.device)[None, :]
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta), v)
+    q = _proj(params, "wq", x).reshape(B, S, cfg.n_heads, cfg.d_head)
+    k, v = project_kv(params, cfg, x, positions)
+    return apply_rope(q, _positions(x, positions), cfg.rope_theta), k, v
+
+
+def project_q_group(params: Dict[str, Any], cfg: ModelConfig,
+                    x_tok: torch.Tensor, group: int,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """One head group's q projection (the KVNAND-D pipelined GEMV):
+    x_tok [B, D] (one decode token a row) -> [B, G, dh], roped at
+    `positions` [B].  Group i's weight is the contiguous [D, G·dh] slice
+    wq[i]; a quantized weight dequantizes that slice only (the reference
+    dequantizes the whole weight first, with the same numbers)."""
+    w = params["wq_w"][group]
+    if isinstance(w, QuantizedWeight):
+        w = dequantize(w, x_tok.dtype)
+    # the compact projection's contraction, over one group: "bsd,kdf"
+    q = torch.einsum("bsd,df->bsf", x_tok[:, None], w.to(x_tok.dtype))
+    b = params.get("wq_b")
+    if b is not None:
+        q = q + b[group].to(q.dtype)
+    q = q.reshape(x_tok.shape[0], 1, cfg.group_size, cfg.d_head)
+    return apply_rope(q, positions[:, None], cfg.rope_theta)[:, 0]
 
 
 def project_out(params: Dict[str, Any], cfg: ModelConfig,

@@ -22,10 +22,16 @@ step with the decode batch, the default) and "splice" (the baseline:
 one-shot prefill at admit, then a slot splice).  RWKV6
 (``arch="rwkv6-3b"``) is served on either scheduler from per-slot
 recurrent state instead of a KV pool, its prompts prefilled whole.
-Configurations the port does not serve yet raise NotImplementedError at
-construction, naming their ROADMAP item: speculation, the overlapped
-pipeline, and (through the engine) tiered pools (``hot_pages``), the
-discrete variant, window archs and the hybrid, MoE, VLM and
+Both decode variants of the engine are served (compact, and the discrete
+head-group pipeline, ``EngineConfig(variant="discrete")``), and
+``ServerConfig.speculation_k`` turns each decode step into a prompt-lookup
+draft-and-verify step with the same output tokens (``None`` takes
+``EngineConfig.speculation_k``, 0 decodes sequentially; a request caps or
+opts out with `SamplingParams.speculation`; `RequestOutput` carries its
+acceptance counts).  Configurations the port does not serve yet raise
+NotImplementedError at construction, naming their ROADMAP item: the
+overlapped pipeline, and (through the engine) tiered pools
+(``hot_pages``), window archs and the hybrid, MoE, VLM and
 encoder-decoder families.
 """
 from __future__ import annotations
@@ -45,7 +51,17 @@ from repro_torch.serving.scheduler import (ContinuousBatcher, Request,
                                            SpliceBatcher)
 
 __all__ = ["SamplingParams", "RequestOutput", "StreamEvent",
-           "ServerConfig", "KVNANDServer", "latency_percentile"]
+           "ServerConfig", "KVNANDServer", "latency_percentile",
+           "accepted_tokens_per_step"]
+
+
+def accepted_tokens_per_step(accepted: int, steps: int) -> Optional[float]:
+    """Mean tokens emitted per verify step: `steps` spans each emitted
+    their accepted drafts plus the correction / bonus token.  None when
+    nothing decoded speculatively."""
+    if steps == 0:
+        return None
+    return (accepted + steps) / steps
 
 _SCHEDULERS = {"interleaved": ContinuousBatcher, "splice": SpliceBatcher}
 
@@ -64,7 +80,7 @@ class ServerConfig:
     step_token_budget: Optional[int] = None
     seed: int = 0                   # params init + default request streams
     max_steps: int = 100_000        # drain guard for generate()/run()
-    speculation_k: Optional[int] = None
+    speculation_k: Optional[int] = None     # None -> engine.speculation_k
     overlap: bool = False
     device: str = "cuda"
 
@@ -73,9 +89,9 @@ class ServerConfig:
             raise ValueError(
                 f"unknown scheduler {self.scheduler!r}; pick one of "
                 f"{sorted(_SCHEDULERS)}")
-        if self.speculation_k:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP A11)")
+        if self.speculation_k is not None and self.speculation_k < 0:
+            raise ValueError(f"speculation_k must be >= 0, "
+                             f"got {self.speculation_k}")
         if self.overlap:
             raise NotImplementedError(
                 "the overlapped dispatch/collect pipeline is not ported "
@@ -96,7 +112,10 @@ class StreamEvent:
 
 @dataclasses.dataclass
 class RequestOutput:
-    """A finished request with its timing counters."""
+    """A finished request with its timing counters and, under speculative
+    decoding, its acceptance counts (`spec_steps` verify steps in which it
+    offered drafts, `spec_drafted` drafts offered, `spec_accepted` drafts
+    accepted; all 0 under sequential decode)."""
     uid: int
     prompt: List[int]
     token_ids: List[int]
@@ -105,6 +124,17 @@ class RequestOutput:
     submit_time: float
     first_token_time: Optional[float]
     finish_time: float
+    spec_steps: int = 0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+
+    @property
+    def accepted_tokens_per_step(self) -> Optional[float]:
+        """Mean tokens emitted per verify step (accepted drafts + the
+        correction / bonus token); None when the request never decoded
+        speculatively."""
+        return accepted_tokens_per_step(self.spec_accepted,
+                                        self.spec_steps)
 
     @property
     def ttft(self) -> Optional[float]:
@@ -143,12 +173,17 @@ class KVNANDServer:
         if params is None:
             gen = torch.Generator(device=device).manual_seed(config.seed)
             params = Model(cfg, rt).init(gen)
+        spec_k = config.speculation_k
+        if spec_k is None:
+            spec_k = (config.engine.speculation_k
+                      if config.engine is not None else 0)
         self._batcher = _SCHEDULERS[config.scheduler](
             cfg, params, batch_slots=config.batch_slots,
             max_context=config.max_context, eng=config.engine, rt=rt,
             seed=config.seed,
             prefill_chunk_tokens=config.prefill_chunk_tokens,
-            step_token_budget=config.step_token_budget, device=device)
+            step_token_budget=config.step_token_budget,
+            speculation_k=spec_k, device=device)
         self._requests: Dict[int, Request] = {}
         self._streamed: Dict[int, int] = {}
         self._done_emitted: set = set()
@@ -283,7 +318,9 @@ class KVNANDServer:
             uid=uid, prompt=list(req.prompt), token_ids=list(req.output),
             logprobs=list(req.logprobs) if req.params.logprobs else None,
             finish_reason=req.finish_reason, submit_time=req.submit_ts,
-            first_token_time=req.first_ts, finish_time=req.finish_ts)
+            first_token_time=req.first_ts, finish_time=req.finish_ts,
+            spec_steps=req.spec_steps, spec_drafted=req.spec_drafted,
+            spec_accepted=req.spec_accepted)
 
     def release(self, uid: int) -> None:
         """Drop a FINISHED request's host bookkeeping."""

@@ -9,12 +9,18 @@ stream never depends on the batch it shares, and tests can hand both
 frameworks the same noise.  The streams are torch's, not jax's threefry:
 bit-identity with the reference's random draws is a later item (ROADMAP,
 beside cross-framework envelope import).
+
+`speculative_accept` is the accept rule of draft-and-verify decoding: it
+samples every span position from the same per-position stream that
+sequential decode would use there, so speculation changes how many tokens
+a step emits, never which.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 NEG = -1e9
@@ -30,6 +36,9 @@ class SamplingParams:
     finishes (reason "stop") the step a listed id is sampled, and the
     stop token is part of the output.  `logprobs=True` records the
     log-probability (raw, pad-masked distribution) of each sampled token.
+    `speculation` caps the drafts verified for this request per step when
+    the server runs speculative decoding: None takes the server's k, 0
+    opts the request out.
     """
     temperature: float = 0.0
     top_k: int = 0
@@ -38,6 +47,7 @@ class SamplingParams:
     max_new_tokens: int = 16
     stop_token_ids: Tuple[int, ...] = ()
     logprobs: bool = False
+    speculation: Optional[int] = None
 
     def __post_init__(self):
         if self.temperature < 0.0:
@@ -51,6 +61,10 @@ class SamplingParams:
         if self.max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, "
                              f"got {self.max_new_tokens}")
+        if self.speculation is not None and self.speculation < 0:
+            raise ValueError(f"speculation must be >= 0 (0 disables, "
+                             f"None takes the server default), "
+                             f"got {self.speculation}")
         object.__setattr__(self, "stop_token_ids",
                            tuple(int(t) for t in self.stop_token_ids))
 
@@ -136,3 +150,47 @@ def sample_with_logprobs(logits: torch.Tensor,
     lps = torch.gather(torch.log_softmax(logits, dim=-1), 1,
                        toks[:, None])[:, 0]
     return toks, lps
+
+
+def speculative_accept(logits: torch.Tensor, drafts: torch.Tensor,
+                       seeds: Sequence[int], positions: Sequence[int],
+                       allowed: torch.Tensor, *, true_vocab: int,
+                       temperature=0.0, top_k=0, top_p=1.0):
+    """Draft-and-verify acceptance over a span (port of the reference's
+    `speculative_accept`).
+
+    logits: [B, S, V], position j scoring the j-th span input (the last
+    emitted token for j = 0, drafts after it), so logits[:, j] is the
+    target distribution of output token ``positions + j``; drafts: [B,
+    S-1]; seeds / positions: host [B] stream state (tokens emitted so
+    far); allowed: [B] cap on accepted drafts (0: a plain decode step);
+    temperature / top_k / top_p: scalars or host [B] arrays.
+
+    Every span position is sampled from `request_noise(seed, positions +
+    j)`, the stream sequential decode uses at that position, and draft j
+    is accepted while the sampled token equals it; the emitted tokens are
+    the sampled ones.  Returns (tokens [B, S], logprobs [B, S], acc [B]):
+    row i emits ``tokens[i, :acc[i] + 1]``."""
+    B, S, V = logits.shape
+    dev = logits.device
+
+    def rows(a, dtype):
+        return np.repeat(np.broadcast_to(np.asarray(a, dtype), (B,)), S)
+
+    temps = rows(temperature, np.float32)
+    noise = None
+    if (temps > 0).any():
+        pos = (np.asarray(positions, np.int64)[:, None]
+               + np.arange(S)[None]).reshape(-1)
+        noise = request_noise(rows(seeds, np.int64), pos, V, dev)
+    toks, lps = sample_with_logprobs(
+        logits.reshape(B * S, V), noise, true_vocab=true_vocab,
+        temperature=torch.as_tensor(temps, device=dev),
+        top_k=torch.as_tensor(rows(top_k, np.int64), device=dev),
+        top_p=torch.as_tensor(rows(top_p, np.float32), device=dev))
+    toks, lps = toks.reshape(B, S), lps.reshape(B, S)
+    match = ((toks[:, :-1] == drafts.to(toks.dtype))
+             & (torch.arange(S - 1, device=dev)[None]
+                < allowed.to(dev)[:, None]))
+    acc = torch.cumprod(match.to(torch.int64), dim=1).sum(dim=1)
+    return toks, lps, acc

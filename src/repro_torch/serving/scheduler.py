@@ -44,12 +44,24 @@ splice baseline prefills it unbucketed, and a shared-pool config builds
 no allocator and no prefix cache (there is no page pool), as in the
 reference.
 
+Speculative draft-and-verify (``speculation_k`` > 0): every decode step
+becomes a verify step.  Each decoding slot drafts up to k tokens by
+prompt lookup over its own history (`serving/draft.py`), capped by its
+request's `SamplingParams.speculation` and by what its max_new budget and
+slot capacity leave; the engine scores the span in one pass
+(`engine.verify_step`) and `speculative_accept` samples every position
+from the request's own per-position stream, so the emitted tokens equal
+sequential decode's.  Rejected positions are never written; on the shared
+pool the pages backed for them go back to the allocator with the slot's
+reservation restored.  A step in which no slot may draft runs as a plain
+decode step.
+
 `step()` is the reference's synchronous schedule (dispatch, then
 collect, back to back).  `SpliceBatcher` is the reference's measured
 baseline: each admit prefills the whole (bucketed) prompt in one shot
 (`engine.prefill`) and splices the one-row cache into its slot.  Not
-ported yet, and refused at construction: the tiered pool, speculative
-verify and the overlapped dispatch/collect pipeline (ROADMAP).
+ported yet, and refused at construction: the tiered pool and the
+overlapped dispatch/collect pipeline (ROADMAP).
 """
 from __future__ import annotations
 
@@ -67,8 +79,10 @@ from repro_torch.core.engine import KVNANDEngine
 from repro_torch.core.page_alloc import (CacheHit, OutOfPages, PageAllocator,
                                          PrefixCache)
 from repro_torch.models.transformer import Runtime
+from repro_torch.serving.draft import propose_draft
 from repro_torch.serving.sampler import (SamplingParams, request_noise,
-                                         sample_with_logprobs)
+                                         sample_with_logprobs,
+                                         speculative_accept)
 
 MIN_PROMPT_BUCKET = 16
 
@@ -90,6 +104,9 @@ class Request:
     submit_ts: Optional[float] = None
     first_ts: Optional[float] = None
     finish_ts: Optional[float] = None
+    spec_steps: int = 0       # verify steps this request offered drafts in
+    spec_drafted: int = 0     # draft tokens offered for verification
+    spec_accepted: int = 0    # draft tokens accepted (and emitted)
 
 
 def bucket_length(n: int, lo: int = MIN_PROMPT_BUCKET,
@@ -121,7 +138,8 @@ class ContinuousBatcher:
                  rt: Optional[Runtime] = None, seed: int = 0,
                  bucket_prompts: bool = True,
                  prefill_chunk_tokens: int = 64,
-                 step_token_budget: Optional[int] = None, device="cuda"):
+                 step_token_budget: Optional[int] = None,
+                 speculation_k: int = 0, device="cuda"):
         eng = eng or EngineConfig(page_tokens=16, uniform_lengths=False)
         if eng.uniform_lengths:
             raise ValueError(
@@ -132,10 +150,16 @@ class ContinuousBatcher:
                 f"prefill_chunk_tokens={prefill_chunk_tokens} must be a "
                 f"multiple of page_tokens={eng.page_tokens} so chunk "
                 "starts stay page-aligned")
-        if eng.speculation_k:
-            raise NotImplementedError(
-                "speculative draft-and-verify decoding is not ported yet "
-                "(ROADMAP A11)")
+        if speculation_k < 0:
+            raise ValueError(f"speculation_k must be >= 0, "
+                             f"got {speculation_k}")
+        if speculation_k > 0 and (cfg.family in ("ssm", "hybrid")
+                                  or cfg.is_encoder_decoder):
+            raise ValueError(
+                f"{cfg.name}: speculative decoding needs rollback-able "
+                "paged KV; recurrent/encoder-decoder state cannot roll "
+                "back — run with speculation_k=0")
+        self.spec_k = speculation_k
         self.cfg = cfg
         self.device = torch.device(device)
         self.engine = KVNANDEngine(cfg, eng, rt or Runtime(),
@@ -171,7 +195,9 @@ class ContinuousBatcher:
                       "decode_stall_tokens": 0,
                       "deadline_drops": 0, "prefix_hit_pages": 0,
                       "prompt_pages": 0, "cow_copies": 0,
-                      "pool_peak_pages": 0, "pool_total_pages": 0}
+                      "pool_peak_pages": 0, "pool_total_pages": 0,
+                      "verify_steps": 0, "spec_steps": 0, "spec_drafted": 0,
+                      "spec_accepted": 0}
         self.shared = eng.shared_pool
         self.alloc: Optional[PageAllocator] = None
         self.prefix_cache: Optional[PrefixCache] = None
@@ -567,7 +593,10 @@ class ContinuousBatcher:
         self._admit()
         decoding = [i for i, r in enumerate(self.slots)
                     if r is not None and i not in self._prefill_live]
-        budget = self.step_token_budget - len(decoding)
+        # a verify step computes spec_k + 1 query tokens a decoding slot:
+        # charge the budget that, so chunk packing does not overshoot
+        per_slot = self.spec_k + 1
+        budget = self.step_token_budget - len(decoding) * per_slot
         chunks_done = 0
         for i, ps in sorted(self._prefill_live.items(),
                             key=lambda kv: kv[1].order):
@@ -584,9 +613,15 @@ class ContinuousBatcher:
         return chunks_done + self._decode_batch(active)
 
     def _decode_batch(self, active: List[int]) -> int:
-        """One synchronous decode step over `active` slots."""
+        """One synchronous decode step over `active` slots: a verify step
+        under speculation (unless no slot may draft), else a sequential
+        one."""
         if not active:
             return 0
+        if self.spec_k > 0:
+            spec = self._spec_dispatch(active)
+            if spec is not None:
+                return self._spec_collect(active, *spec)
         return self._collect_decode(active, *self._dispatch_sequential(active))
 
     def _dispatch_sequential(self, active: List[int]):
@@ -625,6 +660,113 @@ class ContinuousBatcher:
                     self.max_context:
                 self._finish(i, "capacity")
         return len(active)
+
+    # -- speculative draft-and-verify ----------------------------------
+    def _spec_rollback(self, i: int):
+        """Host half of the rollback (the reference's `_rollback_pages`):
+        logical pages backed for the span but not reached by a kept token
+        go back to the allocator and the slot's reservation is restored,
+        as if they had never been handed out.  Their stale table entries
+        sit past `lengths` and are never read as data."""
+        if not self.shared or self.alloc is None:
+            return
+        last = (int(self._lengths[i]) - 1) // self.engine.eng.page_tokens
+        for lp in [p for p in self._slot_pages[i] if p > last]:
+            self.alloc.free([self._slot_pages[i].pop(lp)])
+            self._slot_shared[i].discard(lp)
+            self._resv[i] += 1
+            self._outstanding += 1
+
+    def _spec_dispatch(self, active: List[int]):
+        """Draft and verify one step over `active` slots (the reference's
+        `_dispatch_verify`): each slot drafts up to `spec_k` tokens by
+        prompt lookup, capped so that its span never writes past what
+        sequential decode would (its max_new budget less the correction
+        token, and its slot capacity).  Returns host (toks [B, S], lps,
+        acc [B], allowed [B]), or None when no slot may draft (the caller
+        then runs a sequential step)."""
+        S = self.spec_k + 1
+        T = self.engine.eng.page_tokens
+        tokens = np.zeros((self.B, S), np.int64)
+        mask = np.zeros(self.B, bool)
+        allowed = np.zeros(self.B, np.int64)
+        positions = np.zeros(self.B, np.int64)
+        for i in active:
+            req = self.slots[i]
+            cap = req.params.speculation
+            k_eff = self.spec_k if cap is None else min(cap, self.spec_k)
+            allowed[i] = max(0, min(
+                k_eff, req.max_new - len(req.output) - 1,
+                self.max_context - 2 - int(self._lengths[i])))
+            draft = (propose_draft(req.prompt + req.output, self.spec_k)
+                     if allowed[i] > 0 else [0] * self.spec_k)
+            tokens[i, 0] = req.output[-1]
+            tokens[i, 1:] = draft
+            mask[i] = True
+            positions[i] = len(req.output)
+        if not allowed.any():
+            return None
+        if self.shared and self.alloc is not None:
+            # back every page the span MAY write (positions up to lengths
+            # + allowed), by lazy allocation or copy-on-write
+            for i in active:
+                lo = int(self._lengths[i]) // T
+                hi = (int(self._lengths[i]) + int(allowed[i])) // T
+                for lp in range(lo, hi + 1):
+                    self._ensure_page(i, lp)
+            self._push_tables()
+        dev = self.device
+        toks_d = torch.as_tensor(tokens, device=dev)
+
+        def accept(logits):
+            out = speculative_accept(
+                logits, toks_d[:, 1:], self._seeds, positions,
+                torch.as_tensor(allowed, device=dev),
+                true_vocab=self.cfg.vocab_size, temperature=self._temps,
+                top_k=self._topk, top_p=self._topp)
+            return out[2], out
+
+        (toks, lps, acc), self.cache = self.engine.verify_step(
+            self.params, self.cache, toks_d, accept=accept,
+            active=torch.as_tensor(mask, device=dev))
+        self.stats["verify_steps"] += 1
+        return (toks.cpu().numpy(), lps.cpu().numpy(), acc.cpu().numpy(),
+                allowed)
+
+    def _spec_collect(self, active: List[int], toks, lps, acc,
+                      allowed) -> int:
+        """Emit one verify step (the reference's `_collect_verify`): each
+        slot emits its accepted drafts and the correction / bonus token
+        through `_emit_token`, then advances by what the device appended
+        and rolls back the pages its span did not reach."""
+        emitted = 0
+        for i in active:
+            req = self.slots[i]
+            n = int(acc[i]) + 1               # tokens the device appended
+            # spec counters count row-steps that offered a draft
+            if allowed[i] > 0:
+                req.spec_steps += 1
+                req.spec_drafted += int(allowed[i])
+                self.stats["spec_steps"] += 1
+                self.stats["spec_drafted"] += int(allowed[i])
+            emitted_i = 0
+            for j in range(n):
+                if self.slots[i] is not req:
+                    break                     # stop token finished mid-span
+                self._emit_token(i, req, int(toks[i, j]), float(lps[i, j]))
+                emitted_i += 1
+            emitted += emitted_i
+            # only EMITTED accepted drafts count (a stop finish truncates)
+            if allowed[i] > 0:
+                req.spec_accepted += emitted_i - 1
+                self.stats["spec_accepted"] += emitted_i - 1
+            if self.slots[i] is req:
+                self._lengths[i] += n
+                self._spec_rollback(i)
+                if self._lengths[i] + 1 >= self.max_context:
+                    self._finish(i, "capacity")
+        self.stats["decode_tokens"] += emitted
+        return emitted
 
     def run_to_completion(self, max_steps: int = 10_000):
         steps = 0

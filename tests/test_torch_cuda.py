@@ -137,6 +137,43 @@ def test_unsupported_inputs_raise(cuda_device, bad):
         tpa.paged_attention_cuda(q.reshape(B, K, G, dh), kp, vp, base, length)
 
 
+@pytest.mark.parametrize("fmt,G,partitions", list(itertools.product(
+    ("f32", "bf16", "kv8", "kv4"), (1, 4), (1, 4))))
+def test_head_range_matches_plain_version(cuda_device, fmt, G, partitions):
+    """B1 over one kv head of the pool at a time (`head0`, the discrete
+    variant's launch): each against the plain version on that head's
+    slice of the pool, and the heads side by side against one all-heads
+    launch within 2e-5 (the two may take other cluster splits)."""
+    dh = 128
+    q, kp, vp, base, length, ks, vs, kvq = _inputs(fmt, G, dh, cuda_device)
+    kw = dict(kv_quant=kvq, k_scale=ks, v_scale=vs, partitions=partitions)
+    allh = tpa.paged_attention_partial(q, kp, vp, base, length, **kw)
+    tpa.launches.reset()
+    groups = [tpa.paged_attention_partial(
+        q[:, i * G:(i + 1) * G].contiguous(), kp, vp, base, length,
+        kv_heads=(i, 1), **kw) for i in range(K)]
+    torch.cuda.synchronize()
+    assert tpa.launches.value == K
+    for i, got in enumerate(groups):
+        sc = {} if ks is None else dict(k_scale=ks[:, i:i + 1],
+                                        v_scale=vs[:, i:i + 1])
+        want = tpa.paged_attention_partial_ref(
+            q[:, i * G:(i + 1) * G], kp[:, i:i + 1], vp[:, i:i + 1], base,
+            length, kv_quant=kvq, **sc)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=TOL[fmt], rtol=TOL[fmt])
+    for j in range(3):
+        torch.testing.assert_close(torch.cat([g[j] for g in groups], 1),
+                                   allh[j], atol=2e-5, rtol=2e-5)
+
+
+def test_head_range_outside_the_pool_raises(cuda_device):
+    q, kp, vp, base, length, *_ = _inputs("f32", 1, 64, cuda_device)
+    with pytest.raises(ValueError, match="outside"):
+        tpa.paged_attention_cuda(q.reshape(B, K, 1, 64)[:, :2].contiguous(),
+                                 kp, vp, base, length, head0=2)
+
+
 # ---------------------------------------------------------------------------
 # B2: the shared pool through page tables
 # ---------------------------------------------------------------------------
@@ -1051,3 +1088,42 @@ def test_launch_serve_reduced_splice_completes(cuda_device, capsys):
                                   for o in outs.values())
     assert tfa.launches.value > 0
     assert "tok/s on" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["stripe", "shared"])
+def test_reduced_discrete_spec_server_serves_the_cpu_tokens(cuda_device,
+                                                            shared):
+    """Reduced llama2-7b under the DSE's pick (discrete, kv8) on the card,
+    sequential and with speculation_k = 3: B1 (or B2) launched once per
+    kv head a layer a decode step, and the greedy tokens of the same
+    servers on the CPU."""
+    from repro_torch.configs import EngineConfig, get_config
+    from repro_torch.models.registry import Model
+    from repro_torch.serving.api import (KVNANDServer, SamplingParams,
+                                         ServerConfig)
+    cfg = get_config("llama2-7b").reduced()
+    params = Model(cfg).init(torch.Generator().manual_seed(0))
+    prompts = [[7, 8, 9, 10] * 5, [(5 * j) % 300 + 1 for j in range(29)],
+               [3, 1, 4]]
+    counter = tpa.launches_shared if shared else tpa.launches
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        for spec in (0, 3):
+            counter.reset()
+            srv = KVNANDServer(ServerConfig(
+                arch="llama2-7b", reduced=True, batch_slots=2,
+                max_context=128, device=dev, speculation_k=spec,
+                engine=EngineConfig(variant="discrete", kv_quant="kv8",
+                                    page_tokens=16, uniform_lengths=False,
+                                    shared_pool=shared)),
+                params=params if dev == "cpu" else _tree_to(params, dev))
+            outs[dev, spec] = srv.generate(prompts,
+                                           SamplingParams(max_new_tokens=8))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                steps = srv.stats["decode_steps"]
+                assert counter.value == steps * cfg.n_layers * cfg.n_kv_heads
+                assert (srv.stats["verify_steps"] > 0) == (spec > 0)
+    want = [o.token_ids for o in outs["cpu", 0]]
+    for key, got in outs.items():
+        assert [o.token_ids for o in got] == want, key

@@ -111,18 +111,15 @@ def test_abort_mid_prefill_frees_the_slot():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: ServerConfig(speculation_k=2, device="cpu"),
     lambda: ServerConfig(overlap=True, device="cpu"),
     lambda: _port_with_engine(shared_pool=True, hot_pages=4),
-    lambda: _port_with_engine(variant="discrete"),
     lambda: KVNANDServer(ServerConfig(arch="gemma3-12b", reduced=True,
                                       device="cpu")),
     lambda: KVNANDServer(ServerConfig(arch="hymba-1.5b", reduced=True,
                                       device="cpu")),
     lambda: KVNANDEngine(tget("qwen1.5-0.5b").reduced(), mesh=object(),
                          device="cpu"),
-], ids=["speculation", "overlap", "hot_pages",
-        "discrete", "window_arch", "hybrid_arch", "mesh"])
+], ids=["overlap", "hot_pages", "window_arch", "hybrid_arch", "mesh"])
 def test_unported_configurations_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make()

@@ -131,8 +131,7 @@ def test_launch_serve_runs_in_process(scheduler, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--use-dse"], "A19"), (["--hot-pages", "4"], "A12"),
-    (["--speculation-k", "2"], "A11"), (["--overlap"], "A13"),
+    (["--hot-pages", "4"], "A12"), (["--overlap"], "A13"),
     (["--http"], "A13")])
 def test_launch_serve_refuses_unported_flags(flags, item, capsys):
     with pytest.raises(SystemExit) as exc:
