@@ -15,6 +15,7 @@
     python3 chip_smoke.py --flash-ab OLD.cu  # B4's CUDA-core body vs the current
     python3 chip_smoke.py --dse              # the build and phases 13-15 only
     python3 chip_smoke.py --verify-ab        # V1's verify attention, the port's form vs the reference's
+    python3 chip_smoke.py --window           # the build and phase 16 (G1, gemma3-12b) only
 
 Phases (each one fails the run when it fails):
 
@@ -174,7 +175,34 @@ Phases (each one fails the run when it fails):
             steps x 32 x 32, the allocator's invariants after the drain;
 15. V1      D1's stripe deployment with speculation_k = 4 (prompt-lookup
             draft-and-verify): the same tokens as D1's sequential run, at
-            least one verify step, and the acceptance counts printed.
+            least one verify step, and the acceptance counts printed;
+16. G1      full-width gemma3-12b (48 layers: 40 local over a 1024-token
+            window in ring-recycled pages, 8 global; d_model 3840, 16
+            heads (8 kv) x 256, d_ff 15360, vocab 262144; 47 GB of random
+            f32 weights from seed 0, drawn after D1's are freed), 4 slots,
+            max_context 2048, 64-token chunks, 6 greedy prompts of 5, 17,
+            40, 60, 1030 and 1100 tokens x 24 new tokens (the 1100-token
+            prompt wraps the 65-page ring in prefill, the 1030-token one
+            in decode).  Kernels: B1 and B2 over the decode step's ring
+            (bases rotated and empty slots at -1e9, window 1024) and
+            global pool, kv8 and f32, and B4 over the splice admit's
+            2047-token bucket (window 1024 and none), at G1's head shape,
+            against their plain versions.  Golden: the 1100-token prompt chunk by chunk into
+            an f32 stripe pool, then 8 decode steps, every step's logits
+            within GOLDEN_TOL of the plain full forward's and the same
+            argmax.  Then the design-space search's pick (asserted:
+            compact, kv8) on the stripe pool (B1 = decode steps x 48),
+            the shared pool (B2 = decode steps x 48, both allocators clean
+            after the drain) and the splice scheduler (B4 = admits x 48,
+            local layers at window 1024), the final lengths printed; the
+            stripe run's logprobs against the plain forward within
+            QUANT_LOGPROB_TOL; KVNAND-D on the ring (B1 = steps x 48 x 8)
+            and speculation_k = 4 (the stripe run's tokens exactly).  The
+            three pools and schedulers, and the two variants, serve equal
+            tokens or part only at a near tie (KV8_GAP_TOL;
+            LOGIT_GAP_TOL for the variants, as D1).  Peak memory and each
+            run's wall printed beside the card.  `--window` runs the build
+            and this phase only.
 
 It needs a CUDA card (exits non-zero without one, printing no result),
 imports nothing of JAX, and prints the card's name and power limit, a
@@ -203,6 +231,9 @@ TOL = {"f32": 2e-5, "bf16": 3e-2, "kv8": 2e-5, "kv4": 2e-5}
 # through the bf16 pool, the reference's do not
 LOGPROB_TOL = 2e-2
 LOGIT_GAP_TOL = 1e-3
+# engine logits against the plain full forward at an f32 pool, relative to
+# max |logits|: the reference's own (tests/test_engine_golden.py)
+GOLDEN_TOL = 2e-4
 # the quantized deployments Q1/Q2 against the same server on the CPU.
 # Every quantizer (W4A16's bf16 input, W8A8's int8 activations, kv8/kv4
 # codes) is a rounding step, so two correct runs agree to the model's
@@ -729,11 +760,11 @@ def build_server(params=None, device="cuda", scheduler="interleaved",
     return srv
 
 
-def serve(label, srv, prompts):
+def serve(label, srv, prompts, max_new=16):
     """Drive the server's main path with every launch counter reset just
     before and read just after; returns the outputs and the counts.  A
-    request answers 16 tokens ("length"), or fewer where its prompt fills
-    the slot first ("capacity")."""
+    request answers `max_new` tokens ("length"), or fewer where its prompt
+    fills the slot first ("capacity")."""
     import torch
     from repro_torch.kernels import flash_attention, quant_gemv, wkv6
     from repro_torch.kernels.paged_attention import launches, launches_shared
@@ -747,7 +778,7 @@ def serve(label, srv, prompts):
     for c in counters.values():
         c.reset()
     t0 = time.perf_counter()
-    outs = srv.generate(prompts, SamplingParams(max_new_tokens=16,
+    outs = srv.generate(prompts, SamplingParams(max_new_tokens=max_new,
                                                 logprobs=True))
     if srv._batcher.device.type == "cuda":
         torch.cuda.synchronize()
@@ -763,19 +794,21 @@ def serve(label, srv, prompts):
     ctx = srv._batcher.max_context
 
     def answered(o):
-        want = min(16, ctx - len(o.prompt))
+        want = min(max_new, ctx - len(o.prompt))
         return len(o.token_ids) == want and o.finish_reason == (
-            "length" if want == 16 else "capacity")
+            "length" if want == max_new else "capacity")
 
     check(len(outs) == len(prompts) and all(answered(o) for o in outs),
           f"{label}: not every request answered")
     return outs, counts, steps, wall, new_tokens
 
 
-def teacher_forced_check(label, srv, outs, *, argmax=True):
+def teacher_forced_check(label, srv, outs, *, argmax=True,
+                         tol=LOGPROB_TOL):
     """Every served token against the port's plain full forward on the
-    card (kernel-free), teacher-forced on prompt + output.  argmax=False
-    reports the largest reference-logit gap instead of failing on it."""
+    card (kernel-free), teacher-forced on prompt + output, served
+    logprobs within `tol`.  argmax=False reports the largest
+    reference-logit gap instead of failing on it."""
     import torch
     from repro_torch.models.registry import Model
     cfg = srv.cfg
@@ -802,13 +835,13 @@ def teacher_forced_check(label, srv, outs, *, argmax=True):
                 worst = (r, j, float(top2[0] - top2[1]),
                          float((served[j] - ref_lp[j]).abs()))
     print(f"check {label}: max |served logprob - reference| = {lp_err:.3e} "
-          f"(tol {LOGPROB_TOL:.0e}); max reference-logit gap of served "
+          f"(tol {tol:.0e}); max reference-logit gap of served "
           f"tokens = {gap:.3e} (tol {LOGIT_GAP_TOL:.0e})")
     if worst is not None:
         print(f"check {label}: largest gap at request {worst[0]} token "
               f"{worst[1]}: reference top-2 margin {worst[2]:.3e}, "
               f"|served logprob - reference| there {worst[3]:.3e}")
-    check(lp_err <= LOGPROB_TOL,
+    check(lp_err <= tol,
           f"{label}: served logprobs disagree with reference")
     check(gap <= LOGIT_GAP_TOL or not argmax,
           f"{label}: a served token is not the reference argmax")
@@ -2524,6 +2557,353 @@ def verify_ab_phase() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 16: G1, full-width gemma3-12b over window rings
+# ---------------------------------------------------------------------------
+
+GEMMA_CTX = 2048         # --max-context at which the DSE picks kv8 pages
+GEMMA_NEW = 24           # new tokens a request
+# the prompts: the 1100-token one wraps the 1040-token ring in prefill, the
+# 1030-token one in decode (1030 + 24 > 1040)
+GEMMA_PROMPT_LENS = (5, 17, 40, 60, 1030, 1100)
+# kv8 pages written through two kernels (B1 / B2 split their walks
+# differently, so the K/V they feed later layers differ in the last bits)
+# round some codes apart, so two sound runs may part at a near tie: the two
+# tokens' logprobs there within KV8_GAP_TOL (kv8's serving tolerance,
+# tests/test_torch_quant_server.py), served logprobs before it within
+# LOGPROB_TOL
+KV8_GAP_TOL = 1e-2
+
+
+def gemma_prompts(V):
+    import numpy as np
+    rng = np.random.default_rng(6)
+    return [rng.integers(0, V, n).tolist() for n in GEMMA_PROMPT_LENS]
+
+
+def gemma_params():
+    """Full-width gemma3-12b's random float32 weights on the card, seed 0
+    (what `KVNANDServer` draws when it is given none)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import Model
+    cfg = get_config("gemma3-12b")
+    check(cfg.n_layers == 48 and cfg.d_model == 3840 and cfg.n_heads == 16
+          and cfg.n_kv_heads == 8 and cfg.d_head == 256
+          and cfg.d_ff == 15360 and cfg.window == 1024
+          and cfg.global_every == 6 and cfg.vocab_size == 262144,
+          "not the full-width gemma3-12b")
+    t0 = time.perf_counter()
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    print(f"G1: {cfg.name} weights, {n / 1e9:.3f}B params ({4 * n / 1e9:.1f}"
+          f" GB float32), drawn on the card in {time.perf_counter() - t0:.2f}"
+          " s")
+    return cfg, params
+
+
+def gemma_engine_config(**over):
+    """The design-space search's pick at GEMMA_CTX (asserted: compact,
+    kv8) with `launch/serve.py --use-dse`'s overrides and `over`."""
+    from repro_torch.configs import EngineConfig
+    from repro_torch.core.dse import recommend_engine_config
+    pick = recommend_engine_config("gemma3-12b", GEMMA_CTX)
+    check(pick.variant == "compact" and pick.kv_quant == "kv8",
+          f"the DSE's gemma3-12b pick at {GEMMA_CTX} is not compact + kv8: "
+          f"{pick}")
+    return EngineConfig(**{**pick.__dict__, "page_tokens": 16,
+                           "uniform_lengths": False, "quant": "none",
+                           **over})
+
+
+def build_gemma_server(cfg, params, scheduler="interleaved",
+                       speculation_k=None, **over):
+    import torch
+    from repro_torch.serving.api import KVNANDServer, ServerConfig
+    eng = gemma_engine_config(**over)
+    srv = KVNANDServer(ServerConfig(
+        arch="gemma3-12b", engine=eng, scheduler=scheduler, batch_slots=4,
+        max_context=GEMMA_CTX, prefill_chunk_tokens=64, device="cuda",
+        speculation_k=speculation_k), cfg=cfg, params=params)
+    c = srv._batcher.cache
+    check(c.k_pages_w.dtype == torch.int8 and c.k_pages_g.dtype == torch.int8
+          and c.page_pos_w.shape[1] * 16 == ring_tokens(cfg),
+          "G1: the pools are not kv8 pages with the window's ring")
+    return srv
+
+
+def ring_tokens(cfg) -> int:
+    """Tokens a ring of 16-token pages holds: (ceil(window / 16) + 1) x
+    16, 1040 for gemma3-12b's window of 1024."""
+    return (-(-cfg.window // 16) + 1) * 16
+
+
+def window_kernel_phase(cfg) -> dict:
+    """B1, B2 and B4 at the shapes G1's main path gives them, held against
+    their plain versions before G1 serves: the decode step's ring (4
+    slots x 8 kv heads x 2 queries x dh 256, 65 pages of 16, the bases a
+    ring leaves after 28, 83, 1053 and 1123 tokens: rotated, -1e9 where
+    empty; window 1024) and global pool (128 pages) in kv8 and f32, B2's
+    through permuted tables of a larger pool; and the splice admit's
+    one-shot prefill (2047-token bucket, 16 heads / 8 kv x 256, f32) with
+    the local layers' window and without.  Returns each kernel's max
+    |o - plain o|."""
+    import torch
+    from repro_torch.core import paged_kv
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    lengths = (28, 83, 1053, 1123)
+    B, K, G, dh, T = len(lengths), cfg.n_kv_heads, cfg.group_size, \
+        cfg.d_head, 16
+    NPw = ring_tokens(cfg) // T
+    errs = {"B1": 0.0, "B2": 0.0, "B4": 0.0}
+    length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    ring = torch.stack([torch.as_tensor(paged_kv.window_page_positions(
+        n, NPw, T)) for n in lengths]).cuda()
+    for pool, NP, base, window in (
+            ("ring", NPw, ring, cfg.window),
+            ("global", GEMMA_CTX // T, None, None)):
+        if base is None:
+            base = (torch.arange(NP, dtype=torch.int32, device="cuda")
+                    * T)[None].repeat(B, 1)
+        for fmt in ("kv8", "f32"):
+            q, kp, vp, _, _, ks, vs = make_inputs(B, K, G, NP, T, dh, fmt,
+                                                  lengths, gen)
+            kvq = kv_quant_of(fmt)
+            kw = dict(window=window, kv_quant=kvq, k_scale=ks, v_scale=vs)
+            got = pa.paged_attention_partial(q, kp, vp, base, length, **kw)
+            want = pa.paged_attention_partial_ref(q, kp, vp, base, length,
+                                                  **kw)
+            errs["B1"] = max(errs["B1"], hold_case(
+                f"G1 kernels: B1 {pool} {fmt}", got, want, fmt))
+            P = B * NP + 7
+            perm = torch.randperm(P, generator=torch.Generator().manual_seed(
+                NP))[:B * NP]
+            table = perm.reshape(B, NP).to(torch.int32).cuda()
+
+            def scatter(x):
+                """The stripe pages [B, K, NP, ...] moved to the table's
+                physical pages of a shared pool [K, P, ...]."""
+                out = x.new_zeros((K, P) + x.shape[3:])
+                out[:, table.long()] = x.movedim(1, 0)
+                return out
+            sp = [None if a is None else scatter(a) for a in (kp, vp, ks, vs)]
+            got = pa.paged_attention_partial(
+                q, sp[0], sp[1], base, length, window=window, kv_quant=kvq,
+                k_scale=sp[2], v_scale=sp[3], page_table=table)
+            want = pa.paged_attention_shared_ref(
+                q, sp[0], sp[1], table, base, length, window=window,
+                kv_quant=kvq, k_scale=sp[2], v_scale=sp[3])
+            errs["B2"] = max(errs["B2"], hold_case(
+                f"G1 kernels: B2 {pool} {fmt}", got, want, fmt))
+    q, k, v = flash_inputs(1, 2047, 2047, cfg.n_heads, K, dh, torch.float32,
+                           gen)
+    for window in (cfg.window, None):
+        got = fa.flash_attention(q, k, v, causal=True, window=window)
+        want = fa.flash_attention_ref(q, k, v, causal=True, window=window)
+        err = close_err(got, want, FLASH_TOL["f32"])
+        abs_o = float((got - want).abs().max())
+        print(f"G1 kernels: B4 2047 tokens window {window}: max_abs_err "
+              f"{abs_o:.3e} rel_err={err:.3e} tol={FLASH_TOL['f32']:.0e}")
+        check(err <= FLASH_TOL["f32"], f"G1 kernels: B4 at window {window} "
+              "disagrees with its plain version")
+        errs["B4"] = max(errs["B4"], abs_o)
+    torch.cuda.synchronize()
+    return errs
+
+
+def window_golden_phase(cfg, params):
+    """G1 golden: the 1100-token prompt chunk by chunk (64 tokens) into an
+    f32 stripe pool, engine-level, wrapping its ring during prefill, then
+    8 greedy decode steps; the logits at every step against the port's
+    plain full forward on the card (kernel-free) over the prompt and the
+    emitted tokens, within GOLDEN_TOL of max |logits| (the reference's
+    tests/test_engine_golden.py), and the same argmax at every step."""
+    import torch
+    from repro_torch.configs import EngineConfig
+    from repro_torch.core.engine import KVNANDEngine
+    from repro_torch.kernels.paged_attention import launches
+    from repro_torch.models.registry import Model
+    t0 = time.perf_counter()
+    eng = KVNANDEngine(cfg, EngineConfig(page_tokens=16,
+                                         uniform_lengths=False,
+                                         kv_dtype="float32"), device="cuda")
+    prompt = gemma_prompts(cfg.vocab_size)[-1]
+    n, V = len(prompt), cfg.vocab_size
+    check(n > ring_tokens(cfg), "G1 golden: the prompt fits the ring")
+    cache = eng.init_cache(1, GEMMA_CTX)
+    with torch.no_grad():
+        for pos in range(0, n, 64):
+            cl = min(64, n - pos)
+            toks = torch.zeros((1, 64), dtype=torch.long, device="cuda")
+            toks[0, :cl] = torch.tensor(prompt[pos:pos + cl])
+            lg, _ = eng.prefill_chunk(params, cache, {"tokens": toks}, 0,
+                                      pos, cl, first=pos == 0)
+        rows, out = [lg[0, :V]], [int(lg[0, :V].argmax())]
+        launches.reset()
+        for _ in range(8):
+            lg, _ = eng.decode_step(params, cache, torch.tensor(
+                [[out[-1]]], device="cuda"))
+            rows.append(lg[0, :V])
+            out.append(int(lg[0, :V].argmax()))
+        b1 = launches.value
+        ring = cache.page_pos_w[0].tolist()
+        got = torch.stack(rows).float()
+        full = Model(cfg).forward(params, {"tokens": torch.tensor(
+            [prompt + out[:8]], device="cuda")})[0, n - 1:, :V].float()
+    torch.cuda.synchronize()
+    err = float((got - full).abs().max() / full.abs().max())
+    want = full.argmax(-1).tolist()
+    wall = time.perf_counter() - t0
+    print(f"G1 golden: 1100-token prompt in 64-token chunks + 8 decode "
+          f"steps, f32 stripe pool: max |logits - plain forward| / max "
+          f"|logits| = {err:.3e} (tol {GOLDEN_TOL:.0e}); argmax {out} vs "
+          f"{want}; ring bases after the steps {sorted(ring)[:3]}.."
+          f"{sorted(ring)[-2:]}; B1 launches {b1}; {wall:.3f} s")
+    check(b1 == 8 * cfg.n_layers, f"G1 golden: B1 launches {b1} != 8 x "
+          f"{cfg.n_layers}")
+    check(max(ring) >= ring_tokens(cfg) and min(ring) >= 0,
+          "G1 golden: the ring did not wrap")
+    check(err <= GOLDEN_TOL, "G1 golden: logits disagree with the plain "
+          "forward")
+    check(out == want, "G1 golden: a greedy token differs from the plain "
+          "forward's")
+    del eng, cache, full
+    torch.cuda.empty_cache()
+    return {"rel_err": err, "tokens": out, "launches_B1": b1,
+            "wall_s": wall}
+
+
+def near_tie_check(label, outs, ref_outs, gap_tol, lp_tol=LOGPROB_TOL):
+    """Two sound runs of the same prompts: equal tokens, or at a request's
+    first differing token a near tie (the two runs condition on the same
+    tokens there and the two tokens' logprobs lie within `gap_tol`);
+    served logprobs before it within `lp_tol`.  Returns (requests equal,
+    max |logprob difference| before a divergence, max gap at one)."""
+    _, same, rows = compare_runs(outs, ref_outs)
+    before = max(b for _, b, _ in rows)
+    gap = max((at for n, _, at in rows if n is not None), default=0.0)
+    for o, r, (n, _, at) in zip(outs, ref_outs, rows):
+        if n is not None:
+            print(f"check {label}: request {o.uid} differs at token {n}: "
+                  f"{o.token_ids[n]} vs {r.token_ids[n]}, logprob gap "
+                  f"{at:.3e}")
+    print(f"check {label}: {same} of {len(outs)} requests equal; max "
+          f"|logprob difference| before a divergence {before:.3e} (tol "
+          f"{lp_tol:.0e}); max gap at one {gap:.3e} (tol {gap_tol:.0e})")
+    check(before <= lp_tol and gap <= gap_tol,
+          f"{label}: the runs part where neither is a near tie")
+    return same, before, gap
+
+
+def window_phases() -> dict:
+    """Phase 16, G1 (see the module docstring)."""
+    import torch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = gemma_params()
+    L, K = cfg.n_layers, cfg.n_kv_heads
+    res = {"kernels": window_kernel_phase(cfg),
+           "golden": window_golden_phase(cfg, params)}
+    prompts = gemma_prompts(cfg.vocab_size)
+    runs = {}
+    for key, label, kw, kernel in (
+            ("stripe", "G1 stripe (DSE pick: compact, kv8)", {}, "B1"),
+            ("shared", "G1 shared", {"shared_pool": True}, "B2"),
+            ("splice", "G1 splice", {"scheduler": "splice"}, "B1")):
+        srv = build_gemma_server(cfg, params, **kw)
+        outs, counts, steps, wall, tokens = serve(label, srv, prompts,
+                                                  GEMMA_NEW)
+        admits = counts["admits"]
+        want = {k: 0 for k in ("B1", "B2", "B3", "B4", "B5")}
+        want[kernel] = steps * L
+        if key == "splice":
+            want["B4"] = admits * L
+        check(steps > 0 and counts == {**counts, **want},
+              f"{label}: launches {counts} != {want} ({steps} decode steps,"
+              f" {admits} admits x {L} layers)")
+        if key == "shared":
+            b = srv._batcher
+            b.alloc.check()
+            b.alloc_w.check()
+            check(b.alloc.live_count == 0 and b.alloc_w.live_count == 0,
+                  "G1 shared: pages still mapped after the drain")
+        final = [len(o.prompt) + len(o.token_ids) - 1 for o in outs]
+        print(f"{label}: final lengths {final} (a ring holds "
+              f"{ring_tokens(cfg)} tokens)")
+        runs[key] = outs
+        res[key] = {"launches": counts[kernel], "decode_steps": steps,
+                    "admits": admits, "launches_B4": counts["B4"],
+                    "wall_s": wall, "tokens": tokens,
+                    "final_lengths": final}
+        if key == "stripe":
+            lp, _ = teacher_forced_check("G1 stripe (kv8 pages)", srv, outs,
+                                         argmax=False, tol=QUANT_LOGPROB_TOL)
+            res[key]["logprob_err_vs_plain_forward"] = lp
+        del srv
+    check(res["stripe"]["final_lengths"][4] > ring_tokens(cfg)
+          > GEMMA_PROMPT_LENS[4], "G1: no request wrapped its ring during "
+          "decode")
+    # the splice run's one-shot prefill attends the prompt's float K/V
+    # through B4 where the chunked prefill's past partials read kv8 codes:
+    # the two differ by kv8's noise, bounded as Q1/Q2 bound theirs
+    for key, tols in (("shared", (KV8_GAP_TOL, LOGPROB_TOL)),
+                      ("splice", (QUANT_LOGPROB_TOL, QUANT_LOGPROB_TOL))):
+        same, before, gap = near_tie_check(f"G1 {key} vs stripe", runs[key],
+                                           runs["stripe"], *tols)
+        res[key].update(same_as_stripe=same, logprob_err=before,
+                        max_gap_at_divergence=gap)
+    disc = build_gemma_server(cfg, params, variant="discrete")
+    label = "G1 discrete (KVNAND-D over the ring, stripe)"
+    outs, counts, steps, wall, tokens = serve(label, disc, prompts,
+                                              GEMMA_NEW)
+    check(steps > 0 and counts["B1"] == steps * L * K
+          and all(counts[k] == 0 for k in ("B2", "B3", "B4", "B5")),
+          f"{label}: launches {counts} != (B1 decode steps {steps} x {L} x "
+          f"{K}, B2-B5 0)")
+    del disc
+    same, before, gap = near_tie_check("G1 discrete vs stripe", outs,
+                                       runs["stripe"], LOGIT_GAP_TOL)
+    res["discrete"] = {"launches": counts["B1"], "decode_steps": steps,
+                       "wall_s": wall, "tokens": tokens,
+                       "same_as_stripe": same, "logprob_err": before,
+                       "max_gap_at_divergence": gap}
+    spec = build_gemma_server(cfg, params, speculation_k=4)
+    st = spec.stats
+    label = "G1 speculative (speculation_k=4, stripe)"
+    outs, counts, steps, wall, tokens = serve(label, spec, prompts,
+                                              GEMMA_NEW)
+    same = sum(a.token_ids == b.token_ids
+               for a, b in zip(outs, runs["stripe"]))
+    lp_err, _, _ = compare_runs(outs, runs["stripe"])
+    print(f"{label}: {st['verify_steps']} verify steps, {steps} sequential "
+          f"decode steps, {st['spec_accepted']} of {st['spec_drafted']} "
+          f"drafts accepted; {same} of {len(prompts)} requests served the "
+          f"stripe run's tokens, max |logprob difference| {lp_err:.3e}")
+    check(st["verify_steps"] > 0 and counts["B1"] == steps * L
+          and all(counts[k] == 0 for k in ("B2", "B3", "B4", "B5")),
+          f"{label}: launches {counts} != (B1 decode steps {steps} x {L}, "
+          "B2-B5 0) or no verify step")
+    check(same == len(prompts), "G1 speculative: tokens differ from "
+          "sequential decode")
+    res["speculative"] = {"verify_steps": st["verify_steps"],
+                          "decode_steps": steps, "launches": counts["B1"],
+                          "wall_s": wall, "tokens": tokens,
+                          "spec_drafted": st["spec_drafted"],
+                          "spec_accepted": st["spec_accepted"],
+                          "same_as_stripe": same, "logprob_err": lp_err}
+    del spec, params
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    print(f"G1: peak memory {res['peak_memory_gb']:.2f} GB; walls (s): "
+          + ", ".join(f"{k} {v['wall_s']:.3f}" for k, v in res.items()
+                      if isinstance(v, dict) and "wall_s" in v)
+          + f"; on {smi_line()}")
+    return res
+
+
 def dse_phases(rate) -> dict:
     """Phases 13-15, in the order `--dse` runs them."""
     head = head_range_phase()
@@ -2549,7 +2929,8 @@ def main(argv) -> int:
     import torch
     if (argv not in ([], ["--paged"], ["--paged-timing"], ["--quant-servers"],
                      ["--wkv"], ["--wkv-timing"], ["--gemv"], ["--flash"],
-                     ["--flash-timing"], ["--dse"], ["--verify-ab"])
+                     ["--flash-timing"], ["--dse"], ["--verify-ab"],
+                     ["--window"])
             and not (len(argv) == 2
                      and argv[0] in ("--gemv-ab", "--flash-ab", "--wkv-ab"))):
         print(__doc__, file=sys.stderr)
@@ -2629,6 +3010,11 @@ def main(argv) -> int:
         print(card)
         print(json.dumps({"dse": dse}))
         return 0
+    if argv == ["--window"]:
+        g1 = window_phases()
+        print(card)
+        print(json.dumps({"window": g1}))
+        return 0
 
     if not quant_only:
         b1_err = kernel_phase()
@@ -2673,20 +3059,29 @@ def main(argv) -> int:
     d1, v1, head = dse["D1"], dse["V1"], dse["head_range"]
     b1_err = max(b1_err, head["B1"])
     b2_err = max(b2_err, head["B2"])
+    g1 = window_phases()
+    b1_err = max(b1_err, g1["kernels"]["B1"])
+    b2_err = max(b2_err, g1["kernels"]["B2"])
+    b4_err = max(b4_err, g1["kernels"]["B4"])
+    g1_b1 = sum(g1[k]["launches"] for k in ("stripe", "splice", "discrete",
+                                            "speculative"))
+    g1_b1 += g1["golden"]["launches_B1"]
     kernels = [
         kernel_entry("paged_attention", "src/repro_torch/csrc/"
                      "paged_attention.cu",
                      "src/repro/kernels/paged_attention/kernel.py:311",
                      stripe["launches"] + d1["launches_B1"]
-                     + v1["launches_B1"], b1_err,
+                     + v1["launches_B1"] + g1_b1, b1_err,
                      list(b1_shapes) + dse["group_timing"][:1],
-                     [stripe, {"D1": d1, "V1": v1}]),
+                     [stripe, {"D1": d1, "V1": v1, "G1": g1}]),
         kernel_entry("paged_attention_shared", "src/repro_torch/csrc/"
                      "paged_attention_shared.cu",
                      "src/repro/kernels/paged_attention/kernel.py:209",
-                     shared["launches"] + d1["shared_launches_B2"], b2_err,
+                     shared["launches"] + d1["shared_launches_B2"]
+                     + g1["shared"]["launches"], b2_err,
                      list(b2_shapes) + dse["group_timing"][1:],
-                     [shared, shared32, {"D1 shared": d1}]),
+                     [shared, shared32, {"D1 shared": d1,
+                                         "G1 shared": g1["shared"]}]),
         kernel_entry("quant_gemv", "src/repro_torch/csrc/quant_gemv.cu",
                      "src/repro/kernels/quant_gemv/kernel.py:68",
                      q1["launches"] + q2["launches"], b3_err, b3_shapes,
@@ -2699,7 +3094,8 @@ def main(argv) -> int:
         kernel_entry("flash_attention",
                      "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention/kernel.py:82",
-                     s1["launches"], b4_err, b4_shapes, s1) | {
+                     s1["launches"] + g1["splice"]["launches_B4"], b4_err,
+                     b4_shapes, [s1, {"G1 splice": g1["splice"]}]) | {
             "bound_cuda_core_ms": b4_shapes[0]["bound_cuda_core_ms"],
             "design": "f32 as 3xTF32 mma.sync (hi/lo split, f32-exact), "
                       "bf16 on bf16 mma.sync, cp.async K/V ring, each q "

@@ -19,6 +19,18 @@ shared pool (`EngineConfig.shared_pool`), where every slot walks its
 LOGICAL pages through its row of `page_table_g` — appends, fills and
 attention all go through the table, and logical page j's base is j·T.
 
+A sliding-window arch (gemma3) keeps its local layers in window rings
+beside the global pool (`paged_kv.layer_pools` maps a layer to its pool
+and its index there, the reference's `_g_off` / `_w_off`): a local
+layer's token lands in ring slot (t // T) % NPw, its attention reads the
+ring with `page_pos_w` as the page bases and the arch's window, and a
+fresh ring page's base is recorded before the layers run
+(`paged_kv.advance_ring_bases`), as the reference's decode step does.
+Prefills fill the ring's newest real pages and then set the slot's
+bases; a chunk's past partial reads the ring as it stood before the
+chunk, in each layer before that layer's fill overwrites the oldest
+slots the chunk's first queries still see.
+
 Two decode variants, as in the reference: compact (KVNAND-C) attends
 every head in one launch; discrete (KVNAND-D, `variant="discrete"` or
 `hg_pipeline`) walks the layer's kv heads one group at a time, issuing
@@ -54,8 +66,8 @@ read.  Quantized weights need no engine setting: the format travels with
 the params (`core.quant.quantize_params`), and `layers.dense` sends each
 2-D quantized weight through kernel B3; `EngineConfig.quant` is not read,
 as in the reference.  Not ported yet, and refused here: the tiered
-pool, window rings, the hybrid, MoE, VLM and encoder-decoder families
-and a device mesh.
+pool, the hybrid, MoE, VLM and encoder-decoder families and a device
+mesh.
 """
 from __future__ import annotations
 
@@ -93,6 +105,17 @@ class KVNANDEngine:
         # the reference's selection (`_decode_attn_layer`)
         self._discrete = (self.eng.variant == "discrete"
                           or self.eng.hg_pipeline)
+        # per layer: (in a window ring?, index in its pool)
+        self._pool_of = paged_kv.layer_pools(cfg)
+        parts = self.eng.attn_partitions
+        if (cfg.window is not None and cfg.family != "ssm" and parts
+                and paged_kv.ring_pages(cfg, self.eng.page_tokens) % parts):
+            # the reference raises at its first decode step instead
+            raise NotImplementedError(
+                f"{cfg.name}: attn_partitions={parts} does not divide the "
+                f"window ring's "
+                f"{paged_kv.ring_pages(cfg, self.eng.page_tokens)} pages "
+                "(ROADMAP A24, split-page partitions over window rings)")
 
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_context: int) -> DecodeCache:
@@ -115,24 +138,51 @@ class KVNANDEngine:
         return torch.zeros((B, NP), dtype=torch.int32,
                            device=table.device).scatter_(1, table.long(), vals)
 
+    def _layer_pool(self, cache: DecodeCache, layer: int):
+        """(ring, j, k, v, k_scale, v_scale): layer's pool group (the
+        window rings or the global pool), its index j there, and the
+        group's stacked leaves (scales None unless kv8/kv4)."""
+        ring, j = self._pool_of[layer]
+        sfx = "w" if ring else "g"
+        return (ring, j) + tuple(getattr(cache, f"{n}_{sfx}") for n in (
+            "k_pages", "v_pages", "k_scale", "v_scale"))
+
+    def _page_of(self, cache: DecodeCache, ring: bool,
+                 pos: torch.Tensor) -> torch.Tensor:
+        """Physical page of token positions pos [..., B] (int64): the
+        global pool's logical page through `page_table_g`, or the ring
+        slot (t // T) % NPw — on a shared pool through `page_table_w`."""
+        T = self.eng.page_tokens
+        pos = pos.long()
+        if ring:
+            slot = paged_kv.ring_slot(pos, T, cache.page_pos_w.shape[1])
+            if not self.eng.shared_pool:
+                return slot
+            table = cache.page_table_w
+        else:
+            table = cache.page_table_g
+            slot = (pos // T).clamp(max=table.shape[1] - 1)
+        flat = slot.reshape(-1, table.shape[0])
+        return torch.gather(table.long().t(), 0, flat).reshape(slot.shape)
+
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
-    def _attend_heads(self, q, kp, vp, base, lengths, table=None, ks=None,
-                      vs=None):
+    def _attend_heads(self, q, kp, vp, base, lengths, window=None,
+                      table=None, ks=None, vs=None):
         """All heads at once (KVNAND-C, the reference's `_attend_compact`):
         q [B, 1, H, dh] against the layer's already-appended pool slices
         kp/vp (a shared pool's through `table`; ks/vs their kv8/kv4
-        scales)."""
+        scales), over the last `window` tokens on a local layer."""
         o, _, _ = paged_attention_partial(
-            q[:, 0], kp, vp, base, lengths + 1,
+            q[:, 0], kp, vp, base, lengths + 1, window=window,
             kv_quant=self.eng.kv_quant if ks is not None else "none",
             k_scale=ks, v_scale=vs, page_table=table,
             partitions=self.eng.attn_partitions)
         return o
 
-    def _attend_groups(self, pl_, h, kp, vp, base, lengths, table=None,
-                       ks=None, vs=None):
+    def _attend_groups(self, pl_, h, kp, vp, base, lengths, window=None,
+                       table=None, ks=None, vs=None):
         """Head-group pipelined attention (KVNAND-D, the reference's
         `_attend_discrete`): group i's q projection and its attention over
         kv head i of the already-appended layer pool, in the reference's
@@ -151,20 +201,21 @@ class KVNANDEngine:
                                                i + 1, lengths)
                       if i + 1 < K else None)
             o, _, _ = paged_attention_partial(
-                q_cur, kp, vp, base, length, kv_quant=fmt, k_scale=ks,
-                v_scale=vs, page_table=table,
+                q_cur, kp, vp, base, length, window=window, kv_quant=fmt,
+                k_scale=ks, v_scale=vs, page_table=table,
                 partitions=self.eng.attn_partitions, kv_heads=(i, 1))
             outs.append(o)
             q_cur = q_next
         return torch.cat(outs, dim=1)
 
     def _decode_attention(self, pl_, x, cache: DecodeCache, layer: int,
-                           lengths, base, active, rows):
+                           lengths, base_g, active, rows):
         """One layer's decode attention (the reference's
-        `_decode_attn_layer`): append the token's K/V, attend, project
-        out.  Float stripe pools mask inactive rows with `active`; a shared
-        pool and the requantizing kv8/kv4 appends write only the active
-        `rows` (see `core/paged_kv.py`)."""
+        `_decode_attn_layer`): append the token's K/V into the layer's
+        pool (a local layer's ring slot, the global pool's page), attend,
+        project out.  Float stripe pools mask inactive rows with
+        `active`; a shared pool and the requantizing kv8/kv4 appends write
+        only the active `rows` (see `core/paged_kv.py`)."""
         cfg = self.cfg
         h = rms_norm(x, pl_["ln1"], cfg.norm_eps)
         # one projection serves the append (k, v) and the attention (q);
@@ -177,35 +228,41 @@ class KVNANDEngine:
         else:
             q, k_new, v_new = attn_mod.project_qkv(pl_["attn"], cfg, h,
                                                    lengths[:, None])
+        ring, j, kpool, vpool, kscale, vscale = self._layer_pool(cache,
+                                                                 layer)
         T = self.eng.page_tokens
-        NP = cache.page_table_g.shape[1]
-        logical = (lengths // T).long().clamp(max=NP - 1)
-        phys = torch.gather(cache.page_table_g, 1, logical[:, None])[:, 0]
+        phys = self._page_of(cache, ring, lengths)
         slot = lengths % T
         shared = self.eng.shared_pool
         fmt = self.eng.kv_quant
-        for pool, scale, new in ((cache.k_pages_g, cache.k_scale_g, k_new),
-                                 (cache.v_pages_g, cache.v_scale_g, v_new)):
+        for pool, scale, new in ((kpool, kscale, k_new),
+                                 (vpool, vscale, v_new)):
             if fmt != "none":
                 append = (paged_kv.append_token_quant_shared if shared
                           else paged_kv.append_token_quant)
-                append(pool, scale, layer, phys, slot, new[:, 0], fmt, rows)
+                append(pool, scale, j, phys, slot, new[:, 0], fmt, rows)
             elif shared:
-                paged_kv.append_global_shared(pool, layer, phys, slot,
+                paged_kv.append_global_shared(pool, j, phys, slot,
                                               new[:, 0], rows)
             else:
-                paged_kv.append_token_inplace(pool, layer, phys, slot,
+                paged_kv.append_token_inplace(pool, j, phys, slot,
                                               new[:, 0], active)
-        table = cache.page_table_g if shared else None
+        if ring:
+            base, window = cache.page_pos_w, cfg.window
+            table = cache.page_table_w if shared else None
+        else:
+            base, window = base_g, None
+            table = cache.page_table_g if shared else None
         ks = vs = None
         if fmt != "none":
-            ks, vs = cache.k_scale_g[layer], cache.v_scale_g[layer]
-        kp, vp = cache.k_pages_g[layer], cache.v_pages_g[layer]
+            ks, vs = kscale[j], vscale[j]
+        kp, vp = kpool[j], vpool[j]
         if self._discrete:
-            o = self._attend_groups(pl_, h, kp, vp, base, lengths, table, ks,
-                                    vs)
+            o = self._attend_groups(pl_, h, kp, vp, base, lengths, window,
+                                    table, ks, vs)
         else:
-            o = self._attend_heads(q, kp, vp, base, lengths, table, ks, vs)
+            o = self._attend_heads(q, kp, vp, base, lengths, window, table,
+                                   ks, vs)
         return attn_mod.project_out(pl_["attn"], cfg, o[:, None])
 
     def decode_step(self, params, cache: DecodeCache, tokens: torch.Tensor,
@@ -213,8 +270,9 @@ class KVNANDEngine:
         """tokens: [B, 1] -> (logits [B, V], cache updated in place).
 
         active: optional [B] bool mask — inactive slots (empty, or mid
-        chunked prefill) get no KV append and no length advance; their
-        logits are computed and ignored by the caller."""
+        chunked prefill) get no KV append, no ring-base refresh and no
+        length advance; their logits are computed and ignored by the
+        caller."""
         cfg = self.cfg
         if active is not None and self.eng.uniform_lengths:
             raise ValueError("active-mask decode requires the ragged "
@@ -232,10 +290,17 @@ class KVNANDEngine:
 
     def _attention_decode_layers(self, params, x, cache: DecodeCache,
                                  active):
-        """decode_step's layer loop over the paged pool."""
+        """decode_step's layer loop over the paged pool and rings."""
         cfg = self.cfg
         lengths = cache.lengths
-        base = self._page_bases(cache.page_table_g)
+        base_g = (self._page_bases(cache.page_table_g)
+                  if cache.page_table_g is not None else None)
+        if cache.page_pos_w is not None:
+            # a token that opens a ring page gives that slot its new base
+            # before any local layer attends (the reference's
+            # `_page_pos_w_new`)
+            paged_kv.advance_ring_bases(cache.page_pos_w, lengths,
+                                        self.eng.page_tokens, active)
         # the writing rows of a shared pool or a requantizing append, read
         # once per step (on a card this is one device-to-host sync)
         row_writers = self.eng.shared_pool or self.eng.kv_quant != "none"
@@ -244,7 +309,7 @@ class KVNANDEngine:
         for i in range(cfg.n_layers):
             pl_ = layer_slice(params["layers"], i)
             x = x + self._decode_attention(pl_, x, cache, i, lengths,
-                                            base, active, rows)
+                                            base_g, active, rows)
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
             x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
         return x
@@ -285,10 +350,6 @@ class KVNANDEngine:
             raise ValueError(
                 f"{cfg.family}: speculative verification cannot roll back "
                 "carried recurrent state; decode sequentially")
-        if cfg.window is not None:
-            raise NotImplementedError(
-                "speculative verify over window rings is not ported yet "
-                "(ROADMAP A10, window rings)")
         if self.eng.uniform_lengths:
             raise ValueError("verify_step requires the ragged "
                              "(uniform_lengths=False) append path: slots "
@@ -299,8 +360,8 @@ class KVNANDEngine:
         shared = self.eng.shared_pool
         fmt = self.eng.kv_quant
         scale = cfg.d_head ** -0.5
-        base = self._page_bases(cache.page_table_g)
-        table = cache.page_table_g if shared else None
+        base_g = (self._page_bases(cache.page_table_g)
+                  if cache.page_table_g is not None else None)
         rel = torch.arange(S, device=dev)
         positions = lengths[:, None] + rel[None].to(lengths.dtype)
         x = embed_lookup(params["embedding"], tokens, self.rt.activ_dtype)
@@ -309,22 +370,28 @@ class KVNANDEngine:
             pl_ = layer_slice(params["layers"], i)
             h = rms_norm(x, pl_["ln1"], cfg.norm_eps)
             q, k, v = attn_mod.project_qkv(pl_["attn"], cfg, h, positions)
-            kp, vp, ks, vs = (None if a is None else a[i] for a in (
-                cache.k_pages_g, cache.v_pages_g, cache.k_scale_g,
-                cache.v_scale_g))
+            ring, j, *pool = self._layer_pool(cache, i)
+            kp, vp, ks, vs = (None if a is None else a[j] for a in pool)
+            # a local layer sees the last `window` tokens, in the span
+            # (relative positions) and in its ring, whose bases are the
+            # ones before this step
+            window = cfg.window if ring else None
+            base = cache.page_pos_w if ring else base_g
+            table = cache.page_table_w if ring else cache.page_table_g
             if fmt == "none":
                 kv_dt = getattr(torch, self.eng.kv_dtype)
                 o, m, l = seqpar._attn_block_partial(
                     (q.float() * scale).to(kv_dt), k.to(kv_dt), v.to(kv_dt),
-                    rel, 0, causal=True, window=None, scale=1.0)
+                    rel, 0, causal=True, window=window, scale=1.0)
                 o2, m2, l2 = paged_chunk_attention(
-                    q, kp, vp, base, lengths, positions, kv_quant=fmt,
-                    page_table=table, partitions=self.eng.attn_partitions)
+                    q, kp, vp, base, lengths, positions, window=window,
+                    kv_quant=fmt, page_table=table if shared else None,
+                    partitions=self.eng.attn_partitions)
                 o, m, l = seqpar.merge_two(o, m, l, o2, m2, l2)
             else:
                 o, m, l = self._span_quant_attention(
-                    q, k, v, kp, vp, ks, vs, base, cache.page_table_g,
-                    lengths, positions)
+                    cache, ring, q, k, v, kp, vp, ks, vs, base,
+                    table if shared else None, lengths, positions, window)
             x = x + attn_mod.project_out(pl_["attn"], cfg, o.to(h.dtype))
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
             x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
@@ -338,11 +405,19 @@ class KVNANDEngine:
         if active is not None:
             n_write = torch.where(active, n_write, torch.zeros_like(n_write))
         self._append_kept_span(cache, span_k, span_v, n_write)
+        if cache.page_pos_w is not None:
+            # ring bases advance only for pages a KEPT token opened,
+            # position by position as sequential decode would
+            for s_ in range(S):
+                paged_kv.advance_ring_bases(cache.page_pos_w, lengths + s_,
+                                            self.eng.page_tokens,
+                                            n_write > s_)
         cache.lengths += n_write
         return aux, cache
 
-    def _span_quant_attention(self, q, k, v, kp, vp, ks, vs, base,
-                              page_table, lengths, positions):
+    def _span_quant_attention(self, cache: DecodeCache, ring: bool, q, k, v,
+                              kp, vp, ks, vs, base, table, lengths,
+                              positions, window):
         """The span's attention over a kv8/kv4 pool with the values
         sequential decode would read: keys before the page holding each
         row's first span position come from the pool (the past partial,
@@ -352,20 +427,21 @@ class KVNANDEngine:
         by log-sum-exp.  (The reference attends the span's own K/V in full
         precision here, which can differ from sequential decode by the
         format's quantization noise and so flip a near-tie; this keeps
-        speculative tokens equal to sequential ones.)"""
+        speculative tokens equal to sequential ones.)  On a ring the page
+        holding the first position may be a recycled one: a chain that
+        starts at its token 0 zeroes the previous occupant, as the
+        append does."""
         T = self.eng.page_tokens
         fmt = self.eng.kv_quant
-        shared = self.eng.shared_pool
         B, S = q.shape[:2]
         slot0 = lengths % T
         first = lengths - slot0
         past = paged_chunk_attention(
-            q, kp, vp, base, first, positions, kv_quant=fmt, k_scale=ks,
-            v_scale=vs, page_table=page_table if shared else None,
+            q, kp, vp, base, first, positions, window=window, kv_quant=fmt,
+            k_scale=ks, v_scale=vs, page_table=table,
             partitions=self.eng.attn_partitions)
-        logical = (lengths // T).long().clamp(max=page_table.shape[1] - 1)
-        phys0 = torch.gather(page_table.long(), 1, logical[:, None])[:, 0]
-        if shared:
+        phys0 = self._page_of(cache, ring, lengths)
+        if self.eng.shared_pool:
             k0, v0 = kp[:, phys0].transpose(0, 1), vp[:, phys0].transpose(0, 1)
             ks0, vs0 = ks[:, phys0].t(), vs[:, phys0].t()
         else:
@@ -379,15 +455,16 @@ class KVNANDEngine:
             n, device=q.device, dtype=first.dtype)[None] * T).to(torch.int32)
         parts = [paged_chunk_attention_ref(
             q[:, j:j + 1], kc[j], vc[j], page_base, lengths + j + 1,
-            positions[:, j:j + 1], kv_quant=fmt, k_scale=ksc[j],
-            v_scale=vsc[j]) for j in range(S)]
+            positions[:, j:j + 1], window=window, kv_quant=fmt,
+            k_scale=ksc[j], v_scale=vsc[j]) for j in range(S)]
         span = [torch.cat(x, dim=1) for x in zip(*parts)]
         return seqpar.merge_two(*past, *span)
 
     def _append_kept_span(self, cache: DecodeCache, span_k, span_v,
                           n_write: torch.Tensor):
         """Append span positions s < n_write[b] of each row b, every
-        layer (the reference's gated `append_body`).  The kept rows of
+        layer (the reference's gated `append_body`), into the global
+        pool's pages or a local layer's ring slots.  The kept rows of
         each position are read to the host once (one device-to-host sync
         a verify step) and every writer takes them as its row subset."""
         T = self.eng.page_tokens
@@ -398,26 +475,26 @@ class KVNANDEngine:
                 for s in range(int(keep.max(initial=0)))]
         if not rows:
             return
-        table = cache.page_table_g
         pos = (cache.lengths[None, :].long()
                + torch.arange(S, device=dev)[:, None])         # [S, B]
-        logical = (pos // T).clamp(max=table.shape[1] - 1)
-        phys = torch.gather(table.long().t(), 0, logical)       # [S, B]
+        phys = {ring: self._page_of(cache, ring, pos)
+                for ring in {r for r, _ in self._pool_of}}
         slot = pos % T
         shared = self.eng.shared_pool
         fmt = self.eng.kv_quant
         for i, (k, v) in enumerate(zip(span_k, span_v)):
-            for pool, sc, val in ((cache.k_pages_g, cache.k_scale_g, k),
-                                  (cache.v_pages_g, cache.v_scale_g, v)):
+            ring, j, kpool, vpool, kscale, vscale = self._layer_pool(cache, i)
+            for pool, sc, val in ((kpool, kscale, k), (vpool, vscale, v)):
                 if fmt != "none":
                     append = (paged_kv.append_span_quant_shared if shared
                               else paged_kv.append_span_quant)
-                    append(pool, sc, i, phys, slot, val, fmt, rows)
+                    append(pool, sc, j, phys[ring], slot, val, fmt, rows)
                 elif shared:
-                    paged_kv.append_span_shared(pool, i, phys, slot, val,
-                                                rows)
+                    paged_kv.append_span_shared(pool, j, phys[ring], slot,
+                                                val, rows)
                 else:
-                    paged_kv.append_span(pool, i, phys, slot, val, rows)
+                    paged_kv.append_span(pool, j, phys[ring], slot, val,
+                                         rows)
 
     # ------------------------------------------------------------------
     # RWKV6: recurrent state in place of a pool
@@ -458,11 +535,11 @@ class KVNANDEngine:
         S + 1) tokens per row holding the prompts' K/V).
 
         prompt_len: the count of real tokens (the same for every row)
-        when the trailing tokens are bucket padding: `lengths` and the
-        logits then come from the true last token, while the padding's
-        K/V are written to the pages past it like any other token, as
-        in the reference (masked by `lengths`, overwritten by decode
-        appends).  An RWKV6 model takes exact-length prompts only (the
+        when the trailing tokens are bucket padding: `lengths`, the ring
+        bases and the logits then come from the true last token; the
+        padding's K/V are written to the global pool's pages past it like
+        any other token, as in the reference (masked by `lengths`,
+        overwritten by decode appends), and never to a ring.  An RWKV6 model takes exact-length prompts only (the
         padding would fold into its recurrent state), as in the reference;
         its refusal of a tiered pool is made at construction here."""
         cfg, rt = self.cfg, self.rt
@@ -478,23 +555,33 @@ class KVNANDEngine:
                                        fresh=True)
             cache.lengths.fill_(S)
             return lm_head_logits(params, cfg, x[:, -1:])[:, 0], cache
-        table = cache.page_table_g if self.eng.shared_pool else None
+        shared = self.eng.shared_pool
         fmt = self.eng.kv_quant
+        n = S if prompt_len is None else prompt_len
         for i in range(cfg.n_layers):
             pl_ = layer_slice(params["layers"], i)
             h = rms_norm(x, pl_["ln1"], cfg.norm_eps)
             q, k, v = attn_mod.project_qkv(pl_["attn"], cfg, h, positions)
-            o = attn_mod.sharded_flash_attention(q, k, v, causal=True,
-                                                 impl=rt.attn_impl)
+            ring, j, kpool, vpool, kscale, vscale = self._layer_pool(cache, i)
+            o = attn_mod.sharded_flash_attention(
+                q, k, v, causal=True, window=cfg.window if ring else None,
+                impl=rt.attn_impl)
             x = x + attn_mod.project_out(pl_["attn"], cfg, o)
-            for pool, sc, kv in ((cache.k_pages_g, cache.k_scale_g, k),
-                                 (cache.v_pages_g, cache.v_scale_g, v)):
-                paged_kv.fill_layer(pool, kv, i, table=table, scale=sc,
-                                    kv_quant=fmt)
+            table = None
+            if shared:
+                table = cache.page_table_w if ring else cache.page_table_g
+            # a ring keeps the newest pages of the n real tokens, so
+            # bucket padding never evicts a live page
+            for pool, sc, kv in ((kpool, kscale, k), (vpool, vscale, v)):
+                paged_kv.fill_layer(pool, kv, j, ring=ring,
+                                    true_len=n if ring else None,
+                                    table=table, scale=sc, kv_quant=fmt)
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
             x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
-        n = S if prompt_len is None else prompt_len
         cache.lengths.fill_(n)
+        if cache.page_pos_w is not None:
+            paged_kv.write_ring_bases(cache.page_pos_w, slice(None), n,
+                                      self.eng.page_tokens)
         return lm_head_logits(params, cfg, x[:, n - 1:n])[:, 0], cache
 
     # ------------------------------------------------------------------
@@ -534,7 +621,7 @@ class KVNANDEngine:
     def _attention_chunk_layers(self, params, x, cache: DecodeCache,
                                 slot: int, start: int, chunk_len: int,
                                 first: bool):
-        """prefill_chunk's layer loop over the paged pool."""
+        """prefill_chunk's layer loop over the paged pool and rings."""
         cfg = self.cfg
         S = x.shape[1]
         q_pos = start + torch.arange(S, device=x.device)
@@ -542,40 +629,59 @@ class KVNANDEngine:
         page0 = start // self.eng.page_tokens
         shared = self.eng.shared_pool
         fmt = self.eng.kv_quant
-        trow = cache.page_table_g[slot]     # the slot's row (shared pool)
-        base = self._page_bases(cache.page_table_g[slot:slot + 1])
         scale = cfg.d_head ** -0.5
+        # the slot's table rows (shared pool) and page bases; a ring's
+        # bases are read as they stood before this chunk (they are
+        # rewritten after the layers), and chunk 0 reads none
+        trow = {False: None, True: None}
+        base = {False: None, True: None}
+        if cache.page_table_g is not None:
+            trow[False] = cache.page_table_g[slot]
+            base[False] = self._page_bases(cache.page_table_g[slot:slot + 1])
+        if cache.page_pos_w is not None:
+            base[True] = cache.page_pos_w[slot:slot + 1]
+            if shared:
+                trow[True] = cache.page_table_w[slot]
         for i in range(cfg.n_layers):
             pl_ = layer_slice(params["layers"], i)
             h = rms_norm(x, pl_["ln1"], cfg.norm_eps)
             q, k, v = attn_mod.project_qkv(pl_["attn"], cfg, h, positions)
+            ring, j, *pool = self._layer_pool(cache, i)
+            window = cfg.window if ring else None
             # in-chunk causal partial over the chunk's own full-precision K/V
             o, m, l = seqpar._attn_block_partial(
-                q, k, v, q_pos, start, causal=True, window=None, scale=scale)
+                q, k, v, q_pos, start, causal=True, window=window,
+                scale=scale)
             if not first:
-                # past-context partial from the slot's already-written pages
+                # past-context partial from the slot's already-written
+                # pages, read before this layer's fill below overwrites a
+                # ring's oldest slots
                 kp, vp, ks, vs = (
-                    None if a is None else a[i] if shared
-                    else a[i, slot:slot + 1]
-                    for a in (cache.k_pages_g, cache.v_pages_g,
-                              cache.k_scale_g, cache.v_scale_g))
+                    None if a is None else a[j] if shared
+                    else a[j, slot:slot + 1] for a in pool)
                 o2, m2, l2 = paged_chunk_attention(
-                    q, kp, vp, base, start, q_pos, kv_quant=fmt, k_scale=ks,
-                    v_scale=vs,
-                    page_table=trow[None] if shared else None,
+                    q, kp, vp, base[ring], start, q_pos, window=window,
+                    kv_quant=fmt, k_scale=ks, v_scale=vs,
+                    page_table=trow[ring][None] if shared else None,
                     partitions=self.eng.attn_partitions)
                 o, m, l = seqpar.merge_two(o, m, l, o2, m2, l2)
             x = x + attn_mod.project_out(pl_["attn"], cfg, o.to(h.dtype))
-            for pool, sc, kv in ((cache.k_pages_g, cache.k_scale_g, k),
-                                 (cache.v_pages_g, cache.v_scale_g, v)):
+            kpool, vpool, kscale, vscale = pool
+            for pl, sc, kv in ((kpool, kscale, k), (vpool, vscale, v)):
                 if shared:
-                    paged_kv.fill_chunk_global_at_shared(
-                        pool, kv, i, trow, page0, chunk_len, scale=sc,
-                        kv_quant=fmt)
+                    fill = (paged_kv.fill_chunk_window_at_shared if ring
+                            else paged_kv.fill_chunk_global_at_shared)
+                    fill(pl, kv, j, trow[ring], page0, chunk_len, scale=sc,
+                         kv_quant=fmt)
                 else:
-                    paged_kv.fill_chunk_global_at(
-                        pool, kv, i, slot, page0, chunk_len, scale=sc,
-                        kv_quant=fmt)
+                    fill = (paged_kv.fill_chunk_window_at if ring
+                            else paged_kv.fill_chunk_global_at)
+                    fill(pl, kv, j, slot, page0, chunk_len, scale=sc,
+                         kv_quant=fmt)
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
             x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
+        if cache.page_pos_w is not None:
+            paged_kv.write_ring_bases(cache.page_pos_w, slot,
+                                      start + chunk_len,
+                                      self.eng.page_tokens)
         return x

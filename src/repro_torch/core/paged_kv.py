@@ -4,15 +4,27 @@ stripe layout and the shared pool.
 Layouts are (layer, head)-major as in the reference:
 
     stripe (default)                     shared pool (shared_pool=True)
-    k/v_pages_g: [L, B, K, NP, T, dh]    k/v_pages_g: [L, K, P, T, dh]
+    k/v_pages_g: [Lg, B, K, NP, T, dh]   k/v_pages_g: [Lg, K, P, T, dh]
     page_table_g: [B, NP] identity       page_table_g: [B, NP] -> [0, P)
+    k/v_pages_w: [Lw, B, K, NPw, T, dh]  k/v_pages_w: [Lw, K, Pw, T, dh]
+    (no window table)                    page_table_w: [B, NPw] -> [0, Pw)
+    page_pos_w: [B, NPw]                 page_pos_w: [B, NPw]
     lengths: [B]                         lengths: [B]
 
-L layers, B slots, K kv heads, NP = ceil(max_context / T) logical pages
-per slot, T page_tokens, P = total_pages or B·NP physical pages.  In the
-stripe layout each slot owns a private stripe; in the shared pool every
-slot reaches its pages through its table row, whose entries the host
-allocator (`core/page_alloc.py`, driven by the scheduler) hands out.
+Lg global-span layers and Lw sliding-window layers (`layer_pattern`;
+every layer is global unless the arch has a window), B slots, K kv heads,
+NP = ceil(max_context / T) logical pages per slot, T page_tokens, P =
+total_pages or B·NP physical pages.  In the stripe layout each slot owns
+a private stripe; in the shared pool every slot reaches its pages
+through its table row, whose entries the host allocator
+(`core/page_alloc.py`, driven by the scheduler) hands out.
+
+A window layer keeps only its newest tokens, in a RING of NPw =
+ceil(window / T) + 1 pages a slot: the token at position t lands in ring
+slot (t // T) % NPw, recycling the slot of the page that fell out of the
+window.  `page_pos_w` holds each ring slot's base position (-1e9 while
+empty), so the attention masks by data alone; the shared pool reaches a
+ring slot's physical page through `page_table_w`.
 
 In place, not threaded: the reference threads pools through `lax.scan`
 as donated carries and gets new arrays back; here the pool tensors are
@@ -65,13 +77,21 @@ requantizing chain, and a rejected draft never reaches a page.
 `span_page_chain` computes that chain's page states beside the pool, so
 the verify forward reads the values sequential decode would read.
 
-Not ported yet: window rings and tier staging (ROADMAP A10, A12).
+The ring writers: the one-token appends take the ring slot as their
+page (`ring_slots`), `advance_ring_bases` records a fresh page's base,
+`fill_layer(ring=True)` and `fill_chunk_window_at*` keep each ring slot's
+newest real page (only pages holding real tokens are written, so bucket
+padding never evicts a live page), and `write_ring_bases` stores a
+slot's row of bases after a fill (`window_page_positions`).
+
+Not ported yet: tier staging (ROADMAP A12).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import EngineConfig, ModelConfig
@@ -82,16 +102,64 @@ def ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
+RING_EMPTY = -(10 ** 9)      # page_pos_w of a ring slot never written
+
+
+def layer_pattern(cfg: ModelConfig) -> Tuple[int, Tuple[bool, ...]]:
+    """(period, pattern), pattern[i] True when layer i is global: the
+    smallest repeating local/global period."""
+    flags = tuple(cfg.is_global_layer(i) for i in range(cfg.n_layers))
+    for p in range(1, cfg.n_layers + 1):
+        if cfg.n_layers % p:
+            continue
+        if all(flags[i] == flags[i % p] for i in range(cfg.n_layers)):
+            return p, flags[:p]
+    return cfg.n_layers, flags
+
+
+def _n_layers_split(cfg: ModelConfig) -> Tuple[int, int]:
+    """(Lg, Lw): the global and the sliding-window layer counts."""
+    n_global = sum(cfg.is_global_layer(i) for i in range(cfg.n_layers))
+    return n_global, cfg.n_layers - n_global
+
+
+def layer_pools(cfg: ModelConfig):
+    """Per layer, (ring, index): whether it lives in the window pool and
+    its index there (the reference's per-period `_g_off` / `_w_off`
+    unrolled over the layers)."""
+    out, g, w = [], 0, 0
+    for i in range(cfg.n_layers):
+        if cfg.is_global_layer(i):
+            out.append((False, g))
+            g += 1
+        else:
+            out.append((True, w))
+            w += 1
+    return out
+
+
+def ring_pages(cfg: ModelConfig, page_tokens: int) -> int:
+    """NPw: ring pages a slot, ceil(window / T) + 1."""
+    return ceil_div(cfg.window, page_tokens) + 1
+
+
 @dataclass
 class DecodeCache:
-    """Decode state: the global-span layers' pool (stripe or shared), or
-    an RWKV6 model's recurrent state."""
-    k_pages_g: Optional[torch.Tensor] = None    # [L, B, K, NP, T, dh] or
-    v_pages_g: Optional[torch.Tensor] = None    # shared [L, K, P, T, dh]
+    """Decode state: the global-span layers' pool (stripe or shared), the
+    sliding-window layers' rings, or an RWKV6 model's recurrent state."""
+    k_pages_g: Optional[torch.Tensor] = None    # [Lg, B, K, NP, T, dh] or
+    v_pages_g: Optional[torch.Tensor] = None    # shared [Lg, K, P, T, dh]
     page_table_g: Optional[torch.Tensor] = None  # [B, NP] logical -> physical
+    # sliding-window layers: ring-recycled pages
+    k_pages_w: Optional[torch.Tensor] = None    # [Lw, B, K, NPw, T, dh] or
+    v_pages_w: Optional[torch.Tensor] = None    # shared [Lw, K, Pw, T, dh]
+    page_table_w: Optional[torch.Tensor] = None  # shared: [B, NPw] -> phys
+    page_pos_w: Optional[torch.Tensor] = None   # [B, NPw] base position
     # per-page × kv-head dequant scales (kv8/kv4 pools only)
-    k_scale_g: Optional[torch.Tensor] = None    # [L, B, K, NP] float32 or
-    v_scale_g: Optional[torch.Tensor] = None    # shared [L, K, P]
+    k_scale_g: Optional[torch.Tensor] = None    # [Lg, B, K, NP] float32 or
+    v_scale_g: Optional[torch.Tensor] = None    # shared [Lg, K, P]
+    k_scale_w: Optional[torch.Tensor] = None    # [Lw, B, K, NPw] or
+    v_scale_w: Optional[torch.Tensor] = None    # shared [Lw, K, Pw]
     # recurrent state (ssm)
     rwkv_state: Optional[torch.Tensor] = None   # [L, B, H, dh, dh] float32
     rwkv_shift: Optional[torch.Tensor] = None   # [L, B, D] time-mix shift
@@ -110,14 +178,15 @@ def check_supported(eng: EngineConfig) -> None:
 def init_cache(cfg: ModelConfig, eng: EngineConfig, batch: int,
                max_context: int, *, dtype=torch.bfloat16,
                device="cuda") -> DecodeCache:
-    """Zeroed pools (and kv8/kv4 scales), zero lengths.  Stripe: NP =
-    ceil(max_context / T) pages per slot, identity tables.  Shared: one
-    pool of P = total_pages or B·NP pages, tables of identity stripes mod
-    P (slot b's logical page j on physical page (b·NP + j) mod P — the
-    allocator-free default; the scheduler overwrites the tables from its
-    allocator).  `dtype` is the pool's dtype when kv_quant is "none", and
-    the shifts' dtype of an RWKV6 cache, which has no pool (zero states
-    and shifts instead)."""
+    """Zeroed pools (and kv8/kv4 scales), zero lengths.  Global pool:
+    NP = ceil(max_context / T) pages per slot; window rings: NPw pages a
+    slot, every base RING_EMPTY.  Stripe tables are identities; shared:
+    one pool of P = total_pages or B·NP pages (window: total_pages_w or
+    B·NPw), tables of identity stripes mod P (slot b's logical page j on
+    physical page (b·NP + j) mod P — the allocator-free default; the
+    scheduler overwrites the tables from its allocator).  `dtype` is the
+    pool's dtype when kv_quant is "none", and the shifts' dtype of an
+    RWKV6 cache, which has no pool (zero states and shifts instead)."""
     check_supported(eng)
     T = eng.page_tokens
     K, dh, L = cfg.n_kv_heads, cfg.d_head, cfg.n_layers
@@ -131,33 +200,48 @@ def init_cache(cfg: ModelConfig, eng: EngineConfig, batch: int,
             rwkv_shift2=torch.zeros((L, batch, D), dtype=dtype,
                                     device=device),
             lengths=lengths)
-    NP = eng.max_pages_per_seq or ceil_div(max_context, T)
     fmt = eng.kv_quant
-    if fmt != "none":
+    quantized = fmt != "none"
+    if quantized:
         Ts, dtype = (quant.kv_page_tokens_stored(T, fmt),
                      quant.kv_storage_dtype(fmt))
     else:
         Ts = T
-    logical = torch.arange(NP, dtype=torch.int32, device=device)
-    if eng.shared_pool:
-        P = eng.total_pages or batch * NP
-        pool, scales = (L, K, P, Ts, dh), (L, K, P)
-        rows = torch.arange(batch, dtype=torch.int32, device=device)
-        table = (rows[:, None] * NP + logical[None]) % P
-    else:
-        pool, scales = (L, batch, K, NP, Ts, dh), (L, batch, K, NP)
-        table = logical[None].expand(batch, NP).contiguous()
 
     def zeros(shape, dt):
         return torch.zeros(shape, dtype=dt, device=device)
 
-    quantized = fmt != "none"
-    return DecodeCache(
-        k_pages_g=zeros(pool, dtype), v_pages_g=zeros(pool, dtype),
-        page_table_g=table,
-        k_scale_g=zeros(scales, torch.float32) if quantized else None,
-        v_scale_g=zeros(scales, torch.float32) if quantized else None,
-        lengths=lengths)
+    def pool_leaves(Lp: int, NP: int, P: int):
+        """(k, v, table, k_scale, v_scale) of one layer group."""
+        logical = torch.arange(NP, dtype=torch.int32, device=device)
+        if eng.shared_pool:
+            pool, scales = (Lp, K, P, Ts, dh), (Lp, K, P)
+            rows = torch.arange(batch, dtype=torch.int32, device=device)
+            table = (rows[:, None] * NP + logical[None]) % P
+        else:
+            pool, scales = (Lp, batch, K, NP, Ts, dh), (Lp, batch, K, NP)
+            table = logical[None].expand(batch, NP).contiguous()
+        sc = (lambda: zeros(scales, torch.float32)) if quantized else (
+            lambda: None)
+        return zeros(pool, dtype), zeros(pool, dtype), table, sc(), sc()
+
+    Lg, Lw = _n_layers_split(cfg)
+    leaves = {}
+    if Lg:
+        NP = eng.max_pages_per_seq or ceil_div(max_context, T)
+        (leaves["k_pages_g"], leaves["v_pages_g"], leaves["page_table_g"],
+         leaves["k_scale_g"], leaves["v_scale_g"]) = pool_leaves(
+            Lg, NP, eng.total_pages or batch * NP)
+    if Lw:
+        NPw = ring_pages(cfg, T)
+        (leaves["k_pages_w"], leaves["v_pages_w"], table_w,
+         leaves["k_scale_w"], leaves["v_scale_w"]) = pool_leaves(
+            Lw, NPw, eng.total_pages_w or batch * NPw)
+        if eng.shared_pool:        # a stripe ring is addressed directly
+            leaves["page_table_w"] = table_w
+        leaves["page_pos_w"] = torch.full((batch, NPw), RING_EMPTY,
+                                          dtype=torch.int32, device=device)
+    return DecodeCache(lengths=lengths, **leaves)
 
 
 # ---------------------------------------------------------------------------
@@ -278,26 +362,172 @@ def fill_chunk_global_at(pool: torch.Tensor, kv_chunk: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Window rings: ring slots, base positions and the ring fills
+# ---------------------------------------------------------------------------
+#
+# A window layer's token at position t lives in ring slot (t // T) % NPw
+# (the stripe's page index; a shared pool's through `page_table_w`).  The
+# one-token appends above take that slot as their page: on a kv8/kv4 pool
+# the requantizing append of a recycled page's first token zeroes every
+# later token before it quantizes, so the previous occupant's tail and
+# scale are gone with it.
+
+def ring_slot(positions: torch.Tensor, page_tokens: int,
+              ring: int) -> torch.Tensor:
+    """Ring slot of each token position: (t // T) % NPw."""
+    return (positions // page_tokens) % ring
+
+
+def advance_ring_bases(page_pos: torch.Tensor, positions: torch.Tensor,
+                       page_tokens: int,
+                       write: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Record the base of every ring page a token append opens, in
+    place: row b's ring slot of positions[b] takes base positions[b]
+    when that token is the page's first (positions[b] % T == 0) and
+    `write[b]` (None: every row) — the reference's fresh-page rule.
+    page_pos: [B, NPw]; positions: [B]."""
+    B, NPw = page_pos.shape
+    b_idx = torch.arange(B, device=page_pos.device)
+    pos = positions.to(page_pos.dtype)
+    r = ring_slot(pos, page_tokens, NPw).long()
+    fresh = pos % page_tokens == 0
+    if write is not None:
+        fresh = fresh & write
+    page_pos[b_idx, r] = torch.where(fresh, pos, page_pos[b_idx, r])
+    return page_pos
+
+
+def window_page_positions(S: int, NP: int, T: int) -> np.ndarray:
+    """Ring base positions after the first S tokens were written
+    (RING_EMPTY = never written): slot sp % NP holds source page sp for
+    the newest NP pages."""
+    vals = np.full((NP,), RING_EMPTY, np.int64)
+    n_src = ceil_div(S, T)
+    for sp in range(max(0, n_src - NP), n_src):
+        vals[sp % NP] = sp * T
+    return vals.astype(np.int32)
+
+
+def window_page_positions_dyn(true_len: torch.Tensor, NP: int,
+                              T: int) -> torch.Tensor:
+    """`window_page_positions` for a length held in a tensor: ring slot j
+    holds source page m - ((m - j) mod NP), m = n_src - 1 (negative:
+    never written)."""
+    true_len = torch.as_tensor(true_len, dtype=torch.int32)
+    n_src = (true_len + T - 1) // T
+    m = n_src - 1
+    j = torch.arange(NP, dtype=torch.int32, device=true_len.device)
+    sp = m - torch.remainder(m - j, NP)
+    return torch.where((sp >= 0) & (n_src > 0), sp * T,
+                       torch.full_like(sp, RING_EMPTY)).to(torch.int32)
+
+
+def write_ring_bases(page_pos: torch.Tensor, rows, length: int,
+                     page_tokens: int) -> torch.Tensor:
+    """Set the ring bases of batch rows `rows` (a slice or an index) to
+    what a fill of their first `length` tokens leaves, in place."""
+    vals = window_page_positions(length, page_pos.shape[1], page_tokens)
+    page_pos[rows] = torch.as_tensor(vals, device=page_pos.device)
+    return page_pos
+
+
+def _ring_pages(kv_seq: torch.Tensor, T: int, NP: int, valid_len: int,
+                kv_quant: str):
+    """The newest <= NP source pages of kv_seq [B, S, K, dh] that hold
+    real tokens (the first `valid_len`): (first source page lo, pages
+    [B, K, n, Ts, dh], scales [B, K, n] or None).  Older real pages
+    would only be overwritten in the ring, and pages of padding alone
+    are never written, so no padding page evicts a live one; the last
+    page keeps its padding tokens, as the reference's pages do."""
+    n_w = min(ceil_div(valid_len, T), ceil_div(kv_seq.shape[1], T))
+    lo = max(0, n_w - NP)
+    x = _paged_from_seq(kv_seq[:, lo * T:n_w * T], T)
+    if kv_quant == "none":
+        return lo, x, None
+    return (lo,) + quant.quantize_kv_page(x, kv_quant)
+
+
+def fill_chunk_window_at(pool: torch.Tensor, kv_chunk: torch.Tensor,
+                         layer: int, slot: int, page0: int,
+                         valid_len: int, *,
+                         scale: Optional[torch.Tensor] = None,
+                         kv_quant: str = "none") -> torch.Tensor:
+    """Ring variant of `fill_chunk_global_at` for a stripe window pool
+    [Lw, B, K, NPw, Ts, dh]: chunk page page0 + sp lands in ring slot
+    (page0 + sp) % NPw.  Only pages holding real tokens are written, and
+    of those the newest NPw (the reference writes them in ascending
+    order, so each ring slot keeps its newest real occupant).  Base
+    positions are written by the engine (`write_ring_bases`)."""
+    NP = pool.shape[3]
+    T = pool.shape[4] * (2 if kv_quant == "kv4" else 1)
+    lo, x, s = _ring_pages(kv_chunk, T, NP, valid_len, kv_quant)
+    if x.shape[2]:
+        r = (page0 + lo + torch.arange(x.shape[2], device=pool.device)) % NP
+        pool[layer, slot][:, r] = x[0].to(pool.dtype)
+        if s is not None:
+            scale[layer, slot][:, r] = s[0]
+    return pool
+
+
+def fill_chunk_window_at_shared(pool: torch.Tensor, kv_chunk: torch.Tensor,
+                                layer: int, table_row: torch.Tensor,
+                                page0: int, valid_len: int, *,
+                                scale: Optional[torch.Tensor] = None,
+                                kv_quant: str = "none") -> torch.Tensor:
+    """Shared-pool ring chunk fill: ring slot (page0 + sp) % NPw resolves
+    through `table_row` [NPw] (the slot's row of `page_table_w`)."""
+    NP = table_row.shape[0]
+    T = pool.shape[3] * (2 if kv_quant == "kv4" else 1)
+    lo, x, s = _ring_pages(kv_chunk, T, NP, valid_len, kv_quant)
+    if x.shape[2]:
+        r = (page0 + lo + torch.arange(x.shape[2], device=pool.device)) % NP
+        phys = table_row[r].long()
+        pool[layer][:, phys] = x[0].to(pool.dtype)
+        if s is not None:
+            scale[layer][:, phys] = s[0]
+    return pool
+
+
+# ---------------------------------------------------------------------------
 # One-shot prefill fill and the splice of a prefilled slot
 # ---------------------------------------------------------------------------
 
 def fill_layer(pool: torch.Tensor, kv_seq: torch.Tensor, layer: int, *,
-               ring: bool = False, table: Optional[torch.Tensor] = None,
+               ring: bool = False, true_len: Optional[int] = None,
+               table: Optional[torch.Tensor] = None,
                scale: Optional[torch.Tensor] = None,
                kv_quant: str = "none") -> torch.Tensor:
     """One-shot prefill fill of ONE layer for every batch row, in place.
 
-    kv_seq: [B, S, K, dh], all S tokens written (bucket padding too; the
-    reference reads a true length only for window rings).  Stripe pool
-    [L, B, K, NP, Ts, dh]: row b's pages 0..ceil(S/T) of its stripe.
-    Shared pool [L, K, P, Ts, dh] with `table` [B, NP]: row b's logical
-    page j on physical page table[b, j].  A kv8/kv4 pool quantizes whole
-    pages and writes their scales into `scale` beside."""
-    if ring:
-        raise NotImplementedError(
-            "window-ring prefill fills are not ported yet (ROADMAP A10, "
-            "window rings)")
+    kv_seq: [B, S, K, dh].  Global pool (ring=False): all S tokens are
+    written (bucket padding too, as in the reference: masked by
+    `lengths`, overwritten by decode appends) — stripe [L, B, K, NP, Ts,
+    dh]: row b's pages 0..ceil(S/T) of its stripe; shared [L, K, P, Ts,
+    dh] with `table` [B, NP]: row b's logical page j on physical page
+    table[b, j].  Window ring (ring=True): source page sp lands in ring
+    slot sp % NPw, of the pages holding real tokens (the first
+    `true_len`, or all S) only the newest NPw, so bucket padding never
+    evicts a live page (the reference's `_fill_ring_dyn`); a shared ring
+    resolves its slots through `table` [B, NPw].  A kv8/kv4 pool
+    quantizes whole pages and writes their scales into `scale` beside."""
     T = pool.shape[-2] * (2 if kv_quant == "kv4" else 1)
+    if ring:
+        NP = table.shape[1] if table is not None else pool.shape[3]
+        S = kv_seq.shape[1]
+        lo, x, s = _ring_pages(kv_seq, T, NP, S if true_len is None
+                               else true_len, kv_quant)
+        n = x.shape[2]
+        r = (lo + torch.arange(n, device=pool.device)) % NP
+        if table is None:
+            pool[layer][:, :, r] = x.to(pool.dtype)
+            if s is not None:
+                scale[layer][:, :, r] = s
+            return pool
+        phys = table[:, r].long()                   # [B, n]
+        pool[layer][:, phys] = x.transpose(0, 1).to(pool.dtype)
+        if s is not None:
+            scale[layer][:, phys] = s.transpose(0, 1)
+        return pool
     x = _paged_from_seq(kv_seq, T)                  # [B, K, n, T, dh]
     s = None
     if kv_quant != "none":
@@ -317,20 +547,24 @@ def fill_layer(pool: torch.Tensor, kv_seq: torch.Tensor, layer: int, *,
 
 
 # leaves whose batch axis leads; every other leaf is [L, B, ...]
-_BATCH_AXIS0 = ("page_table_g", "lengths")
+_BATCH_AXIS0 = ("page_table_g", "page_table_w", "page_pos_w", "lengths")
 
 
 def splice_slot(cache: DecodeCache, one: DecodeCache, i: int) -> DecodeCache:
     """Copy sequence 0 of a B=1 cache into slot i of the batch cache, in
-    place: the slot's stripe of every pool, its kv8/kv4 scales, its table
-    row, its recurrent state and shifts, and its length.  Stripe layout
-    only (a shared pool has no per-slot stripe to copy)."""
-    if cache.k_pages_g is not None and cache.k_pages_g.ndim != 6:
+    place: the slot's stripe of every pool and ring, its kv8/kv4 scales,
+    its table row and ring bases, its recurrent state and shifts, and
+    its length.  Stripe layout only (a shared pool has no per-slot stripe
+    to copy)."""
+    pool = cache.k_pages_g if cache.k_pages_g is not None else \
+        cache.k_pages_w
+    if pool is not None and pool.ndim != 6:
         raise ValueError("splice_slot copies per-slot stripes; a shared "
                          "pool has none")
     for name in ("k_pages_g", "v_pages_g", "k_scale_g", "v_scale_g",
-                 "page_table_g", "rwkv_state", "rwkv_shift", "rwkv_shift2",
-                 "lengths"):
+                 "page_table_g", "k_pages_w", "v_pages_w", "k_scale_w",
+                 "v_scale_w", "page_pos_w", "rwkv_state", "rwkv_shift",
+                 "rwkv_shift2", "lengths"):
         cur, new = getattr(cache, name), getattr(one, name)
         if cur is None:
             continue

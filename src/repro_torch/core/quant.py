@@ -53,11 +53,11 @@ def quantize_kv_page(x: torch.Tensor, fmt: str):
     xf = x.float()
     amax = xf.abs().amax(dim=(-2, -1))
     if fmt == "kv8":
-        scale = amax.clamp_min(1e-8) / 127.0
+        scale = amax.clamp_min(1e-8) * (1.0 / 127.0)
         q = torch.clamp(torch.round(xf / scale[..., None, None]),
                         -127, 127).to(torch.int8)
     elif fmt == "kv4":
-        scale = amax.clamp_min(1e-8) / 7.0
+        scale = amax.clamp_min(1e-8) * (1.0 / 7.0)
         q = torch.clamp(torch.round(xf / scale[..., None, None]),
                         -7, 7).to(torch.int8) + 8
         q = pack_int4_tokens(q)

@@ -9,7 +9,10 @@ for the kernel.
 The reference hands `is_global` (a traced window switch) and a traced
 `q_offset` to its jnp path.  Here the plain version takes them on the
 CPU; the kernel does not, and a CUDA call with either raises rather than
-quietly taking the plain path (sliding-window archs are ROADMAP A10).
+quietly taking the plain path.  The port's callers loop over layers in
+Python and pass each layer's window as an int (None on a global layer),
+so a sliding-window arch's one-shot prefill runs the kernel on every
+layer.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if is_global is not None or isinstance(q_offset, torch.Tensor):
         raise NotImplementedError(
             "flash_attention: a per-layer window switch (is_global) or a "
-            "tensor q_offset has no kernel path yet (ROADMAP A10, window "
-            "rings)")
+            "tensor q_offset has no kernel path; pass the layer's window "
+            "(None on a global layer) and an int q_offset")
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset)

@@ -8,6 +8,8 @@ TTFT/TPOT reporting.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --use-dse --max-context 128
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
+      --use-dse --max-context 2048
   PYTHONPATH=src python -m repro_torch.launch.serve --speculation-k 2
 
 Takes the reference's flags for what the port serves.  `--use-dse` takes

@@ -3,9 +3,12 @@
 time-mix + channel-mix blocks (`models/rwkv6.py`).
 
 Layers are stacked (leading layer axis on every per-layer leaf, as in the
-reference) and run by a Python loop in place of `lax.scan`.  The hybrid,
-MoE, VLM and encoder-decoder families and sliding-window archs are not
-ported yet (ROADMAP A10, A15) and raise.
+reference) and run by a Python loop in place of `lax.scan`.  A
+sliding-window arch (gemma3's 5:1 local:global mix) attends over
+`cfg.window` tokens on its local layers and over the whole context on
+its global ones: the loop passes the window per layer where the
+reference scans a traced `is_global` flag.  The hybrid, MoE, VLM and
+encoder-decoder families are not ported yet (ROADMAP A15) and raise.
 """
 from __future__ import annotations
 
@@ -34,10 +37,12 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
             "(ROADMAP A15, other families)")
-    if cfg.window is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window layers are not ported yet "
-            "(ROADMAP A10, window rings)")
+
+
+def layer_window(cfg: ModelConfig, layer: int):
+    """The attention window of `layer`: cfg.window on a local layer, None
+    (the whole context) on a global one."""
+    return None if cfg.is_global_layer(layer) else cfg.window
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator,
@@ -105,6 +110,7 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         else:
             h = rms_norm(x, pl_["ln1"], cfg.norm_eps)
             x = x + attn_mod.attention_train(pl_["attn"], cfg, h, impl="ref",
+                                             window=layer_window(cfg, i),
                                              positions=positions)
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
             x = x + mlp(pl_["mlp"], h, cfg.gated_mlp, impl="ref")

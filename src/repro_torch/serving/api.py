@@ -28,11 +28,12 @@ head-group pipeline, ``EngineConfig(variant="discrete")``), and
 draft-and-verify step with the same output tokens (``None`` takes
 ``EngineConfig.speculation_k``, 0 decodes sequentially; a request caps or
 opts out with `SamplingParams.speculation`; `RequestOutput` carries its
-acceptance counts).  Configurations the port does not serve yet raise
-NotImplementedError at construction, naming their ROADMAP item: the
-overlapped pipeline, and (through the engine) tiered pools
-(``hot_pages``), window archs and the hybrid, MoE, VLM and
-encoder-decoder families.
+acceptance counts).  Sliding-window archs (``arch="gemma3-12b"``) are
+served on every path, their local layers from window rings.
+Configurations the port does not serve yet raise NotImplementedError at
+construction, naming their ROADMAP item: the overlapped pipeline, and
+(through the engine) tiered pools (``hot_pages``) and the hybrid, MoE,
+VLM and encoder-decoder families.
 """
 from __future__ import annotations
 
@@ -321,6 +322,11 @@ class KVNANDServer:
             first_token_time=req.first_ts, finish_time=req.finish_ts,
             spec_steps=req.spec_steps, spec_drafted=req.spec_drafted,
             spec_accepted=req.spec_accepted)
+
+    def outputs(self) -> List[RequestOutput]:
+        """Every finished, unreleased request, in uid order."""
+        return [self.output(u) for u in sorted(self._requests)
+                if self._requests[u].done]
 
     def release(self, uid: int) -> None:
         """Drop a FINISHED request's host bookkeeping."""

@@ -35,7 +35,11 @@ reference:
     that then appends into it); a prefix hit maps the physical page, so
     its scales come with it;
   * completion drops the slot's references; pages the prefix cache still
-    names survive until LRU eviction reclaims them under pressure.
+    names survive until LRU eviction reclaims them under pressure;
+  * a window arch's rings draw from a second allocator: a slot's ring
+    pages (at most NPw) are allocated whole at admission, reached through
+    `page_table_w`, recycled in place and freed at completion; no prefix
+    cache is kept, since a ring rewrites its pages.
 
 An RWKV6 (`ssm`) model carries recurrent state, which padding would
 pollute: its prompt is prefilled as ONE exact-length chunk (whatever
@@ -59,7 +63,8 @@ decode step.
 `step()` is the reference's synchronous schedule (dispatch, then
 collect, back to back).  `SpliceBatcher` is the reference's measured
 baseline: each admit prefills the whole (bucketed) prompt in one shot
-(`engine.prefill`) and splices the one-row cache into its slot.  Not
+(`engine.prefill`, a ring filled from the true length) and splices the
+one-row cache into its slot.  Not
 ported yet, and refused at construction: the tiered pool and the
 overlapped dispatch/collect pipeline (ROADMAP).
 """
@@ -200,45 +205,57 @@ class ContinuousBatcher:
                       "spec_accepted": 0}
         self.shared = eng.shared_pool
         self.alloc: Optional[PageAllocator] = None
+        self.alloc_w: Optional[PageAllocator] = None     # window rings
         self.prefix_cache: Optional[PrefixCache] = None
         if self.shared:
             self._start_shared_pool()
 
     # -- shared-pool bookkeeping (allocator, tables, prefix cache) -----
     def _start_shared_pool(self):
-        """The reference's `_init_shared_pool`, without the tier and
-        window-ring branches (not ported): an allocator over the pool's
-        pages, zeroed host tables, per-slot maps and the prefix cache
-        (for a global-pool dense arch, which is what prefix sharing
-        needs).  An RWKV6 cache has no pool: no allocator, no tables, no
-        prefix cache."""
+        """The reference's `_init_shared_pool`, without the tier branch
+        (not ported): an allocator over the global pool's pages and one
+        over the window rings' pages, zeroed host tables, per-slot maps,
+        and the prefix cache — for a global-pool-only dense arch, which
+        is what prefix sharing needs (a ring recycles its pages in place,
+        so a window arch shares none).  An RWKV6 cache has no pool: no
+        allocator, no tables, no prefix cache."""
         c = self.cache
         self._table_np = None
+        self._table_w_np = None
         if c.k_pages_g is not None:
             self._NPg = c.page_table_g.shape[1]
             self.alloc = PageAllocator(c.k_pages_g.shape[2])
             self._table_np = np.zeros((self.B, self._NPg), np.int32)
             self.stats["pool_total_pages"] = self.alloc.total
+        if c.k_pages_w is not None:
+            self._NPw = c.page_table_w.shape[1]
+            self.alloc_w = PageAllocator(c.k_pages_w.shape[2])
+            self._table_w_np = np.zeros((self.B, self._NPw), np.int32)
         # per-slot maps: logical page -> physical; shared = mapped with
-        # refcount > 1 (read-only until copied on write)
+        # refcount > 1 (read-only until copied on write); ring pages are
+        # owned outright
         self._slot_pages: List[Dict[int, int]] = [{} for _ in range(self.B)]
         self._slot_shared: List[Set[int]] = [set() for _ in range(self.B)]
+        self._slot_ring: List[List[int]] = [[] for _ in range(self.B)]
         self._resv = np.zeros(self.B, np.int64)   # reserved, not yet alloc'd
         self._outstanding = 0
-        if self.alloc is not None:
+        if self.alloc is not None and self.alloc_w is None:
             self.prefix_cache = PrefixCache(self.alloc,
                                             self.engine.eng.page_tokens)
         self._tables_dirty = True
         self._push_tables()
 
     def _push_tables(self):
-        """Mirror the host page tables into the device table, only when a
+        """Mirror the host page tables into the device tables, only when a
         mapping changed (a blocking copy: see `paged_kv.write_page_table`)."""
         if not self._tables_dirty:
             return
         if self._table_np is not None:
             paged_kv.write_page_table(self.cache.page_table_g,
                                       self._table_np)
+        if self._table_w_np is not None:
+            paged_kv.write_page_table(self.cache.page_table_w,
+                                      self._table_w_np)
         self._tables_dirty = False
 
     def _alloc_g(self, logical: int) -> int:
@@ -295,8 +312,11 @@ class ContinuousBatcher:
             return
         if self.alloc is not None and self._slot_pages[i]:
             self.alloc.free(list(self._slot_pages[i].values()))
+        if self.alloc_w is not None and self._slot_ring[i]:
+            self.alloc_w.free(self._slot_ring[i])
         self._slot_pages[i] = {}
         self._slot_shared[i] = set()
+        self._slot_ring[i] = []
         self._outstanding -= int(self._resv[i])
         self._resv[i] = 0
 
@@ -505,6 +525,11 @@ class ContinuousBatcher:
         n = len(req.prompt)
         T = self.engine.eng.page_tokens
         need = self._pages_needed(req) if self.alloc is not None else 0
+        # a window ring is allocated whole at admission: the pages its
+        # positions can reach, at most NPw (bounded, recycled in place)
+        need_w = 0
+        if self.alloc_w is not None:
+            need_w = min(self._pages_needed(req), self._NPw)
         hit = CacheHit()
         if self.prefix_cache is not None:
             hit = self.prefix_cache.lookup(req.prompt)
@@ -525,12 +550,20 @@ class ContinuousBatcher:
                                   else len(hit.full_pages))
             if resv_needed > avail:
                 return False
+        if self.alloc_w is not None and need_w > self.alloc_w.free_count:
+            return False
 
         self.queue.remove(req)
         self.slots[i] = req
         self._set_slot_params(i, req)
         self.stats["admits"] += 1
         self.stats["prompt_pages"] += -(-n // T)
+        if self.alloc_w is not None:
+            for j in range(need_w):
+                p = self.alloc_w.alloc_for_logical(j)
+                self._slot_ring[i].append(p)
+                self._table_w_np[i, j] = p
+            self._tables_dirty = self._tables_dirty or need_w > 0
         if hit.exact is not None:
             # whole-prompt repeat: map EVERY page (the trailing partial
             # one too) read-only and skip prefill; the first decode

@@ -46,6 +46,12 @@ state within them.  Repeated launches give the same bits.
 
 The reduced qwen1.5-0.5b splice server (head dim 32, which B4 pads inside
 shared memory) serves the CPU server's greedy tokens on the card.
+
+Window rings: B1 and B2 over ring pages, whose bases rotate with the
+ring and hold -1e9 where a slot is empty, at every cluster size and
+partition count, against the plain versions; B4 at gemma3-12b's head
+shape over a window; the reduced gemma3-12b servers (stripe, shared,
+splice, discrete, speculative) serve the CPU servers' greedy tokens.
 """
 import itertools
 
@@ -1127,3 +1133,144 @@ def test_reduced_discrete_spec_server_serves_the_cpu_tokens(cuda_device,
     want = [o.token_ids for o in outs["cpu", 0]]
     for key, got in outs.items():
         assert [o.token_ids for o in got] == want, key
+
+
+# ---------------------------------------------------------------------------
+# window rings
+# ---------------------------------------------------------------------------
+
+RING_NP, RING_WINDOW = 9, 128          # ceil(128 / 16) + 1 ring pages
+# a row short of one page, one that fills 3 ring pages, one wrapped once
+# in the middle of a page, one wrapped twice on a page boundary
+RING_LENGTHS = (9, 40, 200, 305)
+
+
+def _ring_inputs(layout, fmt, dh, dev, seed):
+    """Ring pages with the bases a ring leaves after each row's length
+    (`window_page_positions`: rotated, RING_EMPTY where never written);
+    shared: the ring slots reach a permuted larger pool."""
+    from repro_torch.core import paged_kv
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B_, G = len(RING_LENGTHS), 2
+    q = torch.randn(B_, 4 * G, dh, generator=gen, device=dev)
+    P_tot = B_ * RING_NP + 5
+    shape = ((B_, 4, RING_NP, T, dh) if layout == "stripe"
+             else (4, P_tot, T, dh))
+    kd = torch.randn(shape, generator=gen, device=dev)
+    vd = torch.randn(shape, generator=gen, device=dev)
+    base = torch.stack([torch.as_tensor(paged_kv.window_page_positions(
+        n, RING_NP, T)) for n in RING_LENGTHS]).to(dev)
+    table = None
+    if layout == "shared":
+        perm = torch.randperm(P_tot, generator=torch.Generator()
+                              .manual_seed(seed))[:B_ * RING_NP]
+        table = perm.reshape(B_, RING_NP).to(torch.int32).to(dev)
+    length = torch.tensor(RING_LENGTHS, dtype=torch.int32, device=dev)
+    if fmt in ("kv8", "kv4"):
+        kp, ks = quantize_kv_page(kd, fmt)
+        vp, vs = quantize_kv_page(vd, fmt)
+        return q, kp, vp, table, base, length, ks, vs, fmt
+    dt = torch.float32 if fmt == "f32" else torch.bfloat16
+    return q, kd.to(dt), vd.to(dt), table, base, length, None, None, "none"
+
+
+@pytest.mark.parametrize("layout,fmt,dh,split,partitions", list(
+    itertools.product(("stripe", "shared"), ("f32", "bf16", "kv8", "kv4"),
+                      (64, 256), tpa.SPLITS, (1, 3))))
+def test_ring_bases_match_plain_version(cuda_device, layout, fmt, dh, split,
+                                        partitions):
+    """The walk covers all NPw ring slots whatever their bases' order,
+    skips the empty ones, and masks by the window: each partition's
+    merged partial equals the plain version's over the same ring, and a
+    partition holding no live page is the empty partial."""
+    q, kp, vp, table, base, length, ks, vs, kvq = _ring_inputs(
+        layout, fmt, dh, cuda_device, seed=dh + split)
+    B_, H, _ = q.shape
+    q4 = q.reshape(B_, 4, H // 4, dh).contiguous()
+    kw = dict(window=RING_WINDOW, kv_quant=kvq, k_scale=ks, v_scale=vs,
+              partitions=partitions, split=split)
+    npp = RING_NP // partitions
+    if layout == "stripe":
+        o, m, l = tpa.paged_attention_cuda(q4, kp, vp, base, length, **kw)
+    else:
+        o, m, l = tpa.paged_attention_shared_cuda(q4, kp, vp, table, base,
+                                                  length, **kw)
+    torch.cuda.synchronize()
+    for p in range(partitions):
+        sl = slice(p * npp, (p + 1) * npp)
+        if layout == "stripe":
+            want = tpa.paged_attention_partial_ref(
+                q, kp[:, :, sl], vp[:, :, sl], base[:, sl], length,
+                window=RING_WINDOW, kv_quant=kvq,
+                k_scale=None if ks is None else ks[:, :, sl],
+                v_scale=None if vs is None else vs[:, :, sl])
+        else:
+            want = tpa.paged_attention_shared_ref(
+                q, kp, vp, table[:, sl].contiguous(), base[:, sl], length,
+                window=RING_WINDOW, kv_quant=kvq, k_scale=ks, v_scale=vs)
+        got = (o[:, :, p].reshape(B_, H, dh), m[:, :, p].reshape(B_, H),
+               l[:, :, p].reshape(B_, H))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=TOL[fmt], rtol=TOL[fmt])
+        live = ((base[:, sl] >= 0) & (base[:, sl] + T - 1
+                                      > length[:, None] - 1 - RING_WINDOW))
+        for b in range(B_):
+            if not live[b].any():
+                assert torch.all(l[b, :, p] == 0)
+                assert torch.all(m[b, :, p] == -1e30)
+    # row 0's 9 tokens sit in ring slot 0 alone
+    assert (base[0] >= 0).sum() == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 1024, 100])
+def test_flash_attention_at_the_gemma3_head_shape(cuda_device, dtype,
+                                                  window):
+    """B4 at gemma3-12b's heads (16 x 256, 8 kv heads) over a 2047-token
+    bucket (1100 real tokens: the splice scheduler's admit) with the
+    local layers' window, against the plain version."""
+    q, k, v = _flash_inputs(1, 2047, 2047, 16, 8, 256, dtype, cuda_device)
+    got = tfa.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    want = tfa.flash_attention_ref(q, k, v, causal=True, window=window)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", ["stripe", "shared", "splice", "discrete",
+                                  "spec"])
+def test_reduced_window_server_serves_the_cpu_tokens(cuda_device, case):
+    """Reduced gemma3-12b (a local layer over a 64-token window, then a
+    global one) with kv8 pages on the card: the greedy tokens of the same
+    server on the CPU, prompts wrapping the 80-token ring in prefill and
+    in decode, B1 / B2 / B4 launched where the path takes them."""
+    from repro_torch.configs import EngineConfig, get_config
+    from repro_torch.models.registry import Model
+    from repro_torch.serving.api import (KVNANDServer, SamplingParams,
+                                         ServerConfig)
+    cfg = get_config("gemma3-12b").reduced()
+    params = Model(cfg).init(torch.Generator().manual_seed(0))
+    prompts = [[(7 * i + 3 * j) % 500 + 1 for j in range(n)]
+               for i, n in enumerate((5, 70, 90, 23))]
+    eng = dict(page_tokens=16, uniform_lengths=False, kv_quant="kv8",
+               shared_pool=case == "shared",
+               variant="discrete" if case == "discrete" else "compact")
+    counters = (tpa.launches, tpa.launches_shared, tfa.launches)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        for c in counters:
+            c.reset()
+        srv = KVNANDServer(ServerConfig(
+            arch="gemma3-12b", reduced=True, batch_slots=2,
+            max_context=128, device=dev, engine=EngineConfig(**eng),
+            scheduler="splice" if case == "splice" else "interleaved",
+            speculation_k=3 if case == "spec" else 0),
+            params=params if dev == "cpu" else _tree_to(params, dev))
+        outs[dev] = srv.generate(prompts, SamplingParams(max_new_tokens=16))
+    torch.cuda.synchronize()
+    b1, b2, b4 = (c.value for c in counters)
+    assert (b2 > 0 and b1 == 0) if case == "shared" else (b1 > 0 and b2 == 0)
+    assert (b4 == srv.stats["admits"] * cfg.n_layers) if case == "splice" \
+        else b4 == 0
+    for c, g in zip(outs["cpu"], outs["cuda"]):
+        assert g.token_ids == c.token_ids and len(g.token_ids) == 16

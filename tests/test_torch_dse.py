@@ -129,11 +129,43 @@ def test_launch_serve_use_dse_serves_the_discrete_pick(capsys):
     assert "3 requests, 12 tokens" in text
 
 
-def test_launch_serve_use_dse_refuses_a_pick_it_cannot_serve(capsys):
-    """gemma3-12b's pick (compact) needs window rings: exit 2 naming the
-    item that ports them."""
+@pytest.mark.parametrize("ctx,kv_quant", [(256, "none"), (2048, "kv8")])
+@pytest.mark.parametrize("pool", [[], ["--shared-pool"]],
+                         ids=["stripe", "shared"])
+def test_launch_serve_use_dse_serves_gemma3(ctx, kv_quant, pool, capsys):
+    """gemma3-12b's pick: compact, with kv8 pages from 2048 tokens of
+    context (twice its window of 1024), served over window rings."""
+    outs = serve(["--arch", "gemma3-12b", "--use-dse", "--max-context",
+                  str(ctx), "--reduced", "--device", "cpu", "--requests",
+                  "3", "--max-new", "4", "--slots", "2"] + pool)
+    assert sorted(outs) == [0, 1, 2]
+    assert all(len(o.token_ids) == 4 and o.finish_reason == "length"
+               for o in outs.values())
+    text = capsys.readouterr().out
+    assert (f"[serve] DSE picked variant=compact kv_quant={kv_quant}"
+            in text)
+    assert "3 requests, 12 tokens" in text
+
+
+def test_launch_serve_use_dse_refuses_partitions_over_a_ring(capsys):
+    """From 8192 tokens of context the pick splits the page walk 4 ways,
+    which does not divide gemma3-12b's ring (5 pages reduced, 65 at full
+    width): exit 2 naming the item, where the reference raises at its
+    first decode step."""
+    assert dse.recommend_engine_config(
+        "gemma3-12b", 8192).attn_partitions == 4
     with pytest.raises(SystemExit) as exc:
-        serve(["--arch", "gemma3-12b", "--use-dse", "--reduced", "--device",
+        serve(["--arch", "gemma3-12b", "--use-dse", "--max-context", "8192",
+               "--reduced", "--device", "cpu"])
+    assert exc.value.code == 2
+    assert "ROADMAP A24" in capsys.readouterr().err
+
+
+def test_launch_serve_use_dse_refuses_a_pick_it_cannot_serve(capsys):
+    """hymba-1.5b's pick needs the hybrid family: exit 2 naming the item
+    that ports it."""
+    with pytest.raises(SystemExit) as exc:
+        serve(["--arch", "hymba-1.5b", "--use-dse", "--reduced", "--device",
                "cpu"])
     assert exc.value.code == 2
-    assert "ROADMAP A10" in capsys.readouterr().err
+    assert "ROADMAP A15" in capsys.readouterr().err

@@ -91,12 +91,18 @@ def _trace(arch, kv_dtype):
     return errs, jc, tc
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "llama3.1-8b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "llama3.1-8b",
+                                  "gemma3-12b"])
 def test_engine_trace_matches_reference_f32(arch):
     errs, jc, tc = _trace(arch, "float32")
     assert max(errs) < 1e-4, errs
     assert tc.lengths.tolist() == np.asarray(jc.lengths).tolist() == [24, 10]
-    for name in ("k_pages_g", "v_pages_g"):
+    if jc.page_pos_w is not None:          # gemma3: its window ring too
+        np.testing.assert_array_equal(tc.page_pos_w.numpy(),
+                                      np.asarray(jc.page_pos_w))
+    for name in ("k_pages_g", "v_pages_g", "k_pages_w", "v_pages_w"):
+        if getattr(jc, name) is None:
+            continue
         np.testing.assert_allclose(getattr(tc, name).numpy(),
                                    np.asarray(getattr(jc, name)),
                                    atol=1e-5, rtol=1e-5)

@@ -177,14 +177,37 @@ def test_splice_slot_matches_reference(fmt):
                                       np.asarray(getattr(want, name)))
 
 
-def test_splice_and_ring_fills_refuse():
+def test_splice_refuses_a_shared_pool():
     te = TEngine(tget("qwen1.5-0.5b").reduced(),
                  TEngineConfig(page_tokens=T, uniform_lengths=False,
                                shared_pool=True), device="cpu")
     shared = te.init_cache(2, CTX)
     with pytest.raises(ValueError, match="stripe"):
         tpk.splice_slot(shared, te.init_cache(1, CTX), 0)
-    K, dh = shared.k_pages_g.shape[1], shared.k_pages_g.shape[-1]
-    kv = torch.zeros(2, S, K, dh)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tpk.fill_layer(shared.k_pages_g, kv, 0, ring=True)
+
+
+@pytest.mark.parametrize("prompt_len", [None, 21], ids=["exact", "bucketed"])
+@pytest.mark.parametrize("shared", [False, True], ids=["stripe", "shared"])
+def test_ring_fills_match_reference(shared, prompt_len):
+    """gemma3-12b's one-shot prefill fills its window ring (layer 0) as the
+    reference does: a 32-token prompt (21 real when bucketed) into a
+    9-page ring, the ring bases equal, ring and global pools within the
+    float32 tolerance above; only the real tokens' pages of the ring are
+    written (the bucket padding's 11 tokens reach no ring page past the
+    third)."""
+    jc, tc = _prefill_both("gemma3-12b", prompt_len, kv_dtype="float32",
+                           shared_pool=shared)
+    np.testing.assert_array_equal(tc.page_pos_w.numpy(),
+                                  np.asarray(jc.page_pos_w))
+    n = S if prompt_len is None else prompt_len
+    assert tc.page_pos_w[0].tolist()[:4] == [0, 8, 16, 24][:-(-n // T)] + [
+        tpk.RING_EMPTY] * (4 + n // -T)
+    for name in ("k_pages_w", "v_pages_w", "k_pages_g", "v_pages_g"):
+        want = np.asarray(getattr(jc, name))
+        got = getattr(tc, name).numpy()
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, atol=5e-6, rtol=2.5e-6)
+    ring = tc.k_pages_w.numpy()
+    written = np.abs(ring).reshape(-1, T, ring.shape[-1]).sum((1, 2)) > 0
+    assert written.sum() == B * tc.k_pages_w.shape[1 if shared else 2] * (
+        -(-n // T))

@@ -125,14 +125,18 @@ def _pool(r, lead, fmt):
 def test_stripe_append_quant_bit_identical(fmt):
     """Active rows requantize their page with the new token (the reference
     drops inactive rows through its out-of-range sentinel, the port writes
-    only the active rows)."""
+    only the active rows).  The reference runs under jit, as it serves:
+    XLA computes the page scale amax / 7 as amax * (1 / 7), and a
+    requantized page's old codes can sit on the rounding tie that last bit
+    decides."""
     r = np.random.default_rng(2)
     q0, s0 = _pool(r, (L, B, K, NP), fmt)
     phys = np.asarray([0, 2, 3, 1], np.int32)
     slot = np.asarray([0, 5, T - 1, 3], np.int32)
     active = np.asarray([True, True, False, True])
     val = r.standard_normal((B, K, DH)).astype(np.float32) * 3
-    jq_, js = jkv.append_token_quant(
+    append = jax.jit(jkv.append_token_quant, static_argnums=6)
+    jq_, js = append(
         jnp.asarray(q0), jnp.asarray(s0), jnp.asarray(1),
         jnp.asarray(np.where(active, phys, NP)), jnp.asarray(slot),
         jnp.asarray(val), fmt)
@@ -142,12 +146,40 @@ def test_stripe_append_quant_bit_identical(fmt):
     assert _same(tq_, jq_) and _same(ts, js)
     assert not np.array_equal(tq_.numpy(), q0)
     # every row writing (no active mask) matches the reference too
-    jq_, js = jkv.append_token_quant(jnp.asarray(q0), jnp.asarray(s0),
-                                     jnp.asarray(0), jnp.asarray(phys),
-                                     jnp.asarray(slot), jnp.asarray(val), fmt)
+    jq_, js = append(jnp.asarray(q0), jnp.asarray(s0), jnp.asarray(0),
+                     jnp.asarray(phys), jnp.asarray(slot), jnp.asarray(val),
+                     fmt)
     tq_, ts = _t(q0), _t(s0)
     tkv.append_token_quant(tq_, ts, 0, _t(phys), _t(slot), _t(val), fmt)
     assert _same(tq_, jq_) and _same(ts, js)
+
+
+@pytest.mark.parametrize("s_old", [0.5, 1.0, 0.4052151143550873])
+def test_requantized_tie_follows_the_served_reference(s_old):
+    """A kv4 page whose amax token (code 7, slot 10) falls past the new
+    token's slot: the zeroed page's amax is a code-6 token, the new scale
+    6/7 of the old, and the old code 3 lands on the tie 3.5.  The jitted
+    reference (as it serves) computes the scale as amax * (1 / 7), one bit
+    off amax / 7, and rounds the tie down where the eager reference rounds
+    it up; the port follows the served one, codes and scale."""
+    codes = np.zeros((1, 1, 1, 1, 16, 4), np.int8)
+    codes[..., 0, :] = [3, -3, 1, 0]
+    codes[..., 1, :] = [6, 0, 0, 0]
+    codes[..., 10, :] = [7, 0, 0, 0]
+    q = tq.pack_int4_tokens(torch.from_numpy(codes + 8)).numpy()
+    s = np.full((1, 1, 1, 1), s_old, np.float32)
+    val = np.full((1, 1, 4), 0.01, np.float32)
+    args = (jnp.asarray(q), jnp.asarray(s), 0, jnp.asarray([0]),
+            jnp.asarray([2]), jnp.asarray(val), "kv4")
+    served = jax.jit(jkv.append_token_quant, static_argnums=6)(*args)
+    eager = jkv.append_token_quant(*args)
+    tq_, ts = _t(q), _t(s)
+    tkv.append_token_quant(tq_, ts, 0, torch.tensor([0]), torch.tensor([2]),
+                           _t(val), "kv4")
+    assert _same(tq_, served[0]) and _same(ts, served[1])
+    assert not np.array_equal(np.asarray(eager[0]), np.asarray(served[0]))
+    # token 0's codes 3 / -3 went to 3 / -3 (4 / -4 eager): the tie
+    assert tq.unpack_int4_tokens(tq_)[0, 0, 0, 0, 0].tolist() == [3, -3, 1, 0]
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
@@ -177,7 +209,8 @@ def test_shared_append_quant_and_cow_copy_bit_identical(fmt):
 def test_chunk_fills_quant_bit_identical(fmt):
     """Three chunks of one slot's prompt (the last one partial) and a chunk
     whose padding reaches past the walk, on the stripe and through a
-    permuted table of the shared pool."""
+    permuted table of the shared pool (the reference under jit, as it
+    serves)."""
     r = np.random.default_rng(4)
     kv = r.standard_normal((1, 40, K, DH)).astype(np.float32)
     table = r.permutation(P_TOTAL)[:B * NP].reshape(B, NP).astype(np.int32)
@@ -195,7 +228,8 @@ def test_chunk_fills_quant_bit_identical(fmt):
         for slot, (chunk, page0, cl) in [(1, c) for c in chunks] + [(0, tail)]:
             kw = dict(kv_quant=fmt)
             if shared:
-                jq_, js = jkv.fill_chunk_global_at_shared(
+                jq_, js = jax.jit(jkv.fill_chunk_global_at_shared,
+                                  static_argnames="kv_quant")(
                     jq_, jnp.asarray(chunk), jnp.asarray(1),
                     jnp.asarray(table[slot]), jnp.asarray(page0),
                     jnp.asarray(cl), scale=js, **kw)
@@ -203,7 +237,8 @@ def test_chunk_fills_quant_bit_identical(fmt):
                                                 _t(table[slot]), page0, cl,
                                                 scale=ts, **kw)
             else:
-                jq_, js = jkv.fill_chunk_global_at(
+                jq_, js = jax.jit(jkv.fill_chunk_global_at,
+                                  static_argnames="kv_quant")(
                     jq_, jnp.asarray(chunk), jnp.asarray(1),
                     jnp.asarray(slot), jnp.asarray(page0), jnp.asarray(cl),
                     scale=js, **kw)

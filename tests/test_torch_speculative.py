@@ -13,9 +13,9 @@ the JAX sequential server's tokens, and the JAX speculative server's
 wherever that one keeps its own sequential tokens); the per-request
 opt-out, the acceptance counters, a stop token inside a span, the
 shared-pool rollback and page conservation (a hypothesis property, no
-deadline), abort mid-flight; and the refusals (rwkv6-3b: recurrent state
-cannot roll back; gemma3-12b: window rings, ROADMAP A10).  Weights come
-from the reference's init through `bridge`."""
+deadline), abort mid-flight; speculation over gemma3-12b's window rings;
+and the refusal of rwkv6-3b (recurrent state cannot roll back).  Weights
+come from the reference's init through `bridge`."""
 import random
 
 import jax
@@ -391,10 +391,19 @@ def test_spec_refuses_recurrent_state():
                           speculation_k=2, device="cpu")
 
 
-def test_spec_refuses_window_rings():
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        KVNANDServer(ServerConfig(arch="gemma3-12b", reduced=True,
-                                  speculation_k=2, device="cpu"))
+@pytest.mark.parametrize("fmt", [dict(kv_dtype="float32"),
+                                 dict(kv_quant="kv8")], ids=["f32", "kv8"])
+def test_spec_over_window_rings_matches_sequential(fmt):
+    """gemma3-12b: span appends through the window rings (a 90-token
+    prompt past its 80-token ring), ring bases advanced for kept tokens
+    only: speculative tokens equal sequential ones, drafts accepted."""
+    prompts = PROMPTS + [list(range(1, 91))]
+    eng = _eng(**fmt)
+    kw = dict(arch="gemma3-12b", ctx=128)
+    spec, b = _drain(eng, prompts, spec_k=4, max_new=12, **kw)
+    seq, _ = _drain(eng, prompts, spec_k=0, max_new=12, **kw)
+    assert spec == seq
+    assert b.stats["spec_accepted"] > 0 and b.stats["verify_steps"] > 0
 
 
 def test_launch_serve_speculation_k_serves(capsys):
