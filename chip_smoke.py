@@ -16,6 +16,9 @@
     python3 chip_smoke.py --dse              # the build and phases 13-15 only
     python3 chip_smoke.py --verify-ab        # V1's verify attention, the port's form vs the reference's
     python3 chip_smoke.py --window           # the build and phase 16 (G1, gemma3-12b) only
+    python3 chip_smoke.py --tier             # the build and phase 17 (T1, the tiered pool) only
+    python3 chip_smoke.py --overlap          # the build and phase 18 (O1, the overlapped schedule) only
+    python3 chip_smoke.py --http             # the build and phase 19 (H1, the HTTP front end) only
 
 Phases (each one fails the run when it fails):
 
@@ -202,7 +205,48 @@ Phases (each one fails the run when it fails):
             tokens or part only at a near tie (KV8_GAP_TOL;
             LOGIT_GAP_TOL for the variants, as D1).  Peak memory and each
             run's wall printed beside the card.  `--window` runs the build
-            and this phase only.
+            and this phase only;
+17. T1      the tiered pool at the full width of qwen1.5-0.5b (random
+            weights from seed 0), 4 slots, 512 tokens of context, a flash
+            pool of 512 pages (`total_pages`) and a hot tier of
+            `dse.recommend_hot_pages(flashsim.kvnand_c(), cfg, 512,
+            slots=4, page_tokens=16, total_pages=512)` pages (asserted:
+            128, the 4-slot working set).  Three waves of 16 greedy new
+            tokens a request: 8 distinct 256-token prefixes with 8-40-token
+            suffixes; 8 unrelated prompts of 100-300 tokens, which demote
+            the first wave's cached pages; the first wave's prefixes again
+            with new suffixes.  At f32 and kv8, each tiered with prefetch,
+            tiered without, and flat (hot_pages 0, the same 512 pages):
+            the same tokens in all three, logprobs within
+            TIER_LP_TOL of the flat pool's; demotions, promotions and
+            prefetched pages > 0 and fewer stall tokens with prefetch;
+            after the drain the allocator's and the tier's invariants hold
+            and no hot page is pinned; B2 = decode steps x 24.  Each run's
+            wall, pool size and peak device memory printed beside the
+            card.  `--tier` runs the build and this phase only;
+18. O1      the overlapped schedule: stripe bf16, shared f32, T1's tiered
+            f32 and stripe with speculation_k = 4 (which runs
+            synchronously), each served synchronously and overlapped on the
+            stripe prompts under mixed sampling params (greedy with
+            logprobs, seeded temperature, top-k, top-k/top-p, a stop token
+            the greedy request first samples at index >= 3, greedy): the
+            same tokens, logprobs and finish reasons both ways, and B1 (or
+            B2) = decode steps x 24 each way (an overlapped dispatch cannot
+            admit into a slot its own collect frees, so the step counts may
+            differ); wall, decode steps, host-observed device idle time
+            and phantom tokens printed.  Then a decode-only `dispatch()`,
+            and a second one chained on it, under
+            `torch.cuda.set_sync_debug_mode("error")` on the stripe, shared
+            and tiered pools: the stripe pool's must not synchronize; the
+            first synchronizing call of the others is printed.
+            `--overlap` runs the build and this phase only;
+19. H1      the HTTP front end (`BackgroundServer`, overlapped engine
+            loop) around the full-width shared f32 pool: 6 concurrent
+            `POST /v1/completions` of the stripe prompts, 3 one-shot and 3
+            SSE, each equal to `generate()` on an identically configured
+            server; `GET /metrics` reports the 6 finished requests, their
+            TTFTs and 90 decode tokens; B2 = decode steps x 24; the wall
+            printed.  `--http` runs the build and this phase only.
 
 It needs a CUDA card (exits non-zero without one, printing no result),
 imports nothing of JAX, and prints the card's name and power limit, a
@@ -731,20 +775,30 @@ def timing_phase(rate):
 # phases 4-6: servers + teacher-forced reference
 # ---------------------------------------------------------------------------
 
+def server_config(device="cuda", scheduler="interleaved", server=None,
+                  **engine):
+    """The `ServerConfig` of the full-width qwen1.5-0.5b server: 4 slots,
+    512 tokens of context, 64-token chunks; `server` adds ServerConfig
+    fields (overlap, speculation_k, tier_prefetch)."""
+    from repro_torch.configs import EngineConfig
+    from repro_torch.serving.api import ServerConfig
+    eng = EngineConfig(page_tokens=16, uniform_lengths=False, **engine)
+    return ServerConfig(
+        arch="qwen1.5-0.5b", reduced=False, engine=eng, batch_slots=4,
+        max_context=512, prefill_chunk_tokens=64, device=device,
+        scheduler=scheduler, **(server or {}))
+
+
 def build_server(params=None, device="cuda", scheduler="interleaved",
-                 **engine):
+                 server=None, **engine):
     """The full-width qwen1.5-0.5b server on `device`: random weights from
     seed 0, or `params` (e.g. a quantized tree)."""
     import torch
-    from repro_torch.configs import EngineConfig
-    from repro_torch.serving.api import KVNANDServer, ServerConfig
+    from repro_torch.serving.api import KVNANDServer
     t0 = time.perf_counter()
-    eng = EngineConfig(page_tokens=16, uniform_lengths=False, **engine)
-    srv = KVNANDServer(ServerConfig(
-        arch="qwen1.5-0.5b", reduced=False, engine=eng, batch_slots=4,
-        max_context=512, prefill_chunk_tokens=64, device=device,
-        scheduler=scheduler),
-        params=params)
+    config = server_config(device, scheduler, server, **engine)
+    eng = config.engine
+    srv = KVNANDServer(config, params=params)
     cfg = srv.cfg
     check(cfg.n_layers == 24 and cfg.d_model == 1024 and cfg.n_heads == 16
           and cfg.padded_vocab == 152064, "not the full-width qwen1.5-0.5b")
@@ -2904,6 +2958,378 @@ def window_phases() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 17-19: the tiered pool (T1), the overlapped schedule (O1), the
+# HTTP front end (H1)
+# ---------------------------------------------------------------------------
+
+TIER_FLASH_PAGES = 512   # T1's flash pool (total_pages)
+TIER_LP_TOL = {"float32": 1e-5, "kv8": KV8_GAP_TOL}
+
+
+def tier_waves(V):
+    """T1's three waves: A, 8 distinct 256-token prefixes plus 8-40-token
+    suffixes; B, 8 unrelated prompts of 100-300 tokens, which demote A's
+    cached pages; C, A's prefixes again with new suffixes."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    prefixes = [rng.integers(0, V, 256).tolist() for _ in range(8)]
+
+    def suffixed():
+        return [p + rng.integers(0, V, int(rng.integers(8, 41))).tolist()
+                for p in prefixes]
+
+    wave_a = suffixed()
+    wave_b = [rng.integers(0, V, int(rng.integers(100, 301))).tolist()
+              for _ in range(8)]
+    return wave_a, wave_b, suffixed()
+
+
+def pool_gb(srv) -> float:
+    c = srv._batcher.cache
+    return sum(t.numel() * t.element_size()
+               for t in (c.k_pages_g, c.v_pages_g, c.k_scale_g, c.v_scale_g)
+               if t is not None) / 1e9
+
+
+def tier_run(label, params, waves, hot_pages, prefetch, **engine):
+    """One T1 run: the three waves through one server, the launch
+    counters reset before and read after, the peak device memory over the
+    run (weights included)."""
+    import gc
+    import torch
+    from repro_torch.kernels.paged_attention import launches, launches_shared
+    from repro_torch.serving.api import SamplingParams
+    gc.collect()        # an earlier run's pool (the tier's release hook
+    torch.cuda.synchronize()    # makes a cycle)
+    torch.cuda.reset_peak_memory_stats()
+    srv = build_server(params, shared_pool=True,
+                       total_pages=TIER_FLASH_PAGES, hot_pages=hot_pages,
+                       server={"tier_prefetch": prefetch}, **engine)
+    b = srv._batcher
+    launches.reset()
+    launches_shared.reset()
+    steps0 = srv.stats["decode_steps"]
+    t0 = time.perf_counter()
+    outs = []
+    for wave in waves:
+        outs += srv.generate(wave, SamplingParams(max_new_tokens=16,
+                                                  logprobs=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = srv.stats["decode_steps"] - steps0
+    st = srv.stats
+    L = srv.cfg.n_layers
+    check(all(len(o.token_ids) == 16 and o.finish_reason == "length"
+              for o in outs), f"T1 {label}: not every request answered")
+    check(launches_shared.value == steps * L and launches.value == 0,
+          f"T1 {label}: B2 launches {launches_shared.value} != decode "
+          f"steps {steps} x {L} (B1 {launches.value})")
+    b.alloc.check()
+    res = {"hot_pages": hot_pages, "prefetch": prefetch,
+           "decode_steps": steps, "launches_B2": launches_shared.value,
+           "wall_s": wall, "pool_gb": pool_gb(srv),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "prefix_hit_pages": st["prefix_hit_pages"],
+           "cow_copies": st["cow_copies"]}
+    if b.tier is not None:
+        b.tier.check()
+        check(b.tier.pinned_count == 0,
+              f"T1 {label}: {b.tier.pinned_count} hot pages pinned after "
+              "the drain")
+        res.update({k: st[k] for k in st if k.startswith("tier_")})
+    print(f"T1 {label}: {steps} decode steps, B2 {launches_shared.value}, "
+          f"{wall:.3f} s, pool {res['pool_gb']:.3f} GB, peak "
+          f"{res['peak_memory_gb']:.3f} GB; "
+          + ", ".join(f"{k}={v}" for k, v in res.items()
+                      if k.startswith("tier_")) + f"; on {smi_line()}")
+    return res, outs
+
+
+def tier_phase(params=None) -> dict:
+    """Phase 17, T1: the tiered pool (hot tier + capacity store with
+    queue-ahead prefetch) at full width, f32 and kv8, each tiered with and
+    without prefetch and flat, on the same three waves."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import dse, flashsim
+    cfg = get_config("qwen1.5-0.5b")
+    hot = dse.recommend_hot_pages(flashsim.kvnand_c(), cfg, 512, slots=4,
+                                  page_tokens=16,
+                                  total_pages=TIER_FLASH_PAGES)
+    check(hot == 128, f"recommend_hot_pages gave {hot}, not the 4-slot "
+          "working set of 128 pages")
+    if params is None:
+        params = build_server().params
+    waves = tier_waves(cfg.vocab_size)
+    res = {"hot_pages": hot, "flash_pages": TIER_FLASH_PAGES}
+    for fmt, engine in (("float32", {"kv_dtype": "float32"}),
+                        ("kv8", {"kv_quant": "kv8"})):
+        runs = {}
+        for name, h, pf in (("prefetch", hot, True),
+                            ("no_prefetch", hot, False),
+                            ("flat", 0, True)):
+            runs[name] = tier_run(f"{fmt} {name}", params, waves, h, pf,
+                                  **engine)
+        flat = runs["flat"][1]
+        for name in ("prefetch", "no_prefetch"):
+            outs = runs[name][1]
+            check([o.token_ids for o in outs] == [o.token_ids for o in flat],
+                  f"T1 {fmt} {name}: other tokens than the flat pool")
+            gap = max(abs(a - b) for o, f in zip(outs, flat)
+                      for a, b in zip(o.logprobs, f.logprobs))
+            check(gap <= TIER_LP_TOL[fmt], f"T1 {fmt} {name}: logprobs "
+                  f"{gap:.3e} from the flat pool's (tol "
+                  f"{TIER_LP_TOL[fmt]:.0e})")
+            runs[name][0]["logprob_gap_to_flat"] = gap
+        on, off = runs["prefetch"][0], runs["no_prefetch"][0]
+        check(on["tier_demotes"] > 0 and on["tier_promotes"] > 0
+              and on["tier_prefetch_pages"] > 0,
+              f"T1 {fmt}: the tier never demoted, promoted or prefetched")
+        check(on["tier_stall_tokens"] < off["tier_stall_tokens"],
+              f"T1 {fmt}: prefetch did not cut the stall tokens "
+              f"({on['tier_stall_tokens']} vs {off['tier_stall_tokens']})")
+        res[fmt] = {k: v[0] for k, v in runs.items()}
+    res["launches_B2"] = sum(r["launches_B2"] for fmt in ("float32", "kv8")
+                             for r in res[fmt].values())
+    return res
+
+
+def mixed_params(stop):
+    """O1's sampling params for the 6 stripe prompts: greedy with
+    logprobs, seeded temperature, top-k, top-k/top-p, greedy with stop
+    tokens, greedy."""
+    from repro_torch.serving.api import SamplingParams
+    return [SamplingParams(max_new_tokens=16, logprobs=True),
+            SamplingParams(max_new_tokens=16, temperature=0.9, seed=3,
+                           logprobs=True),
+            SamplingParams(max_new_tokens=12, temperature=1.2, top_k=5,
+                           seed=9),
+            SamplingParams(max_new_tokens=16, temperature=0.8, top_p=0.9,
+                           top_k=7, seed=11, logprobs=True),
+            SamplingParams(max_new_tokens=16, stop_token_ids=stop,
+                           logprobs=True),
+            SamplingParams(max_new_tokens=14)]
+
+
+O1_DEPLOYMENTS = (
+    ("stripe bf16", {}, {}),
+    ("shared f32", {"shared_pool": True, "kv_dtype": "float32"}, {}),
+    ("tiered f32", {"shared_pool": True, "kv_dtype": "float32",
+                    "total_pages": TIER_FLASH_PAGES, "hot_pages": 128}, {}),
+    ("stripe spec4", {}, {"speculation_k": 4}),
+)
+
+
+def sync_probe(params, engine, server) -> str:
+    """Drive 4 requests (O1's first 4 sampling params) into decode, then
+    run a decode-only dispatch, and a second one chained on it, under
+    `set_sync_debug_mode("error")`:
+    returns "none" when neither synchronizes the host with the card, else
+    the first synchronizing call site in the port."""
+    import traceback
+    import torch
+    srv = build_server(params, server=dict(server, overlap=True), **engine)
+    prompts = stripe_prompts(srv.cfg.vocab_size)[:4]
+    # greedy and seeded sampling rows, so the sampler's noise is drawn
+    uids = [srv.submit(p, sp) for p, sp in zip(prompts, mixed_params(()))]
+    b = srv._batcher
+    while b.queue or b._prefill_live or not all(
+            srv._requests[u].output for u in uids):
+        srv.step()
+    srv.step()                        # one decode step with every slot
+    check(all(r is not None for r in b.slots), "a probe slot finished early")
+    torch.cuda.synchronize()
+    site = "none"
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        srv.dispatch()
+        srv.dispatch()
+    except RuntimeError as e:
+        frames = [f for f in traceback.extract_tb(e.__traceback__)
+                  if "repro_torch" in f.filename]
+        f = frames[-1] if frames else None
+        site = (f"{Path(f.filename).name}:{f.lineno} {f.line}" if f
+                else str(e).splitlines()[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return site
+
+
+def overlap_phase(params=None) -> dict:
+    """Phase 18, O1: each deployment served synchronously and overlapped
+    on the stripe prompts under mixed sampling params; then the
+    decode-only dispatch probed for host syncs."""
+    import torch
+    from repro_torch.kernels.paged_attention import launches, launches_shared
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.configs import get_config
+    if params is None:
+        params = build_server().params
+    prompts = stripe_prompts(get_config("qwen1.5-0.5b").vocab_size)
+    # a stop token that the greedy request first samples at index >= 3
+    pre = build_server(params).generate(
+        [prompts[4]], SamplingParams(max_new_tokens=16))[0].token_ids
+    j = next((j for j in range(3, 16) if pre[j] not in pre[:j]), 15)
+    params_list = mixed_params((pre[j],))
+    res = {"stop_token": pre[j]}
+    for name, engine, server in O1_DEPLOYMENTS:
+        runs = {}
+        for overlap in (False, True):
+            srv = build_server(params, server=dict(server, overlap=overlap),
+                               **engine)
+            launches.reset()
+            launches_shared.reset()
+            t0 = time.perf_counter()
+            outs = srv.generate(prompts, params_list)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = srv.stats
+            L = srv.cfg.n_layers
+            steps = st["decode_steps"]
+            kernel = launches_shared if engine.get("shared_pool") else launches
+            other = launches if engine.get("shared_pool") else launches_shared
+            check(kernel.value == steps * L and other.value == 0,
+                  f"O1 {name}: launches {kernel.value} / {other.value} != "
+                  f"decode steps {steps} x {L} / 0")
+            runs[overlap] = outs, {
+                "wall_s": wall, "decode_steps": steps,
+                "verify_steps": st["verify_steps"],
+                "launches": kernel.value,
+                "phantom_tokens": st["phantom_tokens"],
+                "device_idle_s": st["device_idle_s"],
+                "finish": [o.finish_reason for o in outs]}
+        (o_sync, r_sync), (o_over, r_over) = runs[False], runs[True]
+        for a, b in zip(o_sync, o_over):
+            check((a.token_ids, a.logprobs, a.finish_reason)
+                  == (b.token_ids, b.logprobs, b.finish_reason),
+                  f"O1 {name}: the overlapped schedule served request "
+                  f"{a.uid} otherwise")
+        res[name] = {"sync": r_sync, "overlap": r_over}
+        print(f"O1 {name}: sync {r_sync['wall_s']:.3f} s ({r_sync['decode_steps']}"
+              f" steps, idle {r_sync['device_idle_s']:.3f} s), overlap "
+              f"{r_over['wall_s']:.3f} s ({r_over['decode_steps']} steps, "
+              f"idle {r_over['device_idle_s']:.3f} s, "
+              f"{r_over['phantom_tokens']} phantom tokens); finishes "
+              f"{r_sync['finish']}; on {smi_line()}")
+    res["sync_probe"] = {}
+    for name, engine, server in O1_DEPLOYMENTS[:3]:
+        site = sync_probe(params, engine, server)
+        res["sync_probe"][name] = site
+        print(f"O1 {name}: decode-only dispatch under "
+              f"set_sync_debug_mode('error'): first host sync {site}")
+    check(res["sync_probe"]["stripe bf16"] == "none",
+          "O1: a decode-only dispatch on the stripe pool synchronizes: "
+          + res["sync_probe"]["stripe bf16"])
+    res["launches_B1"] = sum(res[n][k]["launches"] for n, e, _ in
+                             O1_DEPLOYMENTS if not e.get("shared_pool")
+                             for k in ("sync", "overlap"))
+    res["launches_B2"] = sum(res[n][k]["launches"] for n, e, _ in
+                             O1_DEPLOYMENTS if e.get("shared_pool")
+                             for k in ("sync", "overlap"))
+    return res
+
+
+def http_phase(params=None) -> dict:
+    """Phase 19, H1: the HTTP front end around the full-width shared f32
+    pool, overlapped engine loop: 6 concurrent completions (3 one-shot, 3
+    SSE), each equal to the facade's `generate` on an identically
+    configured server; GET /metrics reports the served counts."""
+    import http.client
+    import threading
+    import torch
+    from repro_torch.kernels.paged_attention import launches_shared
+    from repro_torch.serving.api import KVNANDServer, SamplingParams
+    from repro_torch.serving.async_server import (AsyncServerConfig,
+                                                  BackgroundServer)
+    if params is None:
+        params = build_server().params
+    from repro_torch.configs import get_config
+    engine = {"shared_pool": True, "kv_dtype": "float32"}
+    prompts = stripe_prompts(get_config("qwen1.5-0.5b").vocab_size)
+    want = [o.token_ids for o in build_server(params, **engine).generate(
+        prompts, SamplingParams(max_new_tokens=16))]
+    got, errors = [None] * 6, []
+
+    def fire(k):
+        try:
+            stream = k % 2 == 1
+            conn = http.client.HTTPConnection(*srv.address, timeout=300)
+            try:
+                conn.request("POST", "/v1/completions", json.dumps(
+                    {"prompt": prompts[k], "max_tokens": 16,
+                     "stream": stream}))
+                r = conn.getresponse()
+                raw = r.read().decode()
+            finally:
+                conn.close()
+            check(r.status == 200, f"H1 request {k}: HTTP {r.status}")
+            if stream:
+                got[k] = [json.loads(f[6:])["choices"][0]["token"]
+                          for f in raw.split("\n\n")
+                          if f.startswith("data: {")]
+            else:
+                got[k] = json.loads(raw)["choices"][0]["token_ids"]
+        except Exception as e:       # noqa: BLE001 — reported below
+            errors.append(f"request {k}: {e!r}")
+
+    launches_shared.reset()
+    with BackgroundServer(server_config(**engine),
+                          AsyncServerConfig(overlap=True),
+                          params=params) as srv:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=fire, args=(k,))
+                   for k in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads),
+              "H1: a request did not finish within 300 s")
+        conn = http.client.HTTPConnection(*srv.address, timeout=60)
+        try:
+            conn.request("GET", "/metrics")
+            text = conn.getresponse().read().decode()
+        finally:
+            conn.close()
+        inner = srv.server._server
+        steps = inner.stats["decode_steps"]
+    check(not errors, f"H1: {errors}")
+    check(not srv._thread.is_alive(), "H1: the HTTP thread did not stop")
+    check(got == want, "H1: the HTTP answers differ from generate()")
+    counts = {line.split()[0]: float(line.split()[1])
+              for line in text.splitlines()
+              if line and not line.startswith("#")}
+    check(counts.get('kvnand_requests_finished_total{reason="length"}') == 6
+          and counts.get("kvnand_ttft_seconds_count") == 6
+          and counts.get("kvnand_decode_tokens_total") == 6 * 15,
+          f"H1: /metrics does not report the 6 served requests: "
+          f"{ {k: v for k, v in counts.items() if 'total' in k} }")
+    check(launches_shared.value == steps * 24,
+          f"H1: B2 launches {launches_shared.value} != decode steps "
+          f"{steps} x 24")
+    print(f"H1: 6 concurrent completions (3 one-shot, 3 SSE) in {wall:.3f} "
+          f"s, equal to generate(); {steps} decode steps, B2 "
+          f"{launches_shared.value}; on {smi_line()}")
+    return {"wall_s": wall, "decode_steps": steps,
+            "launches_B2": launches_shared.value,
+            "metrics": {k: v for k, v in counts.items()
+                        if k.startswith("kvnand_") and "quantile" not in k}}
+
+
+def serving_phases() -> dict:
+    """Phases 17-19 on one set of full-width weights."""
+    import gc
+    import torch
+    params = build_server().params
+    res = {"T1": tier_phase(params), "O1": overlap_phase(params),
+           "H1": http_phase(params)}
+    del params
+    gc.collect()        # the tiered servers' release hooks make cycles
+    torch.cuda.empty_cache()
+    return res
+
+
 def dse_phases(rate) -> dict:
     """Phases 13-15, in the order `--dse` runs them."""
     head = head_range_phase()
@@ -2930,7 +3356,7 @@ def main(argv) -> int:
     if (argv not in ([], ["--paged"], ["--paged-timing"], ["--quant-servers"],
                      ["--wkv"], ["--wkv-timing"], ["--gemv"], ["--flash"],
                      ["--flash-timing"], ["--dse"], ["--verify-ab"],
-                     ["--window"])
+                     ["--window"], ["--tier"], ["--overlap"], ["--http"])
             and not (len(argv) == 2
                      and argv[0] in ("--gemv-ab", "--flash-ab", "--wkv-ab"))):
         print(__doc__, file=sys.stderr)
@@ -3015,6 +3441,14 @@ def main(argv) -> int:
         print(card)
         print(json.dumps({"window": g1}))
         return 0
+    one = {"--tier": ("tier", tier_phase), "--overlap": ("overlap",
+                                                         overlap_phase),
+           "--http": ("http", http_phase)}.get(argv[0] if argv else None)
+    if one is not None:
+        out = one[1]()
+        print(card)
+        print(json.dumps({one[0]: out}))
+        return 0
 
     if not quant_only:
         b1_err = kernel_phase()
@@ -3040,6 +3474,7 @@ def main(argv) -> int:
         b5_err = wkv_kernel_phase()
         b5_shapes = wkv_timing_phase(rate)
         r1 = rwkv_server_phase()
+        tier_served = serving_phases()
     q1 = quant_server_phase("Q1 (w4a16, stripe, kv4)", "w4a16", "kv4",
                             False, stripe_prompts)
     q2 = quant_server_phase("Q2 (w8a8, shared, kv8)", "w8a8", "kv8", True,
@@ -3066,22 +3501,25 @@ def main(argv) -> int:
     g1_b1 = sum(g1[k]["launches"] for k in ("stripe", "splice", "discrete",
                                             "speculative"))
     g1_b1 += g1["golden"]["launches_B1"]
+    t1, o1, h1 = (tier_served[k] for k in ("T1", "O1", "H1"))
     kernels = [
         kernel_entry("paged_attention", "src/repro_torch/csrc/"
                      "paged_attention.cu",
                      "src/repro/kernels/paged_attention/kernel.py:311",
                      stripe["launches"] + d1["launches_B1"]
-                     + v1["launches_B1"] + g1_b1, b1_err,
+                     + v1["launches_B1"] + g1_b1 + o1["launches_B1"], b1_err,
                      list(b1_shapes) + dse["group_timing"][:1],
-                     [stripe, {"D1": d1, "V1": v1, "G1": g1}]),
+                     [stripe, {"D1": d1, "V1": v1, "G1": g1, "O1": o1}]),
         kernel_entry("paged_attention_shared", "src/repro_torch/csrc/"
                      "paged_attention_shared.cu",
                      "src/repro/kernels/paged_attention/kernel.py:209",
                      shared["launches"] + d1["shared_launches_B2"]
-                     + g1["shared"]["launches"], b2_err,
+                     + g1["shared"]["launches"] + t1["launches_B2"]
+                     + o1["launches_B2"] + h1["launches_B2"], b2_err,
                      list(b2_shapes) + dse["group_timing"][1:],
                      [shared, shared32, {"D1 shared": d1,
-                                         "G1 shared": g1["shared"]}]),
+                                         "G1 shared": g1["shared"],
+                                         "T1": t1, "H1": h1}]),
         kernel_entry("quant_gemv", "src/repro_torch/csrc/quant_gemv.cu",
                      "src/repro/kernels/quant_gemv/kernel.py:68",
                      q1["launches"] + q2["launches"], b3_err, b3_shapes,

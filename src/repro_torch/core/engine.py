@@ -65,9 +65,11 @@ and the decode kernels and the chunk's past partial dequantize as they
 read.  Quantized weights need no engine setting: the format travels with
 the params (`core.quant.quantize_params`), and `layers.dense` sends each
 2-D quantized weight through kernel B3; `EngineConfig.quant` is not read,
-as in the reference.  Not ported yet, and refused here: the tiered
-pool, the hybrid, MoE, VLM and encoder-decoder families and a device
-mesh.
+as in the reference.  A tiered pool (`EngineConfig.hot_pages`) is a
+shared pool of `hot_pages` device pages whose tables the scheduler fills
+with hot-slot indices; the engine walks it like any shared pool.  Not
+ported yet, and refused here: the hybrid, MoE, VLM and encoder-decoder
+families and a device mesh.
 """
 from __future__ import annotations
 
@@ -101,7 +103,6 @@ class KVNANDEngine:
         self.rt = rt or Runtime()
         self.device = torch.device(device)
         check_supported(cfg)
-        paged_kv.check_supported(self.eng)
         # the reference's selection (`_decode_attn_layer`)
         self._discrete = (self.eng.variant == "discrete"
                           or self.eng.hg_pipeline)
@@ -540,13 +541,21 @@ class KVNANDEngine:
         padding's K/V are written to the global pool's pages past it like
         any other token, as in the reference (masked by `lengths`,
         overwritten by decode appends), and never to a ring.  An RWKV6 model takes exact-length prompts only (the
-        padding would fold into its recurrent state), as in the reference;
-        its refusal of a tiered pool is made at construction here."""
+        padding would fold into its recurrent state), as in the reference.
+        A tiered pool is refused, as in the reference: its hot tier is
+        managed by the serving scheduler."""
         cfg, rt = self.cfg, self.rt
         if prompt_len is not None and cfg.family == "ssm":
             raise ValueError(
                 f"{cfg.family}: bucketed prefill would fold padding into "
                 "recurrent state; pass exact-length prompts instead")
+        if self.eng.shared_pool and self.eng.hot_pages:
+            raise ValueError(
+                "one-shot prefill cannot run against a TIERED pool: the "
+                "identity-striped init tables would alias slots inside the "
+                "hot tier's few device pages; tiered pools are managed by "
+                "the serving scheduler's residency machinery — run "
+                "hot_pages=0 here, or serve via KVNANDServer")
         x, positions = embed_inputs(params, cfg, batch, rt)
         B, S = x.shape[:2]
         cache = self.init_cache(B, max(max_context, S + 1))

@@ -25,9 +25,11 @@ Shard awareness: when the physical page axis is sharded over devices,
 logical page j of a sequence should land on shard ``j % n_shards``.  The
 allocator keeps one free list per shard and honours a preferred shard
 per allocation, falling back to any shard only when the preferred one is
-dry.  The hot/capacity tier residency manager of the reference
-(`HotTier`) belongs to the tiered pool and is not copied yet (ROADMAP
-A12).
+dry.
+
+`HotTier` is the residency half of a TIERED pool (``EngineConfig
+.hot_pages``): the allocator keeps stable flash page ids, the tier maps
+the resident ones to the device's few hot slots (see its docstring).
 """
 from __future__ import annotations
 
@@ -45,9 +47,11 @@ class OutOfPages(RuntimeError):
 class PageAllocator:
     """Free-page allocator with refcounts over ``total`` physical pages.
 
-    Release hooks (``add_release_hook``) observe every page whose
-    refcount reaches 0, whatever path freed it (slot teardown,
-    prefix-cache eviction).
+    In a TIERED pool ``total`` counts FLASH pages — the stable ids every
+    table/cache structure holds — while device residency is tracked
+    separately by :class:`HotTier`.  Release hooks (``add_release_hook``)
+    observe every page whose refcount reaches 0, whatever path freed it
+    (slot teardown, prefix-cache eviction, speculative rollback).
     """
 
     def __init__(self, total: int, n_shards: int = 1):
@@ -71,7 +75,9 @@ class PageAllocator:
 
     def add_release_hook(self, fn) -> None:
         """Call ``fn(page)`` whenever a page's refcount reaches 0 (just
-        before it rejoins the free list), on every free path."""
+        before it rejoins the free list), on every free path: the tiered
+        scheduler retires the page's hot slot and capacity-store bytes
+        there."""
         self._release_hooks.append(fn)
 
     # ------------------------------------------------------------------
@@ -157,6 +163,183 @@ class PageAllocator:
         assert live + len(free) == self.total, (live, len(free), self.total)
         assert (self.refcount >= 0).all()
 
+
+
+# ---------------------------------------------------------------------------
+# Hot-tier residency (tiered flash KV hierarchy)
+# ---------------------------------------------------------------------------
+
+class OutOfHotSlots(OutOfPages):
+    """Every hot slot is pinned or excluded (caller should back off)."""
+
+
+class HotTier:
+    """Residency manager for the DEVICE half of a tiered shared pool.
+
+    A tiered pool keeps ``total_pages`` stable FLASH page ids in the
+    :class:`PageAllocator` but only ``hot_slots`` physical slots on the
+    device.  This class owns the flash-id → hot-slot map and the
+    tier-bit encoding the per-slot page tables use:
+
+      * ``entry(page)`` is the table word for a flash page — its hot
+        slot index when resident, else ``HotTier.CAPACITY`` (the tier
+        bit: a negative sentinel that must never reach a dispatched
+        table, because the scheduler promotes before mapping);
+      * ``pin``/``unpin`` count live-slot mappings.  A pinned resident
+        is NEVER a demotion victim — this is the "a mapped hot page is
+        never evicted" invariant: decode/chunked-prefill/verify walks
+        touch only pages their own slot has pinned, so they can never
+        fault mid-flight;
+      * unpinned residents (prefix-cache-only pages, refcount ≥ 1 in
+        the allocator but mapped by no slot) sit on an LRU and demote
+        one at a time when ``bind`` needs a slot — the "refcounted
+        shared prefix pages demote only at refcount 0 ... or under slot
+        pressure, to the capacity store" side of the invariant;
+      * ``release(page)`` (driven by the allocator's release hook)
+        frees the slot when the flash page itself dies.
+
+    Conservation (``check``):
+    free slots + resident pages == hot_slots, always; the LRU holds
+    exactly the unpinned residents; no two residents share a slot.
+
+    The class moves no bytes — the scheduler stages page contents on
+    ``bind``'s demotion victim / promotion target.
+    """
+
+    CAPACITY = -1               # table-word sentinel for a non-resident page
+
+    def __init__(self, hot_slots: int, total_pages: int):
+        if hot_slots <= 0:
+            raise ValueError(f"hot tier needs at least one slot, "
+                             f"got {hot_slots}")
+        if hot_slots > total_pages:
+            raise ValueError(f"hot_slots={hot_slots} exceeds "
+                             f"total_pages={total_pages}")
+        self.hot_slots = hot_slots
+        self.total_pages = total_pages
+        self._slot_of: Dict[int, int] = {}          # flash page -> hot slot
+        self._pins = np.zeros(total_pages, np.int32)
+        self._lru: "OrderedDict[int, None]" = OrderedDict()  # unpinned res.
+        self._free_slots: List[int] = list(range(hot_slots - 1, -1, -1))
+        self.promotes = 0       # bind() calls for pages with stored bytes
+        self.demotes = 0        # LRU victims pushed to the capacity store
+
+    # ------------------------------------------------------------------
+    @property
+    def resident_count(self) -> int:
+        return len(self._slot_of)
+
+    @property
+    def free_slot_count(self) -> int:
+        return len(self._free_slots)
+
+    @property
+    def demotable_count(self) -> int:
+        """Unpinned residents — candidates for demotion."""
+        return len(self._lru)
+
+    @property
+    def pinned_count(self) -> int:
+        return len(self._slot_of) - len(self._lru)
+
+    def is_resident(self, page: int) -> bool:
+        return int(page) in self._slot_of
+
+    def slot_of(self, page: int) -> int:
+        """Hot slot backing ``page`` (raises KeyError if not resident)."""
+        return self._slot_of[int(page)]
+
+    def entry(self, page: int) -> int:
+        """Page-table word: hot slot index, or ``CAPACITY`` (tier bit)."""
+        return self._slot_of.get(int(page), self.CAPACITY)
+
+    # ------------------------------------------------------------------
+    def bind(self, page: int, avoid: frozenset = frozenset()
+             ) -> Tuple[int, Optional[int]]:
+        """Make ``page`` resident: returns ``(slot, victim)``.
+
+        Takes a free slot when one exists, else demotes the
+        least-recently-used UNPINNED resident not in ``avoid`` (the
+        prefetcher excludes the working set it is staging so promotion
+        N cannot demote promotion N-1).  ``victim`` is the demoted flash
+        page (``None`` when a free slot served) — the CALLER must save
+        its device bytes to the capacity store BEFORE overwriting the
+        slot.  Raises :class:`OutOfHotSlots` when every slot is pinned
+        or excluded; pinned residents are never victims.
+        """
+        page = int(page)
+        if page in self._slot_of:
+            raise ValueError(f"page {page} already resident")
+        victim: Optional[int] = None
+        if self._free_slots:
+            slot = self._free_slots.pop()
+        else:
+            victim = next((p for p in self._lru if p not in avoid), None)
+            if victim is None:
+                raise OutOfHotSlots(
+                    f"all {self.hot_slots} hot slots pinned or excluded")
+            del self._lru[victim]
+            slot = self._slot_of.pop(victim)
+            self.demotes += 1
+        self._slot_of[page] = slot
+        if self._pins[page] == 0:
+            self._lru[page] = None
+        return slot, victim
+
+    def pin(self, page: int) -> None:
+        """One live-slot mapping now points at ``page`` (must be
+        resident).  Pinned pages are exempt from demotion."""
+        page = int(page)
+        assert page in self._slot_of, f"pin of non-resident page {page}"
+        self._pins[page] += 1
+        self._lru.pop(page, None)
+
+    def unpin(self, page: int) -> None:
+        """Drop one live-slot mapping.  At pin count 0 a still-resident
+        page joins the LRU (most-recently-used end) as a demotion
+        candidate — it stays hot until slot pressure evicts it."""
+        page = int(page)
+        if self._pins[page] <= 0:
+            raise ValueError(f"unpin of unpinned page {page}")
+        self._pins[page] -= 1
+        if self._pins[page] == 0 and page in self._slot_of:
+            self._lru[page] = None
+
+    def touch(self, page: int) -> None:
+        """LRU bump for an unpinned resident (prefetch keeps the pages
+        it staged warm until admission pins them)."""
+        if int(page) in self._lru:
+            self._lru.move_to_end(int(page))
+
+    def release(self, page: int) -> None:
+        """The flash page died (allocator refcount 0): free its slot.
+        Wired as a ``PageAllocator`` release hook so every free path —
+        slot teardown, cache eviction, speculative rollback — retires
+        residency without knowing about tiers."""
+        page = int(page)
+        assert self._pins[page] == 0, \
+            f"release of pinned page {page} (pins={int(self._pins[page])})"
+        slot = self._slot_of.pop(page, None)
+        if slot is not None:
+            self._lru.pop(page, None)
+            self._free_slots.append(slot)
+
+    # ------------------------------------------------------------------
+    def check(self) -> None:
+        """Assert tier conservation (tests / debugging)."""
+        slots = list(self._slot_of.values())
+        assert len(slots) == len(set(slots)), "two pages share a hot slot"
+        assert len(self._free_slots) == len(set(self._free_slots))
+        assert not (set(self._free_slots) & set(slots)), \
+            "slot both free and mapped"
+        assert len(self._free_slots) + len(slots) == self.hot_slots, \
+            (len(self._free_slots), len(slots), self.hot_slots)
+        assert all(0 <= s < self.hot_slots for s in slots + self._free_slots)
+        for p in self._lru:
+            assert p in self._slot_of and self._pins[p] == 0, p
+        for p, _ in self._slot_of.items():
+            assert (self._pins[p] > 0) != (p in self._lru), p
+        assert (self._pins >= 0).all()
 
 
 # ---------------------------------------------------------------------------

@@ -84,7 +84,9 @@ newest real page (only pages holding real tokens are written, so bucket
 padding never evicts a live page), and `write_ring_bases` stores a
 slot's row of bases after a fill (`window_page_positions`).
 
-Not ported yet: tier staging (ROADMAP A12).
+A tiered pool (``EngineConfig.hot_pages``) sizes the shared global pool at
+its hot tier; `read_hot_slot` and `stage_hot_slot` move one page's bytes
+out of and into a hot slot for the scheduler's demotions and promotions.
 """
 from __future__ import annotations
 
@@ -167,27 +169,19 @@ class DecodeCache:
     lengths: Optional[torch.Tensor] = None      # [B] int32
 
 
-def check_supported(eng: EngineConfig) -> None:
-    """Raise for the pool layouts/formats the port does not serve yet."""
-    if eng.hot_pages:
-        raise NotImplementedError(
-            "the tiered pool (hot_pages) is not ported yet (ROADMAP A12: "
-            "tiered pool)")
-
-
 def init_cache(cfg: ModelConfig, eng: EngineConfig, batch: int,
                max_context: int, *, dtype=torch.bfloat16,
                device="cuda") -> DecodeCache:
     """Zeroed pools (and kv8/kv4 scales), zero lengths.  Global pool:
     NP = ceil(max_context / T) pages per slot; window rings: NPw pages a
     slot, every base RING_EMPTY.  Stripe tables are identities; shared:
-    one pool of P = total_pages or B·NP pages (window: total_pages_w or
+    one pool of P = total_pages or B·NP pages (a tiered pool: P =
+    hot_pages, its device-resident hot tier; window: total_pages_w or
     B·NPw), tables of identity stripes mod P (slot b's logical page j on
     physical page (b·NP + j) mod P — the allocator-free default; the
     scheduler overwrites the tables from its allocator).  `dtype` is the
     pool's dtype when kv_quant is "none", and the shifts' dtype of an
     RWKV6 cache, which has no pool (zero states and shifts instead)."""
-    check_supported(eng)
     T = eng.page_tokens
     K, dh, L = cfg.n_kv_heads, cfg.d_head, cfg.n_layers
     lengths = torch.zeros(batch, dtype=torch.int32, device=device)
@@ -229,9 +223,11 @@ def init_cache(cfg: ModelConfig, eng: EngineConfig, batch: int,
     leaves = {}
     if Lg:
         NP = eng.max_pages_per_seq or ceil_div(max_context, T)
+        # a tiered pool keeps only its hot tier on the device; the flash
+        # page count lives in the scheduler's allocator
         (leaves["k_pages_g"], leaves["v_pages_g"], leaves["page_table_g"],
          leaves["k_scale_g"], leaves["v_scale_g"]) = pool_leaves(
-            Lg, NP, eng.total_pages or batch * NP)
+            Lg, NP, eng.hot_pages or eng.total_pages or batch * NP)
     if Lw:
         NPw = ring_pages(cfg, T)
         (leaves["k_pages_w"], leaves["v_pages_w"], table_w,
@@ -769,10 +765,70 @@ def copy_page_shared(pool: torch.Tensor, src: int, dst: int) -> torch.Tensor:
     return pool
 
 
+def host_to_device(a: np.ndarray, device) -> torch.Tensor:
+    """Upload a host array without blocking the host: on a card, from a
+    pinned snapshot of `a` with a non-blocking copy (a copy from pageable
+    memory would wait for the stream to drain).  The snapshot comes from
+    the caching host allocator, which keeps it until the copy has run,
+    so the caller may mutate `a` at once.  On the CPU a plain copy."""
+    device = torch.device(device)
+    t = torch.from_numpy(np.array(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def write_page_table(table: torch.Tensor, host_rows) -> torch.Tensor:
     """Mirror the host page tables (numpy [B, NP] int32) into the device
-    table in place.  A blocking copy: the host keeps mutating its array,
-    so an asynchronous copy from its pageable memory could read a later
-    state."""
-    table.copy_(torch.from_numpy(host_rows))
+    table in place, from a snapshot (`host_to_device`): the host goes on
+    mutating its array while the copy may still be pending."""
+    table.copy_(host_to_device(host_rows, table.device))
     return table
+
+
+# ---------------------------------------------------------------------------
+# Tiered pool: a hot slot's bytes in and out
+# ---------------------------------------------------------------------------
+#
+# A tiered shared pool keeps only `hot_pages` pages on the device (the hot
+# tier); page axis 2 of every global pool leaf ([L, K, P, ...]: K/V codes
+# and kv8/kv4 scales) is indexed by hot slot.  The scheduler moves a page's
+# bytes between a hot slot and its capacity store (pinned host tensors).
+# Both directions are copies enqueued on the current stream, so they land
+# in order with every step that reads or writes the slot.
+
+POOL_LEAVES_G = ("k_pages_g", "v_pages_g", "k_scale_g", "v_scale_g")
+
+
+def read_hot_slot(cache: DecodeCache, slot: int) -> dict:
+    """One hot slot's bytes, {leaf name: [L, K, ...] host tensor} for every
+    global pool leaf the cache has (the reference scheduler's
+    `_read_hot`).  On a card the copy goes into pinned memory without
+    blocking: it is ordered after every write already enqueued into the
+    slot and before any later one, and its bytes are read only by a later
+    `stage_hot_slot` on the same stream."""
+    out = {}
+    for name in POOL_LEAVES_G:
+        leaf = getattr(cache, name)
+        if leaf is None:
+            continue
+        src = leaf[:, :, slot]
+        if leaf.is_cuda:
+            dst = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            out[name] = dst.copy_(src, non_blocking=True)
+        else:
+            out[name] = src.clone()
+    return out
+
+
+def stage_hot_slot(cache: DecodeCache, slot: int, vals) -> DecodeCache:
+    """Write a page's bytes into hot slot `slot`: `vals` maps a pool leaf
+    name to its [L, K, ...] bytes (host or device), written at page axis 2,
+    in place (the reference's `stage_hot_slot`, a dynamic_update_slice per
+    leaf).  Replica migration reuses it with `slot` a flat-pool physical
+    page.  A pinned source is copied without blocking; the caching host
+    allocator keeps it until the copy has run."""
+    for name, val in vals.items():
+        leaf = getattr(cache, name)
+        leaf[:, :, slot].copy_(val, non_blocking=True)
+    return cache

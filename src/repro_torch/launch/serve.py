@@ -11,13 +11,19 @@ TTFT/TPOT reporting.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
       --use-dse --max-context 2048
   PYTHONPATH=src python -m repro_torch.launch.serve --speculation-k 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --shared-pool \
+      --total-pages 64 --hot-pages 12
+  PYTHONPATH=src python -m repro_torch.launch.serve --overlap
+  PYTHONPATH=src python -m repro_torch.launch.serve --http --port 8777
 
-Takes the reference's flags for what the port serves.  `--use-dse` takes
-the variant, kv_quant and speculation_k from the design-space search
-(`core/dse.recommend_engine_config`) and serves float weights, as the
-reference does.  The flags of paths not ported yet, and a configuration
-the port does not serve yet, exit with an error naming their ROADMAP
-item.
+Takes every flag of the reference's `launch/serve.py`, and `--device`.
+`--use-dse` takes the variant, kv_quant and speculation_k from the
+design-space search (`core/dse.recommend_engine_config`) and serves float
+weights, as the reference does.  `--http` serves over HTTP instead of
+running the batch trace (`serving/async_server.py`; as in the reference
+it takes --arch, --reduced, --slots, --max-context, --port and
+--overlap, and here --device).  A configuration the port does not serve
+yet exits with an error naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -33,16 +39,6 @@ from repro_torch.kernels import _build
 from repro_torch.serving.api import (KVNANDServer, SamplingParams,
                                      ServerConfig, accepted_tokens_per_step,
                                      latency_percentile)
-
-# flag -> (the value that leaves it off, the ROADMAP item that ports it)
-_UNPORTED = {
-    "hot_pages": (0, "A12, tiered pool"),
-    "no_tier_prefetch": (False, "A12, tiered pool"),
-    "overlap": (False, "A13, overlapped dispatch"),
-    "http": (False, "A13, HTTP front end"),
-    "port": (None, "A13, HTTP front end"),
-}
-
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
@@ -78,15 +74,31 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--use-dse", action="store_true",
                     help="pick the variant, kv_quant and speculation_k from "
                     "the design-space search (float weights)")
-    ap.add_argument("--hot-pages", type=int, default=0)
-    ap.add_argument("--no-tier-prefetch", action="store_true")
+    ap.add_argument("--hot-pages", type=int, default=0,
+                    help="tiered pool: keep only this many pages on the "
+                    "device (the hot tier) and stage the rest from the "
+                    "capacity tier; 0 = single tier.  Requires "
+                    "--shared-pool; repro_torch.core.dse."
+                    "recommend_hot_pages derives a value from the flash "
+                    "model")
+    ap.add_argument("--no-tier-prefetch", action="store_true",
+                    help="disable the queue-ahead hot-tier prefetch (every "
+                    "capacity-tier map-in stalls)")
     ap.add_argument("--speculation-k", type=int, default=None,
                     help="draft tokens verified per decode step (prompt "
                     "lookup); 0 decodes sequentially, unset takes the "
                     "EngineConfig's (e.g. a --use-dse pick)")
-    ap.add_argument("--overlap", action="store_true")
-    ap.add_argument("--http", action="store_true")
-    ap.add_argument("--port", type=int, default=None)
+    ap.add_argument("--overlap", action="store_true",
+                    help="pipelined stepping: dispatch step N+1 before "
+                    "collecting step N, so host bookkeeping runs while "
+                    "the card computes; the same tokens as the "
+                    "synchronous loop")
+    ap.add_argument("--http", action="store_true",
+                    help="serve over HTTP instead of running the batch "
+                    "trace: POST /v1/completions (one-shot and SSE), GET "
+                    "/metrics (repro_torch.serving.async_server)")
+    ap.add_argument("--port", type=int, default=8777,
+                    help="HTTP port for --http (0 = ephemeral)")
     return ap
 
 
@@ -99,13 +111,21 @@ def _device_name(device: torch.device) -> str:
 def serve(argv=None):
     ap = _parser()
     args = ap.parse_args(argv)
-    for flag, (off, item) in _UNPORTED.items():
-        if getattr(args, flag) != off:
-            ap.error(f"--{flag.replace('_', '-')} is not ported yet "
-                     f"(ROADMAP {item})")
+
+    if args.http:
+        from repro_torch.serving.async_server import main as http_main
+        http_argv = ["--arch", args.arch, "--port", str(args.port),
+                     "--slots", str(args.slots),
+                     "--max-context", str(args.max_context),
+                     "--device", args.device]
+        if args.reduced:
+            http_argv.append("--reduced")
+        if not args.overlap:
+            http_argv.append("--no-overlap")
+        return http_main(http_argv)
 
     pool_kw = dict(shared_pool=args.shared_pool,
-                   total_pages=args.total_pages)
+                   total_pages=args.total_pages, hot_pages=args.hot_pages)
     if args.use_dse:
         eng = recommend_engine_config(args.arch, args.max_context)
         eng = EngineConfig(**{**eng.__dict__, "page_tokens": 16,
@@ -123,7 +143,9 @@ def serve(argv=None):
             scheduler=args.scheduler, batch_slots=args.slots,
             max_context=args.max_context,
             prefill_chunk_tokens=args.chunk_tokens,
-            speculation_k=args.speculation_k, device=args.device))
+            speculation_k=args.speculation_k,
+            tier_prefetch=not args.no_tier_prefetch, overlap=args.overlap,
+            device=args.device))
     except NotImplementedError as e:
         ap.error(str(e))
     cfg = server.cfg
@@ -167,6 +189,15 @@ def serve(argv=None):
               f"{st['pool_total_pages']} pages live, "
               f"{hit_rate:.0%} prompt pages from prefix cache, "
               f"{st['cow_copies']} COW copies")
+    if st["tier_hot_slots"]:
+        touched = st["tier_hit_pages"] + st["tier_miss_pages"]
+        tier_hr = st["tier_hit_pages"] / max(touched, 1)
+        print(f"[serve] tiered pool: {st['tier_hot_slots']} hot slots "
+              f"(peak {st['tier_peak_hot']} resident), "
+              f"{tier_hr:.0%} cached map-ins hot, "
+              f"{st['tier_stall_tokens']} stall tokens, "
+              f"{st['tier_promotes']} promotes / {st['tier_demotes']} "
+              f"demotes ({st['tier_prefetch_pages']} prefetched)")
     for o in outs[:3]:
         print(f"  req {o.uid}: {len(o.token_ids)} tokens "
               f"({o.finish_reason}) -> {o.token_ids[:8]}...")

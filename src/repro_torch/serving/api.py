@@ -4,7 +4,9 @@
 continuous-batching scheduler on one device — the CUDA card unless
 ``ServerConfig.device`` says otherwise — and offer `generate()` for
 batch-synchronous use, `submit()` / `step()` / `stream()` for
-incremental use and `abort()` for cancellation at any stage.
+incremental use, `dispatch()` / `collect()` for a pipelined driver
+(`serving/async_server.py`) and `abort()` for cancellation at any
+stage.
 
 Entry points set `torch.backends.cuda.matmul.allow_tf32` and
 `torch.backends.cudnn.allow_tf32` to False: the reference computes in
@@ -29,11 +31,17 @@ draft-and-verify step with the same output tokens (``None`` takes
 ``EngineConfig.speculation_k``, 0 decodes sequentially; a request caps or
 opts out with `SamplingParams.speculation`; `RequestOutput` carries its
 acceptance counts).  Sliding-window archs (``arch="gemma3-12b"``) are
-served on every path, their local layers from window rings.
-Configurations the port does not serve yet raise NotImplementedError at
-construction, naming their ROADMAP item: the overlapped pipeline, and
-(through the engine) tiered pools (``hot_pages``) and the hybrid, MoE,
-VLM and encoder-decoder families.
+served on every path, their local layers from window rings.  A tiered
+shared pool (``EngineConfig(hot_pages=...)``) keeps only its hot tier on
+the device and stages the rest through a host capacity store, with a
+queue-ahead prefetch (``ServerConfig.tier_prefetch``); `RequestOutput`
+carries each request's hot-tier hits and stalls.  With
+``ServerConfig.overlap`` `stream()` / `run()` / `generate()` dispatch
+step N+1 before collecting step N, so the host's emission and
+bookkeeping run while the card computes; the tokens are the synchronous
+schedule's.  Configurations the port does not serve yet raise
+NotImplementedError at construction, naming their ROADMAP item: (through
+the engine) the hybrid, MoE, VLM and encoder-decoder families.
 """
 from __future__ import annotations
 
@@ -82,6 +90,12 @@ class ServerConfig:
     seed: int = 0                   # params init + default request streams
     max_steps: int = 100_000        # drain guard for generate()/run()
     speculation_k: Optional[int] = None     # None -> engine.speculation_k
+    # tiered pool (EngineConfig.hot_pages > 0): promote the next
+    # admission's prefix-hit pages at the end of each step; off, every
+    # capacity-tier map-in stalls.  Ignored by single-tier pools
+    tier_prefetch: bool = True
+    # stream() / run() / generate() dispatch step N+1 before collecting
+    # step N (the same tokens; speculation runs synchronously)
     overlap: bool = False
     device: str = "cuda"
 
@@ -93,10 +107,6 @@ class ServerConfig:
         if self.speculation_k is not None and self.speculation_k < 0:
             raise ValueError(f"speculation_k must be >= 0, "
                              f"got {self.speculation_k}")
-        if self.overlap:
-            raise NotImplementedError(
-                "the overlapped dispatch/collect pipeline is not ported "
-                "yet (ROADMAP A13)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,7 +126,10 @@ class RequestOutput:
     """A finished request with its timing counters and, under speculative
     decoding, its acceptance counts (`spec_steps` verify steps in which it
     offered drafts, `spec_drafted` drafts offered, `spec_accepted` drafts
-    accepted; all 0 under sequential decode)."""
+    accepted; all 0 under sequential decode).  Under a tiered pool,
+    `tier_hit_pages` counts the cached pages it mapped while they were
+    hot-resident and `tier_stall_tokens` those it had to promote from the
+    capacity tier at admission (0 on single-tier pools)."""
     uid: int
     prompt: List[int]
     token_ids: List[int]
@@ -128,6 +141,8 @@ class RequestOutput:
     spec_steps: int = 0
     spec_drafted: int = 0
     spec_accepted: int = 0
+    tier_hit_pages: int = 0
+    tier_stall_tokens: int = 0
 
     @property
     def accepted_tokens_per_step(self) -> Optional[float]:
@@ -184,7 +199,8 @@ class KVNANDServer:
             seed=config.seed,
             prefill_chunk_tokens=config.prefill_chunk_tokens,
             step_token_budget=config.step_token_budget,
-            speculation_k=spec_k, device=device)
+            speculation_k=spec_k, tier_prefetch=config.tier_prefetch,
+            device=device)
         self._requests: Dict[int, Request] = {}
         self._streamed: Dict[int, int] = {}
         self._done_emitted: set = set()
@@ -247,6 +263,22 @@ class KVNANDServer:
         self._batcher.step()
         return self._drain_events()
 
+    def dispatch(self) -> int:
+        """Pipelined driver surface: enqueue the next step's device work
+        without waiting for its tokens.  Pair every dispatch with a later
+        `collect()`; `step()` is the two back to back."""
+        return self._batcher.dispatch()
+
+    def collect(self) -> List[StreamEvent]:
+        """Wait for the oldest dispatched step and return its events
+        (shaped as `step()`'s)."""
+        self._batcher.collect()
+        return self._drain_events()
+
+    def pending_steps(self) -> int:
+        """Dispatched, uncollected scheduler steps."""
+        return self._batcher.pending_steps
+
     def _drain_events(self) -> List[StreamEvent]:
         events: List[StreamEvent] = []
         for uid, req in self._requests.items():
@@ -273,15 +305,35 @@ class KVNANDServer:
 
     def stream(self) -> Iterator[StreamEvent]:
         """Step until every submitted request finishes, yielding each new
-        token as its step produces it."""
+        token as its step produces it.  With ``ServerConfig.overlap`` the
+        loop dispatches step N+1, then collects step N, so the host work
+        behind each yield runs while the card computes the next step;
+        each request's events are the same either way (only the
+        interleaving across requests may shift by a step)."""
         steps = 0
-        while self._busy():
+        if not self.config.overlap:
+            while self._busy():
+                if steps >= self.config.max_steps:
+                    raise RuntimeError(
+                        f"stream: max_steps={self.config.max_steps} "
+                        "exhausted with requests still pending")
+                yield from self.step()
+                steps += 1
+            yield from self._drain_events()
+            return
+        if self._busy():
+            self._batcher.dispatch()        # prime the pipeline (step 0)
+        while self._busy() or self._batcher.pending_steps:
             if steps >= self.config.max_steps:
                 raise RuntimeError(
-                    f"stream: max_steps={self.config.max_steps} "
-                    "exhausted with requests still pending")
-            yield from self.step()
+                    f"stream: max_steps={self.config.max_steps} exhausted "
+                    "with requests still pending")
+            if self._busy():
+                self._batcher.dispatch()    # step N+1 onto the card
+            yield from self.collect()       # step N's tokens
             steps += 1
+        # aborts between steps retire requests without a step: flush
+        # their terminal marker events
         yield from self._drain_events()
 
     def run(self) -> List[StreamEvent]:
@@ -321,7 +373,8 @@ class KVNANDServer:
             finish_reason=req.finish_reason, submit_time=req.submit_ts,
             first_token_time=req.first_ts, finish_time=req.finish_ts,
             spec_steps=req.spec_steps, spec_drafted=req.spec_drafted,
-            spec_accepted=req.spec_accepted)
+            spec_accepted=req.spec_accepted, tier_hit_pages=req.tier_hits,
+            tier_stall_tokens=req.tier_stalls)
 
     def outputs(self) -> List[RequestOutput]:
         """Every finished, unreleased request, in uid order."""

@@ -108,7 +108,13 @@ def sample_with_logprobs(logits: torch.Tensor,
     row's `noise` [B, V] (may be None when every row is greedy).  Vocab
     padding (ids >= true_vocab) is floored below any noise and can never
     be sampled.  The logprob is log_softmax of the raw pad-masked logits
-    at the chosen token, independent of the sampling knobs."""
+    at the chosen token, independent of the sampling knobs.
+
+    Given its knobs as tensors on the card, a call there enqueues its
+    work and returns: whether to sample is decided by `noise` being
+    given, not by reading the temperatures back.  Stochastic rows without
+    noise raise when the temperatures are on the CPU; on the card they
+    are not checked."""
     B, V = logits.shape
     dev = logits.device
     logits = logits.float()
@@ -122,9 +128,10 @@ def sample_with_logprobs(logits: torch.Tensor,
     tps = torch.as_tensor(top_p, dtype=torch.float32, device=dev).expand(B)
 
     toks = logits.argmax(dim=-1)
-    if bool((temps > 0.0).any()):
-        if noise is None:
+    if noise is None:
+        if not temps.is_cuda and bool((temps > 0.0).any()):
             raise ValueError("stochastic rows need Gumbel noise")
+    else:
         # re-floor invalid lanes AFTER the division so huge temperatures
         # cannot lift padding into noise range
         safe_t = torch.where(temps > 0.0, temps, torch.ones_like(temps))

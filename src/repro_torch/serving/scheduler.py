@@ -1,6 +1,6 @@
 """Continuous batching over the KVNAND engine (port of
-`repro.serving.scheduler`: `ContinuousBatcher`, synchronous, and the
-`SpliceBatcher` baseline).
+`repro.serving.scheduler`: `ContinuousBatcher` and the `SpliceBatcher`
+baseline).
 
   * a fixed decode batch of B slots; empty slots are refilled from the
     queue between steps, by (priority, deadline, submit order);
@@ -41,6 +41,19 @@ reference:
     `page_table_w`, recycled in place and freed at completion; no prefix
     cache is kept, since a ring rewrites its pages.
 
+Tiered mode (``EngineConfig.hot_pages``, the paper's DRAM-free story)
+splits that pool into a device-resident HOT tier of `hot_pages` slots
+(standing for the NPU's staging SRAM) and a CAPACITY tier (standing for
+the flash): the allocator keeps stable flash page ids over `total_pages`,
+a `HotTier` maps the resident ones to hot slots (the values the page
+tables carry, so B2 walks the hot tier), a demoted page's bytes park in
+pinned host tensors (`_store`), and a queue-ahead prefetch promotes the
+next admission's prefix-hit pages at the end of each step, so admissions
+pin warm pages instead of demand-faulting (faults are counted as
+`tier_stall_tokens`).  Pages mapped by a live slot are pinned hot and
+never demoted, so no step's walk can fault.  Window rings are not
+tiered (refused, as in the reference).
+
 An RWKV6 (`ssm`) model carries recurrent state, which padding would
 pollute: its prompt is prefilled as ONE exact-length chunk (whatever
 `prefill_chunk_tokens` says; the budget charges its full length), the
@@ -60,20 +73,42 @@ pool the pages backed for them go back to the allocator with the slot's
 reservation restored.  A step in which no slot may draft runs as a plain
 decode step.
 
-`step()` is the reference's synchronous schedule (dispatch, then
-collect, back to back).  `SpliceBatcher` is the reference's measured
-baseline: each admit prefills the whole (bucketed) prompt in one shot
-(`engine.prefill`, a ring filled from the true length) and splices the
-one-row cache into its slot.  Not
-ported yet, and refused at construction: the tiered pool and the
-overlapped dispatch/collect pipeline (ROADMAP).
+Pipelined stepping: `step()` is `dispatch()` then `collect()`.
+`dispatch()` does every piece of host bookkeeping a step needs
+(admission, prefill chunks, page ensures, table pushes, tier promotions)
+and then enqueues the decode (or verify) step, sampling included, on the
+card's stream; its tokens and logprobs stay on the device, and one
+non-blocking device-to-host copy of both is started (`_HostFetch`).
+`collect()` waits for the OLDEST in-flight step's copy, emits its tokens
+(first-token and finish times are taken here), sweeps finishes and runs
+the tier's prefetch.  An overlapped driver (`KVNANDServer.stream()` with
+``ServerConfig.overlap``, `serving/async_server.py`) calls dispatch(N+1)
+before collect(N): a row whose previous token is still in flight takes it
+from the in-flight step's device tokens by an on-device merge, so the
+dispatch never waits.  Host uploads go through pinned snapshots
+(`paged_kv.host_to_device`) for the same reason.  A stop-token finish is
+not known at dispatch, so an overlapped step may carry PHANTOM rows for
+requests that finished at the collect before it; collect discards them
+by request identity (`_Inflight.reqs`).  Their appends land in pages the
+finished slot still owned when the step was enqueued, and every later
+write of those pages (a new occupant's fill, a hot slot's staging) is
+enqueued after it on the one stream, so it cannot survive.  Length and
+capacity finishes are known at dispatch, and such rows are left out.
+Verify steps draft from host-visible history, so `dispatch()` drains the
+pipeline first: speculation runs unoverlapped.
+
+`SpliceBatcher` is the reference's measured baseline: each admit
+prefills the whole (bucketed) prompt in one shot (`engine.prefill`, a
+ring filled from the true length) and splices the one-row cache into its
+slot; its `step()` stays synchronous, and overlapped drivers run it
+through the same `dispatch()` / `collect()`.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional, Set
+from typing import Deque, Dict, List, Optional, Sequence, Set
 
 import numpy as np
 import torch
@@ -81,7 +116,8 @@ import torch
 from repro_torch.configs.base import EngineConfig, ModelConfig
 from repro_torch.core import paged_kv
 from repro_torch.core.engine import KVNANDEngine
-from repro_torch.core.page_alloc import (CacheHit, OutOfPages, PageAllocator,
+from repro_torch.core.page_alloc import (CacheHit, HotTier, OutOfHotSlots,
+                                         OutOfPages, PageAllocator,
                                          PrefixCache)
 from repro_torch.models.transformer import Runtime
 from repro_torch.serving.draft import propose_draft
@@ -112,6 +148,8 @@ class Request:
     spec_steps: int = 0       # verify steps this request offered drafts in
     spec_drafted: int = 0     # draft tokens offered for verification
     spec_accepted: int = 0    # draft tokens accepted (and emitted)
+    tier_hits: int = 0        # cached pages mapped while hot-resident
+    tier_stalls: int = 0      # cached pages demand-promoted from capacity
 
 
 def bucket_length(n: int, lo: int = MIN_PROMPT_BUCKET,
@@ -137,6 +175,53 @@ class _PrefillState:
     order: int = 0          # admission order (FIFO chunk scheduling)
 
 
+class _HostFetch:
+    """A step's outputs on their way to the host in ONE transfer: the
+    tensors are packed into one float64 vector (token ids and float32
+    logprobs are exact there) and, on a card, copied into pinned memory
+    without blocking, with an event behind the copy.  `wait()` returns
+    them as numpy arrays of their own shapes."""
+
+    def __init__(self, parts: Sequence[torch.Tensor]):
+        self._shapes = [tuple(t.shape) for t in parts]
+        flat = torch.cat([t.reshape(-1).double() for t in parts])
+        self._event = None
+        if flat.is_cuda:
+            host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            self._host = host.copy_(flat, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = flat
+
+    def wait(self) -> List[np.ndarray]:
+        if self._event is not None:
+            self._event.synchronize()
+        flat = self._host.numpy()
+        out, k = [], 0
+        for shape in self._shapes:
+            n = int(np.prod(shape))
+            out.append(flat[k:k + n].reshape(shape))
+            k += n
+        return out
+
+
+@dataclasses.dataclass
+class _Inflight:
+    """One dispatched, not yet collected decode or verify step: its device
+    tokens (an overlapped dispatch chains on them), the transfer of its
+    outputs, and the host snapshot `collect()` emits from — the slots'
+    requests at dispatch time (a slot whose occupant changed since is a
+    PHANTOM row) and the slots whose capacity finish was known then."""
+    kind: str                       # "decode" | "verify"
+    active: List[int]
+    reqs: Dict[int, Request]
+    toks: torch.Tensor              # [B] (decode) on the device
+    fetch: _HostFetch               # (toks, lps) or (toks, lps, acc)
+    allowed: Optional[np.ndarray] = None     # verify: per-row draft cap
+    cap_finish: Set[int] = dataclasses.field(default_factory=set)
+
+
 class ContinuousBatcher:
     def __init__(self, cfg: ModelConfig, params, *, batch_slots: int = 4,
                  max_context: int = 512, eng: Optional[EngineConfig] = None,
@@ -144,7 +229,8 @@ class ContinuousBatcher:
                  bucket_prompts: bool = True,
                  prefill_chunk_tokens: int = 64,
                  step_token_budget: Optional[int] = None,
-                 speculation_k: int = 0, device="cuda"):
+                 speculation_k: int = 0, tier_prefetch: bool = True,
+                 device="cuda"):
         eng = eng or EngineConfig(page_tokens=16, uniform_lengths=False)
         if eng.uniform_lengths:
             raise ValueError(
@@ -189,7 +275,13 @@ class ContinuousBatcher:
         self._prefill_live: Dict[int, _PrefillState] = {}
         self._admit_seq = 0
         self._submit_seq = 0
-        # per-slot sampling params (host arrays, staged each decode step)
+        # dispatched, uncollected steps: none between synchronous steps,
+        # briefly two in the overlapped schedule
+        self._inflight: Deque[_Inflight] = deque()
+        # host-observed device idleness: opened when a collect leaves no
+        # step in flight, closed (and added up) at the next step enqueue
+        self._idle_since: Optional[float] = None
+        # per-slot sampling params (host arrays, uploaded each step)
         self._temps = np.zeros(batch_slots, np.float32)
         self._topk = np.zeros(batch_slots, np.int64)
         self._topp = np.ones(batch_slots, np.float32)
@@ -202,29 +294,64 @@ class ContinuousBatcher:
                       "prompt_pages": 0, "cow_copies": 0,
                       "pool_peak_pages": 0, "pool_total_pages": 0,
                       "verify_steps": 0, "spec_steps": 0, "spec_drafted": 0,
-                      "spec_accepted": 0}
+                      "spec_accepted": 0,
+                      "tier_hot_slots": 0, "tier_hit_pages": 0,
+                      "tier_miss_pages": 0, "tier_stall_tokens": 0,
+                      "tier_promotes": 0, "tier_demotes": 0,
+                      "tier_prefetch_pages": 0, "tier_peak_hot": 0,
+                      "phantom_tokens": 0, "device_idle_s": 0.0}
         self.shared = eng.shared_pool
         self.alloc: Optional[PageAllocator] = None
         self.alloc_w: Optional[PageAllocator] = None     # window rings
         self.prefix_cache: Optional[PrefixCache] = None
+        self.tier: Optional[HotTier] = None
+        self.tier_prefetch = tier_prefetch
         if self.shared:
             self._start_shared_pool()
 
     # -- shared-pool bookkeeping (allocator, tables, prefix cache) -----
     def _start_shared_pool(self):
-        """The reference's `_init_shared_pool`, without the tier branch
-        (not ported): an allocator over the global pool's pages and one
-        over the window rings' pages, zeroed host tables, per-slot maps,
-        and the prefix cache — for a global-pool-only dense arch, which
-        is what prefix sharing needs (a ring recycles its pages in place,
-        so a window arch shares none).  An RWKV6 cache has no pool: no
+        """The reference's `_init_shared_pool`: an allocator over the
+        global pool's pages (a tiered pool's over its FLASH pages, with
+        the hot tier and the capacity store beside it) and one over the
+        window rings' pages, zeroed host tables, per-slot maps, and the
+        prefix cache — for a global-pool-only dense arch, which is what
+        prefix sharing needs (a ring recycles its pages in place, so a
+        window arch shares none).  An RWKV6 cache has no pool: no
         allocator, no tables, no prefix cache."""
         c = self.cache
+        eng = self.engine.eng
         self._table_np = None
         self._table_w_np = None
         if c.k_pages_g is not None:
             self._NPg = c.page_table_g.shape[1]
-            self.alloc = PageAllocator(c.k_pages_g.shape[2])
+            H = c.k_pages_g.shape[2]            # device-resident pages
+            if eng.hot_pages > 0:
+                # the allocator spans the flash page space (stable ids);
+                # only H of those pages are on the device at a time
+                total_flash = eng.total_pages or self.B * self._NPg
+                if H > total_flash:
+                    raise ValueError(
+                        f"hot_pages={eng.hot_pages} (rounded to {H}) "
+                        f"exceeds the flash pool of {total_flash} pages; "
+                        "shrink hot_pages or grow total_pages")
+                if c.k_pages_w is not None:
+                    raise ValueError(
+                        f"{self.cfg.name}: tiered pools cover the GLOBAL "
+                        "layer group only — window rings recycle their "
+                        "pages in place and never cool down; run "
+                        "local-attention archs with hot_pages=0")
+                self.alloc = PageAllocator(total_flash)
+                self.tier = HotTier(H, total_flash)
+                # capacity tier: a demoted page's bytes, flash id ->
+                # {pool leaf: pinned host tensor}
+                self._store: Dict[int, Dict[str, torch.Tensor]] = {}
+                self.alloc.add_release_hook(self._tier_release)
+                self._hot_resv = np.zeros(self.B, np.int64)
+                self._hot_out = 0       # sum of the slots' hot footprints
+                self.stats["tier_hot_slots"] = H
+            else:
+                self.alloc = PageAllocator(H)
             self._table_np = np.zeros((self.B, self._NPg), np.int32)
             self.stats["pool_total_pages"] = self.alloc.total
         if c.k_pages_w is not None:
@@ -245,9 +372,70 @@ class ContinuousBatcher:
         self._tables_dirty = True
         self._push_tables()
 
+    # -- tiered pool ----------------------------------------------------
+    def _tier_release(self, page: int):
+        """Allocator release hook: flash page `page` reached refcount 0 on
+        ANY free path (slot teardown, cache eviction, speculative
+        rollback) — retire its hot slot and its capacity-store bytes."""
+        self.tier.release(int(page))
+        self._store.pop(int(page), None)
+
+    def _bind_slot(self, page: int, avoid: frozenset = frozenset()) -> int:
+        """Acquire a hot slot for flash page `page`, demoting the LRU
+        unpinned resident to the capacity store when the tier is full
+        (its bytes are read out before anything writes the slot)."""
+        slot, victim = self.tier.bind(page, avoid=avoid)
+        if victim is not None:
+            self._store[victim] = paged_kv.read_hot_slot(self.cache, slot)
+            self.stats["tier_demotes"] += 1
+        self.stats["tier_peak_hot"] = max(self.stats["tier_peak_hot"],
+                                          self.tier.resident_count)
+        return slot
+
+    def _promote(self, page: int, avoid: frozenset = frozenset()) -> int:
+        """Stage a capacity-tier page's bytes into a hot slot.  Every live
+        non-resident page has bytes in the store (pages leave residency
+        only by demotion); fresh allocations bind without a copy and never
+        come through here."""
+        slot = self._bind_slot(page, avoid=avoid)
+        paged_kv.stage_hot_slot(self.cache, slot,
+                                self._store.pop(int(page)))
+        self.stats["tier_promotes"] += 1
+        return slot
+
+    def _tier_prefetch_tick(self):
+        """Queue-ahead prefetch: at the END of a step, promote the
+        capacity-tier pages the next admission's prefix hit will map, so
+        the admission pins resident pages instead of demand-faulting.  The
+        copies queue behind the in-flight step; only demand promotions
+        count as stall tokens.  Uses the side-effect-free cache lookup,
+        binds around the working set being staged, and backs off when
+        every remaining slot is pinned."""
+        if (self.tier is None or not self.tier_prefetch or not self.queue
+                or self.prefix_cache is None):
+            return
+        # the next ADMISSION candidate (priority / deadline order)
+        head = min(self.queue, key=self._admission_key)
+        hit = self.prefix_cache.lookup(head.prompt, record=False)
+        pages = (hit.exact.pages if hit.exact is not None
+                 else hit.full_pages)
+        if not pages:
+            return
+        avoid = frozenset(int(p) for p in pages)
+        for p in pages:
+            if self.tier.is_resident(p):
+                self.tier.touch(p)      # keep warm until admission pins
+            else:
+                try:
+                    self._promote(p, avoid=avoid)
+                except OutOfHotSlots:
+                    break
+                self.stats["tier_prefetch_pages"] += 1
+
     def _push_tables(self):
         """Mirror the host page tables into the device tables, only when a
-        mapping changed (a blocking copy: see `paged_kv.write_page_table`)."""
+        mapping changed (a non-blocking copy from a snapshot:
+        `paged_kv.write_page_table`)."""
         if not self._tables_dirty:
             return
         if self._table_np is not None:
@@ -275,12 +463,21 @@ class ContinuousBatcher:
 
     def _ensure_page(self, i: int, lp: int):
         """Slot i is about to WRITE logical page lp: allocate it fresh if
-        unmapped, copy it on write if currently shared (refcount > 1)."""
+        unmapped, copy it on write if currently shared (refcount > 1).  A
+        tiered pool also pins the page hot: a fresh page binds a slot with
+        no byte traffic (its contents are written before the length covers
+        them); a copy on write takes the shared bytes through the host, so
+        the fresh binding may demote the old page itself when it was the
+        last unpinned resident."""
         pages = self._slot_pages[i]
         if lp not in pages:
             p = self._alloc_g(lp)
             pages[lp] = p
-            self._table_np[i, lp] = p
+            if self.tier is not None:
+                self._table_np[i, lp] = self._bind_slot(p)
+                self.tier.pin(p)
+            else:
+                self._table_np[i, lp] = p
             self._tables_dirty = True
             self._resv[i] -= 1
             self._outstanding -= 1
@@ -289,15 +486,28 @@ class ContinuousBatcher:
             old = pages[lp]
             fresh = self.alloc.cow(old)
             if fresh != old:
-                # one copy per pool leaf (kv8/kv4 scales too), on the
-                # stream the next decode step runs on, so the bytes land
-                # before its append
-                c = self.cache
-                for leaf in (c.k_pages_g, c.v_pages_g, c.k_scale_g,
-                             c.v_scale_g):
-                    if leaf is not None:
-                        paged_kv.copy_page_shared(leaf, old, fresh)
-                self._table_np[i, lp] = fresh
+                if self.tier is not None:
+                    # `old` is pinned (this slot maps it): read its bytes,
+                    # drop this slot's pin, then bind and stage the copy —
+                    # in that order, so the bind may demote `old` itself
+                    # without losing the copy's source
+                    src = self.tier.slot_of(old)
+                    self._store[fresh] = paged_kv.read_hot_slot(self.cache,
+                                                                src)
+                    self.tier.unpin(old)
+                    self._promote(fresh)
+                    self.tier.pin(fresh)
+                    self._table_np[i, lp] = self.tier.slot_of(fresh)
+                else:
+                    # one copy per pool leaf (kv8/kv4 scales too), on the
+                    # stream the next decode step runs on, so the bytes
+                    # land before its append
+                    c = self.cache
+                    for leaf in (c.k_pages_g, c.v_pages_g, c.k_scale_g,
+                                 c.v_scale_g):
+                        if leaf is not None:
+                            paged_kv.copy_page_shared(leaf, old, fresh)
+                    self._table_np[i, lp] = fresh
                 pages[lp] = fresh
                 self._tables_dirty = True
                 self.stats["cow_copies"] += 1
@@ -311,9 +521,18 @@ class ContinuousBatcher:
         if not self.shared:
             return
         if self.alloc is not None and self._slot_pages[i]:
+            if self.tier is not None:
+                # unpin before the refcount drop: pages the prefix cache
+                # still names stay resident (demotion candidates), dead
+                # pages free their slot through the release hook
+                for p in self._slot_pages[i].values():
+                    self.tier.unpin(p)
             self.alloc.free(list(self._slot_pages[i].values()))
         if self.alloc_w is not None and self._slot_ring[i]:
             self.alloc_w.free(self._slot_ring[i])
+        if self.tier is not None:
+            self._hot_out -= int(self._hot_resv[i])
+            self._hot_resv[i] = 0
         self._slot_pages[i] = {}
         self._slot_shared[i] = set()
         self._slot_ring[i] = []
@@ -326,12 +545,30 @@ class ContinuousBatcher:
 
     def _map_cached_pages(self, i: int, pages) -> int:
         """Map cached pages read-only into slot i's logical pages 0..len:
-        one allocator reference each, marked shared (copy before write)."""
+        one allocator reference each, marked shared (copy before write).
+
+        A tiered pool pins each page hot first: a page the prefetcher (or
+        recency) kept resident is a TIER HIT; a page demoted to the
+        capacity store is promoted on the spot and counted as a stall
+        token, the observable cost of the DRAM-free design."""
+        req = self.slots[i]
         for j, p in enumerate(pages):
             self.alloc.share([p])
             self._slot_pages[i][j] = p
             self._slot_shared[i].add(j)
-            self._table_np[i, j] = p
+            if self.tier is not None:
+                if self.tier.is_resident(p):
+                    self.stats["tier_hit_pages"] += 1
+                    req.tier_hits += 1
+                else:
+                    self._promote(p)
+                    self.stats["tier_miss_pages"] += 1
+                    self.stats["tier_stall_tokens"] += 1
+                    req.tier_stalls += 1
+                self.tier.pin(p)
+                self._table_np[i, j] = self.tier.slot_of(p)
+            else:
+                self._table_np[i, j] = p
         return len(pages)
 
     def _register_prefix(self, i: int, ps: "_PrefillState",
@@ -348,6 +585,13 @@ class ContinuousBatcher:
         pages = [self._slot_pages[i][j] for j in range(n_pages)]
         partial = ps.n % T != 0
         slack = self.alloc.free_count - self._outstanding
+        if self.tier is not None:
+            # hot-tier slack, not flash slack: the repeat that hits this
+            # exact entry must re-pin every page hot AND fund the partial
+            # page's copy with a hot slot, which a cold capacity tier's
+            # free flash pages cannot give
+            slack = min(slack, self.tier.free_slot_count
+                        + self.tier.demotable_count)
         include_exact = (not partial) or slack >= 1
         added = self.prefix_cache.register(
             ps.req.prompt, pages, logits, include_exact=include_exact)
@@ -374,24 +618,35 @@ class ContinuousBatcher:
         self._topp[i] = p.top_p
         self._seeds[i] = self._seed_of(req)
 
-    def _sample(self, logits: torch.Tensor, rows: List[int],
-                positions: List[int]):
-        """Sample `rows` (slot indices, one per logits row) through their
-        own params and (seed, position) streams -> host (toks, lps)."""
-        V = logits.shape[-1]
+    def _sample_dev(self, logits: torch.Tensor, rows, positions,
+                    live: Optional[np.ndarray] = None):
+        """Sample logits row j through slot rows[j]'s params and (seed,
+        positions[j]) stream -> device (toks, lps).  Rows with `live`
+        False are sampled greedily (their outputs are dropped).  The knobs
+        go up through pinned snapshots, so this enqueues and returns."""
+        dev = logits.device
         idx = np.asarray(rows)
         temps = self._temps[idx]
+        if live is not None:
+            temps = np.where(live, temps, np.float32(0.0))
         noise = None
         if (temps > 0).any():
-            noise = request_noise(self._seeds[idx], positions, V,
-                                  logits.device)
-        dev = logits.device
-        toks, lps = sample_with_logprobs(
+            noise = request_noise(self._seeds[idx], positions,
+                                  logits.shape[-1], dev)
+        return sample_with_logprobs(
             logits, noise, true_vocab=self.cfg.vocab_size,
-            temperature=torch.as_tensor(temps, device=dev),
-            top_k=torch.as_tensor(self._topk[idx], device=dev),
-            top_p=torch.as_tensor(self._topp[idx], device=dev))
-        return toks.cpu().numpy(), lps.cpu().numpy()
+            temperature=paged_kv.host_to_device(temps, dev),
+            top_k=paged_kv.host_to_device(self._topk[idx], dev),
+            top_p=paged_kv.host_to_device(self._topp[idx], dev))
+
+    def _sample_now(self, logits: torch.Tensor, i: int,
+                    req: Request):
+        """Sample ONE request's next token (the prefill handoff and the
+        exact-hit first token) through the stream the batched decode uses
+        -> host (token, logprob)."""
+        toks, lps = _HostFetch(self._sample_dev(
+            logits, [i], [len(req.output)])).wait()
+        return int(toks[0]), float(lps[0])
 
     def _finish(self, i: int, reason: str):
         """Retire slot i's request: a stripe is overwritten in place by
@@ -466,6 +721,13 @@ class ContinuousBatcher:
                     f"pages exceeds the shared pool of {self.alloc.total} "
                     "pages; shrink the prompt/max_new or grow "
                     "EngineConfig.total_pages")
+            if self.tier is not None and need > self.tier.hot_slots:
+                raise ValueError(
+                    f"request {req.uid}: worst-case footprint of {need} "
+                    f"pages exceeds the hot tier of "
+                    f"{self.tier.hot_slots} pages (mapped pages stay "
+                    "pinned hot); shrink the prompt/max_new or grow "
+                    "EngineConfig.hot_pages")
         self.queue.append(req)
 
     @staticmethod
@@ -550,6 +812,13 @@ class ContinuousBatcher:
                                   else len(hit.full_pages))
             if resv_needed > avail:
                 return False
+            # a tiered pool: the worst-case footprint must also fit the
+            # hot tier net of every live slot's, since mapped pages stay
+            # pinned for the slot's lifetime — so allocations and
+            # promotions always find a free or demotable slot
+            if self.tier is not None \
+                    and self._hot_out + need > self.tier.hot_slots:
+                return False
         if self.alloc_w is not None and need_w > self.alloc_w.free_count:
             return False
 
@@ -558,6 +827,9 @@ class ContinuousBatcher:
         self._set_slot_params(i, req)
         self.stats["admits"] += 1
         self.stats["prompt_pages"] += -(-n // T)
+        if self.tier is not None:
+            self._hot_resv[i] = need
+            self._hot_out += need
         if self.alloc_w is not None:
             for j in range(need_w):
                 p = self.alloc_w.alloc_for_logical(j)
@@ -584,10 +856,9 @@ class ContinuousBatcher:
             # first token from the cached float32 last-token logits,
             # through the request's own params and stream (the accounting
             # above is final, so a stop/length finish frees cleanly)
-            logits = torch.as_tensor(hit.exact.logits,
-                                     device=self.device)[None]
-            toks, lps = self._sample(logits, [i], [len(req.output)])
-            self._emit_token(i, req, int(toks[0]), float(lps[0]))
+            logits = paged_kv.host_to_device(hit.exact.logits,
+                                             self.device)[None]
+            self._emit_token(i, req, *self._sample_now(logits, i, req))
         return True
 
     def _prefill_tick(self, i: int, ps: _PrefillState):
@@ -606,7 +877,7 @@ class ContinuousBatcher:
             self._push_tables()
         logits, self.cache = self.engine.prefill_chunk(
             self.params, self.cache,
-            {"tokens": torch.as_tensor(chunk, device=self.device)[None]},
+            {"tokens": paged_kv.host_to_device(chunk, self.device)[None]},
             i, c0, cl, first=(c0 == 0))
         ps.pos = c0 + len(chunk)
         self.stats["prefill_chunks"] += 1
@@ -616,20 +887,52 @@ class ContinuousBatcher:
             if self.prefix_cache is not None:
                 self._register_prefix(
                     i, ps, logits[0].float().cpu().numpy())
-            toks, lps = self._sample(logits, [i], [len(ps.req.output)])
-            self._emit_token(i, ps.req, int(toks[0]), float(lps[0]))
+            self._emit_token(i, ps.req, *self._sample_now(logits, i,
+                                                          ps.req))
 
     def step(self) -> int:
-        """One interleaved step: admissions, budgeted prefill chunks,
-        then one decode step over every decoding slot.  Returns the
-        number of prefill chunks plus tokens decoded."""
+        """One interleaved step, the synchronous schedule: `dispatch()`
+        then `collect()` back to back.  Returns the number of prefill
+        chunks plus tokens emitted."""
+        chunks = self.dispatch()
+        return chunks + self.collect()
+
+    def _mark_device_busy(self):
+        """Close the host-observed device-idle window at the first step
+        enqueue after a collect that emptied the pipeline."""
+        if self._idle_since is not None:
+            self.stats["device_idle_s"] += time.monotonic() - self._idle_since
+            self._idle_since = None
+
+    def _will_finish(self, i: int, pend: int) -> bool:
+        """True when slot i's request is CERTAIN to finish once the
+        pipeline drains: `pend` uncollected tokens ahead of it reach its
+        max_new, or an in-flight step foresaw its capacity finish.  Such
+        slots are left out of the next dispatch instead of becoming
+        phantom rows (a stop-token finish cannot be foreseen)."""
+        req = self.slots[i]
+        if len(req.output) + pend >= req.max_new:
+            return True
+        return any(i in inf.cap_finish and inf.reqs.get(i) is req
+                   for inf in self._inflight)
+
+    def dispatch(self) -> int:
+        """Host half of one scheduler step: admissions, prefill chunks
+        (budgeted — the decode batch is funded first), page ensures and
+        table pushes, then the decode (or verify) step's ENQUEUE.  Its
+        tokens and logprobs stay on the device until `collect()`.
+        Returns the number of prefill chunks processed."""
+        if self._inflight and (self.spec_k > 0 or len(self._inflight) >= 2):
+            # verify steps draft from host-visible history, and the
+            # pipeline is one step deep: drain before dispatching again
+            self.collect()
         self._admit()
-        decoding = [i for i, r in enumerate(self.slots)
-                    if r is not None and i not in self._prefill_live]
+        n_decoding = sum(1 for i, r in enumerate(self.slots)
+                         if r is not None and i not in self._prefill_live)
         # a verify step computes spec_k + 1 query tokens a decoding slot:
         # charge the budget that, so chunk packing does not overshoot
         per_slot = self.spec_k + 1
-        budget = self.step_token_budget - len(decoding) * per_slot
+        budget = self.step_token_budget - n_decoding * per_slot
         chunks_done = 0
         for i, ps in sorted(self._prefill_live.items(),
                             key=lambda kv: kv[1].order):
@@ -640,32 +943,77 @@ class ContinuousBatcher:
             self._prefill_tick(i, ps)
             budget -= cost
             chunks_done += 1
+        pending = {i for inf in self._inflight for i in inf.active
+                   if self.slots[i] is inf.reqs[i]}
         active = [i for i, r in enumerate(self.slots)
-                  if r is not None and i not in self._prefill_live]
+                  if r is not None and i not in self._prefill_live
+                  and not self._will_finish(i, int(i in pending))]
+        if active:
+            if self.spec_k > 0:
+                self._dispatch_verify(active)
+            else:
+                self._dispatch_sequential(active)
         self.stats["steps"] += 1
-        return chunks_done + self._decode_batch(active)
+        return chunks_done
+
+    def collect(self) -> int:
+        """Host half of a step's completion: wait for the OLDEST in-flight
+        step's outputs (its one transfer), emit its tokens through the
+        finish rules — first-token and finish times are taken here, when
+        the tokens are on the host — then run the tier's queue-ahead
+        prefetch.  Returns the tokens emitted; with nothing in flight only
+        the prefetch runs."""
+        emitted = 0
+        if self._inflight:
+            inf = self._inflight.popleft()
+            emitted = (self._collect_verify(inf) if inf.kind == "verify"
+                       else self._collect_decode(inf))
+        self._tier_prefetch_tick()
+        if not self._inflight:
+            self._idle_since = time.monotonic()
+        return emitted
+
+    @property
+    def pending_steps(self) -> int:
+        """Dispatched, uncollected steps (0 outside the overlapped
+        schedule)."""
+        return len(self._inflight)
 
     def _decode_batch(self, active: List[int]) -> int:
-        """One synchronous decode step over `active` slots: a verify step
-        under speculation (unless no slot may draft), else a sequential
-        one."""
+        """One SYNCHRONOUS decode (or verify) step over `active` slots,
+        dispatch then collect (the splice scheduler's)."""
         if not active:
             return 0
         if self.spec_k > 0:
-            spec = self._spec_dispatch(active)
-            if spec is not None:
-                return self._spec_collect(active, *spec)
-        return self._collect_decode(active, *self._dispatch_sequential(active))
+            self._dispatch_verify(active)
+        else:
+            self._dispatch_sequential(active)
+        inf = self._inflight.popleft()
+        return (self._collect_verify(inf) if inf.kind == "verify"
+                else self._collect_decode(inf))
 
     def _dispatch_sequential(self, active: List[int]):
-        """Run one masked decode over `active` slots and sample each
-        row through its own params and stream; returns device (toks,
-        lps) for `_collect_decode`."""
+        """Enqueue one masked decode over `active` slots, sampling every
+        row through its own params and stream on the device.  A row whose
+        previous token is still in flight (the overlapped schedule
+        dispatches step N+1 before collecting step N) takes it from that
+        step's device tokens by an on-device merge, at stream position
+        len(output) + 1; every other row's input is uploaded from
+        `output[-1]`."""
+        prev = self._inflight[-1] if self._inflight else None
         tokens = np.zeros((self.B, 1), np.int64)
         mask = np.zeros(self.B, bool)
+        positions = np.zeros(self.B, np.int64)
+        chain = np.zeros(self.B, bool)
         for i in active:
-            tokens[i, 0] = self.slots[i].output[-1]
+            req = self.slots[i]
             mask[i] = True
+            if prev is not None and prev.reqs.get(i) is req:
+                chain[i] = True
+                positions[i] = len(req.output) + 1
+            else:
+                tokens[i, 0] = req.output[-1]
+                positions[i] = len(req.output)
         if self.shared and self.alloc is not None:
             # every active slot appends at its current position: make that
             # page exclusively writable (lazy allocation, or a copy off a
@@ -674,58 +1022,85 @@ class ContinuousBatcher:
             for i in active:
                 self._ensure_page(i, int(self._lengths[i]) // T)
             self._push_tables()
+        self._mark_device_busy()
+        dev = self.device
+        tok_d = paged_kv.host_to_device(tokens, dev)
+        if chain.any():
+            tok_d = torch.where(
+                paged_kv.host_to_device(chain, dev)[:, None],
+                prev.toks[:, None], tok_d)
         logits, self.cache = self.engine.decode_step(
-            self.params, self.cache,
-            torch.as_tensor(tokens, device=self.device),
-            active=torch.as_tensor(mask, device=self.device))
+            self.params, self.cache, tok_d,
+            active=paged_kv.host_to_device(mask, dev))
         self.stats["decode_steps"] += 1
+        toks, lps = self._sample_dev(logits, range(self.B), positions,
+                                     live=mask)
         self._lengths[active] += 1
-        return self._sample(logits[active], active,
-                            [len(self.slots[i].output) for i in active])
+        cap = {i for i in active
+               if self._lengths[i] + 1 >= self.max_context}
+        self._inflight.append(_Inflight(
+            "decode", list(active), {i: self.slots[i] for i in active},
+            toks, _HostFetch([toks, lps]), cap_finish=cap))
 
-    def _collect_decode(self, active: List[int], toks, lps) -> int:
-        """Emit one decode step's tokens through the finish rules."""
-        for j, i in enumerate(active):
-            req = self.slots[i]
-            self._emit_token(i, req, int(toks[j]), float(lps[j]))
+    def _collect_decode(self, inf: _Inflight) -> int:
+        """Emit one collected decode step: its one transfer brings tokens
+        and logprobs, then every surviving row goes through the finish
+        rules."""
+        toks, lps = inf.fetch.wait()
+        emitted = 0
+        for i in inf.active:
+            req = inf.reqs[i]
+            if self.slots[i] is not req:
+                # PHANTOM row: its request finished (stop token, abort)
+                # after this step was dispatched
+                self.stats["phantom_tokens"] += 1
+                continue
+            self._emit_token(i, req, int(toks[i]), float(lps[i]))
             self.stats["decode_tokens"] += 1
-            if self.slots[i] is req and self._lengths[i] + 1 >= \
-                    self.max_context:
+            emitted += 1
+            if self.slots[i] is req and i in inf.cap_finish:
                 self._finish(i, "capacity")
-        return len(active)
+        return emitted
 
     # -- speculative draft-and-verify ----------------------------------
     def _spec_rollback(self, i: int):
         """Host half of the rollback (the reference's `_rollback_pages`):
         logical pages backed for the span but not reached by a kept token
-        go back to the allocator and the slot's reservation is restored,
-        as if they had never been handed out.  Their stale table entries
-        sit past `lengths` and are never read as data."""
+        go back to the allocator (a tiered pool unpins them first; the
+        release hook frees their hot slot) and the slot's reservation is
+        restored, as if they had never been handed out.  Their stale table
+        entries sit past `lengths` and are never read as data."""
         if not self.shared or self.alloc is None:
             return
         last = (int(self._lengths[i]) - 1) // self.engine.eng.page_tokens
         for lp in [p for p in self._slot_pages[i] if p > last]:
-            self.alloc.free([self._slot_pages[i].pop(lp)])
+            p = self._slot_pages[i].pop(lp)
+            if self.tier is not None:
+                self.tier.unpin(p)
+            self.alloc.free([p])
             self._slot_shared[i].discard(lp)
             self._resv[i] += 1
             self._outstanding += 1
 
-    def _spec_dispatch(self, active: List[int]):
-        """Draft and verify one step over `active` slots (the reference's
-        `_dispatch_verify`): each slot drafts up to `spec_k` tokens by
-        prompt lookup, capped so that its span never writes past what
-        sequential decode would (its max_new budget less the correction
-        token, and its slot capacity).  Returns host (toks [B, S], lps,
-        acc [B], allowed [B]), or None when no slot may draft (the caller
-        then runs a sequential step)."""
+    def _dispatch_verify(self, active: List[int]):
+        """Draft and enqueue one verify step over `active` slots (the
+        reference's `_dispatch_verify`): each slot drafts up to `spec_k`
+        tokens by prompt lookup, capped so that its span never writes past
+        what sequential decode would (its max_new budget less the
+        correction token, and its slot capacity).  Drafts come from the
+        host-visible history, so the pipeline is drained.  When no slot
+        may draft, a sequential step runs instead."""
+        assert not self._inflight, "verify dispatch needs a drained pipeline"
         S = self.spec_k + 1
         T = self.engine.eng.page_tokens
         tokens = np.zeros((self.B, S), np.int64)
         mask = np.zeros(self.B, bool)
         allowed = np.zeros(self.B, np.int64)
         positions = np.zeros(self.B, np.int64)
+        reqs: Dict[int, Request] = {}
         for i in active:
             req = self.slots[i]
+            reqs[i] = req
             cap = req.params.speculation
             k_eff = self.spec_k if cap is None else min(cap, self.spec_k)
             allowed[i] = max(0, min(
@@ -738,7 +1113,7 @@ class ContinuousBatcher:
             mask[i] = True
             positions[i] = len(req.output)
         if not allowed.any():
-            return None
+            return self._dispatch_sequential(active)
         if self.shared and self.alloc is not None:
             # back every page the span MAY write (positions up to lengths
             # + allowed), by lazy allocation or copy-on-write
@@ -748,33 +1123,40 @@ class ContinuousBatcher:
                 for lp in range(lo, hi + 1):
                     self._ensure_page(i, lp)
             self._push_tables()
+        self._mark_device_busy()
         dev = self.device
-        toks_d = torch.as_tensor(tokens, device=dev)
+        toks_d = paged_kv.host_to_device(tokens, dev)
 
         def accept(logits):
             out = speculative_accept(
                 logits, toks_d[:, 1:], self._seeds, positions,
-                torch.as_tensor(allowed, device=dev),
+                paged_kv.host_to_device(allowed, dev),
                 true_vocab=self.cfg.vocab_size, temperature=self._temps,
                 top_k=self._topk, top_p=self._topp)
             return out[2], out
 
         (toks, lps, acc), self.cache = self.engine.verify_step(
             self.params, self.cache, toks_d, accept=accept,
-            active=torch.as_tensor(mask, device=dev))
+            active=paged_kv.host_to_device(mask, dev))
         self.stats["verify_steps"] += 1
-        return (toks.cpu().numpy(), lps.cpu().numpy(), acc.cpu().numpy(),
-                allowed)
+        self._inflight.append(_Inflight(
+            "verify", list(active), reqs, toks, _HostFetch([toks, lps, acc]),
+            allowed=allowed))
 
-    def _spec_collect(self, active: List[int], toks, lps, acc,
-                      allowed) -> int:
-        """Emit one verify step (the reference's `_collect_verify`): each
-        slot emits its accepted drafts and the correction / bonus token
-        through `_emit_token`, then advances by what the device appended
-        and rolls back the pages its span did not reach."""
+    def _collect_verify(self, inf: _Inflight) -> int:
+        """Emit one collected verify step (the reference's
+        `_collect_verify`): each slot emits its accepted drafts and the
+        correction / bonus token through `_emit_token`, then advances by
+        what the device appended and rolls back the pages its span did
+        not reach."""
+        toks, lps, acc = inf.fetch.wait()
+        allowed = inf.allowed
         emitted = 0
-        for i in active:
-            req = self.slots[i]
+        for i in inf.active:
+            req = inf.reqs[i]
+            if self.slots[i] is not req:
+                self.stats["phantom_tokens"] += 1
+                continue
             n = int(acc[i]) + 1               # tokens the device appended
             # spec counters count row-steps that offered a draft
             if allowed[i] > 0:
@@ -786,7 +1168,8 @@ class ContinuousBatcher:
             for j in range(n):
                 if self.slots[i] is not req:
                     break                     # stop token finished mid-span
-                self._emit_token(i, req, int(toks[i, j]), float(lps[i, j]))
+                self._emit_token(i, req, int(toks[i, j]),
+                                 float(lps[i, j]))
                 emitted_i += 1
             emitted += emitted_i
             # only EMITTED accepted drafts count (a stop finish truncates)
@@ -863,15 +1246,14 @@ class SpliceBatcher(ContinuousBatcher):
         i (the reference's `_prefill_slot`, named apart as the engine's
         helpers are: the static analyzer resolves methods by name)."""
         n = len(req.prompt)
-        prompt = torch.as_tensor(self._padded(req), dtype=torch.long,
-                                 device=self.device)[None]
+        prompt = paged_kv.host_to_device(
+            np.asarray(self._padded(req), np.int64), self.device)[None]
         logits, one = self.engine.prefill(
             self.params, {"tokens": prompt}, self.max_context,
             prompt_len=n if self.bucket_prompts else None)
         paged_kv.splice_slot(self.cache, one, i)
         self._lengths[i] = n
-        toks, lps = self._sample(logits, [i], [len(req.output)])
-        self._emit_token(i, req, int(toks[0]), float(lps[0]))
+        self._emit_token(i, req, *self._sample_now(logits, i, req))
 
     def step(self) -> int:
         """One decode step over all active slots (admits prefill eagerly

@@ -177,13 +177,11 @@ def test_abort_mid_prefill_frees_the_slot():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: ServerConfig(overlap=True, device="cpu"),
-    lambda: _port_with_engine(shared_pool=True, hot_pages=4),
     lambda: KVNANDServer(ServerConfig(arch="hymba-1.5b", reduced=True,
                                       device="cpu")),
     lambda: KVNANDEngine(tget("qwen1.5-0.5b").reduced(), mesh=object(),
                          device="cpu"),
-], ids=["overlap", "hot_pages", "hybrid_arch", "mesh"])
+], ids=["hybrid_arch", "mesh"])
 def test_unported_configurations_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make()
@@ -192,8 +190,3 @@ def test_unported_configurations_raise(make):
 def test_unknown_scheduler_raises():
     with pytest.raises(ValueError, match="unknown scheduler"):
         ServerConfig(scheduler="nope", device="cpu")
-
-
-def _port_with_engine(**eng_kw):
-    eng = TEngineConfig(page_tokens=16, uniform_lengths=False, **eng_kw)
-    return KVNANDServer(ServerConfig(engine=eng, reduced=True, device="cpu"))

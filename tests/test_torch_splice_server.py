@@ -7,12 +7,16 @@ for an MHA (qwen1.5-0.5b) and a GQA (llama3.1-8b) reduced config, with
 logprobs within 1e-4 and the same `admits` / `decode_stall_tokens`; and
 the port's splice and interleaved schedulers must serve identical tokens
 (f32 and kv8), as the reference's `test_interleave.py` holds its own."""
+import inspect
+import re
+
 import jax
 import numpy as np
 import pytest
 import torch
 
 from repro.configs import EngineConfig, get_config
+from repro.launch import serve as jserve
 from repro.models.registry import Model
 from repro.serving import scheduler as jsched
 from repro.serving.api import KVNANDServer as JServer
@@ -21,7 +25,7 @@ from repro.serving.api import ServerConfig as JConfig
 from repro_torch import bridge
 from repro_torch.configs import EngineConfig as TEngineConfig
 from repro_torch.configs import get_config as tget
-from repro_torch.launch.serve import serve
+from repro_torch.launch.serve import _parser, serve
 from repro_torch.models.registry import Model as TModel
 from repro_torch.serving import scheduler as tsched
 from repro_torch.serving.api import KVNANDServer, SamplingParams, ServerConfig
@@ -130,11 +134,21 @@ def test_launch_serve_runs_in_process(scheduler, capsys):
     assert f"scheduler={scheduler}" in text
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--hot-pages", "4"], "A12"), (["--overlap"], "A13"),
-    (["--http"], "A13")])
-def test_launch_serve_refuses_unported_flags(flags, item, capsys):
-    with pytest.raises(SystemExit) as exc:
-        serve(["--reduced", "--device", "cpu", *flags])
-    assert exc.value.code == 2
-    assert f"ROADMAP {item}" in capsys.readouterr().err
+def test_launch_serve_takes_every_reference_flag():
+    """The port's CLI parses every flag of the reference's
+    `launch/serve.py` (and adds `--device`)."""
+    want = set(re.findall(r'add_argument\("(--[a-z-]+)"',
+                          inspect.getsource(jserve.serve)))
+    got = {f for f in _parser()._option_string_actions if f.startswith("--")}
+    assert want and want <= got
+    assert got - want == {"--device", "--help"}
+
+
+def test_launch_serve_overlap_runs_in_process(capsys):
+    argv = ["--reduced", "--device", "cpu", "--requests", "4", "--max-new",
+            "5", "--slots", "2", "--temperature", "0.8", "--seed", "3"]
+    sync = serve(argv)
+    over = serve(argv + ["--overlap"])
+    assert [o.token_ids for o in over.values()] == \
+        [o.token_ids for o in sync.values()]
+    assert "4 requests, 20 tokens" in capsys.readouterr().out
