@@ -19,6 +19,7 @@
     python3 chip_smoke.py --tier             # the build and phase 17 (T1, the tiered pool) only
     python3 chip_smoke.py --overlap          # the build and phase 18 (O1, the overlapped schedule) only
     python3 chip_smoke.py --http             # the build and phase 19 (H1, the HTTP front end) only
+    python3 chip_smoke.py --replicas         # the build and phase 20 (M1, multi-replica serving) only
 
 Phases (each one fails the run when it fails):
 
@@ -246,7 +247,33 @@ Phases (each one fails the run when it fails):
             SSE, each equal to `generate()` on an identically configured
             server; `GET /metrics` reports the 6 finished requests, their
             TTFTs and 90 decode tokens; B2 = decode steps x 24; the wall
-            printed.  `--http` runs the build and this phase only.
+            printed.  `--http` runs the build and this phase only;
+20. M1      multi-replica serving, run after V1 on D1's full-width
+            llama2-7b weights before they are freed: first the seeded
+            streams on the card against the CPU's for the same (seed,
+            position) (keys, random bits and uniform floats exactly, the
+            Gumbel noise within 2^-22 (1 + |n|), its two logs' bound).  Then,
+            at f32 and kv8, each on a flat pool and on a tiered one (a
+            64-page hot tier), three replicas built by `build_replica`
+            on the same weight tensors (compact variant, 4 slots,
+            max_context 512, each its own 128-page shared pool; the
+            f32-tiered and kv8-flat replicas overlapped): wave 1, 8
+            requests of 16 new tokens (5-60 prompt tokens behind a common
+            32-token system prefix; 6 greedy, 2 seeded stochastic),
+            disaggregated through `ReplicaRouter` (replica 0 prefills,
+            each request migrates once, through the envelope's wire
+            bytes, and decodes on replica 1 or 2); wave 2, 8 more behind
+            the same prefix, routed over the decode replicas, which the
+            prefill replica's published prefix pages warm
+            (`prefix_warmed_pages` > 0).  The tokens equal one server's on
+            the same weights and pool, or part only at a near tie
+            (LOGIT_GAP_TOL at f32, KV8_GAP_TOL at kv8; a seeded request's
+            gap measured in its perturbed scores); B2 = the replicas'
+            decode steps x 32, B1 and B3-B5 0; every allocator and tier
+            clean after the drain, no hot page pinned.  Envelope bytes,
+            the migration pump's host wall, the wall, peak memory and the
+            card printed.  `--replicas` runs the build and this phase on
+            freshly drawn weights.
 
 It needs a CUDA card (exits non-zero without one, printing no result),
 imports nothing of JAX, and prints the card's name and power limit, a
@@ -2502,6 +2529,294 @@ def spec_server_phase(params, prompts, d1_outs):
             "same_as_sequential": same, "logprob_err_vs_sequential": lp_err}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: M1, multi-replica serving (a prefill replica, two decode ones)
+# ---------------------------------------------------------------------------
+
+M1_CTX = 512            # each replica: 4 slots x 512 tokens = 128 pages
+M1_PAGES = 128
+M1_HOT = 64             # the tiered runs' hot tier: half the pool
+# (label, pool, hot pages, overlapped replicas)
+M1_RUNS = (("f32 flat", {"kv_dtype": "float32"}, 0, False),
+           ("f32 tiered", {"kv_dtype": "float32"}, M1_HOT, True),
+           ("kv8 flat", {"kv_quant": "kv8"}, 0, True),
+           ("kv8 tiered", {"kv_quant": "kv8"}, M1_HOT, False))
+
+
+def m1_waves(V):
+    """Two waves of 8 prompts: a common 32-token system prefix, then 5-60
+    tokens of their own."""
+    import numpy as np
+    rng = np.random.default_rng(20)
+    sysp = rng.integers(1, V, 32).tolist()
+
+    def wave():
+        return [sysp + rng.integers(1, V, int(n)).tolist()
+                for n in rng.integers(5, 61, 8)]
+
+    return wave(), wave()
+
+
+def m1_params():
+    """6 greedy requests and 2 seeded stochastic ones, 16 new tokens."""
+    from repro_torch.serving.api import SamplingParams
+    sps = [SamplingParams(max_new_tokens=16, logprobs=True)
+           for _ in range(6)]
+    sps.insert(2, SamplingParams(max_new_tokens=16, logprobs=True,
+                                 temperature=0.8, top_k=20, seed=11))
+    sps.append(SamplingParams(max_new_tokens=16, logprobs=True,
+                              temperature=0.7, top_p=0.9, seed=12))
+    return sps
+
+
+def build_m1_replica(params, hot_pages, overlap, **engine):
+    """One M1 replica: full-width llama2-7b on `params` (shared, not
+    copied: `build_replica`), compact variant, its own shared pool of
+    M1_PAGES pages (a hot tier of `hot_pages` of them when > 0)."""
+    from repro_torch.configs import EngineConfig
+    from repro_torch.serving.api import ServerConfig
+    from repro_torch.serving.replica import build_replica
+    eng = EngineConfig(page_tokens=16, uniform_lengths=False,
+                       shared_pool=True, total_pages=M1_PAGES,
+                       hot_pages=hot_pages, **engine)
+    srv = build_replica(ServerConfig(
+        arch="llama2-7b", reduced=False, engine=eng, batch_slots=4,
+        max_context=M1_CTX, prefill_chunk_tokens=64, overlap=overlap),
+        params=params, device="cuda")
+    check(srv.params["embedding"] is params["embedding"],
+          "M1: a replica copied the weights")
+    return srv
+
+
+def m1_noise_check(V) -> dict:
+    """The seeded streams on the card against the port's CPU ones for the
+    same (seed, position): keys and random bits exactly, the uniform
+    floats exactly, and the Gumbel noise -log(-log(u)) within 2^-22 (1 +
+    |n|), what its two float32 logs allow when each is within 1 ulp of
+    the exact value on either side (2 ulps apart); the share of equal
+    elements and the largest difference, in units of 2^-23 (1 + |n|),
+    are printed."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import sampler
+    seeds = np.repeat(np.array([11, 12, 0x9E3779B1], np.uint32), 16)
+    pos = np.tile(np.arange(16), 3)
+    kc = sampler.fold_in(sampler.PRNGKey(seeds, "cuda"), pos)
+    kh = sampler.fold_in(sampler.PRNGKey(seeds, "cpu"), pos)
+    check(torch.equal(kc.cpu(), kh), "M1: card keys differ from the CPU's")
+    check(torch.equal(sampler.random_bits(kc, V).cpu(),
+                      sampler.random_bits(kh, V)),
+          "M1: card random bits differ from the CPU's")
+    tiny = float(torch.finfo(torch.float32).tiny)
+    check(torch.equal(sampler.uniform(kc, V, tiny).cpu(),
+                      sampler.uniform(kh, V, tiny)),
+          "M1: card uniform floats differ from the CPU's")
+    nc = sampler.request_noise(seeds, pos, V, "cuda").cpu().double()
+    nh = sampler.request_noise(seeds, pos, V, "cpu").double()
+    err = (nc - nh).abs()
+    # in units of 2^-23 (1 + |n|): one float32 ulp of a log's output
+    # carried through -log(-log(u)); the bound is 2 of them
+    units = err / (2.0 ** -23 * (1.0 + nh.abs()))
+    res = {"rows": len(seeds), "vocab": V,
+           "noise_equal_fraction": float((err == 0).double().mean()),
+           "noise_max_abs_diff": float(err.max()),
+           "noise_max_units": float(units.max())}
+    print(f"M1 noise: keys, bits and uniforms equal on the card and the "
+          f"CPU over {len(seeds)} rows x {V}; Gumbel noise equal on "
+          f"{res['noise_equal_fraction']:.6f} of elements, max |diff| "
+          f"{res['noise_max_abs_diff']:.3e} = "
+          f"{res['noise_max_units']:.3f} x 2^-23 (1 + |n|) (bound 2)")
+    check(res["noise_max_units"] <= 2.0, "M1: card Gumbel noise beyond "
+          "2^-22 (1 + |n|) of the CPU's")
+    return res
+
+
+def m1_sampled_gap(cfg, params, prompt, toks, n, sp, a, b) -> float:
+    """At a seeded request's first differing token n: the gap between
+    tokens a and b in the sampler's perturbed scores (logits / T plus the
+    request's noise at position n), from the plain full forward
+    teacher-forced on prompt + toks[:n]."""
+    import torch
+    from repro_torch.models.registry import Model
+    from repro_torch.serving.sampler import request_noise
+    with torch.no_grad():
+        seq = torch.tensor(prompt + toks[:n], device="cuda")[None]
+        logits = Model(cfg).forward(params, {"tokens": seq})[0, -1].float()
+    noise = request_noise([sp.seed], [n], logits.shape[-1], "cuda")[0]
+    s = logits / sp.temperature + noise
+    return abs(float(s[a] - s[b]))
+
+
+def m1_compare(label, cfg, params, outs, refs, prompts, sps, gap_tol):
+    """Router against one server: equal tokens, or at a request's first
+    differing token a near tie, the two tokens within `gap_tol` (greedy:
+    in logprob; seeded: in the perturbed scores, scaled by 1/T); served
+    logprobs before it within LOGPROB_TOL."""
+    _, same, rows = compare_runs(outs, refs)
+    before = max(b for _, b, _ in rows)
+    gap = 0.0
+    for o, r, p, sp, (n, _, at) in zip(outs, refs, prompts, sps, rows):
+        if n is None:
+            continue
+        a, b = o.token_ids[n], r.token_ids[n]
+        if sp.temperature > 0:
+            g = m1_sampled_gap(cfg, params, p, o.token_ids, n, sp, a, b)
+            tol = gap_tol / sp.temperature
+        else:
+            g, tol = at, gap_tol
+        print(f"check {label}: request {o.uid} differs at token {n}: {a} "
+              f"vs {b}, gap {g:.3e} (tol {tol:.0e})")
+        check(g <= tol, f"{label}: router and server part where neither "
+              "is a near tie")
+        gap = max(gap, g)
+    print(f"check {label}: {same} of {len(outs)} requests equal to one "
+          f"server's; max |logprob difference| before a divergence "
+          f"{before:.3e} (tol {LOGPROB_TOL:.0e}); max gap at one {gap:.3e}")
+    check(before <= LOGPROB_TOL, f"{label}: logprobs disagree")
+    return same, before, gap
+
+
+def m1_run(label, params, waves, hot, overlap, **engine) -> dict:
+    """One M1 run: both waves through one server, then through three
+    replicas: wave 1 disaggregated (replica 0 prefills, 1 and 2 decode),
+    wave 2 routed over the decode replicas, which the prefill replica's
+    published prefix pages warm.  Launch counters reset just before the
+    replicas' run and read just after."""
+    import gc
+    import torch
+    import repro_torch.serving.router as router_mod
+    from repro_torch.kernels import flash_attention, quant_gemv, wkv6
+    from repro_torch.kernels.paged_attention import launches, launches_shared
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sps = m1_params()
+    solo = build_m1_replica(params, hot, False, **engine)
+    cfg = solo.cfg
+    t0 = time.perf_counter()
+    refs = solo.generate(waves[0], sps) + solo.generate(waves[1], sps)
+    torch.cuda.synchronize()
+    solo_wall = time.perf_counter() - t0
+    del solo
+    gc.collect()
+    reps = [build_m1_replica(params, hot, overlap, **engine)
+            for _ in range(3)]
+    router = router_mod.ReplicaRouter(reps, disaggregate=True)
+    envs, mig = [], [0.0]
+    real_export, pump = router_mod.export_request, router._pump_migrations
+
+    def export(b, uid):
+        env = real_export(b, uid)
+        envs.append((env.meta["n_pages_g"], env.nbytes()))
+        return env
+
+    def timed_pump():
+        t = time.perf_counter()
+        pump()
+        mig[0] += time.perf_counter() - t
+
+    router._pump_migrations = timed_pump
+    counters = {"B1": launches, "B2": launches_shared,
+                "B3": quant_gemv.launches, "B4": flash_attention.launches,
+                "B5": wkv6.launches}
+    steps0 = [s.stats["decode_steps"] for s in reps]
+    router_mod.export_request = export
+    try:
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        uids = [router.submit(p, sp) for p, sp in zip(waves[0], sps)]
+        router.run()
+        outs = [router.output(u) for u in uids]
+        homes = [router.replica_of(u) for u in uids]
+        for u in uids:
+            router.release(u)
+        routed = router_mod.ReplicaRouter(reps[1:],
+                                          prefix_index=router.index)
+        uids = [routed.submit(p, sp) for p, sp in zip(waves[1], sps)]
+        routed.run()
+        outs += [routed.output(u) for u in uids]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: c.value for k, c in counters.items()}
+    finally:
+        router_mod.export_request = real_export
+    steps = [s.stats["decode_steps"] - s0 for s, s0 in zip(reps, steps0)]
+    L = cfg.n_layers
+    st, st2 = router.stats, routed.stats
+    print(f"M1 {label}: wave 1 migrated {st['migrations']} requests "
+          f"({st['migration_bytes']} wire bytes, "
+          f"{st['migration_bytes'] / max(st['migrations'], 1):.0f} a "
+          f"request, {st['migration_retries']} retries; envelope payloads "
+          f"{min(b for _, b in envs)}-{max(b for _, b in envs)} bytes over "
+          f"{min(n for n, _ in envs)}-{max(n for n, _ in envs)} pages); "
+          f"migration pump {mig[0]:.3f} s of host wall; wave 2 warmed "
+          f"{st2['prefix_warmed_pages']} pages; decode steps per replica "
+          f"{steps}; launches {counts}; replicas {wall:.3f} s, one server "
+          f"{solo_wall:.3f} s; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; on "
+          f"{smi_line()}")
+    check(st["migrations"] == len(waves[0]) and all(h in (1, 2)
+                                                    for h in homes),
+          f"M1 {label}: not every request migrated once to a decode "
+          f"replica ({st['migrations']} migrations, replicas {homes})")
+    check(steps[0] == 0, f"M1 {label}: the prefill replica decoded")
+    check(st2["prefix_warmed_pages"] > 0,
+          f"M1 {label}: wave 2 warmed no prefix page")
+    check(counts["B2"] == sum(steps) * L
+          and all(counts[k] == 0 for k in ("B1", "B3", "B4", "B5")),
+          f"M1 {label}: launches {counts} != (B2 decode steps {sum(steps)}"
+          f" x {L}, B1/B3-B5 0)")
+    for k, s in enumerate(reps):
+        b = s._batcher
+        b.alloc.check()
+        check(b.alloc.live_count == b.prefix_cache.evictable_pages(),
+              f"M1 {label}: replica {k} has pages mapped after the drain")
+        if b.tier is not None:
+            b.tier.check()
+            check(b.tier.pinned_count == 0,
+                  f"M1 {label}: replica {k} has {b.tier.pinned_count} hot "
+                  "pages pinned after the drain")
+    fmt = "kv8" if engine.get("kv_quant") == "kv8" else "float32"
+    same, before, gap = m1_compare(
+        f"M1 {label}", cfg, params, outs, refs, waves[0] + waves[1],
+        sps + sps, KV8_GAP_TOL if fmt == "kv8" else LOGIT_GAP_TOL)
+    res = {"hot_pages": hot, "overlap": overlap,
+           "migrations": st["migrations"],
+           "migration_bytes": st["migration_bytes"],
+           "migration_retries": st["migration_retries"],
+           "envelope_payload_bytes": [b for _, b in envs],
+           "migration_wall_s": mig[0], "wall_s": wall,
+           "one_server_wall_s": solo_wall,
+           "prefix_published_pages": st["prefix_published_pages"],
+           "prefix_warmed_pages": st2["prefix_warmed_pages"],
+           "prefix_hit_pages": [s.stats["prefix_hit_pages"] for s in reps],
+           "decode_steps": steps, "launches_B2": counts["B2"],
+           "same_as_one_server": same, "logprob_err": before,
+           "max_gap_at_divergence": gap,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del router, routed, reps
+    return res
+
+
+def replica_phase(params) -> dict:
+    """Phase 20, M1 (see the module docstring)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config("llama2-7b")
+    res = {"noise": m1_noise_check(cfg.vocab_size)}
+    waves = m1_waves(cfg.vocab_size)
+    for label, engine, hot, overlap in M1_RUNS:
+        res[label] = m1_run(label, params, waves, hot, overlap, **engine)
+    res["launches_B2"] = sum(res[label]["launches_B2"]
+                             for label, *_ in M1_RUNS)
+    gc.collect()        # the tiered replicas' release hooks make cycles
+    torch.cuda.empty_cache()    # that would keep the weights alive
+    return res
+
+
 # prompt seeds of the verify A/B (4 is D1's and V1's)
 VERIFY_AB_SEEDS = (4, 5, 6, 7)
 
@@ -3330,14 +3645,18 @@ def serving_phases() -> dict:
     return res
 
 
-def dse_phases(rate) -> dict:
-    """Phases 13-15, in the order `--dse` runs them."""
+def dse_phases(rate, replicas=False) -> dict:
+    """Phases 13-15, in the order `--dse` runs them; with `replicas`,
+    phase 20 (M1) after them on D1's weights, before they are freed."""
     head = head_range_phase()
     group_rows = group_timing_phase(rate)
     d1, params, prompts, d1_outs = dse_server_phase()
     v1 = spec_server_phase(params, prompts, d1_outs)
-    return {"head_range": head, "group_timing": group_rows, "D1": d1,
-            "V1": v1}
+    res = {"head_range": head, "group_timing": group_rows, "D1": d1,
+           "V1": v1}
+    if replicas:
+        res["M1"] = replica_phase(params)
+    return res
 
 
 def kernel_entry(name, source, replaces, launches, max_abs, shapes, server):
@@ -3356,7 +3675,8 @@ def main(argv) -> int:
     if (argv not in ([], ["--paged"], ["--paged-timing"], ["--quant-servers"],
                      ["--wkv"], ["--wkv-timing"], ["--gemv"], ["--flash"],
                      ["--flash-timing"], ["--dse"], ["--verify-ab"],
-                     ["--window"], ["--tier"], ["--overlap"], ["--http"])
+                     ["--window"], ["--tier"], ["--overlap"], ["--http"],
+                     ["--replicas"])
             and not (len(argv) == 2
                      and argv[0] in ("--gemv-ab", "--flash-ab", "--wkv-ab"))):
         print(__doc__, file=sys.stderr)
@@ -3436,6 +3756,12 @@ def main(argv) -> int:
         print(card)
         print(json.dumps({"dse": dse}))
         return 0
+    if argv == ["--replicas"]:
+        params = build_llama2_server().params
+        m1 = replica_phase(params)
+        print(card)
+        print(json.dumps({"replicas": m1}))
+        return 0
     if argv == ["--window"]:
         g1 = window_phases()
         print(card)
@@ -3490,8 +3816,8 @@ def main(argv) -> int:
         print(card)
         print(json.dumps({"quant_servers": [q1, q2]}))
         return 0
-    dse = dse_phases(rate)
-    d1, v1, head = dse["D1"], dse["V1"], dse["head_range"]
+    dse = dse_phases(rate, replicas=True)
+    d1, v1, head, m1 = dse["D1"], dse["V1"], dse["head_range"], dse["M1"]
     b1_err = max(b1_err, head["B1"])
     b2_err = max(b2_err, head["B2"])
     g1 = window_phases()
@@ -3515,11 +3841,12 @@ def main(argv) -> int:
                      "src/repro/kernels/paged_attention/kernel.py:209",
                      shared["launches"] + d1["shared_launches_B2"]
                      + g1["shared"]["launches"] + t1["launches_B2"]
-                     + o1["launches_B2"] + h1["launches_B2"], b2_err,
+                     + o1["launches_B2"] + h1["launches_B2"]
+                     + m1["launches_B2"], b2_err,
                      list(b2_shapes) + dse["group_timing"][1:],
                      [shared, shared32, {"D1 shared": d1,
                                          "G1 shared": g1["shared"],
-                                         "T1": t1, "H1": h1}]),
+                                         "T1": t1, "H1": h1, "M1": m1}]),
         kernel_entry("quant_gemv", "src/repro_torch/csrc/quant_gemv.cu",
                      "src/repro/kernels/quant_gemv/kernel.py:68",
                      q1["launches"] + q2["launches"], b3_err, b3_shapes,

@@ -2,9 +2,9 @@
 
 Mirrors `repro`'s subpackage layout (`configs/`, `models/`, `core/`,
 `kernels/paged_attention/`, `kernels/quant_gemv/`,
-`kernels/flash_attention/`, `serving/`, `launch/`) so each module's JAX
-counterpart sits at the same relative path.  The package
-imports torch, numpy and the standard library only — never jax, never
+`kernels/flash_attention/`, `serving/`, `launch/`, `checkpoint/`) so
+each module's JAX counterpart sits at the same relative path.  The
+package imports torch, numpy and the standard library only — never jax, never
 `repro` — and runs on the CUDA device unless a caller passes
 ``device="cpu"``.
 

@@ -26,8 +26,14 @@ from repro_torch.core.quant import QuantizedWeight
 SEP = "/"
 
 
-def flatten_with_paths(tree) -> Dict[str, Any]:
-    """{"a/b/c": leaf} in the reference checkpoint's sorted-key order."""
+def flatten_with_paths(tree, *, records: bool = False) -> Dict[str, Any]:
+    """{"a/b/c": leaf} in the reference checkpoint's sorted-key order.
+
+    The parameter tree is dicts of leaves, and a NamedTuple in it is
+    refused.  With `records` (the checkpoint's and the KV envelope's
+    trees) a NamedTuple is walked field by field and a None leaf is kept
+    as ``"<path>/__none__": None``, as the reference's
+    `_flatten_with_paths` keeps them."""
     flat: Dict[str, Any] = {}
 
     def walk(prefix, node):
@@ -35,14 +41,32 @@ def flatten_with_paths(tree) -> Dict[str, Any]:
             for k in sorted(node):
                 walk(f"{prefix}{SEP}{k}" if prefix else str(k), node[k])
         elif hasattr(node, "_fields"):
-            raise TypeError(
-                f"{prefix}: a NamedTuple leaf is not part of the reference's "
-                "parameter tree")
+            if not records:
+                raise TypeError(
+                    f"{prefix}: a NamedTuple leaf is not part of the "
+                    "reference's parameter tree")
+            for k in node._fields:
+                walk(f"{prefix}{SEP}{k}" if prefix else k, getattr(node, k))
+        elif node is None and records:
+            flat[prefix + SEP + "__none__"] = None
         else:
             flat[prefix] = node
 
     walk("", tree)
     return flat
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A private host copy of a tensor (the way back from `_to_tensor`):
+    bfloat16 as float32, which npz can store and which holds every bf16
+    value exactly, as the reference's checkpoint flattener stores it.  A
+    card's tensor is read with a same-stream copy."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return t.float().cpu().numpy()
+    if t.device.type == "cpu":
+        return t.numpy().copy()
+    return t.cpu().numpy()
 
 
 def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:

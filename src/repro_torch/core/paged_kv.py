@@ -87,6 +87,10 @@ slot's row of bases after a fill (`window_page_positions`).
 A tiered pool (``EngineConfig.hot_pages``) sizes the shared global pool at
 its hot tier; `read_hot_slot` and `stage_hot_slot` move one page's bytes
 out of and into a hot slot for the scheduler's demotions and promotions.
+Replica migration reads a page's bytes wherever they live
+(`read_page_bytes`) and writes them back through `stage_hot_slot`, a
+slot's length, ring bases and recurrent state through
+`import_slot_rows`.
 """
 from __future__ import annotations
 
@@ -96,6 +100,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.bridge import to_numpy
 from repro_torch.configs.base import EngineConfig, ModelConfig
 from repro_torch.core import quant
 
@@ -831,4 +836,51 @@ def stage_hot_slot(cache: DecodeCache, slot: int, vals) -> DecodeCache:
     for name, val in vals.items():
         leaf = getattr(cache, name)
         leaf[:, :, slot].copy_(val, non_blocking=True)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Replica migration: a page's bytes out, a slot's rows in
+# ---------------------------------------------------------------------------
+#
+# A KV envelope (serving/replica.py) carries a request's pages as host
+# arrays, one [L, K, ...] block per pool leaf; its page bytes are written
+# back through `stage_hot_slot` (a flat pool's physical page in the hot
+# slot's place) and its per-slot rows through `import_slot_rows`.
+
+def read_page_bytes(cache: DecodeCache, page: int, leaves, tier=None,
+                    store=None) -> dict:
+    """One physical page's bytes, {leaf name: [L, K, ...] host array}
+    (bf16 as float32, as the envelope stores it), wherever the page lives
+    (the reference's `_page_bytes`): the device pool at `page` (a flat
+    pool, or a window ring's page), the hot slot it is resident in (a
+    tiered pool: a mapped page is pinned hot), or the capacity `store`
+    (a tiered pool's demoted page: {leaf: pinned host tensor}).  A device read is a same-stream copy, ordered after
+    every write already enqueued; before a store entry is read, the
+    stream is drained, since its bytes may still be in flight from a
+    non-blocking demotion (`read_hot_slot`)."""
+    if tier is not None and not tier.is_resident(page):
+        for leaf in (cache.k_pages_g, cache.k_pages_w):
+            if leaf is not None and leaf.is_cuda:
+                torch.cuda.current_stream(leaf.device).synchronize()
+                break
+        return {n: to_numpy(v) for n, v in store[page].items()}
+    slot = tier.slot_of(page) if tier is not None else page
+    return {n: to_numpy(getattr(cache, n)[:, :, slot]) for n in leaves}
+
+
+def import_slot_rows(cache: DecodeCache, i: int, rows) -> DecodeCache:
+    """Write one slot's per-sequence rows into slot i, in place (the
+    reference's `import_slot_rows`): the `lengths` entry, the
+    `page_pos_w` ring-base row, and the recurrent-state stacks
+    (`rwkv_state`, `rwkv_shift`, `rwkv_shift2`, [L, ...] rows of the
+    [L, B, ...] leaves) named in `rows` ({leaf name: host array}).  The
+    uploads are non-blocking copies from pinned snapshots."""
+    for name, val in rows.items():
+        leaf = getattr(cache, name)
+        v = host_to_device(np.asarray(val), leaf.device)
+        if name in _BATCH_AXIS0:
+            leaf[i].copy_(v)
+        else:
+            leaf[:, i].copy_(v)
     return cache

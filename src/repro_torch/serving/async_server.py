@@ -220,17 +220,23 @@ class AsyncKVNANDServer:
             lambda: None if fut.cancelled() else setter(value))
 
     def _route_events(self, events: List[StreamEvent]):
+        """Hand each event to its client's queue.  A terminal event is
+        counted in the metrics (and its request released) BEFORE it is
+        posted: a client that holds its final response, and scrapes
+        `/metrics` next, must find the request counted.  (The
+        reference posts first and counts after.)"""
         for ev in events:
-            q = self._subs.get(ev.uid)
-            if q is not None:
-                self._loop.call_soon_threadsafe(q.put_nowait, ev)
             if ev.finish_reason is not None:
-                self._subs.pop(ev.uid, None)
+                q = self._subs.pop(ev.uid, None)
                 try:
                     self.metrics.observe(self._server.output(ev.uid))
                     self._server.release(ev.uid)
                 except (KeyError, ValueError):
                     pass                     # already released (abort race)
+            else:
+                q = self._subs.get(ev.uid)
+            if q is not None:
+                self._loop.call_soon_threadsafe(q.put_nowait, ev)
 
     # -- asyncio thread: HTTP ------------------------------------------
     def _overloaded(self) -> bool:

@@ -3,12 +3,19 @@
 Per ROW greedy / temperature / top-k / top-p over a batch; every knob may
 be a scalar or a per-row [B] tensor.  Randomness is the Gumbel-argmax
 form of categorical sampling, and the Gumbel noise is an explicit
-argument: the scheduler draws each row's noise from a `torch.Generator`
-keyed by (request seed, tokens emitted) (`request_noise`), so a request's
-stream never depends on the batch it shares, and tests can hand both
-frameworks the same noise.  The streams are torch's, not jax's threefry:
-bit-identity with the reference's random draws is a later item (ROADMAP,
-beside cross-framework envelope import).
+argument: the scheduler draws each row's noise from the row's own key,
+``fold_in(PRNGKey(seed), tokens emitted)`` (`request_noise`), so a
+request's stream never depends on the batch it shares.
+
+The streams are the reference's own: `threefry2x32`, `PRNGKey`,
+`fold_in`, `random_bits`, `uniform` and `gumbel` compute what
+`jax.random` computes (jax 0.9, ``jax_threefry_partitionable``), in
+torch integer ops (int64 tensors holding uint32 values, masked after
+every add and shift) vectorized over rows and vocabulary on the rows'
+device.  So a seeded request draws the reference's tokens, and a KV
+envelope exported by either package continues its stream in the other.
+The integer bits are jax's exactly; the float noise is -log(-log(u)) on
+the same u, where torch's and XLA's `log` may differ in the last bit.
 
 `speculative_accept` is the accept rule of draft-and-verify decoding: it
 samples every span position from the same per-position stream that
@@ -22,6 +29,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core import paged_kv
 
 NEG = -1e9
 
@@ -69,32 +78,93 @@ class SamplingParams:
                            tuple(int(t) for t in self.stop_token_ids))
 
 
-_M64 = (1 << 64) - 1
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _stream_seed(seed: int, pos: int) -> int:
-    """(seed, position) -> one 32-bit generator seed by a splitmix64 mix
-    (torch's CPU generator keeps only the low 32 bits of a seed)."""
-    z = (((int(seed) & 0xFFFFFFFF) << 32) | (int(pos) & 0xFFFFFFFF))
-    z = (z + 0x9E3779B97F4A7C15) & _M64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
-    return (z ^ (z >> 31)) >> 32
+def _u32(a, device) -> torch.Tensor:
+    """uint32 values as an int64 tensor on `device`; a host array goes up
+    through a pinned snapshot without blocking (`host_to_device`)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.int64) & _M32
+    return paged_kv.host_to_device(
+        np.asarray(a).astype(np.int64) & _M32, device)
+
+
+def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x0: torch.Tensor,
+                 x1: torch.Tensor):
+    """The Threefry-2x32 hash (20 rounds), as jax's
+    `_threefry2x32_lowering`: key (k1, k2) and counter (x0, x1) are int64
+    tensors of uint32 values that broadcast together; returns the two
+    hashed words."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def PRNGKey(seeds, device="cpu") -> torch.Tensor:
+    """Raw threefry keys [..., 2] of uint32 seeds: (0, seed), as
+    `jax.random.PRNGKey` makes them from a 32-bit seed."""
+    s = _u32(seeds, device)
+    return torch.stack([torch.zeros_like(s), s], dim=-1)
+
+
+def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
+    """`jax.random.fold_in` row by row: keys [..., 2], data [...] (uint32
+    values) -> keys [..., 2], the hash of the counter (0, data)."""
+    d = _u32(data, keys.device)
+    y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(d), d)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """32 random bits per element, [..., n] from keys [..., 2], as
+    `jax.random.bits` under the partitionable layout: element j hashes
+    the 64-bit counter j split into (hi, lo) words, and its bits are the
+    XOR of the two output words."""
+    j = torch.arange(n, dtype=torch.int64, device=keys.device)
+    y0, y1 = threefry2x32(keys[..., 0, None], keys[..., 1, None],
+                          j >> 32, j & _M32)
+    return y0 ^ y1
+
+
+def uniform(keys: torch.Tensor, n: int, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """`jax.random.uniform` in float32: the top 23 bits become the
+    mantissa of a float in [1, 2), less one, scaled into [minval,
+    maxval) and floored at minval, every step in float32 as XLA does
+    (the bounds stay host scalars: making a device tensor of them would
+    wait for the card)."""
+    bits = random_bits(keys, n)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = np.float32(minval)
+    scale = float(np.float32(maxval) - lo)
+    return (f * scale + float(lo)).clamp_min(float(lo))
+
+
+def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.random.gumbel` (mode "low") in float32: -log(-log(u)), u
+    uniform in [tiny, 1)."""
+    u = uniform(keys, n, minval=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
 
 
 def request_noise(seeds: Sequence[int], positions: Sequence[int], V: int,
                   device) -> torch.Tensor:
-    """Gumbel noise [B, V]: row i from a generator seeded by
-    (seeds[i], positions[i]) — a pure function of the request's seed and
-    how many tokens it has emitted."""
-    rows = []
-    for s, p in zip(seeds, positions):
-        g = torch.Generator(device=device)
-        g.manual_seed(_stream_seed(s, p))
-        u = torch.rand(V, generator=g, device=device)
-        u = u.clamp_min(torch.finfo(torch.float32).tiny)
-        rows.append(-torch.log(-torch.log(u)))
-    return torch.stack(rows)
+    """Gumbel noise [B, V]: row i from the reference's key
+    ``fold_in(PRNGKey(seeds[i]), positions[i])`` — a pure function of
+    the request's seed and how many tokens it has emitted.  Host seeds
+    and positions go up without blocking, so an overlapped dispatch can
+    draw its noise."""
+    keys = fold_in(PRNGKey(seeds, device), positions)
+    return gumbel(keys, V)
 
 
 def sample_with_logprobs(logits: torch.Tensor,

@@ -73,6 +73,13 @@ pool the pages backed for them go back to the allocator with the slot's
 reservation restored.  A step in which no slot may draft runs as a plain
 decode step.
 
+Replicas (`serving/replica.py`, `serving/router.py`): a request with
+`Request.hold` set prefills as any other but joins no decode dispatch
+(sequential, overlapped or verify), so a held row is never active to the
+shared-pool writers; its KV state leaves as an envelope once its prefill
+handoff token is out, and its source slot retires with finish reason
+"migrated".  `_pool_leaves` names the pool leaves a page's bytes live in.
+
 Pipelined stepping: `step()` is `dispatch()` then `collect()`.
 `dispatch()` does every piece of host bookkeeping a step needs
 (admission, prefill chunks, page ensures, table pushes, tier promotions)
@@ -138,7 +145,13 @@ class Request:
     done: bool = False
     params: Optional[SamplingParams] = None
     logprobs: List[float] = dataclasses.field(default_factory=list)
-    finish_reason: Optional[str] = None   # stop|length|capacity|aborted|deadline
+    # stop|length|capacity|aborted|deadline|migrated
+    finish_reason: Optional[str] = None
+    # disaggregated prefill (serving/replica.py): a held slot prefills as
+    # any other but is left out of every decode dispatch, so its KV state
+    # migrates to a decode replica with exactly the prefill handoff token
+    # emitted, and the decode replica resumes its stream at position 1
+    hold: bool = False
     priority: int = 0
     deadline_ts: Optional[float] = None
     order: int = 0
@@ -370,6 +383,10 @@ class ContinuousBatcher:
             self.prefix_cache = PrefixCache(self.alloc,
                                             self.engine.eng.page_tokens)
         self._tables_dirty = True
+        # the global pool's leaves a page's bytes live in (K/V codes and
+        # kv8/kv4 scales): what staging, demotion and migration move
+        self._pool_leaves = [n for n in paged_kv.POOL_LEAVES_G
+                             if getattr(c, n) is not None]
         self._push_tables()
 
     # -- tiered pool ----------------------------------------------------
@@ -928,7 +945,8 @@ class ContinuousBatcher:
             self.collect()
         self._admit()
         n_decoding = sum(1 for i, r in enumerate(self.slots)
-                         if r is not None and i not in self._prefill_live)
+                         if r is not None and i not in self._prefill_live
+                         and not r.hold)
         # a verify step computes spec_k + 1 query tokens a decoding slot:
         # charge the budget that, so chunk packing does not overshoot
         per_slot = self.spec_k + 1
@@ -947,6 +965,7 @@ class ContinuousBatcher:
                    if self.slots[i] is inf.reqs[i]}
         active = [i for i, r in enumerate(self.slots)
                   if r is not None and i not in self._prefill_live
+                  and not r.hold
                   and not self._will_finish(i, int(i in pending))]
         if active:
             if self.spec_k > 0:
@@ -1259,7 +1278,8 @@ class SpliceBatcher(ContinuousBatcher):
         """One decode step over all active slots (admits prefill eagerly
         inside `_admit`, stalling the batch)."""
         self._admit()
-        active = [i for i, r in enumerate(self.slots) if r is not None]
+        active = [i for i, r in enumerate(self.slots)
+                  if r is not None and not r.hold]
         decoded = self._decode_batch(active)
         self.stats["steps"] += 1
         return decoded

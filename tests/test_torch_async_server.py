@@ -252,6 +252,42 @@ def test_metrics_exposition(srv):
     assert after["kvnand_pending_steps"] == 0
 
 
+def test_final_response_arrives_after_it_is_counted(srv):
+    """A client holding its final response finds its request counted.
+    The engine thread's `metrics.observe` is held for a window; a server
+    that posted the terminal event before counting it would deliver the
+    response inside that window, before the count."""
+    metrics = srv.server.metrics
+    observe = metrics.observe
+    entered, release = threading.Event(), threading.Event()
+    counted, seen = [], []
+
+    def held_observe(out):
+        entered.set()
+        release.wait(timeout=30)
+        observe(out)
+        counted.append(out.uid)
+
+    def client():
+        status, _, _ = _post(srv.address, {"prompt": PROMPT,
+                                           "max_tokens": 2})
+        seen.append((status, len(counted)))
+
+    metrics.observe = held_observe
+    try:
+        t = threading.Thread(target=client, daemon=True)
+        t.start()
+        assert entered.wait(timeout=60), "the request was never counted"
+        t.join(timeout=1.5)          # the window the count is held for
+        release.set()
+        t.join(timeout=60)
+        assert not t.is_alive()
+    finally:
+        release.set()
+        del metrics.observe
+    assert seen == [(200, 1)], seen
+
+
 def test_metrics_render_matches_reference():
     """The copied ServingMetrics renders the reference's text, byte for
     byte, for the same finished requests, rejections, stats and gauges."""
