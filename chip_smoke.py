@@ -20,6 +20,7 @@
     python3 chip_smoke.py --overlap          # the build and phase 18 (O1, the overlapped schedule) only
     python3 chip_smoke.py --http             # the build and phase 19 (H1, the HTTP front end) only
     python3 chip_smoke.py --replicas         # the build and phase 20 (M1, multi-replica serving) only
+    python3 chip_smoke.py --hybrid           # the build and phase 21 (Y1, hymba-1.5b) only
 
 Phases (each one fails the run when it fails):
 
@@ -273,7 +274,53 @@ Phases (each one fails the run when it fails):
             clean after the drain, no hot page pinned.  Envelope bytes,
             the migration pump's host wall, the wall, peak memory and the
             card printed.  `--replicas` runs the build and this phase on
-            freshly drawn weights.
+            freshly drawn weights;
+21. Y1      full-width hymba-1.5b, the hybrid family (32 layers: 30 local
+            over a 1024-token window in ring-recycled pages, globals 15
+            and 31; d_model 1600, 25 heads (5 kv, a head group of 5) x
+            64, d_ff 5504, vocab 32001 padded to 32256, an untied LM
+            head; a selective-SSM mixer (state 16) beside attention in
+            every layer; 128 meta tokens; 5.58 GB of random f32 weights
+            from seed 0, drawn after G1's are freed), 4 slots,
+            max_context 2048, 64-token chunks, 6 greedy prompts of 5, 17,
+            60, 200, 900 and 1100 tokens x 24 new tokens (with the meta
+            tokens the 1100-token prompt wraps the 65-page ring in
+            prefill, the 900-token one in decode).  Kernels at Y1's
+            shapes against their plain versions: B1 and B2 (K = 5, G = 5,
+            dh 64; 16- and 64-token pages; the ring at window 1024 and the
+            global pool; f32, bf16, kv8, kv4), B4 (1228 positions, 25 / 5
+            heads, window 1024 and none), B3 (W4A16 at hymba's six
+            projection shapes x M 4, 64, 1228), then timed at Y1's
+            serving shapes.  Golden: the 1100-token prompt as one
+            whole-prompt chunk into an f32 stripe pool, then 8 decode
+            steps, within GOLDEN_TOL of the plain full forward, the same
+            argmax.  Servers at f32 pages of 16 tokens: stripe (B1 =
+            decode steps x 32; every prompt ONE whole-prompt chunk; the
+            teacher-forced check with the argmax), shared (B2 = steps x
+            32, the prefix cache off, both allocators clean), splice (B4
+            = admits x 32), KVNAND-D (B1 = steps x 32 x 5), stripe kv8
+            pages and the overlapped schedule, each serving the stripe
+            run's tokens or parting only at a near tie (LOGIT_GAP_TOL;
+            for kv8, whose pages differ from the f32 run's by the
+            format's noise, KV8_F32_TOL, and its logprobs against the
+            plain forward within it); shared kv8 pages (B2) against the
+            stripe kv8 run within KV8_GAP_TOL; two replicas, one
+            prefilling and one decoding (every request migrates once:
+            pages, ring bases, SSM rows), against the shared server's
+            tokens the same way.  Then the design-space search's pick
+            (asserted: compact, 64-token pages, W4A16, kv8, one
+            partition): B3 = 10 x 32 per decode step and whole-prompt
+            chunk (wo, gate, up, down and the mixer's six projections), B1
+            = steps x 32; served logprobs against the plain forward within
+            QUANT_LOGPROB_TOL, and each prompt of at most HYMBA_CPU_PROMPT
+            tokens prefilled on the card and on the CPU within
+            HYMBA_PREFILL_TOL, the CPU computing B3's own function
+            (`b3_function`); two controls beside it, printed: the card
+            computing that function too (what the gap owes to the rest of
+            the model), and the card's plain GEMV, which must read above
+            the bound.  Launch counts, walls and peak memory printed
+            beside the card.  `--hybrid` runs the build and this phase
+            only.
 
 It needs a CUDA card (exits non-zero without one, printing no result),
 imports nothing of JAX, and prints the card's name and power limit, a
@@ -281,6 +328,7 @@ imports nothing of JAX, and prints the card's name and power limit, a
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import statistics
@@ -1060,44 +1108,51 @@ def quant_kernel_phase() -> float:
     float64 here); a second launch on the same inputs must give the same
     bits (the split-D sum is ordered, not atomic)."""
     import torch
-    from repro_torch.core.quant import unpack_int4
-    from repro_torch.kernels.quant_gemv import quant_gemv, quant_gemv_ref
-    from repro_torch.kernels.quant_gemv.kernel import choose_gemv_plan
     gen = torch.Generator(device="cuda").manual_seed(3)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     max_abs, n = 0.0, 0
     for scheme in ("w4a16", "w8a8"):
         for M in gemv_rows():
             for label, D, F in GEMV_SHAPES:
-                x, qw = gemv_case(scheme, M, D, F, gen)
-                got = quant_gemv(x, qw)
-                again = quant_gemv(x, qw)
-                torch.cuda.synchronize()
-                want = quant_gemv_ref(x, qw.q, qw.scale, scheme)
-                err = rel_err(got, want)
-                plan = choose_gemv_plan(M, D, F, scheme, sms)
-                msg = (f"B3 {scheme} M={M:2d} {label} [{D}->{F}] "
-                       f"({plan.path}, {plan.rows} rows, S={plan.splits}): "
-                       f"rel_err={err:.3e} (tol {GEMV_TOL[scheme]:.0e})")
-                check(bool(torch.isfinite(got).all())
-                      and got.shape == (M, F), f"{msg}: bad output")
-                check(torch.equal(got, again),
-                      f"{msg}: a second launch gave other bits")
-                if scheme == "w4a16":
-                    tpu = ((x.to(torch.bfloat16).double()
-                            @ unpack_int4(qw.q).double())
-                           * qw.scale.double())
-                    err_tpu = rel_err(got, tpu)
-                    msg += (f", vs the TPU kernel's function "
-                            f"{err_tpu:.3e} (tol {GEMV_TPU_TOL:.0e})")
-                    check(err_tpu <= GEMV_TPU_TOL, msg)
-                print(msg)
-                check(err <= GEMV_TOL[scheme], msg)
-                max_abs = max(max_abs, float((got - want).abs().max()))
+                max_abs = max(max_abs, gemv_hold_case(scheme, M, label, D,
+                                                      F, gen))
                 n += 1
     print(f"B3 kernel phase: {n} cases within tolerance, each launched "
           f"twice with the same bits, max_abs_err={max_abs:.3e}")
     return max_abs
+
+
+def gemv_hold_case(scheme, M, label, D, F, gen) -> float:
+    """One B3 case of phase 7's sweep: against `quant_gemv_ref` (and W4A16
+    against the TPU kernel's function), launched twice for the same bits;
+    returns max |y - plain y|."""
+    import torch
+    from repro_torch.core.quant import unpack_int4
+    from repro_torch.kernels.quant_gemv import quant_gemv, quant_gemv_ref
+    from repro_torch.kernels.quant_gemv.kernel import choose_gemv_plan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    x, qw = gemv_case(scheme, M, D, F, gen)
+    got = quant_gemv(x, qw)
+    again = quant_gemv(x, qw)
+    torch.cuda.synchronize()
+    want = quant_gemv_ref(x, qw.q, qw.scale, scheme)
+    err = rel_err(got, want)
+    plan = choose_gemv_plan(M, D, F, scheme, sms)
+    msg = (f"B3 {scheme} M={M:2d} {label} [{D}->{F}] "
+           f"({plan.path}, {plan.rows} rows, S={plan.splits}): "
+           f"rel_err={err:.3e} (tol {GEMV_TOL[scheme]:.0e})")
+    check(bool(torch.isfinite(got).all()) and got.shape == (M, F),
+          f"{msg}: bad output")
+    check(torch.equal(got, again), f"{msg}: a second launch gave other bits")
+    if scheme == "w4a16":
+        tpu = ((x.to(torch.bfloat16).double() @ unpack_int4(qw.q).double())
+               * qw.scale.double())
+        err_tpu = rel_err(got, tpu)
+        msg += (f", vs the TPU kernel's function {err_tpu:.3e} (tol "
+                f"{GEMV_TPU_TOL:.0e})")
+        check(err_tpu <= GEMV_TPU_TOL, msg)
+    print(msg)
+    check(err <= GEMV_TOL[scheme], msg)
+    return float((got - want).abs().max())
 
 
 def gemv_bound(scheme, M, D, F, rate) -> dict:
@@ -1170,7 +1225,7 @@ def quant_timing_shape(label, scheme, M, D, F, rate, flush, gen):
         xb = x.to(torch.bfloat16)
         times["library_ms"] = time_ms(lambda: torch.matmul(xb, wd), 20,
                                       flush)
-    words = qw.q.view(torch.float32)
+    words = qw.q.reshape(-1).view(torch.float32)
     times["read_ms"] = time_ms(lambda: words.sum(), 20, flush)
     res = {"shape": label, "scheme": scheme, "M": M, "D": D, "F": F,
            "library": library, **gemv_bound(scheme, M, D, F, rate)}
@@ -3632,6 +3687,575 @@ def http_phase(params=None) -> dict:
                         if k.startswith("kvnand_") and "quantile" not in k}}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: Y1, full-width hymba-1.5b (the hybrid family)
+# ---------------------------------------------------------------------------
+
+HYMBA_CTX = 2048         # --max-context at which the DSE picks kv8 pages
+HYMBA_NEW = 24           # new tokens a request
+# with the 128 meta tokens: the 1100-token prompt wraps the 1040-token ring
+# of 16-token pages in prefill (1228 positions), the 900-token one in
+# decode (1028 + 24 > 1040)
+HYMBA_PROMPT_LENS = (5, 17, 60, 200, 900, 1100)
+# the longest prompt the CPU side of the DSE check prefills
+HYMBA_CPU_PROMPT = 200
+# The DSE pick's prefill logits, the card against the CPU computing B3's
+# function (`b3_function`), ||card - CPU|| / ||CPU|| at the last token.
+# Hymba's random model amplifies the f32-level differences of a sound
+# card run (2e-5 at f32 weights) through the bf16 rounding of x in 320
+# projections a forward: on an H100 (PERF.md, Y1) B3 reads at most
+# 3.29e-2 over the 4 short prompts, and the plain version on the card,
+# which rounds each product to bf16, at most 1.10e-1 against B3.  The
+# bound lies between the two, and the run checks that the plain version
+# on the card reads above it.
+HYMBA_PREFILL_TOL = 4.5e-2
+# kv8 pages against f32 pages on the same model: the served tokens part
+# where kv8's noise outweighs a logit margin.  On an H100 (PERF.md, Y1)
+# the gap at a divergence reads at most 1.271e-2, the served logprobs
+# before one 2.265e-2 and against the plain forward 2.931e-2; the bound
+# is about twice the largest.  The tight check of the kv8 path is the
+# second kv8 run (shared against stripe) within KV8_GAP_TOL, as G1's.
+KV8_F32_TOL = 5e-2
+# B3's projections a hybrid layer sends through the kernel: wo, gate, up,
+# down and the SSM mixer's in_x, in_z, w_b, w_c, w_dt, out (wq/wk/wv are
+# dequantized, as in the reference)
+HYMBA_B3_PER_LAYER = 10
+# B3 at hymba's projection shapes: (label, D, F); the kv projection's
+# 1600 -> 320 beside the shapes the path launches
+HYMBA_GEMV_SHAPES = (("w_dt", 1600, 1), ("w_b/w_c", 1600, 16),
+                     ("wk/wv", 1600, 320),
+                     ("in_x/in_z/out/wo", 1600, 1600),
+                     ("gate/up", 1600, 5504), ("down", 5504, 1600))
+
+
+def hymba_prompts(V):
+    import numpy as np
+    rng = np.random.default_rng(8)
+    return [rng.integers(0, V, n).tolist() for n in HYMBA_PROMPT_LENS]
+
+
+def hymba_params():
+    """Full-width hymba-1.5b's random float32 weights on the card, seed 0
+    (what `KVNANDServer` draws when it is given none)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import Model
+    cfg = get_config("hymba-1.5b")
+    check(cfg.family == "hybrid" and cfg.n_layers == 32
+          and cfg.d_model == 1600 and cfg.n_heads == 25
+          and cfg.n_kv_heads == 5 and cfg.d_head == 64 and cfg.d_ff == 5504
+          and cfg.vocab_size == 32001 and cfg.padded_vocab == 32256
+          and not cfg.tie_embeddings and cfg.ssm_state == 16
+          and cfg.window == 1024 and cfg.n_meta_tokens == 128
+          and [i for i in range(32) if cfg.is_global_layer(i)] == [15, 31],
+          "not the full-width hymba-1.5b")
+    t0 = time.perf_counter()
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    print(f"Y1: {cfg.name} weights, {n / 1e9:.3f}B params ({4 * n / 1e9:.2f}"
+          f" GB float32), drawn on the card in {time.perf_counter() - t0:.2f}"
+          " s")
+    return cfg, params
+
+
+def hymba_kernel_phase(cfg) -> dict:
+    """B1, B2, B3 and B4 at the shapes Y1's main path gives them, held
+    against their plain versions before Y1 serves.  B1/B2: 4 slots x 5 kv
+    heads x G = 5 queries x dh 64 at page sizes 16 and 64 (the DSE's), the
+    ring (ceil(1024 / T) + 1 pages, the bases a ring leaves after 133,
+    1033, 1228 and 1252 positions: rotated, -1e9 where empty; window 1024)
+    and the global pool (HYMBA_CTX / T pages), in f32, bf16, kv8 and kv4;
+    B2's through permuted tables of a larger pool.  B4: the one-shot
+    prefill of the longest prompt with its meta tokens (1228 positions,
+    25 / 5 heads x 64, f32), with the local layers' window and without.
+    B3: W4A16 at hymba's projection shapes, M = 4 (a decode step), 64 and
+    1228 (a whole-prompt chunk).  Returns each kernel's max |o - plain o|."""
+    import torch
+    from repro_torch.core import paged_kv
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    lengths = (133, 1033, 1228, 1252)
+    B, K, G, dh = len(lengths), cfg.n_kv_heads, cfg.group_size, cfg.d_head
+    check(G == 5, "Y1 kernels: hymba's head group is not 5")
+    errs = {"B1": 0.0, "B2": 0.0, "B3": 0.0, "B4": 0.0}
+    length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    n = 0
+    for T in (16, 64):
+        NPw = paged_kv.ring_pages(cfg, T)
+        ring = torch.stack([torch.as_tensor(paged_kv.window_page_positions(
+            x, NPw, T)) for x in lengths]).cuda()
+        for pool, NP, base, window in (
+                ("ring", NPw, ring, cfg.window),
+                ("global", HYMBA_CTX // T, None, None)):
+            if base is None:
+                base = (torch.arange(NP, dtype=torch.int32, device="cuda")
+                        * T)[None].repeat(B, 1)
+            for fmt in ("f32", "bf16", "kv8", "kv4"):
+                q, kp, vp, _, _, ks, vs = make_inputs(B, K, G, NP, T, dh,
+                                                      fmt, lengths, gen)
+                kvq = kv_quant_of(fmt)
+                kw = dict(window=window, kv_quant=kvq, k_scale=ks,
+                          v_scale=vs)
+                got = pa.paged_attention_partial(q, kp, vp, base, length,
+                                                  **kw)
+                want = pa.paged_attention_partial_ref(q, kp, vp, base,
+                                                      length, **kw)
+                want32 = None
+                if fmt == "bf16":
+                    want32 = pa.paged_attention_partial_ref(
+                        q, kp.float(), vp.float(), base, length,
+                        window=window)
+                label = f"Y1 kernels: T={T} {pool} {fmt}"
+                errs["B1"] = max(errs["B1"], hold_case(
+                    f"{label} B1", got, want, fmt, want32))
+                P = B * NP + 7
+                perm = torch.randperm(P, generator=torch.Generator()
+                                      .manual_seed(NP))[:B * NP]
+                table = perm.reshape(B, NP).to(torch.int32).cuda()
+
+                def scatter(x):
+                    """The stripe pages [B, K, NP, ...] moved to the
+                    table's physical pages of a shared pool [K, P, ...]."""
+                    out = x.new_zeros((K, P) + x.shape[3:])
+                    out[:, table.long()] = x.movedim(1, 0)
+                    return out
+                sp = [None if a is None else scatter(a)
+                      for a in (kp, vp, ks, vs)]
+                got = pa.paged_attention_partial(
+                    q, sp[0], sp[1], base, length, window=window,
+                    kv_quant=kvq, k_scale=sp[2], v_scale=sp[3],
+                    page_table=table)
+                want = pa.paged_attention_shared_ref(
+                    q, sp[0], sp[1], table, base, length, window=window,
+                    kv_quant=kvq, k_scale=sp[2], v_scale=sp[3])
+                if fmt == "bf16":
+                    want32 = pa.paged_attention_shared_ref(
+                        q, sp[0].float(), sp[1].float(), table, base,
+                        length, window=window)
+                errs["B2"] = max(errs["B2"], hold_case(
+                    f"{label} B2", got, want, fmt, want32))
+                n += 2
+    S = cfg.n_meta_tokens + max(HYMBA_PROMPT_LENS)
+    q, k, v = flash_inputs(1, S, S, cfg.n_heads, K, dh, torch.float32, gen)
+    for window in (cfg.window, None):
+        got = fa.flash_attention(q, k, v, causal=True, window=window)
+        want = fa.flash_attention_ref(q, k, v, causal=True, window=window)
+        err = close_err(got, want, FLASH_TOL["f32"])
+        abs_o = float((got - want).abs().max())
+        print(f"Y1 kernels: B4 {S} positions 25/5 heads window {window}: "
+              f"max_abs_err {abs_o:.3e} rel_err={err:.3e} "
+              f"tol={FLASH_TOL['f32']:.0e}")
+        check(err <= FLASH_TOL["f32"], f"Y1 kernels: B4 at window {window} "
+              "disagrees with its plain version")
+        errs["B4"] = max(errs["B4"], abs_o)
+        n += 1
+    for M in (4, 64, S):
+        for label, D, F in HYMBA_GEMV_SHAPES:
+            errs["B3"] = max(errs["B3"], gemv_hold_case(
+                "w4a16", M, f"hymba {label}", D, F, gen))
+            n += 1
+    torch.cuda.synchronize()
+    print(f"Y1 kernels: {n} cases within tolerance; max_abs_err {errs}")
+    return errs
+
+
+def hymba_timing_phase(rate) -> dict:
+    """Each kernel timed at Y1's serving shapes: B1 and B2 over a full ring
+    of the decode step (4 slots x 5 kv heads x G = 5, dh 64, bf16 pages;
+    1040 tokens of 16-token pages, and 1088 of the DSE's 64-token ones),
+    B4 on the longest admit (1228 positions, f32), B3 W4A16 at a decode
+    step's M = 4 over each projection shape the path launches."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rows = {"B1": [], "B2": [], "B3": [], "B4": []}
+    for T, NP in ((16, 65), (64, 17)):
+        L = NP * T
+        rows["B1"].append(timing_shape(f"hymba ring T={T}", 4, 5, 5, NP, T,
+                                       64, [L] * 4, 0, rate, flush, gen))
+        rows["B2"].append(shared_timing_shape(
+            f"hymba ring T={T}", 4, 5, 5, NP, T, 64, [L] * 4, 4 * NP + 8, 0,
+            rate, flush, gen))
+    rows["B4"].append(flash_timing_shape(
+        "hymba admit", 1, 128 + max(HYMBA_PROMPT_LENS), 25, 5, 64, "float32",
+        rate, flush, gen, 10))
+    for label, D, F in HYMBA_GEMV_SHAPES:
+        if label != "wk/wv":
+            rows["B3"].append(quant_timing_shape(
+                f"hymba {label}, serving", "w4a16", 4, D, F, rate, flush,
+                gen))
+    return rows
+
+
+def hymba_golden_phase(cfg, params):
+    """Y1 golden: the 1100-token prompt as ONE whole-prompt chunk (the
+    meta tokens first: 1228 positions, wrapping the ring) into an f32
+    stripe pool, engine-level, then 8 greedy decode steps; every step's
+    logits against the port's plain full forward on the card (kernel-free)
+    over the prompt and the emitted tokens, within GOLDEN_TOL of max
+    |logits|, and the same argmax at every step."""
+    import torch
+    from repro_torch.configs import EngineConfig
+    from repro_torch.core.engine import KVNANDEngine
+    from repro_torch.kernels.paged_attention import launches
+    from repro_torch.models.registry import Model
+    t0 = time.perf_counter()
+    eng = KVNANDEngine(cfg, EngineConfig(page_tokens=16,
+                                         uniform_lengths=False,
+                                         kv_dtype="float32"), device="cuda")
+    prompt = hymba_prompts(cfg.vocab_size)[-1]
+    n, V = len(prompt), cfg.vocab_size
+    cache = eng.init_cache(1, HYMBA_CTX)
+    with torch.no_grad():
+        toks = torch.tensor([prompt], device="cuda")
+        lg, _ = eng.prefill_chunk(params, cache, {"tokens": toks}, 0, 0, n,
+                                  first=True)
+        check(int(cache.lengths[0]) == cfg.n_meta_tokens + n,
+              "Y1 golden: the slot's length does not count the meta tokens")
+        rows, out = [lg[0, :V]], [int(lg[0, :V].argmax())]
+        launches.reset()
+        for _ in range(8):
+            lg, _ = eng.decode_step(params, cache, torch.tensor(
+                [[out[-1]]], device="cuda"))
+            rows.append(lg[0, :V])
+            out.append(int(lg[0, :V].argmax()))
+        b1 = launches.value
+        ring = cache.page_pos_w[0].tolist()
+        state = cache.ssm_state.abs().max().item()
+        got = torch.stack(rows).float()
+        full = Model(cfg).forward(params, {"tokens": torch.tensor(
+            [prompt + out[:8]], device="cuda")})[0, n - 1:, :V].float()
+    torch.cuda.synchronize()
+    err = float((got - full).abs().max() / full.abs().max())
+    want = full.argmax(-1).tolist()
+    wall = time.perf_counter() - t0
+    print(f"Y1 golden: 1100-token prompt (+128 meta) as one chunk + 8 decode"
+          f" steps, f32 stripe pool: max |logits - plain forward| / max "
+          f"|logits| = {err:.3e} (tol {GOLDEN_TOL:.0e}); argmax {out} vs "
+          f"{want}; ring bases {sorted(ring)[:2]}..{sorted(ring)[-2:]}; max "
+          f"|ssm_state| {state:.3e}; B1 launches {b1}; {wall:.3f} s")
+    check(b1 == 8 * cfg.n_layers, f"Y1 golden: B1 launches {b1} != 8 x "
+          f"{cfg.n_layers}")
+    check(max(ring) >= ring_tokens(cfg) and min(ring) >= 0,
+          "Y1 golden: the ring did not wrap")
+    check(state > 0 and bool(torch.isfinite(cache.ssm_state).all()),
+          "Y1 golden: the SSM state is zero or not finite")
+    check(err <= GOLDEN_TOL, "Y1 golden: logits disagree with the plain "
+          "forward")
+    check(out == want, "Y1 golden: a greedy token differs from the plain "
+          "forward's")
+    del eng, cache, full
+    torch.cuda.empty_cache()
+    return {"rel_err": err, "tokens": out, "launches_B1": b1,
+            "wall_s": wall}
+
+
+def hymba_engine_config(**over):
+    """f32 pages of 16 tokens, compact, as `launch/serve.py` serves
+    without `--use-dse`, and `over`."""
+    from repro_torch.configs import EngineConfig
+    return EngineConfig(**{"page_tokens": 16, "uniform_lengths": False,
+                           "kv_dtype": "float32", **over})
+
+
+def hymba_dse_engine_config():
+    """The design-space search's pick at HYMBA_CTX, asserted compact,
+    64-token pages, W4A16, kv8, one partition, served as it is (its page
+    size and ragged appends)."""
+    from repro_torch.configs import EngineConfig
+    from repro_torch.core.dse import recommend_engine_config
+    pick = recommend_engine_config("hymba-1.5b", HYMBA_CTX)
+    check(pick.variant == "compact" and not pick.hg_pipeline
+          and pick.page_tokens == 64 and pick.quant == "w4a16"
+          and pick.kv_quant == "kv8" and pick.attn_partitions == 1,
+          f"the DSE's hymba-1.5b pick at {HYMBA_CTX} is not compact, "
+          f"T=64, w4a16, kv8, one partition: {pick}")
+    return EngineConfig(**{**pick.__dict__, "uniform_lengths": False})
+
+
+def build_hymba_server(cfg, params, eng, scheduler="interleaved",
+                       device="cuda", overlap=False):
+    from repro_torch.serving.api import KVNANDServer, ServerConfig
+    return KVNANDServer(ServerConfig(
+        arch="hymba-1.5b", engine=eng, scheduler=scheduler, batch_slots=4,
+        max_context=HYMBA_CTX, prefill_chunk_tokens=64, device=device,
+        overlap=overlap), cfg=cfg, params=params)
+
+
+def whole_prompt_logits(srv, prompt):
+    """`prompt` prefilled as one whole-prompt chunk (its meta tokens
+    first) into a fresh one-slot cache of the server's engine: its
+    last-token logits over the vocabulary, on the CPU."""
+    import torch
+    b = srv._batcher
+    cache = b.engine.init_cache(1, b.max_context)
+    toks = torch.tensor([prompt], dtype=torch.long, device=b.device)
+    with torch.no_grad():
+        logits, _ = b.engine.prefill_chunk(b.params, cache, {"tokens": toks},
+                                           0, 0, len(prompt), first=True)
+    return logits.float().cpu()[..., :srv.cfg.vocab_size]
+
+
+@contextlib.contextmanager
+def b3_function():
+    """W4A16 products computed as B3's own function, the TPU kernel's:
+    f32(bf16(x) @ w4) x scale with a float64 accumulation (phase 7 holds
+    B3 to it within GEMV_TPU_TOL), on whichever device x lies, in place
+    of `layers.quant_gemv`.  The plain version differs from it: it rounds
+    each product to bf16, as the reference's does."""
+    import torch
+    from repro_torch.core.quant import unpack_int4
+    from repro_torch.models import layers
+
+    def function(x, qw, impl="auto"):
+        check(qw.scheme == "w4a16", "B3's function: W4A16 only")
+        y = ((x.to(torch.bfloat16).double() @ unpack_int4(qw.q).double())
+             * qw.scale.double())
+        return y.to(x.dtype)
+
+    plain = layers.quant_gemv
+    layers.quant_gemv = function
+    try:
+        yield
+    finally:
+        layers.quant_gemv = plain
+
+
+@contextlib.contextmanager
+def plain_gemv():
+    """`layers.quant_gemv` forced onto its plain version on every device."""
+    from repro_torch.models import layers
+    real = layers.quant_gemv
+    layers.quant_gemv = lambda x, qw, impl="auto": real(x, qw, impl="ref")
+    try:
+        yield
+    finally:
+        layers.quant_gemv = real
+
+
+def hymba_replica_run(cfg, params, prompts, solo_outs) -> dict:
+    """Two replicas on Y1's weights (f32, 16-token pages, shared pools):
+    replica 0 prefills every request, each migrates once through the
+    envelope's wire bytes (window and global pages, the ring bases, the
+    SSM state and conv tail rows) and decodes on replica 1; the tokens
+    are one shared-pool server's (or part only at a near tie)."""
+    import torch
+    import repro_torch.serving.router as router_mod
+    from repro_torch.kernels import flash_attention, quant_gemv, wkv6
+    from repro_torch.kernels.paged_attention import launches, launches_shared
+    from repro_torch.serving.api import SamplingParams, ServerConfig
+    from repro_torch.serving.replica import build_replica
+    eng = hymba_engine_config(shared_pool=True)
+    reps = [build_replica(ServerConfig(
+        arch="hymba-1.5b", engine=eng, batch_slots=4, max_context=HYMBA_CTX,
+        prefill_chunk_tokens=64), params=params, device="cuda")
+        for _ in range(2)]
+    check(all(r.params["embedding"] is params["embedding"] for r in reps),
+          "Y1 replicas: a replica copied the weights")
+    router = router_mod.ReplicaRouter(reps, disaggregate=True)
+    counters = {"B1": launches, "B2": launches_shared,
+                "B3": quant_gemv.launches, "B4": flash_attention.launches,
+                "B5": wkv6.launches}
+    steps0 = [r.stats["decode_steps"] for r in reps]
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    sp = SamplingParams(max_new_tokens=HYMBA_NEW, logprobs=True)
+    uids = [router.submit(p, sp) for p in prompts]
+    router.run()
+    outs = [router.output(u) for u in uids]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: c.value for k, c in counters.items()}
+    steps = [r.stats["decode_steps"] - s for r, s in zip(reps, steps0)]
+    st = router.stats
+    L = cfg.n_layers
+    print(f"Y1 replicas: {st['migrations']} migrations "
+          f"({st['migration_bytes']} wire bytes), decode steps per replica "
+          f"{steps}, launches {counts}, {wall:.3f} s")
+    check(st["migrations"] == len(prompts) and steps[0] == 0,
+          "Y1 replicas: not every request migrated once to the decode "
+          "replica")
+    check(counts["B2"] == sum(steps) * L
+          and all(counts[k] == 0 for k in ("B1", "B3", "B4", "B5")),
+          f"Y1 replicas: launches {counts} != (B2 decode steps "
+          f"{sum(steps)} x {L}, B1/B3-B5 0)")
+    for r in reps:
+        r._batcher.alloc.check()
+        r._batcher.alloc_w.check()
+    same, before, gap = near_tie_check("Y1 replicas vs one shared server",
+                                       outs, solo_outs, LOGIT_GAP_TOL)
+    res = {"migrations": st["migrations"],
+           "migration_bytes": st["migration_bytes"], "decode_steps": steps,
+           "launches_B2": counts["B2"], "wall_s": wall,
+           "same_as_one_server": same, "logprob_err": before,
+           "max_gap_at_divergence": gap}
+    del router, reps
+    return res
+
+
+def hybrid_phases(rate) -> dict:
+    """Phase 21, Y1 (see the module docstring)."""
+    import gc
+    import torch
+    from repro_torch.core.quant import quantize_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = hymba_params()
+    L, K = cfg.n_layers, cfg.n_kv_heads
+    res = {"kernels": hymba_kernel_phase(cfg),
+           "timing": hymba_timing_phase(rate),
+           "golden": hymba_golden_phase(cfg, params)}
+    prompts = hymba_prompts(cfg.vocab_size)
+    runs = {}
+    zero = {k: 0 for k in ("B1", "B2", "B3", "B4", "B5")}
+    for key, label, over, sched, overlap, want in (
+            ("stripe", "Y1 stripe f32", {}, "interleaved", False,
+             lambda s, a: {"B1": s * L}),
+            ("shared", "Y1 shared f32", {"shared_pool": True},
+             "interleaved", False, lambda s, a: {"B2": s * L}),
+            ("splice", "Y1 splice f32", {}, "splice", False,
+             lambda s, a: {"B1": s * L, "B4": a * L}),
+            ("discrete", "Y1 discrete (KVNAND-D) f32",
+             {"variant": "discrete"}, "interleaved", False,
+             lambda s, a: {"B1": s * L * K}),
+            ("kv8", "Y1 stripe kv8", {"kv_quant": "kv8"}, "interleaved",
+             False, lambda s, a: {"B1": s * L}),
+            ("kv8_shared", "Y1 shared kv8",
+             {"kv_quant": "kv8", "shared_pool": True}, "interleaved",
+             False, lambda s, a: {"B2": s * L}),
+            ("overlap", "Y1 overlapped stripe f32", {}, "interleaved", True,
+             lambda s, a: {"B1": s * L})):
+        srv = build_hymba_server(cfg, params, hymba_engine_config(**over),
+                                 sched, overlap=overlap)
+        outs, counts, steps, wall, tokens = serve(label, srv, prompts,
+                                                  HYMBA_NEW)
+        admits = counts["admits"]
+        expect = {**zero, **want(steps, admits)}
+        check(steps > 0 and counts == {**counts, **expect},
+              f"{label}: launches {counts} != {expect} ({steps} decode "
+              f"steps, {admits} admits x {L} layers)")
+        if sched == "interleaved":
+            check(counts["prefill_chunks"] == admits == len(prompts),
+                  f"{label}: a prompt was not ONE whole-prompt chunk")
+        if over.get("shared_pool"):
+            b = srv._batcher
+            check(b.prefix_cache is None, f"{label}: the prefix cache is on")
+            b.alloc.check()
+            b.alloc_w.check()
+            check(b.alloc.live_count == 0 and b.alloc_w.live_count == 0,
+                  f"{label}: pages still mapped after the drain")
+        final = [cfg.n_meta_tokens + len(o.prompt) + len(o.token_ids) - 1
+                 for o in outs]
+        runs[key] = outs
+        res[key] = {"decode_steps": steps, "admits": admits,
+                    "launches": {k: counts[k] for k in zero}, "wall_s": wall,
+                    "tokens": tokens, "final_lengths": final}
+        if key == "stripe":
+            print(f"{label}: final lengths {final} (meta tokens included; "
+                  f"a ring holds {ring_tokens(cfg)} tokens)")
+            check(final[4] > ring_tokens(cfg) > cfg.n_meta_tokens
+                  + HYMBA_PROMPT_LENS[4], "Y1: no request wrapped its ring "
+                  "during decode")
+            lp, gap = teacher_forced_check(label, srv, outs)
+            res[key].update(logprob_err_vs_plain_forward=lp, max_gap=gap)
+        if key == "kv8":
+            # kv8 codes against the plain forward's float K/V, as G1's
+            # stripe run is held
+            lp, gap = teacher_forced_check(label, srv, outs, argmax=False,
+                                           tol=KV8_F32_TOL)
+            res[key].update(logprob_err_vs_plain_forward=lp, max_gap=gap)
+        del srv
+    # the f32 runs differ in summation order only; the kv8 runs read their
+    # K/V through kv8 codes, so they part from the f32 run where kv8's
+    # noise outweighs a logit margin (KV8_F32_TOL), and from each other
+    # only at a near tie (KV8_GAP_TOL)
+    for key, ref, tols in (
+            ("shared", "stripe", (LOGIT_GAP_TOL, LOGPROB_TOL)),
+            ("splice", "stripe", (LOGIT_GAP_TOL, LOGPROB_TOL)),
+            ("discrete", "stripe", (LOGIT_GAP_TOL, LOGPROB_TOL)),
+            ("overlap", "stripe", (LOGIT_GAP_TOL, LOGPROB_TOL)),
+            ("kv8", "stripe", (KV8_F32_TOL, KV8_F32_TOL)),
+            ("kv8_shared", "kv8", (KV8_GAP_TOL, LOGPROB_TOL))):
+        same, before, gap = near_tie_check(
+            f"Y1 {key} vs {'stripe f32' if ref == 'stripe' else 'stripe kv8'}",
+            runs[key], runs[ref], *tols)
+        res[key].update(same_as_reference=same, logprob_err=before,
+                        max_gap_at_divergence=gap)
+    res["replicas"] = hymba_replica_run(cfg, params, prompts, runs["shared"])
+    # the DSE's pick: W4A16 weights, kv8 pages of 64 tokens
+    eng = hymba_dse_engine_config()
+    qparams = quantize_params(params, "w4a16")
+    srv = build_hymba_server(cfg, qparams, eng)
+    label = "Y1 DSE pick (w4a16, kv8, T=64)"
+    outs, counts, steps, wall, tokens = serve(label, srv, prompts, HYMBA_NEW)
+    chunks = counts["prefill_chunks"]
+    b3 = HYMBA_B3_PER_LAYER * L * (steps + chunks)
+    check(steps > 0 and counts["B3"] == b3 and counts["B1"] == steps * L
+          and all(counts[k] == 0 for k in ("B2", "B4", "B5")),
+          f"{label}: launches {counts} != (B3 {HYMBA_B3_PER_LAYER} x {L} x "
+          f"({steps} decode steps + {chunks} chunks), B1 {steps} x {L}, "
+          "B2/B4/B5 0)")
+    lp, _ = teacher_forced_check(label, srv, outs, argmax=False,
+                                 tol=QUANT_LOGPROB_TOL)
+    cpu = build_hymba_server(cfg, tree_to(qparams, "cpu"), eng,
+                             device="cpu")
+    short = [p for p in prompts if len(p) <= HYMBA_CPU_PROMPT]
+    t0 = time.perf_counter()
+    cpu_logits = []
+    with b3_function():
+        for p in short:
+            cpu_logits.append(whole_prompt_logits(cpu, p))
+    cpu_wall = time.perf_counter() - t0
+    gaps = {}
+    for key, ctx in (("B3", contextlib.nullcontext),
+                     ("function", b3_function), ("plain", plain_gemv)):
+        with ctx():
+            gaps[key] = [float((whole_prompt_logits(srv, p) - r).norm()
+                               / r.norm())
+                         for p, r in zip(short, cpu_logits)]
+    for key, what in (("B3", "B3"), ("function", "B3's function in "
+                      "float64 on the card too (the control of the gap's "
+                      "cause)"), ("plain", "the plain version on the card "
+                      "(the control of a B3 computing it)")):
+        print(f"check {label}: {len(short)} prompts of <= "
+              f"{HYMBA_CPU_PROMPT} tokens prefilled through {what} against "
+              f"the CPU computing B3's function ({cpu_wall:.3f} s), "
+              f"||logit difference|| / ||CPU logits|| at the last token: "
+              f"{', '.join(f'{g:.4e}' for g in gaps[key])} (tol "
+              f"{HYMBA_PREFILL_TOL:.1e})")
+    check(max(gaps["B3"]) <= HYMBA_PREFILL_TOL, f"{label}: prefill logits "
+          "disagree with the CPU run")
+    check(max(gaps["plain"]) > HYMBA_PREFILL_TOL, f"{label}: the gate "
+          "cannot tell B3's function from the plain version's")
+    res["dse"] = {"decode_steps": steps, "prefill_chunks": chunks,
+                  "launches": {k: counts[k] for k in zero}, "wall_s": wall,
+                  "tokens": tokens, "logprob_err_vs_plain_forward": lp,
+                  "prefill_gaps": gaps["B3"],
+                  "prefill_gaps_function_on_card": gaps["function"],
+                  "prefill_gaps_plain_on_card": gaps["plain"],
+                  "cpu_wall_s": cpu_wall}
+    del srv, cpu, qparams, params
+    gc.collect()
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    res["launches"] = {k: sum(r["launches"][k] for r in res.values()
+                              if isinstance(r, dict) and "launches" in r
+                              and isinstance(r["launches"], dict))
+                       for k in zero}
+    res["launches"]["B1"] += res["golden"]["launches_B1"]
+    res["launches"]["B2"] += res["replicas"]["launches_B2"]
+    print(f"Y1: launches on the main path {res['launches']}; peak memory "
+          f"{res['peak_memory_gb']:.2f} GB; walls (s): "
+          + ", ".join(f"{k} {v['wall_s']:.3f}" for k, v in res.items()
+                      if isinstance(v, dict) and "wall_s" in v)
+          + f"; on {smi_line()}")
+    return res
+
+
 def serving_phases() -> dict:
     """Phases 17-19 on one set of full-width weights."""
     import gc
@@ -3676,7 +4300,7 @@ def main(argv) -> int:
                      ["--wkv"], ["--wkv-timing"], ["--gemv"], ["--flash"],
                      ["--flash-timing"], ["--dse"], ["--verify-ab"],
                      ["--window"], ["--tier"], ["--overlap"], ["--http"],
-                     ["--replicas"])
+                     ["--replicas"], ["--hybrid"])
             and not (len(argv) == 2
                      and argv[0] in ("--gemv-ab", "--flash-ab", "--wkv-ab"))):
         print(__doc__, file=sys.stderr)
@@ -3767,6 +4391,11 @@ def main(argv) -> int:
         print(card)
         print(json.dumps({"window": g1}))
         return 0
+    if argv == ["--hybrid"]:
+        y1 = hybrid_phases(rate)
+        print(card)
+        print(json.dumps({"hybrid": y1}))
+        return 0
     one = {"--tier": ("tier", tier_phase), "--overlap": ("overlap",
                                                          overlap_phase),
            "--http": ("http", http_phase)}.get(argv[0] if argv else None)
@@ -3827,30 +4456,47 @@ def main(argv) -> int:
     g1_b1 = sum(g1[k]["launches"] for k in ("stripe", "splice", "discrete",
                                             "speculative"))
     g1_b1 += g1["golden"]["launches_B1"]
+    y1 = hybrid_phases(rate)
+    for k in ("B1", "B2", "B3", "B4"):
+        check(y1["launches"][k] > 0, f"Y1 launched {k} no time")
+    b1_err = max(b1_err, y1["kernels"]["B1"])
+    b2_err = max(b2_err, y1["kernels"]["B2"])
+    b3_err = max(b3_err, y1["kernels"]["B3"])
+    b4_err = max(b4_err, y1["kernels"]["B4"])
+    y1_runs = {k: y1[k] for k in ("stripe", "shared", "splice", "discrete",
+                                  "kv8", "overlap", "replicas", "dse")}
     t1, o1, h1 = (tier_served[k] for k in ("T1", "O1", "H1"))
     kernels = [
         kernel_entry("paged_attention", "src/repro_torch/csrc/"
                      "paged_attention.cu",
                      "src/repro/kernels/paged_attention/kernel.py:311",
                      stripe["launches"] + d1["launches_B1"]
-                     + v1["launches_B1"] + g1_b1 + o1["launches_B1"], b1_err,
-                     list(b1_shapes) + dse["group_timing"][:1],
-                     [stripe, {"D1": d1, "V1": v1, "G1": g1, "O1": o1}]),
+                     + v1["launches_B1"] + g1_b1 + o1["launches_B1"]
+                     + y1["launches"]["B1"], b1_err,
+                     list(b1_shapes) + dse["group_timing"][:1]
+                     + y1["timing"]["B1"],
+                     [stripe, {"D1": d1, "V1": v1, "G1": g1, "O1": o1,
+                               "Y1": y1_runs}]),
         kernel_entry("paged_attention_shared", "src/repro_torch/csrc/"
                      "paged_attention_shared.cu",
                      "src/repro/kernels/paged_attention/kernel.py:209",
                      shared["launches"] + d1["shared_launches_B2"]
                      + g1["shared"]["launches"] + t1["launches_B2"]
                      + o1["launches_B2"] + h1["launches_B2"]
-                     + m1["launches_B2"], b2_err,
-                     list(b2_shapes) + dse["group_timing"][1:],
+                     + m1["launches_B2"] + y1["launches"]["B2"], b2_err,
+                     list(b2_shapes) + dse["group_timing"][1:]
+                     + y1["timing"]["B2"],
                      [shared, shared32, {"D1 shared": d1,
                                          "G1 shared": g1["shared"],
-                                         "T1": t1, "H1": h1, "M1": m1}]),
+                                         "T1": t1, "H1": h1, "M1": m1,
+                                         "Y1 shared": y1["shared"],
+                                         "Y1 shared kv8": y1["kv8_shared"],
+                                         "Y1 replicas": y1["replicas"]}]),
         kernel_entry("quant_gemv", "src/repro_torch/csrc/quant_gemv.cu",
                      "src/repro/kernels/quant_gemv/kernel.py:68",
-                     q1["launches"] + q2["launches"], b3_err, b3_shapes,
-                     [q1, q2]) | {
+                     q1["launches"] + q2["launches"] + y1["launches"]["B3"],
+                     b3_err, list(b3_shapes) + y1["timing"]["B3"],
+                     [q1, q2, {"Y1 DSE pick": y1["dse"]}]) | {
             "design": "tensor-core mma.sync (bf16 / s8) with the weights "
                       "dequantized into the A operand; stream path (M <= "
                       "STREAM_MAX_M, 8 or 16 rows a CTA) and tile path (64 "
@@ -3859,8 +4505,11 @@ def main(argv) -> int:
         kernel_entry("flash_attention",
                      "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention/kernel.py:82",
-                     s1["launches"] + g1["splice"]["launches_B4"], b4_err,
-                     b4_shapes, [s1, {"G1 splice": g1["splice"]}]) | {
+                     s1["launches"] + g1["splice"]["launches_B4"]
+                     + y1["launches"]["B4"], b4_err,
+                     list(b4_shapes) + y1["timing"]["B4"],
+                     [s1, {"G1 splice": g1["splice"],
+                           "Y1 splice": y1["splice"]}]) | {
             "bound_cuda_core_ms": b4_shapes[0]["bound_cuda_core_ms"],
             "design": "f32 as 3xTF32 mma.sync (hi/lo split, f32-exact), "
                       "bf16 on bf16 mma.sync, cp.async K/V ring, each q "

@@ -59,6 +59,17 @@ is prefilled whole, as one exact-length chunk (`prefill_chunk`, from the
 slot's state, or zero state when `first`) or one-shot (`prefill`, exact
 length only), through the chunked wkv (kernel B5 on the card).
 
+A hybrid (hymba) model runs a selective-SSM mixer (`models/ssm.py`)
+beside attention in every layer, on the same normed input, and averages
+the two before the residual; each slot carries the mixer's per-layer
+state and conv tail (`core/paged_kv.py`), frozen on inactive decode rows
+as an RWKV6 state is.  Its 128 meta tokens lead every prompt: a prefill
+(one-shot, or the whole prompt as one chunk with `first`) prepends them,
+so the slot's length, its pages and its ring bases count prefix + prompt
+tokens, and the mixer starts from zero state (a later chunk from the
+slot's rows).  Bucket padding would fold into the state, so a hybrid
+prompt is prefilled at exact length, and speculation is refused.
+
 kv8/kv4 pools (`EngineConfig.kv_quant`) carry per-page scales beside the
 codes: appends requantize the touched page, fills quantize whole pages,
 and the decode kernels and the chunk's past partial dequantize as they
@@ -68,8 +79,8 @@ the params (`core.quant.quantize_params`), and `layers.dense` sends each
 as in the reference.  A tiered pool (`EngineConfig.hot_pages`) is a
 shared pool of `hot_pages` device pages whose tables the scheduler fills
 with hot-slot indices; the engine walks it like any shared pool.  Not
-ported yet, and refused here: the hybrid, MoE, VLM and encoder-decoder
-families and a device mesh.
+ported yet, and refused here: the MoE, VLM and encoder-decoder families
+and a device mesh.
 """
 from __future__ import annotations
 
@@ -85,10 +96,11 @@ from repro_torch.kernels.paged_attention import (paged_attention_partial,
                                                  paged_chunk_attention,
                                                  paged_chunk_attention_ref)
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import rwkv6
+from repro_torch.models import rwkv6, ssm
 from repro_torch.models.layers import embed_lookup, layer_slice, mlp, rms_norm
 from repro_torch.models.transformer import (Runtime, check_supported,
-                                            embed_inputs, lm_head_logits)
+                                            embed_inputs, hybrid_mix,
+                                            lm_head_logits)
 
 
 class KVNANDEngine:
@@ -216,7 +228,8 @@ class KVNANDEngine:
         pool (a local layer's ring slot, the global pool's page), attend,
         project out.  Float stripe pools mask inactive rows with
         `active`; a shared pool and the requantizing kv8/kv4 appends write
-        only the active `rows` (see `core/paged_kv.py`)."""
+        only the active `rows` (see `core/paged_kv.py`).  Returns (the
+        normed input h, the attention output)."""
         cfg = self.cfg
         h = rms_norm(x, pl_["ln1"], cfg.norm_eps)
         # one projection serves the append (k, v) and the attention (q);
@@ -264,7 +277,7 @@ class KVNANDEngine:
         else:
             o = self._attend_heads(q, kp, vp, base, lengths, window, table,
                                    ks, vs)
-        return attn_mod.project_out(pl_["attn"], cfg, o[:, None])
+        return h, attn_mod.project_out(pl_["attn"], cfg, o[:, None])
 
     def decode_step(self, params, cache: DecodeCache, tokens: torch.Tensor,
                     active: Optional[torch.Tensor] = None):
@@ -309,8 +322,13 @@ class KVNANDEngine:
                 if row_writers and active is not None else None)
         for i in range(cfg.n_layers):
             pl_ = layer_slice(params["layers"], i)
-            x = x + self._decode_attention(pl_, x, cache, i, lengths,
-                                            base_g, active, rows)
+            h, aout = self._decode_attention(pl_, x, cache, i, lengths,
+                                             base_g, active, rows)
+            if cfg.family == "hybrid":
+                aout = hybrid_mix(aout, self._ssm_layer(
+                    pl_, h, cache, i, slice(None), fresh=False,
+                    active=active, decode=True))
+            x = x + aout
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
             x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
         return x
@@ -522,9 +540,34 @@ class KVNANDEngine:
                     cache.rwkv_state, cache.rwkv_shift, cache.rwkv_shift2))
             x, st, sh, sh2 = rwkv6.rwkv_block(pl_, cfg, x, st, sh, sh2,
                                               chunked=chunked)
-            paged_kv.write_recurrent_state(cache, i, rows, st, sh, sh2,
-                                           active)
+            paged_kv.write_recurrent_state(
+                cache, i, rows,
+                {"rwkv_state": st, "rwkv_shift": sh, "rwkv_shift2": sh2},
+                active)
         return x
+
+    def _ssm_layer(self, pl_, h, cache: DecodeCache, layer: int, rows,
+                   *, fresh: bool, active=None, decode: bool = False):
+        """A hybrid layer's SSM mixer over its normed input h [n, S, D]
+        (the reference's hybrid branches of `_decode_block`,
+        `_prefill_block` and `_chunk_block`): from the state and conv tail
+        of cache rows `rows` (zero when `fresh`), storing the new ones
+        back there, rows with `active` False frozen.  decode=True takes
+        the one-token update.  Returns the mixer's output."""
+        n = h.shape[0]
+        if fresh:
+            st = torch.zeros((n,) + cache.ssm_state.shape[2:],
+                             dtype=torch.float32, device=h.device)
+            tail = torch.zeros((n,) + cache.conv_tail.shape[2:],
+                               dtype=cache.conv_tail.dtype, device=h.device)
+        else:
+            st, tail = (cache.ssm_state[layer, rows],
+                        cache.conv_tail[layer, rows])
+        mix = ssm.ssm_decode_step if decode else ssm.ssm_mixer
+        sout, st, tail = mix(pl_["ssm"], self.cfg, h, st, tail)
+        paged_kv.write_recurrent_state(
+            cache, layer, rows, {"ssm_state": st, "conv_tail": tail}, active)
+        return sout
 
     # ------------------------------------------------------------------
     # one-shot prefill
@@ -540,12 +583,14 @@ class KVNANDEngine:
         bases and the logits then come from the true last token; the
         padding's K/V are written to the global pool's pages past it like
         any other token, as in the reference (masked by `lengths`,
-        overwritten by decode appends), and never to a ring.  An RWKV6 model takes exact-length prompts only (the
-        padding would fold into its recurrent state), as in the reference.
+        overwritten by decode appends), and never to a ring.  An RWKV6 or
+        hybrid model takes exact-length prompts only (the padding would
+        fold into its recurrent state), as in the reference.  A hybrid
+        model's meta tokens lead every row: `lengths` count them.
         A tiered pool is refused, as in the reference: its hot tier is
         managed by the serving scheduler."""
         cfg, rt = self.cfg, self.rt
-        if prompt_len is not None and cfg.family == "ssm":
+        if prompt_len is not None and cfg.family in ("ssm", "hybrid"):
             raise ValueError(
                 f"{cfg.family}: bucketed prefill would fold padding into "
                 "recurrent state; pass exact-length prompts instead")
@@ -575,7 +620,11 @@ class KVNANDEngine:
             o = attn_mod.sharded_flash_attention(
                 q, k, v, causal=True, window=cfg.window if ring else None,
                 impl=rt.attn_impl)
-            x = x + attn_mod.project_out(pl_["attn"], cfg, o)
+            aout = attn_mod.project_out(pl_["attn"], cfg, o)
+            if cfg.family == "hybrid":
+                aout = hybrid_mix(aout, self._ssm_layer(
+                    pl_, h, cache, i, slice(None), fresh=True))
+            x = x + aout
             table = None
             if shared:
                 table = cache.page_table_w if ring else cache.page_table_g
@@ -605,32 +654,45 @@ class KVNANDEngine:
         batch["tokens"]: [1, C] (C = the scheduler's chunk bucket, the
         tail is padding); start: absolute position of the chunk's first
         token (a multiple of page_tokens); chunk_len: valid tokens.
-        first=True skips the past-page partial.  Returns (logits [1, V]
-        at the chunk's last valid token, cache updated in place).
+        first=True prepends a meta-token arch's prefix (the chunk's valid
+        extent is then prefix + chunk_len positions) and skips the
+        past-page partial.  Returns (logits [1, V] at the chunk's last
+        valid token, cache updated in place).
 
-        An RWKV6 model carries the slot's recurrent state instead (zero
-        state when `first`): the scheduler sends its whole prompt as one
-        exact-length chunk."""
+        An RWKV6 model carries the slot's recurrent state instead, and a
+        hybrid one its SSM state beside the pages (zero state when
+        `first`): the scheduler sends their whole prompt as one
+        exact-length chunk.  A meta-token arch takes only that form: a
+        later chunk's `start` would not count the prefix."""
         cfg = self.cfg
+        if cfg.n_meta_tokens and not first:
+            raise ValueError(
+                f"prefill_chunk: {cfg.name} prepends {cfg.n_meta_tokens} "
+                "meta tokens, so its whole prompt is one chunk with "
+                "first=True; a later chunk's start would overwrite the "
+                "slot's positions")
         if first:
             x, _ = embed_inputs(params, cfg, batch, self.rt)
         else:
             x = embed_lookup(params["embedding"], batch["tokens"],
                              self.rt.activ_dtype)
+        # the valid extent, the meta-token prefix included
+        v_len = chunk_len + x.shape[1] - batch["tokens"].shape[1]
         if cfg.family == "ssm":
             x = self._recurrent_layers(params, x, cache,
                                        slice(slot, slot + 1), fresh=first)
         else:
             x = self._attention_chunk_layers(params, x, cache, slot, start,
-                                             chunk_len, first)
-        cache.lengths[slot] = start + chunk_len
-        x_last = x[:, chunk_len - 1:chunk_len]
+                                             v_len, first)
+        cache.lengths[slot] = start + v_len
+        x_last = x[:, v_len - 1:v_len]
         return lm_head_logits(params, cfg, x_last)[:, 0], cache
 
     def _attention_chunk_layers(self, params, x, cache: DecodeCache,
-                                slot: int, start: int, chunk_len: int,
+                                slot: int, start: int, v_len: int,
                                 first: bool):
-        """prefill_chunk's layer loop over the paged pool and rings."""
+        """prefill_chunk's layer loop over the paged pool and rings
+        (v_len: the chunk's valid positions, a prefix included)."""
         cfg = self.cfg
         S = x.shape[1]
         q_pos = start + torch.arange(S, device=x.device)
@@ -674,23 +736,26 @@ class KVNANDEngine:
                     page_table=trow[ring][None] if shared else None,
                     partitions=self.eng.attn_partitions)
                 o, m, l = seqpar.merge_two(o, m, l, o2, m2, l2)
-            x = x + attn_mod.project_out(pl_["attn"], cfg, o.to(h.dtype))
+            aout = attn_mod.project_out(pl_["attn"], cfg, o.to(h.dtype))
+            if cfg.family == "hybrid":
+                aout = hybrid_mix(aout, self._ssm_layer(
+                    pl_, h, cache, i, slice(slot, slot + 1), fresh=first))
+            x = x + aout
             kpool, vpool, kscale, vscale = pool
             for pl, sc, kv in ((kpool, kscale, k), (vpool, vscale, v)):
                 if shared:
                     fill = (paged_kv.fill_chunk_window_at_shared if ring
                             else paged_kv.fill_chunk_global_at_shared)
-                    fill(pl, kv, j, trow[ring], page0, chunk_len, scale=sc,
+                    fill(pl, kv, j, trow[ring], page0, v_len, scale=sc,
                          kv_quant=fmt)
                 else:
                     fill = (paged_kv.fill_chunk_window_at if ring
                             else paged_kv.fill_chunk_global_at)
-                    fill(pl, kv, j, slot, page0, chunk_len, scale=sc,
+                    fill(pl, kv, j, slot, page0, v_len, scale=sc,
                          kv_quant=fmt)
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
             x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
         if cache.page_pos_w is not None:
             paged_kv.write_ring_bases(cache.page_pos_w, slot,
-                                      start + chunk_len,
-                                      self.eng.page_tokens)
+                                      start + v_len, self.eng.page_tokens)
         return x

@@ -67,7 +67,11 @@ slot of the batch cache.
 An RWKV6 (`ssm`) cache holds no pool and no page table: each layer's
 recurrent state `rwkv_state` [L, B, H, dh, dh] (float32) and the time-mix
 and channel-mix token shifts `rwkv_shift` / `rwkv_shift2` [L, B, D] (the
-pool dtype), written per layer by `write_recurrent_state`.
+pool dtype), written per layer by `write_recurrent_state`.  A hybrid
+(hymba) cache holds its pool and rings and, beside them, each layer's SSM
+state `ssm_state` [L, B, D, N] (float32) and conv tail `conv_tail`
+[L, B, CONV_K-1, D] (the pool dtype, so a bf16 pool rounds the tail to
+bf16 between steps, as the reference's does), through the same writer.
 
 The span writers (`append_span*`) append a speculative verify step's
 kept positions: position s of the span is written for the rows in
@@ -95,7 +99,7 @@ slot's length, ring bases and recurrent state through
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,6 +107,7 @@ import torch
 from repro_torch.bridge import to_numpy
 from repro_torch.configs.base import EngineConfig, ModelConfig
 from repro_torch.core import quant
+from repro_torch.models.ssm import CONV_K
 
 
 def ceil_div(a: int, b: int) -> int:
@@ -153,7 +158,8 @@ def ring_pages(cfg: ModelConfig, page_tokens: int) -> int:
 @dataclass
 class DecodeCache:
     """Decode state: the global-span layers' pool (stripe or shared), the
-    sliding-window layers' rings, or an RWKV6 model's recurrent state."""
+    sliding-window layers' rings, and an RWKV6 or hybrid model's
+    recurrent state."""
     k_pages_g: Optional[torch.Tensor] = None    # [Lg, B, K, NP, T, dh] or
     v_pages_g: Optional[torch.Tensor] = None    # shared [Lg, K, P, T, dh]
     page_table_g: Optional[torch.Tensor] = None  # [B, NP] logical -> physical
@@ -171,6 +177,9 @@ class DecodeCache:
     rwkv_state: Optional[torch.Tensor] = None   # [L, B, H, dh, dh] float32
     rwkv_shift: Optional[torch.Tensor] = None   # [L, B, D] time-mix shift
     rwkv_shift2: Optional[torch.Tensor] = None  # [L, B, D] channel-mix shift
+    # selective-SSM state (hybrid)
+    ssm_state: Optional[torch.Tensor] = None    # [L, B, D, N] float32
+    conv_tail: Optional[torch.Tensor] = None    # [L, B, CONV_K-1, D]
     lengths: Optional[torch.Tensor] = None      # [B] int32
 
 
@@ -185,8 +194,9 @@ def init_cache(cfg: ModelConfig, eng: EngineConfig, batch: int,
     B·NPw), tables of identity stripes mod P (slot b's logical page j on
     physical page (b·NP + j) mod P — the allocator-free default; the
     scheduler overwrites the tables from its allocator).  `dtype` is the
-    pool's dtype when kv_quant is "none", and the shifts' dtype of an
-    RWKV6 cache, which has no pool (zero states and shifts instead)."""
+    pool's dtype when kv_quant is "none", the shifts' dtype of an RWKV6
+    cache, which has no pool (zero states and shifts instead), and the
+    conv tail's dtype of a hybrid cache (whatever kv_quant is)."""
     T = eng.page_tokens
     K, dh, L = cfg.n_kv_heads, cfg.d_head, cfg.n_layers
     lengths = torch.zeros(batch, dtype=torch.int32, device=device)
@@ -199,6 +209,13 @@ def init_cache(cfg: ModelConfig, eng: EngineConfig, batch: int,
             rwkv_shift2=torch.zeros((L, batch, D), dtype=dtype,
                                     device=device),
             lengths=lengths)
+    leaves = {}
+    if cfg.family == "hybrid":
+        D = cfg.d_model
+        leaves["ssm_state"] = torch.zeros((L, batch, D, cfg.ssm_state),
+                                          dtype=torch.float32, device=device)
+        leaves["conv_tail"] = torch.zeros((L, batch, CONV_K - 1, D),
+                                          dtype=dtype, device=device)
     fmt = eng.kv_quant
     quantized = fmt != "none"
     if quantized:
@@ -225,7 +242,6 @@ def init_cache(cfg: ModelConfig, eng: EngineConfig, batch: int,
         return zeros(pool, dtype), zeros(pool, dtype), table, sc(), sc()
 
     Lg, Lw = _n_layers_split(cfg)
-    leaves = {}
     if Lg:
         NP = eng.max_pages_per_seq or ceil_div(max_context, T)
         # a tiered pool keeps only its hot tier on the device; the flash
@@ -554,8 +570,8 @@ _BATCH_AXIS0 = ("page_table_g", "page_table_w", "page_pos_w", "lengths")
 def splice_slot(cache: DecodeCache, one: DecodeCache, i: int) -> DecodeCache:
     """Copy sequence 0 of a B=1 cache into slot i of the batch cache, in
     place: the slot's stripe of every pool and ring, its kv8/kv4 scales,
-    its table row and ring bases, its recurrent state and shifts, and
-    its length.  Stripe layout only (a shared pool has no per-slot stripe
+    its table row and ring bases, its recurrent state and shifts (an
+    SSM's state and conv tail), and its length.  Stripe layout only (a shared pool has no per-slot stripe
     to copy)."""
     pool = cache.k_pages_g if cache.k_pages_g is not None else \
         cache.k_pages_w
@@ -565,7 +581,7 @@ def splice_slot(cache: DecodeCache, one: DecodeCache, i: int) -> DecodeCache:
     for name in ("k_pages_g", "v_pages_g", "k_scale_g", "v_scale_g",
                  "page_table_g", "k_pages_w", "v_pages_w", "k_scale_w",
                  "v_scale_w", "page_pos_w", "rwkv_state", "rwkv_shift",
-                 "rwkv_shift2", "lengths"):
+                 "rwkv_shift2", "ssm_state", "conv_tail", "lengths"):
         cur, new = getattr(cache, name), getattr(one, name)
         if cur is None:
             continue
@@ -577,17 +593,18 @@ def splice_slot(cache: DecodeCache, one: DecodeCache, i: int) -> DecodeCache:
 
 
 def write_recurrent_state(cache: DecodeCache, layer: int, rows: slice,
-                          state: torch.Tensor, shift: torch.Tensor,
-                          shift2: torch.Tensor,
+                          news: Dict[str, torch.Tensor],
                           active: Optional[torch.Tensor] = None
                           ) -> DecodeCache:
-    """Store one layer's recurrent state [n, H, dh, dh] and token shifts
-    [n, D] of the batch rows `rows` (n of them), in place.  Rows with
-    `active` False keep their current values (the reference's
-    `_mask_state`: a decode step must not disturb a slot that is empty or
-    mid-prefill)."""
-    for leaf, new in ((cache.rwkv_state, state), (cache.rwkv_shift, shift),
-                      (cache.rwkv_shift2, shift2)):
+    """Store one layer's recurrent leaves of the batch rows `rows` (n of
+    them), in place: `news` maps a leaf name to its [n, ...] rows — an
+    RWKV6 state [n, H, dh, dh] and token shifts [n, D], or an SSM state
+    [n, D, N] and conv tail [n, CONV_K-1, D] — each cast to the leaf's
+    dtype.  Rows with `active` False keep their current values (the
+    reference's `_mask_state`: a decode step must not disturb a slot that
+    is empty or mid-prefill)."""
+    for name, new in news.items():
+        leaf = getattr(cache, name)
         cur = leaf[layer, rows]
         new = new.to(leaf.dtype)
         if active is not None:
@@ -873,8 +890,8 @@ def import_slot_rows(cache: DecodeCache, i: int, rows) -> DecodeCache:
     """Write one slot's per-sequence rows into slot i, in place (the
     reference's `import_slot_rows`): the `lengths` entry, the
     `page_pos_w` ring-base row, and the recurrent-state stacks
-    (`rwkv_state`, `rwkv_shift`, `rwkv_shift2`, [L, ...] rows of the
-    [L, B, ...] leaves) named in `rows` ({leaf name: host array}).  The
+    (`rwkv_state`, `rwkv_shift`, `rwkv_shift2`, `ssm_state`,
+    `conv_tail`, [L, ...] rows of the [L, B, ...] leaves) named in `rows` ({leaf name: host array}).  The
     uploads are non-blocking copies from pinned snapshots."""
     for name, val in rows.items():
         leaf = getattr(cache, name)

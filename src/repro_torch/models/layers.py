@@ -110,8 +110,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # Dense / MLP
 # ---------------------------------------------------------------------------
 
-def init_dense(b: ParamInit, name: str, in_dim: int, out_dim: int):
+def init_dense(b: ParamInit, name: str, in_dim: int, out_dim: int,
+               bias: bool = False):
     b.param(f"{name}_w", (in_dim, out_dim))
+    if bias:
+        b.param(f"{name}_b", (out_dim,), init="zeros")
 
 
 def dense(params: Dict[str, Any], name: str, x: torch.Tensor, *,

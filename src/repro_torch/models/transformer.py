@@ -1,13 +1,17 @@
-"""Decoder stack (port of the dense and ssm branches of
-`repro.models.transformer`): pre-norm attention + MLP blocks, or RWKV6
-time-mix + channel-mix blocks (`models/rwkv6.py`).
+"""Decoder stack (port of the dense, ssm and hybrid branches of
+`repro.models.transformer`): pre-norm attention + MLP blocks, RWKV6
+time-mix + channel-mix blocks (`models/rwkv6.py`), or hymba's hybrid
+blocks, where a selective-SSM mixer (`models/ssm.py`) runs beside
+attention on the same normed input and the two outputs are averaged.
 
 Layers are stacked (leading layer axis on every per-layer leaf, as in the
 reference) and run by a Python loop in place of `lax.scan`.  A
-sliding-window arch (gemma3's 5:1 local:global mix) attends over
-`cfg.window` tokens on its local layers and over the whole context on
-its global ones: the loop passes the window per layer where the
-reference scans a traced `is_global` flag.  The hybrid, MoE, VLM and
+sliding-window arch (gemma3's 5:1 local:global mix, hymba's sparse
+global layers) attends over `cfg.window` tokens on its local layers and
+over the whole context on its global ones: the loop passes the window
+per layer where the reference scans a traced `is_global` flag.  A
+meta-token arch (hymba) prepends its learned prefix to every sequence
+and strips it again before the LM head.  The MoE, VLM and
 encoder-decoder families are not ported yet (ROADMAP A15) and raise.
 """
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import rwkv6
+from repro_torch.models import rwkv6, ssm
 from repro_torch.models.layers import (ParamInit, embed_lookup,
                                        init_embedding, init_mlp, layer_slice,
                                        mlp, rms_norm)
@@ -33,7 +37,7 @@ class Runtime:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the configurations this slice of the port leaves out."""
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
             "(ROADMAP A15, other families)")
@@ -60,24 +64,39 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
         rwkv6.init_rwkv_channelmix(lb.scope("cmix"), cfg)
     else:
         attn_mod.init_attention(lb.scope("attn"), cfg)
+        if cfg.family == "hybrid":
+            ssm.init_ssm(lb.scope("ssm"), cfg)
         lb.param("ln2", (cfg.d_model,), init="zeros")
         init_mlp(lb.scope("mlp"), cfg.d_model, cfg.d_ff, cfg.gated_mlp)
     b.params["layers"] = lb.params
     b.param("final_norm", (cfg.d_model,), init="zeros")
     if not cfg.tie_embeddings:
         b.param("lm_head", (cfg.padded_vocab, cfg.d_model))
+    if cfg.n_meta_tokens:
+        b.param("meta_tokens", (cfg.n_meta_tokens, cfg.d_model), scale=0.02)
     return b.params
 
 
 def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                  rt: Runtime) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Input activations [B, S, D] + positions [B, S] (dense: tokens
-    only — patch and meta-token prefixes belong to unported families)."""
+    """Input activations [B, S, D] + positions [B, S]: the token
+    embeddings, after the broadcast meta tokens of a meta-token arch
+    (S = n_meta_tokens + tokens; positions run over both)."""
     tok = batch["tokens"]
     x = embed_lookup(params["embedding"], tok, rt.activ_dtype)
-    B, S = tok.shape
+    if cfg.n_meta_tokens:
+        B = tok.shape[0]
+        meta = params["meta_tokens"].to(rt.activ_dtype)[None].expand(
+            B, cfg.n_meta_tokens, cfg.d_model)
+        x = torch.cat([meta, x], dim=1)
+    B, S = x.shape[:2]
     positions = torch.arange(S, device=tok.device)[None].expand(B, S)
     return x, positions
+
+
+def hybrid_mix(aout: torch.Tensor, sout: torch.Tensor) -> torch.Tensor:
+    """A hybrid block's attention and SSM outputs, averaged."""
+    return (aout + sout) * 0.5
 
 
 def lm_head_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -109,9 +128,21 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                                  impl="ref")[0]
         else:
             h = rms_norm(x, pl_["ln1"], cfg.norm_eps)
-            x = x + attn_mod.attention_train(pl_["attn"], cfg, h, impl="ref",
-                                             window=layer_window(cfg, i),
-                                             positions=positions)
+            aout = attn_mod.attention_train(pl_["attn"], cfg, h, impl="ref",
+                                            window=layer_window(cfg, i),
+                                            positions=positions)
+            if cfg.family == "hybrid":
+                # every layer's SSM starts from zero state and tail
+                state0 = torch.zeros(ssm.ssm_state_shape(cfg, B),
+                                     dtype=torch.float32, device=x.device)
+                tail0 = torch.zeros((B, ssm.CONV_K - 1, cfg.d_model),
+                                    dtype=x.dtype, device=x.device)
+                sout = ssm.ssm_mixer(pl_["ssm"], cfg, h, state0, tail0,
+                                     impl="ref")[0]
+                aout = hybrid_mix(aout, sout)
+            x = x + aout
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
             x = x + mlp(pl_["mlp"], h, cfg.gated_mlp, impl="ref")
+    # strip the meta-token prefix before the LM head
+    x = x[:, x.shape[1] - batch["tokens"].shape[1]:]
     return lm_head_logits(params, cfg, x)

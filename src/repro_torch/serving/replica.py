@@ -10,7 +10,8 @@ another (a PREFILL replica handing off to a DECODE replica) as a
     global-pool page, per pool leaf, kv8/kv4 codes and their per-page
     scales alike;
   * window-ring pages and the slot's `page_pos_w` ring-base row;
-  * recurrent-state rows (RWKV6);
+  * recurrent-state rows (RWKV6's state and shifts, a hybrid's SSM
+    state and conv tail);
   * the slot's length, the output so far (the prefill handoff token),
     its logprobs, and the request's `SamplingParams` with its RESOLVED
     seed, so the decode replica continues ``fold_in(PRNGKey(seed),
@@ -58,7 +59,8 @@ ENVELOPE_VERSION = 1
 
 # per-slot rows of the [L, B, ...] leaves (batch axis 1) that migrate as
 # [L, ...] stacks
-_STATE_ROW_LEAVES = ("rwkv_state", "rwkv_shift", "rwkv_shift2")
+_STATE_ROW_LEAVES = ("rwkv_state", "rwkv_shift", "rwkv_shift2",
+                     "ssm_state", "conv_tail")
 _WINDOW_LEAVES = ("k_pages_w", "v_pages_w", "k_scale_w", "v_scale_w")
 
 

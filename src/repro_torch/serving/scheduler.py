@@ -54,12 +54,16 @@ pin warm pages instead of demand-faulting (faults are counted as
 never demoted, so no step's walk can fault.  Window rings are not
 tiered (refused, as in the reference).
 
-An RWKV6 (`ssm`) model carries recurrent state, which padding would
-pollute: its prompt is prefilled as ONE exact-length chunk (whatever
-`prefill_chunk_tokens` says; the budget charges its full length), the
-splice baseline prefills it unbucketed, and a shared-pool config builds
-no allocator and no prefix cache (there is no page pool), as in the
-reference.
+An RWKV6 (`ssm`) or hybrid (hymba) model carries recurrent state, which
+padding would pollute, and a meta-token prefix would break the page
+alignment of later chunks: such a prompt is prefilled as ONE
+exact-length chunk (whatever `prefill_chunk_tokens` says; the budget
+charges its full length), and the splice baseline prefills it
+unbucketed.  An RWKV6 shared-pool config builds no allocator and no
+prefix cache (there is no page pool); a hybrid one allocates its pages
+and rings but keeps the prefix cache off.  A slot's length, its page
+reservation and the prompt cap count hymba's meta tokens
+(`_prefix`), as in the reference.
 
 Speculative draft-and-verify (``speculation_k`` > 0): every decode step
 becomes a verify step.  Each decoding slot drafts up to k tokens by
@@ -273,10 +277,14 @@ class ContinuousBatcher:
         self.max_context = max_context
         # pad one-shot prefills to power-of-two buckets (SpliceBatcher);
         # recurrent prefill would fold padding into state -> exact length
-        recurrent = cfg.family == "ssm"
-        self.bucket_prompts = bucket_prompts and not recurrent
-        # ... and, chunked, prefills the whole prompt as one exact chunk
-        self._whole_prompt = recurrent
+        self.bucket_prompts = (bucket_prompts
+                               and cfg.family not in ("ssm", "hybrid"))
+        # ... and, chunked, prefills the whole prompt as one exact chunk,
+        # as it does a meta-token prefix (it breaks later chunks' page
+        # alignment)
+        self._whole_prompt = (cfg.family in ("ssm", "hybrid")
+                              or cfg.n_meta_tokens > 0)
+        self._prefix = cfg.n_meta_tokens
         self.chunk_tokens = prefill_chunk_tokens
         self.step_token_budget = (step_token_budget
                                   or prefill_chunk_tokens + batch_slots)
@@ -328,10 +336,12 @@ class ContinuousBatcher:
         global pool's pages (a tiered pool's over its FLASH pages, with
         the hot tier and the capacity store beside it) and one over the
         window rings' pages, zeroed host tables, per-slot maps, and the
-        prefix cache — for a global-pool-only dense arch, which is what
-        prefix sharing needs (a ring recycles its pages in place, so a
-        window arch shares none).  An RWKV6 cache has no pool: no
-        allocator, no tables, no prefix cache."""
+        prefix cache — for a global-pool-only arch with no meta-token
+        prefix and no recurrent state, which is what prefix sharing needs
+        (a ring recycles its pages in place, so a window arch shares
+        none; meta tokens shift the page alignment; a hybrid's SSM state
+        is not in the pages).  An RWKV6 cache has no pool: no allocator,
+        no tables, no prefix cache."""
         c = self.cache
         eng = self.engine.eng
         self._table_np = None
@@ -379,7 +389,8 @@ class ContinuousBatcher:
         self._slot_ring: List[List[int]] = [[] for _ in range(self.B)]
         self._resv = np.zeros(self.B, np.int64)   # reserved, not yet alloc'd
         self._outstanding = 0
-        if self.alloc is not None and self.alloc_w is None:
+        if (self.alloc is not None and self.alloc_w is None
+                and not self._whole_prompt):
             self.prefix_cache = PrefixCache(self.alloc,
                                             self.engine.eng.page_tokens)
         self._tables_dirty = True
@@ -557,7 +568,8 @@ class ContinuousBatcher:
         self._resv[i] = 0
 
     def _pages_needed(self, req: Request) -> int:
-        total = min(len(req.prompt) + req.max_new, self.max_context)
+        total = min(self._prefix + len(req.prompt) + req.max_new,
+                    self.max_context)
         return -(-total // self.engine.eng.page_tokens)
 
     def _map_cached_pages(self, i: int, pages) -> int:
@@ -721,15 +733,15 @@ class ContinuousBatcher:
         req.order = self._submit_seq
         self._submit_seq += 1
         n = len(req.prompt)
-        cap = self.max_context - 1
+        cap = self.max_context - 1 - self._prefix
         if n == 0:
             raise ValueError(f"request {req.uid}: empty prompt")
         if n > cap:
             raise ValueError(
                 f"request {req.uid}: prompt of {n} tokens exceeds the slot "
                 f"capacity of {cap} (max_context={self.max_context} minus "
-                "1 decode token); truncate the prompt or enlarge "
-                "max_context")
+                f"1 decode token minus {self._prefix} prefix tokens); "
+                "truncate the prompt or enlarge max_context")
         if self.shared and self.alloc is not None:
             need = self._pages_needed(req)
             if need > self.alloc.total:
@@ -859,7 +871,7 @@ class ContinuousBatcher:
             # append into the partial page copies it on write
             mapped = self._map_cached_pages(i, hit.exact.pages)
             self._resv[i] = need - (n // T)
-            self._lengths[i] = n
+            self._lengths[i] = n            # no prefix: the cache is off
             self.cache.lengths[i] = n
         else:
             mapped = self._map_cached_pages(i, hit.full_pages)
@@ -889,7 +901,8 @@ class ContinuousBatcher:
         if self.shared and self.alloc is not None:
             # lazy page allocation: back every page this chunk will write
             T = self.engine.eng.page_tokens
-            for lp in range(c0 // T, -(-(c0 + cl) // T)):
+            span = c0 + cl + (self._prefix if c0 == 0 else 0)
+            for lp in range(c0 // T, -(-span // T)):
                 self._ensure_page(i, lp)
             self._push_tables()
         logits, self.cache = self.engine.prefill_chunk(
@@ -900,7 +913,7 @@ class ContinuousBatcher:
         self.stats["prefill_chunks"] += 1
         if ps.pos >= ps.n:                         # prompt fully prefilled
             del self._prefill_live[i]
-            self._lengths[i] = ps.n
+            self._lengths[i] = self._prefix + ps.n
             if self.prefix_cache is not None:
                 self._register_prefix(
                     i, ps, logits[0].float().cpu().numpy())
@@ -1271,7 +1284,7 @@ class SpliceBatcher(ContinuousBatcher):
             self.params, {"tokens": prompt}, self.max_context,
             prompt_len=n if self.bucket_prompts else None)
         paged_kv.splice_slot(self.cache, one, i)
-        self._lengths[i] = n
+        self._lengths[i] = self._prefix + n
         self._emit_token(i, req, *self._sample_now(logits, i, req))
 
     def step(self) -> int:

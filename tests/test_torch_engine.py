@@ -48,8 +48,8 @@ def _rel(t, j):
 
 def _trace(arch, kv_dtype):
     """Run one chunk + decode trace through both engines: slot 0 takes a
-    20-token prompt in two chunks (16 + 4, the second padded), slot 1 a
-    7-token prompt; then decode steps with both, and with one slot
+    20-token prompt in two chunks (16 + 4, the second padded; one whole
+    chunk for a meta-token arch), slot 1 a 7-token prompt; then decode steps with both, and with one slot
     masked.  Returns per-call relative logit errors and both caches."""
     cfg, params, tparams = _weights(arch)
     eng_kw = dict(page_tokens=T, kv_dtype=kv_dtype, uniform_lengths=False)
@@ -64,7 +64,7 @@ def _trace(arch, kv_dtype):
 
     def chunk(toks, slot, start, n, first):
         nonlocal jc
-        padded = np.zeros(C, np.int32)
+        padded = np.zeros(max(C, n), np.int32)
         padded[:n] = toks
         jl, jc = je.prefill_chunk(params, jc,
                                   {"tokens": jnp.asarray(padded)[None]},
@@ -82,9 +82,18 @@ def _trace(arch, kv_dtype):
                                active=torch.from_numpy(np.asarray(active)))
         errs.append(_rel(tl, jl))
 
-    chunk(prompt0[:16], 0, 0, 16, True)
-    chunk(prompt1, 1, 0, 7, True)
-    chunk(prompt0[16:], 0, 16, 4, False)
+    if cfg.n_meta_tokens:
+        # a meta-token arch takes its whole prompt as one chunk, as the
+        # scheduler sends it; the port refuses a later chunk
+        with pytest.raises(ValueError, match="meta tokens"):
+            te.prefill_chunk(tparams, tc, {"tokens": torch.zeros(
+                1, C, dtype=torch.long)}, 0, 16, 4, first=False)
+        chunk(prompt0, 0, 0, 20, True)
+        chunk(prompt1, 1, 0, 7, True)
+    else:
+        chunk(prompt0[:16], 0, 0, 16, True)
+        chunk(prompt1, 1, 0, 7, True)
+        chunk(prompt0[16:], 0, 16, 4, False)
     for step in range(4):
         toks = r.integers(1, cfg.vocab_size, 2).astype(np.int32)
         decode(toks, [True, step != 2])          # slot 1 sits out once
@@ -92,15 +101,20 @@ def _trace(arch, kv_dtype):
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "llama3.1-8b",
-                                  "gemma3-12b"])
+                                  "gemma3-12b", "hymba-1.5b", "qwen1.5-4b",
+                                  "qwen2.5-32b", "opt-30b", "llama3.1-70b"])
 def test_engine_trace_matches_reference_f32(arch):
     errs, jc, tc = _trace(arch, "float32")
     assert max(errs) < 1e-4, errs
-    assert tc.lengths.tolist() == np.asarray(jc.lengths).tolist() == [24, 10]
-    if jc.page_pos_w is not None:          # gemma3: its window ring too
+    # each slot's first chunk carries hymba's meta tokens
+    prefix = tget(arch).reduced().n_meta_tokens
+    assert tc.lengths.tolist() == np.asarray(jc.lengths).tolist() == [
+        24 + prefix, 10 + prefix]
+    if jc.page_pos_w is not None:          # gemma3, hymba: the ring too
         np.testing.assert_array_equal(tc.page_pos_w.numpy(),
                                       np.asarray(jc.page_pos_w))
-    for name in ("k_pages_g", "v_pages_g", "k_pages_w", "v_pages_w"):
+    for name in ("k_pages_g", "v_pages_g", "k_pages_w", "v_pages_w",
+                 "ssm_state", "conv_tail"):
         if getattr(jc, name) is None:
             continue
         np.testing.assert_allclose(getattr(tc, name).numpy(),

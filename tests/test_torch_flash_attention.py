@@ -25,6 +25,18 @@ from repro_torch.models import attention as tattn
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _two_threads():
+    """Each test at the 2 intra-op threads this module sets, whatever an
+    earlier module in the worker left (the plain versions' float32
+    matmuls are held at 2e-5)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 SWEEP = [
     # B, Sq, Sk, H, K, dh, causal, window, dtype (the reference's sweep)
     (2, 128, 128, 4, 2, 64, True, None, "float32"),

@@ -254,3 +254,37 @@ def test_inactive_rows_never_requantize_a_page(shared):
     for b, a in zip(before, after):
         assert torch.equal(a, b)
     assert cache.lengths.tolist() == [12, 3 if shared else 5]
+
+
+@pytest.mark.parametrize("weights", ["w4a16", "w8a8"])
+def test_quantized_rwkv6_server_matches_reference(weights):
+    """RWKV6 with quantized weights (the time-mix and channel-mix
+    projections through the plain B3 version; the LoRA factors, decays
+    and bonus stay float): the reference server's greedy tokens, its
+    counters, logprobs within the weight format's tolerance."""
+    arch = "rwkv6-3b"
+    cfg = get_config(arch).reduced()
+    params = quantize_params(Model(cfg).init(jax.random.PRNGKey(0)), weights)
+    kw = dict(page_tokens=16, uniform_lengths=False, kv_dtype="float32")
+    ref = JServer(JConfig(engine=EngineConfig(**kw), **SERVE), cfg=cfg,
+                  params=params)
+    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, params),
+                                       "cpu")
+    port = KVNANDServer(ServerConfig(engine=TEngineConfig(**kw), device="cpu",
+                                     **SERVE),
+                        cfg=tget(arch).reduced(), params=tparams)
+    r = np.random.default_rng(2)
+    prompts = [r.integers(1, cfg.vocab_size, n).tolist()
+               for n in (5, 40, 17, 1)]
+    want = ref.generate(prompts, JParams(max_new_tokens=12, logprobs=True))
+    got = port.generate(prompts, SamplingParams(max_new_tokens=12,
+                                                logprobs=True))
+    for w, g in zip(want, got):
+        assert g.token_ids == w.token_ids
+        assert g.finish_reason == w.finish_reason == "length"
+        np.testing.assert_allclose(g.logprobs, w.logprobs,
+                                   atol=LOGPROB_TOL[weights])
+    for key in ("prefill_chunks", "admits"):
+        assert port.stats[key] == ref.stats[key], key
+    wr = port._batcher.params["layers"]["tmix"]["wr_w"]
+    assert isinstance(wr, tq.QuantizedWeight) and wr.scheme == weights

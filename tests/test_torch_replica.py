@@ -85,11 +85,11 @@ def _server(kv_quant="none", hot_pages=0, slots=3, overlap=False,
     return KVNANDServer(sc, cfg=cfg, params=params)
 
 
-def _jserver(kv_quant="none", slots=3, **eng):
-    cfg, params, _, _ = _weights()
+def _jserver(kv_quant="none", slots=3, arch=ARCH, max_context=64, **eng):
+    cfg, params, _, _ = _weights(arch)
     sc = JConfig(engine=JEngineConfig(**_eng_kw(kv_quant, **eng)),
-                 batch_slots=slots, max_context=64, prefill_chunk_tokens=16,
-                 seed=7)
+                 batch_slots=slots, max_context=max_context,
+                 prefill_chunk_tokens=16, seed=7)
     return JServer(sc, cfg=cfg, params=params)
 
 
@@ -163,10 +163,12 @@ def test_disaggregated_token_identity(kv_quant, hot_pages, overlap,
     _conserved(servers)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-12b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["gemma3-12b", "rwkv6-3b", "hymba-1.5b"])
 def test_disaggregated_window_and_recurrent_archs(arch):
-    """Window rings (ring pages + `page_pos_w`) and RWKV6 state rows
-    migrate: the router serves one server's tokens exactly."""
+    """Window rings (ring pages + `page_pos_w`), RWKV6 state rows and
+    hymba's (ring and global pages, SSM state and conv tail, a length
+    that counts the meta tokens) migrate: the router serves one server's
+    tokens exactly."""
     vocab = _weights(arch)[2].vocab_size
     rng = np.random.default_rng(1)
     prompts = [rng.integers(1, vocab, k).tolist() for k in (5, 90, 30)]
@@ -441,8 +443,23 @@ def test_envelopes_cross_between_the_packages(kv_quant):
     """A reference replica's envelope decodes in a port replica to the
     reference single server's tokens, and a port replica's in a
     reference replica to the port single server's."""
-    prompts = _prompts(_weights()[2].vocab_size)
-    eng = dict(kv_dtype="float32")
+    _cross_packages(kv_quant, _prompts(_weights()[2].vocab_size))
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "kv8"])
+def test_hybrid_envelopes_cross_between_the_packages(kv_quant):
+    """hymba's envelopes (ring and global pages, `page_pos_w`, the SSM
+    state and conv tail rows, a length counting the meta tokens) cross
+    both ways, one prompt wrapping the ring."""
+    arch = "hymba-1.5b"
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, _weights(arch)[2].vocab_size, k).tolist()
+               for k in (5, 80, 21)]
+    _cross_packages(kv_quant, prompts, arch=arch, max_context=160)
+
+
+def _cross_packages(kv_quant, prompts, **server_kw):
+    eng = dict(kv_dtype="float32", **server_kw)
     jparams = [JParams(**sp) for sp in PARAMS]
     tparams = [SamplingParams(**sp) for sp in PARAMS]
     want_j = _solo(_jserver(kv_quant, **eng), prompts, JParams)

@@ -177,7 +177,7 @@ def test_abort_mid_prefill_frees_the_slot():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: KVNANDServer(ServerConfig(arch="hymba-1.5b", reduced=True,
+    lambda: KVNANDServer(ServerConfig(arch="mixtral-8x7b", reduced=True,
                                       device="cpu")),
     lambda: KVNANDEngine(tget("qwen1.5-0.5b").reduced(), mesh=object(),
                          device="cpu"),
