@@ -21,6 +21,7 @@
     python3 chip_smoke.py --http             # the build and phase 19 (H1, the HTTP front end) only
     python3 chip_smoke.py --replicas         # the build and phase 20 (M1, multi-replica serving) only
     python3 chip_smoke.py --hybrid           # the build and phase 21 (Y1, hymba-1.5b) only
+    python3 chip_smoke.py --moe              # the build and phase 22 (E1, mixtral-8x7b) only
 
 Phases (each one fails the run when it fails):
 
@@ -168,23 +169,25 @@ Phases (each one fails the run when it fails):
             dh 128, kv8, B=4 x 128 tokens) the timed group held against
             its plain version and the all-heads launch, then timed beside
             the latter;
-14. D1      full-width llama2-7b (32 layers, d_model 4096, 32 heads x 128,
-            d_ff 11008; random f32 weights from seed 0) under the
+14. D1      full-width llama2-7b cut to 8 of its 32 layers (LLAMA2_LAYERS;
+            d_model 4096, 32 heads x 128, d_ff 11008; random f32 weights
+            from seed 0) under the
             design-space search's pick at max_context 128 (asserted:
             discrete, kv8) with `launch/serve.py --use-dse`'s overrides, 4
             slots, 6 greedy requests of 5-60 prompt tokens (one repeats a
             segment) x 16 new tokens: stripe pool, B1 launches = decode
-            steps x 32 x 32; the compact variant on the same params and
+            steps x 8 x 32; the compact variant on the same params and
             prompts serves the same tokens (or differs only at a near-tie,
             see `dse_server_phase`); the shared pool, B2 launches = decode
-            steps x 32 x 32, the allocator's invariants after the drain;
+            steps x 8 x 32, the allocator's invariants after the drain;
 15. V1      D1's stripe deployment with speculation_k = 4 (prompt-lookup
             draft-and-verify): the same tokens as D1's sequential run, at
             least one verify step, and the acceptance counts printed;
-16. G1      full-width gemma3-12b (48 layers: 40 local over a 1024-token
-            window in ring-recycled pages, 8 global; d_model 3840, 16
-            heads (8 kv) x 256, d_ff 15360, vocab 262144; 47 GB of random
-            f32 weights from seed 0, drawn after D1's are freed), 4 slots,
+16. G1      full-width gemma3-12b cut to 12 of its 48 layers (GEMMA_LAYERS:
+            10 local over a 1024-token window in ring-recycled pages, 2
+            global; d_model 3840, 16 heads (8 kv) x 256, d_ff 15360, vocab
+            262144; 15 GB of random f32 weights from seed 0, drawn after
+            D1's are freed), 4 slots,
             max_context 2048, 64-token chunks, 6 greedy prompts of 5, 17,
             40, 60, 1030 and 1100 tokens x 24 new tokens (the 1100-token
             prompt wraps the 65-page ring in prefill, the 1030-token one
@@ -196,12 +199,12 @@ Phases (each one fails the run when it fails):
             an f32 stripe pool, then 8 decode steps, every step's logits
             within GOLDEN_TOL of the plain full forward's and the same
             argmax.  Then the design-space search's pick (asserted:
-            compact, kv8) on the stripe pool (B1 = decode steps x 48),
-            the shared pool (B2 = decode steps x 48, both allocators clean
-            after the drain) and the splice scheduler (B4 = admits x 48,
+            compact, kv8) on the stripe pool (B1 = decode steps x 12),
+            the shared pool (B2 = decode steps x 12, both allocators clean
+            after the drain) and the splice scheduler (B4 = admits x 12,
             local layers at window 1024), the final lengths printed; the
             stripe run's logprobs against the plain forward within
-            QUANT_LOGPROB_TOL; KVNAND-D on the ring (B1 = steps x 48 x 8)
+            QUANT_LOGPROB_TOL; KVNAND-D on the ring (B1 = steps x 12 x 8)
             and speculation_k = 4 (the stripe run's tokens exactly).  The
             three pools and schedulers, and the two variants, serve equal
             tokens or part only at a near tie (KV8_GAP_TOL;
@@ -250,7 +253,7 @@ Phases (each one fails the run when it fails):
             TTFTs and 90 decode tokens; B2 = decode steps x 24; the wall
             printed.  `--http` runs the build and this phase only;
 20. M1      multi-replica serving, run after V1 on D1's full-width
-            llama2-7b weights before they are freed: first the seeded
+            llama2-7b weights (8 layers) before they are freed: first the seeded
             streams on the card against the CPU's for the same (seed,
             position) (keys, random bits and uniform floats exactly, the
             Gumbel noise within 2^-22 (1 + |n|), its two logs' bound).  Then,
@@ -270,17 +273,17 @@ Phases (each one fails the run when it fails):
             the same weights and pool, or part only at a near tie
             (LOGIT_GAP_TOL at f32, KV8_GAP_TOL at kv8; a seeded request's
             gap measured in its perturbed scores); B2 = the replicas'
-            decode steps x 32, B1 and B3-B5 0; every allocator and tier
+            decode steps x 8, B1 and B3-B5 0; every allocator and tier
             clean after the drain, no hot page pinned.  Envelope bytes,
             the migration pump's host wall, the wall, peak memory and the
             card printed.  `--replicas` runs the build and this phase on
             freshly drawn weights;
-21. Y1      full-width hymba-1.5b, the hybrid family (32 layers: 30 local
-            over a 1024-token window in ring-recycled pages, globals 15
-            and 31; d_model 1600, 25 heads (5 kv, a head group of 5) x
+21. Y1      full-width hymba-1.5b, the hybrid family, cut to 24 of its 32
+            layers (HYMBA_LAYERS: 23 local over a 1024-token window in
+            ring-recycled pages, global 15; d_model 1600, 25 heads (5 kv, a head group of 5) x
             64, d_ff 5504, vocab 32001 padded to 32256, an untied LM
             head; a selective-SSM mixer (state 16) beside attention in
-            every layer; 128 meta tokens; 5.58 GB of random f32 weights
+            every layer; 128 meta tokens; 4.3 GB of random f32 weights
             from seed 0, drawn after G1's are freed), 4 slots,
             max_context 2048, 64-token chunks, 6 greedy prompts of 5, 17,
             60, 200, 900 and 1100 tokens x 24 new tokens (with the meta
@@ -295,10 +298,10 @@ Phases (each one fails the run when it fails):
             whole-prompt chunk into an f32 stripe pool, then 8 decode
             steps, within GOLDEN_TOL of the plain full forward, the same
             argmax.  Servers at f32 pages of 16 tokens: stripe (B1 =
-            decode steps x 32; every prompt ONE whole-prompt chunk; the
+            decode steps x 24; every prompt ONE whole-prompt chunk; the
             teacher-forced check with the argmax), shared (B2 = steps x
-            32, the prefix cache off, both allocators clean), splice (B4
-            = admits x 32), KVNAND-D (B1 = steps x 32 x 5), stripe kv8
+            24, the prefix cache off, both allocators clean), splice (B4
+            = admits x 24), KVNAND-D (B1 = steps x 24 x 5), stripe kv8
             pages and the overlapped schedule, each serving the stripe
             run's tokens or parting only at a near tie (LOGIT_GAP_TOL;
             for kv8, whose pages differ from the f32 run's by the
@@ -309,9 +312,9 @@ Phases (each one fails the run when it fails):
             pages, ring bases, SSM rows), against the shared server's
             tokens the same way.  Then the design-space search's pick
             (asserted: compact, 64-token pages, W4A16, kv8, one
-            partition): B3 = 10 x 32 per decode step and whole-prompt
+            partition): B3 = 10 x 24 per decode step and whole-prompt
             chunk (wo, gate, up, down and the mixer's six projections), B1
-            = steps x 32; served logprobs against the plain forward within
+            = steps x 24; served logprobs against the plain forward within
             QUANT_LOGPROB_TOL, and each prompt of at most HYMBA_CPU_PROMPT
             tokens prefilled on the card and on the CPU within
             HYMBA_PREFILL_TOL, the CPU computing B3's own function
@@ -320,7 +323,54 @@ Phases (each one fails the run when it fails):
             the model), and the card's plain GEMV, which must read above
             the bound.  Launch counts, walls and peak memory printed
             beside the card.  `--hybrid` runs the build and this phase
-            only.
+            only;
+22. E1      full-width mixtral-8x7b, the MoE family (32 layers, d_model
+            4096, 32 heads over 8 kv heads x 128 (G = 4), 8 experts,
+            top-2, d_ff 14336 an expert, vocab 32000, an untied LM head,
+            rope theta 1e4) at W4A16: random weights built one layer at a
+            time on the card (the port's `init_model` on a one-layer copy
+            of the config, seeded with the layer's index, then
+            `quantize_params`, its codes and scales copied into stacked
+            leaves), so no float32 tree of 187 GB is ever made; the
+            embedding, LM head, norms and router stay float32.  Kernels
+            at E1's shapes against their plain versions: B1 and B2 (K =
+            8, G = 4, dh 128; 16- and 64-token pages over 1024 tokens;
+            f32, bf16, kv8, kv4; all heads and a KVNAND-D group of one kv
+            head), B4 (32 / 8 heads, f32, causal, 64 and 600 positions),
+            B3 (W4A16, 4096 -> 4096, M 4 and 64), then timed at E1's
+            serving shapes.  One layer's `moe` on the card and on the card
+            machine's CPU (a 64-token chunk, a 4-row decode, the chunk at
+            capacity 0.5): the routes (`layers.moe_route`) equal, the
+            outputs within MOE_LAYER_TOL.  Golden: the 600-token prompt
+            in 64-token chunks into an f32 stripe pool, then 8 decode
+            steps, at the no-drop capacity E / top_k, against the plain
+            full forward computing wo as B3's function (MIXTRAL_GOLDEN_TOL,
+            the same argmax), and again as the control with wo
+            dequantized to f32 on both sides (`float_wo`: no B3, no bf16
+            rounding of wo's input), within GOLDEN_TOL.  Servers at the
+            reference capacity 1.25 (tokens past an expert's capacity
+            dropped), 4 slots, max_context 1024, 64-token chunks, 6
+            greedy prompts of 5-600 tokens (two behind a 64-token prefix)
+            x 16 new tokens: stripe f32 (B1 = decode steps x 32, B3 = 32 x
+            (steps + chunks)), shared (B2, the prefix hit at the chunk
+            boundary), overlapped, KVNAND-D (B1 = steps x 32 x 8) and two
+            replicas, one prefilling and one decoding, each serving the
+            stripe run's tokens (the replicas the shared run's) or parting
+            only at a near tie (MIXTRAL_GAP_TOL); stripe kv8 against
+            stripe f32 within MIXTRAL_KV8_F32_TOL, shared kv8 against
+            stripe kv8 within KV8_GAP_TOL.  The splice scheduler (B4 =
+            admits x 32) and speculation_k = 4 call `moe` at other
+            lengths, so they run at the no-drop capacity against a stripe
+            run at it, whose logprobs are held to the plain forward (wo as
+            B3's function).  The control pair, stripe and KVNAND-D on
+            float wo at the no-drop capacity on the first two prompts,
+            within LOGIT_GAP_TOL of the plain forward and of each other.  Then O1's probe on the
+            stripe pool: a decode-only dispatch through `moe`, and a
+            second chained on it, under
+            `torch.cuda.set_sync_debug_mode("error")` must not
+            synchronize.  Launch counts, walls and peak memory printed
+            beside the card.
+            `--moe` runs the build and this phase only.
 
 It needs a CUDA card (exits non-zero without one, printing no result),
 imports nothing of JAX, and prints the card's name and power limit, a
@@ -331,6 +381,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -933,15 +984,16 @@ def serve(label, srv, prompts, max_new=16):
 
 
 def teacher_forced_check(label, srv, outs, *, argmax=True,
-                         tol=LOGPROB_TOL):
+                         tol=LOGPROB_TOL, rt=None):
     """Every served token against the port's plain full forward on the
     card (kernel-free), teacher-forced on prompt + output, served
     logprobs within `tol`.  argmax=False reports the largest
-    reference-logit gap instead of failing on it."""
+    reference-logit gap instead of failing on it.  `rt`: the forward's
+    Runtime (an MoE server's capacity factor)."""
     import torch
     from repro_torch.models.registry import Model
     cfg = srv.cfg
-    model = Model(cfg)
+    model = Model(cfg, rt)
     lp_err = gap = 0.0
     worst = None
     with torch.no_grad():
@@ -2182,6 +2234,11 @@ HEAD_RANGE_ROWS = (
 # agree to float32 summation order, not bitwise
 HEAD_RANGE_TOL = 2e-5
 LLAMA2_CTX = 128         # --max-context at which the DSE picks KVNAND-D
+# D1's depth (V1's and M1's, on the same weights), cut from 32 so that the
+# whole run stays well inside its time limit (PERF.md, PR 25: 1173 s of
+# command time with 16 layers here, 24 in G1 and 32 in Y1 on a card whose
+# host ran the launch-bound phases 1.4-1.5x slower than another's)
+LLAMA2_LAYERS = 8
 
 
 def head_range_phase() -> dict:
@@ -2432,11 +2489,23 @@ def llama2_prompts(V, seed=4):
         rep]
 
 
+def llama2_cfg():
+    """Full-width llama2-7b cut to LLAMA2_LAYERS layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("llama2-7b")
+    check(cfg.n_layers == 32 and cfg.d_model == 4096 and cfg.n_heads == 32
+          and cfg.n_kv_heads == 32 and cfg.d_head == 128
+          and cfg.d_ff == 11008, "not the full-width llama2-7b")
+    return dataclasses.replace(cfg, n_layers=LLAMA2_LAYERS)
+
+
 def build_llama2_server(params=None, speculation_k=None, **over):
-    """Full-width llama2-7b on the card under the design-space search's
-    pick at max_context LLAMA2_CTX, with `launch/serve.py --use-dse`'s
-    overrides (page_tokens 16, ragged appends, float weights) and `over`;
-    random float32 weights from seed 0, or `params`."""
+    """Full-width llama2-7b (LLAMA2_LAYERS deep) on the card under the
+    design-space search's pick at max_context LLAMA2_CTX, with
+    `launch/serve.py --use-dse`'s overrides (page_tokens 16, ragged
+    appends, float weights) and `over`; random float32 weights from seed
+    0, or `params`."""
     import torch
     from repro_torch.configs import EngineConfig
     from repro_torch.core.dse import recommend_engine_config
@@ -2452,11 +2521,8 @@ def build_llama2_server(params=None, speculation_k=None, **over):
     srv = KVNANDServer(ServerConfig(
         arch="llama2-7b", reduced=False, engine=eng, batch_slots=4,
         max_context=LLAMA2_CTX, prefill_chunk_tokens=64, device="cuda",
-        speculation_k=speculation_k), params=params)
+        speculation_k=speculation_k), cfg=llama2_cfg(), params=params)
     cfg = srv.cfg
-    check(cfg.n_layers == 32 and cfg.d_model == 4096 and cfg.n_heads == 32
-          and cfg.n_kv_heads == 32 and cfg.d_head == 128
-          and cfg.d_ff == 11008, "not the full-width llama2-7b")
     check(srv._batcher.cache.k_pages_g.dtype == torch.int8,
           "the KV pool is not kv8")
     torch.cuda.synchronize()
@@ -2478,7 +2544,7 @@ def dse_server_phase():
     between the two tokens' logprobs (what separates them in the
     discrete run's logits, to the runs' float32 summation order) is
     within LOGIT_GAP_TOL; served logprobs before it within LOGPROB_TOL.
-    Then the shared pool (B2 launches = decode steps x 32 x 32, B1 0,
+    Then the shared pool (B2 launches = decode steps x layers x 32, B1 0,
     the allocator's invariants after the drain).  Returns the results,
     the params and the stripe run's outputs (V1 serves against them)."""
     srv = build_llama2_server()
@@ -2546,7 +2612,8 @@ def spec_server_phase(params, prompts, d1_outs):
     """V1: D1's deployment with speculation_k = 4: every decode step a
     prompt-lookup draft-and-verify step (the verify forward's past
     partial is plain torch, as in the reference; a step where no slot
-    may draft runs the discrete decode step, B1 = those steps x 32 x 32).
+    may draft runs the discrete decode step, B1 = those steps x layers x
+    32).
     Served tokens must equal D1's sequential ones, and a verify step must
     have run."""
     srv = build_llama2_server(params, speculation_k=4)
@@ -2637,7 +2704,7 @@ def build_m1_replica(params, hot_pages, overlap, **engine):
     srv = build_replica(ServerConfig(
         arch="llama2-7b", reduced=False, engine=eng, batch_slots=4,
         max_context=M1_CTX, prefill_chunk_tokens=64, overlap=overlap),
-        params=params, device="cuda")
+        cfg=llama2_cfg(), params=params, device="cuda")
     check(srv.params["embedding"] is params["embedding"],
           "M1: a replica copied the weights")
     return srv
@@ -2986,6 +3053,10 @@ def verify_ab_phase() -> dict:
 # ---------------------------------------------------------------------------
 
 GEMMA_CTX = 2048         # --max-context at which the DSE picks kv8 pages
+# G1's depth, cut from 48 so that the whole run stays well inside its time
+# limit (see LLAMA2_LAYERS): 10 local layers over the window ring and 2
+# global ones, the same 5:1 pattern
+GEMMA_LAYERS = 12
 GEMMA_NEW = 24           # new tokens a request
 # the prompts: the 1100-token one wraps the 1040-token ring in prefill, the
 # 1030-token one in decode (1030 + 24 > 1040)
@@ -3006,8 +3077,9 @@ def gemma_prompts(V):
 
 
 def gemma_params():
-    """Full-width gemma3-12b's random float32 weights on the card, seed 0
-    (what `KVNANDServer` draws when it is given none)."""
+    """Full-width gemma3-12b cut to GEMMA_LAYERS layers, its random
+    float32 weights on the card, seed 0."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.registry import Model
@@ -3017,6 +3089,7 @@ def gemma_params():
           and cfg.d_ff == 15360 and cfg.window == 1024
           and cfg.global_every == 6 and cfg.vocab_size == 262144,
           "not the full-width gemma3-12b")
+    cfg = dataclasses.replace(cfg, n_layers=GEMMA_LAYERS)
     t0 = time.perf_counter()
     params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
@@ -3063,79 +3136,166 @@ def ring_tokens(cfg) -> int:
     return (-(-cfg.window // 16) + 1) * 16
 
 
-def window_kernel_phase(cfg) -> dict:
-    """B1, B2 and B4 at the shapes G1's main path gives them, held against
-    their plain versions before G1 serves: the decode step's ring (4
-    slots x 8 kv heads x 2 queries x dh 256, 65 pages of 16, the bases a
-    ring leaves after 28, 83, 1053 and 1123 tokens: rotated, -1e9 where
-    empty; window 1024) and global pool (128 pages) in kv8 and f32, B2's
-    through permuted tables of a larger pool; and the splice admit's
-    one-shot prefill (2047-token bucket, 16 heads / 8 kv x 256, f32) with
-    the local layers' window and without.  Returns each kernel's max
-    |o - plain o|."""
+def arch_kernel_phase(tag, cfg, seed, lengths, page_tokens, ctx, ring,
+                      formats, b4_cases, b3_cases=(), head_groups=(None,)):
+    """B1 and B2, and B4 and B3 where cases are given, at the shapes a
+    model's main path gives them, held against their plain versions before
+    its servers run.  B1/B2: one query row a slot (`lengths` tokens each)
+    over cfg's kv heads and head group, for each page size of
+    `page_tokens`, over the window ring (`ring`: ring_pages(cfg, T) pages,
+    the bases a ring leaves after `lengths` positions, rotated and -1e9
+    where empty, cfg.window) and a global pool of ctx / T pages, in each
+    of `formats`; for each of `head_groups` (None: all kv heads in one
+    launch; h: the KVNAND-D group of kv head h alone); B2 through permuted
+    tables of a larger pool.  bf16 pools are held besides to the f32
+    tolerance against the plain version on the pools upcast to f32.  B4:
+    causal, f32, cfg's heads, one draw of (S, windows) a case, each window
+    in turn.  B3: W4A16 at each (label, D, F) of `b3_cases[1]` for each M
+    of `b3_cases[0]`.  Returns each kernel's max |o - plain o|."""
     import torch
     from repro_torch.core import paged_kv
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
-    gen = torch.Generator(device="cuda").manual_seed(21)
-    lengths = (28, 83, 1053, 1123)
-    B, K, G, dh, T = len(lengths), cfg.n_kv_heads, cfg.group_size, \
-        cfg.d_head, 16
-    NPw = ring_tokens(cfg) // T
-    errs = {"B1": 0.0, "B2": 0.0, "B4": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    B, K, G, dh = len(lengths), cfg.n_kv_heads, cfg.group_size, cfg.d_head
+    errs = {"B1": 0.0, "B2": 0.0}
     length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    ring = torch.stack([torch.as_tensor(paged_kv.window_page_positions(
-        n, NPw, T)) for n in lengths]).cuda()
-    for pool, NP, base, window in (
-            ("ring", NPw, ring, cfg.window),
-            ("global", GEMMA_CTX // T, None, None)):
-        if base is None:
-            base = (torch.arange(NP, dtype=torch.int32, device="cuda")
-                    * T)[None].repeat(B, 1)
-        for fmt in ("kv8", "f32"):
-            q, kp, vp, _, _, ks, vs = make_inputs(B, K, G, NP, T, dh, fmt,
-                                                  lengths, gen)
-            kvq = kv_quant_of(fmt)
-            kw = dict(window=window, kv_quant=kvq, k_scale=ks, v_scale=vs)
-            got = pa.paged_attention_partial(q, kp, vp, base, length, **kw)
-            want = pa.paged_attention_partial_ref(q, kp, vp, base, length,
-                                                  **kw)
-            errs["B1"] = max(errs["B1"], hold_case(
-                f"G1 kernels: B1 {pool} {fmt}", got, want, fmt))
+    n = 0
+    for T in page_tokens:
+        pools = [("global", ctx // T, (torch.arange(
+            ctx // T, dtype=torch.int32, device="cuda") * T)[None].repeat(
+                B, 1), None)]
+        if ring:
+            NPw = paged_kv.ring_pages(cfg, T)
+            pools.insert(0, ("ring", NPw, torch.stack([torch.as_tensor(
+                paged_kv.window_page_positions(x, NPw, T))
+                for x in lengths]).cuda(), cfg.window))
+        for pool, NP, base, window in pools:
             P = B * NP + 7
-            perm = torch.randperm(P, generator=torch.Generator().manual_seed(
-                NP))[:B * NP]
+            perm = torch.randperm(P, generator=torch.Generator()
+                                  .manual_seed(NP))[:B * NP]
             table = perm.reshape(B, NP).to(torch.int32).cuda()
+            for fmt in formats:
+                q, kp, vp, _, _, ks, vs = make_inputs(B, K, G, NP, T, dh,
+                                                      fmt, lengths, gen)
+                kvq = kv_quant_of(fmt)
 
-            def scatter(x):
-                """The stripe pages [B, K, NP, ...] moved to the table's
-                physical pages of a shared pool [K, P, ...]."""
-                out = x.new_zeros((K, P) + x.shape[3:])
-                out[:, table.long()] = x.movedim(1, 0)
-                return out
-            sp = [None if a is None else scatter(a) for a in (kp, vp, ks, vs)]
-            got = pa.paged_attention_partial(
-                q, sp[0], sp[1], base, length, window=window, kv_quant=kvq,
-                k_scale=sp[2], v_scale=sp[3], page_table=table)
-            want = pa.paged_attention_shared_ref(
-                q, sp[0], sp[1], table, base, length, window=window,
-                kv_quant=kvq, k_scale=sp[2], v_scale=sp[3])
-            errs["B2"] = max(errs["B2"], hold_case(
-                f"G1 kernels: B2 {pool} {fmt}", got, want, fmt))
-    q, k, v = flash_inputs(1, 2047, 2047, cfg.n_heads, K, dh, torch.float32,
-                           gen)
-    for window in (cfg.window, None):
-        got = fa.flash_attention(q, k, v, causal=True, window=window)
-        want = fa.flash_attention_ref(q, k, v, causal=True, window=window)
-        err = close_err(got, want, FLASH_TOL["f32"])
-        abs_o = float((got - want).abs().max())
-        print(f"G1 kernels: B4 2047 tokens window {window}: max_abs_err "
-              f"{abs_o:.3e} rel_err={err:.3e} tol={FLASH_TOL['f32']:.0e}")
-        check(err <= FLASH_TOL["f32"], f"G1 kernels: B4 at window {window} "
-              "disagrees with its plain version")
-        errs["B4"] = max(errs["B4"], abs_o)
+                def scatter(x):
+                    """The stripe pages [B, K, NP, ...] moved to the
+                    table's physical pages of a shared pool [K, P, ...]."""
+                    out = x.new_zeros((K, P) + x.shape[3:])
+                    out[:, table.long()] = x.movedim(1, 0)
+                    return out
+                sp = [None if a is None else scatter(a)
+                      for a in (kp, vp, ks, vs)]
+                for heads in head_groups:
+                    qh = q if heads is None else q[:, heads * G:(heads + 1)
+                                                   * G]
+                    sel = {} if heads is None else {"kv_heads": (heads, 1)}
+
+                    def narrow(a, ax):
+                        return (a if heads is None or a is None
+                                else a.narrow(ax, heads, 1))
+                    sk = [narrow(a, 1) for a in (kp, vp, ks, vs)]
+                    ss = [narrow(a, 0) for a in sp]
+                    label = (f"{tag} kernels: T={T} {pool} {fmt} "
+                             + ("all heads" if heads is None
+                                else f"kv head {heads}"))
+                    got = pa.paged_attention_partial(
+                        qh, kp, vp, base, length, window=window,
+                        kv_quant=kvq, k_scale=ks, v_scale=vs, **sel)
+                    want = pa.paged_attention_partial_ref(
+                        qh, sk[0], sk[1], base, length, window=window,
+                        kv_quant=kvq, k_scale=sk[2], v_scale=sk[3])
+                    want32 = None
+                    if fmt == "bf16":
+                        want32 = pa.paged_attention_partial_ref(
+                            qh, sk[0].float(), sk[1].float(), base, length,
+                            window=window)
+                    errs["B1"] = max(errs["B1"], hold_case(
+                        f"{label} B1", got, want, fmt, want32))
+                    got = pa.paged_attention_partial(
+                        qh, sp[0], sp[1], base, length, window=window,
+                        kv_quant=kvq, k_scale=sp[2], v_scale=sp[3],
+                        page_table=table, **sel)
+                    want = pa.paged_attention_shared_ref(
+                        qh, ss[0], ss[1], table, base, length,
+                        window=window, kv_quant=kvq, k_scale=ss[2],
+                        v_scale=ss[3])
+                    if fmt == "bf16":
+                        want32 = pa.paged_attention_shared_ref(
+                            qh, ss[0].float(), ss[1].float(), table, base,
+                            length, window=window)
+                    errs["B2"] = max(errs["B2"], hold_case(
+                        f"{label} B2", got, want, fmt, want32))
+                    n += 2
+    for S, windows in b4_cases:
+        errs.setdefault("B4", 0.0)
+        q, k, v = flash_inputs(1, S, S, cfg.n_heads, K, dh, torch.float32,
+                               gen)
+        for window in windows:
+            got = fa.flash_attention(q, k, v, causal=True, window=window)
+            want = fa.flash_attention_ref(q, k, v, causal=True,
+                                          window=window)
+            err = close_err(got, want, FLASH_TOL["f32"])
+            abs_o = float((got - want).abs().max())
+            print(f"{tag} kernels: B4 {S} positions {cfg.n_heads}/{K} heads "
+                  f"x {dh} window {window}: max_abs_err {abs_o:.3e} "
+                  f"rel_err={err:.3e} tol={FLASH_TOL['f32']:.0e}")
+            check(err <= FLASH_TOL["f32"], f"{tag} kernels: B4 at {S} "
+                  f"positions, window {window}, disagrees with its plain "
+                  "version")
+            errs["B4"] = max(errs["B4"], abs_o)
+            n += 1
+    if b3_cases:
+        errs["B3"] = 0.0
+        Ms, shapes = b3_cases
+        for M in Ms:
+            for label, D, F in shapes:
+                errs["B3"] = max(errs["B3"], gemv_hold_case(
+                    "w4a16", M, f"{cfg.name} {label}", D, F, gen))
+                n += 1
     torch.cuda.synchronize()
+    print(f"{tag} kernels: {n} cases within tolerance; max_abs_err {errs}")
     return errs
+
+
+def arch_timing_phase(rate, seed, paged, flash, gemvs) -> dict:
+    """Each kernel timed at a model's serving shapes: B1 and B2 at each
+    (label, B, K, G, NP, T, dh) of `paged`, every slot NP x T tokens long
+    (bf16 pages; B2 over a pool of B x NP + 8 pages), B4 at `flash`'s
+    (label, S, H, K, dh) in f32, B3 W4A16 at each (label, M, D, F) of
+    `gemvs`."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rows = {"B1": [], "B2": [], "B3": [], "B4": []}
+    for label, B, K, G, NP, T, dh in paged:
+        L = NP * T
+        rows["B1"].append(timing_shape(label, B, K, G, NP, T, dh, [L] * B, 0,
+                                       rate, flush, gen))
+        rows["B2"].append(shared_timing_shape(label, B, K, G, NP, T, dh,
+                                              [L] * B, B * NP + 8, 0, rate,
+                                              flush, gen))
+    label, S, H, K, dh = flash
+    rows["B4"].append(flash_timing_shape(label, 1, S, H, K, dh, "float32",
+                                         rate, flush, gen, 10))
+    for label, M, D, F in gemvs:
+        rows["B3"].append(quant_timing_shape(label, "w4a16", M, D, F, rate,
+                                             flush, gen))
+    return rows
+
+
+def window_kernel_phase(cfg) -> dict:
+    """B1, B2 and B4 at the shapes G1's main path gives them: the decode
+    step's ring (4 slots x 8 kv heads x 2 queries x dh 256, 65 pages of
+    16, the bases a ring leaves after 28, 83, 1053 and 1123 tokens; window
+    1024) and global pool (128 pages) in kv8 and f32; and the splice
+    admit's one-shot prefill (2047-token bucket, 16 heads / 8 kv x 256,
+    f32) with the local layers' window and without."""
+    return arch_kernel_phase("G1", cfg, 21, (28, 83, 1053, 1123), (16,),
+                             GEMMA_CTX, True, ("kv8", "f32"),
+                             ((2047, (cfg.window, None)),))
 
 
 def window_golden_phase(cfg, params):
@@ -3216,7 +3376,7 @@ def near_tie_check(label, outs, ref_outs, gap_tol, lp_tol=LOGPROB_TOL):
                   f"{at:.3e}")
     print(f"check {label}: {same} of {len(outs)} requests equal; max "
           f"|logprob difference| before a divergence {before:.3e} (tol "
-          f"{lp_tol:.0e}); max gap at one {gap:.3e} (tol {gap_tol:.0e})")
+          f"{lp_tol:.2g}); max gap at one {gap:.3e} (tol {gap_tol:.2g})")
     check(before <= lp_tol and gap <= gap_tol,
           f"{label}: the runs part where neither is a near tie")
     return same, before, gap
@@ -3490,15 +3650,14 @@ O1_DEPLOYMENTS = (
 )
 
 
-def sync_probe(params, engine, server) -> str:
-    """Drive 4 requests (O1's first 4 sampling params) into decode, then
-    run a decode-only dispatch, and a second one chained on it, under
-    `set_sync_debug_mode("error")`:
+def sync_probe(srv) -> str:
+    """Drive 4 requests (O1's first 4 sampling params) into decode on
+    `srv` (built with overlap=True), then run a decode-only dispatch, and
+    a second one chained on it, under `set_sync_debug_mode("error")`:
     returns "none" when neither synchronizes the host with the card, else
     the first synchronizing call site in the port."""
     import traceback
     import torch
-    srv = build_server(params, server=dict(server, overlap=True), **engine)
     prompts = stripe_prompts(srv.cfg.vocab_size)[:4]
     # greedy and seeded sampling rows, so the sampler's noise is drawn
     uids = [srv.submit(p, sp) for p, sp in zip(prompts, mixed_params(()))]
@@ -3583,7 +3742,8 @@ def overlap_phase(params=None) -> dict:
               f"{r_sync['finish']}; on {smi_line()}")
     res["sync_probe"] = {}
     for name, engine, server in O1_DEPLOYMENTS[:3]:
-        site = sync_probe(params, engine, server)
+        site = sync_probe(build_server(
+            params, server=dict(server, overlap=True), **engine))
         res["sync_probe"][name] = site
         print(f"O1 {name}: decode-only dispatch under "
               f"set_sync_debug_mode('error'): first host sync {site}")
@@ -3692,6 +3852,9 @@ def http_phase(params=None) -> dict:
 # ---------------------------------------------------------------------------
 
 HYMBA_CTX = 2048         # --max-context at which the DSE picks kv8 pages
+# Y1's depth, cut from 32 so that the whole run stays well inside its time
+# limit (see LLAMA2_LAYERS): 23 local layers and the global layer 15
+HYMBA_LAYERS = 24
 HYMBA_NEW = 24           # new tokens a request
 # with the 128 meta tokens: the 1100-token prompt wraps the 1040-token ring
 # of 16-token pages in prefill (1228 positions), the 900-token one in
@@ -3735,8 +3898,9 @@ def hymba_prompts(V):
 
 
 def hymba_params():
-    """Full-width hymba-1.5b's random float32 weights on the card, seed 0
-    (what `KVNANDServer` draws when it is given none)."""
+    """Full-width hymba-1.5b cut to HYMBA_LAYERS layers, its random
+    float32 weights on the card, seed 0."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.registry import Model
@@ -3749,6 +3913,7 @@ def hymba_params():
           and cfg.window == 1024 and cfg.n_meta_tokens == 128
           and [i for i in range(32) if cfg.is_global_layer(i)] == [15, 31],
           "not the full-width hymba-1.5b")
+    cfg = dataclasses.replace(cfg, n_layers=HYMBA_LAYERS)
     t0 = time.perf_counter()
     params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
@@ -3760,133 +3925,35 @@ def hymba_params():
 
 
 def hymba_kernel_phase(cfg) -> dict:
-    """B1, B2, B3 and B4 at the shapes Y1's main path gives them, held
-    against their plain versions before Y1 serves.  B1/B2: 4 slots x 5 kv
-    heads x G = 5 queries x dh 64 at page sizes 16 and 64 (the DSE's), the
-    ring (ceil(1024 / T) + 1 pages, the bases a ring leaves after 133,
-    1033, 1228 and 1252 positions: rotated, -1e9 where empty; window 1024)
-    and the global pool (HYMBA_CTX / T pages), in f32, bf16, kv8 and kv4;
-    B2's through permuted tables of a larger pool.  B4: the one-shot
-    prefill of the longest prompt with its meta tokens (1228 positions,
-    25 / 5 heads x 64, f32), with the local layers' window and without.
-    B3: W4A16 at hymba's projection shapes, M = 4 (a decode step), 64 and
-    1228 (a whole-prompt chunk).  Returns each kernel's max |o - plain o|."""
-    import torch
-    from repro_torch.core import paged_kv
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
-    gen = torch.Generator(device="cuda").manual_seed(24)
-    lengths = (133, 1033, 1228, 1252)
-    B, K, G, dh = len(lengths), cfg.n_kv_heads, cfg.group_size, cfg.d_head
-    check(G == 5, "Y1 kernels: hymba's head group is not 5")
-    errs = {"B1": 0.0, "B2": 0.0, "B3": 0.0, "B4": 0.0}
-    length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    n = 0
-    for T in (16, 64):
-        NPw = paged_kv.ring_pages(cfg, T)
-        ring = torch.stack([torch.as_tensor(paged_kv.window_page_positions(
-            x, NPw, T)) for x in lengths]).cuda()
-        for pool, NP, base, window in (
-                ("ring", NPw, ring, cfg.window),
-                ("global", HYMBA_CTX // T, None, None)):
-            if base is None:
-                base = (torch.arange(NP, dtype=torch.int32, device="cuda")
-                        * T)[None].repeat(B, 1)
-            for fmt in ("f32", "bf16", "kv8", "kv4"):
-                q, kp, vp, _, _, ks, vs = make_inputs(B, K, G, NP, T, dh,
-                                                      fmt, lengths, gen)
-                kvq = kv_quant_of(fmt)
-                kw = dict(window=window, kv_quant=kvq, k_scale=ks,
-                          v_scale=vs)
-                got = pa.paged_attention_partial(q, kp, vp, base, length,
-                                                  **kw)
-                want = pa.paged_attention_partial_ref(q, kp, vp, base,
-                                                      length, **kw)
-                want32 = None
-                if fmt == "bf16":
-                    want32 = pa.paged_attention_partial_ref(
-                        q, kp.float(), vp.float(), base, length,
-                        window=window)
-                label = f"Y1 kernels: T={T} {pool} {fmt}"
-                errs["B1"] = max(errs["B1"], hold_case(
-                    f"{label} B1", got, want, fmt, want32))
-                P = B * NP + 7
-                perm = torch.randperm(P, generator=torch.Generator()
-                                      .manual_seed(NP))[:B * NP]
-                table = perm.reshape(B, NP).to(torch.int32).cuda()
-
-                def scatter(x):
-                    """The stripe pages [B, K, NP, ...] moved to the
-                    table's physical pages of a shared pool [K, P, ...]."""
-                    out = x.new_zeros((K, P) + x.shape[3:])
-                    out[:, table.long()] = x.movedim(1, 0)
-                    return out
-                sp = [None if a is None else scatter(a)
-                      for a in (kp, vp, ks, vs)]
-                got = pa.paged_attention_partial(
-                    q, sp[0], sp[1], base, length, window=window,
-                    kv_quant=kvq, k_scale=sp[2], v_scale=sp[3],
-                    page_table=table)
-                want = pa.paged_attention_shared_ref(
-                    q, sp[0], sp[1], table, base, length, window=window,
-                    kv_quant=kvq, k_scale=sp[2], v_scale=sp[3])
-                if fmt == "bf16":
-                    want32 = pa.paged_attention_shared_ref(
-                        q, sp[0].float(), sp[1].float(), table, base,
-                        length, window=window)
-                errs["B2"] = max(errs["B2"], hold_case(
-                    f"{label} B2", got, want, fmt, want32))
-                n += 2
+    """B1, B2, B3 and B4 at the shapes Y1's main path gives them: B1/B2 at
+    4 slots x 5 kv heads x G = 5 queries x dh 64, pages of 16 and 64 tokens
+    (the DSE's), the ring (ceil(1024 / T) + 1 pages, the bases a ring
+    leaves after 133, 1033, 1228 and 1252 positions; window 1024) and the
+    global pool (HYMBA_CTX / T pages), in f32, bf16, kv8 and kv4.  B4: the
+    one-shot prefill of the longest prompt with its meta tokens (1228
+    positions, 25 / 5 heads x 64, f32), with the local layers' window and
+    without.  B3: W4A16 at hymba's projection shapes, M = 4 (a decode
+    step), 64 and 1228 (a whole-prompt chunk)."""
+    check(cfg.group_size == 5, "Y1 kernels: hymba's head group is not 5")
     S = cfg.n_meta_tokens + max(HYMBA_PROMPT_LENS)
-    q, k, v = flash_inputs(1, S, S, cfg.n_heads, K, dh, torch.float32, gen)
-    for window in (cfg.window, None):
-        got = fa.flash_attention(q, k, v, causal=True, window=window)
-        want = fa.flash_attention_ref(q, k, v, causal=True, window=window)
-        err = close_err(got, want, FLASH_TOL["f32"])
-        abs_o = float((got - want).abs().max())
-        print(f"Y1 kernels: B4 {S} positions 25/5 heads window {window}: "
-              f"max_abs_err {abs_o:.3e} rel_err={err:.3e} "
-              f"tol={FLASH_TOL['f32']:.0e}")
-        check(err <= FLASH_TOL["f32"], f"Y1 kernels: B4 at window {window} "
-              "disagrees with its plain version")
-        errs["B4"] = max(errs["B4"], abs_o)
-        n += 1
-    for M in (4, 64, S):
-        for label, D, F in HYMBA_GEMV_SHAPES:
-            errs["B3"] = max(errs["B3"], gemv_hold_case(
-                "w4a16", M, f"hymba {label}", D, F, gen))
-            n += 1
-    torch.cuda.synchronize()
-    print(f"Y1 kernels: {n} cases within tolerance; max_abs_err {errs}")
-    return errs
+    return arch_kernel_phase(
+        "Y1", cfg, 24, (133, 1033, 1228, 1252), (16, 64), HYMBA_CTX, True,
+        ("f32", "bf16", "kv8", "kv4"), ((S, (cfg.window, None)),),
+        ((4, 64, S), HYMBA_GEMV_SHAPES))
 
 
 def hymba_timing_phase(rate) -> dict:
     """Each kernel timed at Y1's serving shapes: B1 and B2 over a full ring
-    of the decode step (4 slots x 5 kv heads x G = 5, dh 64, bf16 pages;
-    1040 tokens of 16-token pages, and 1088 of the DSE's 64-token ones),
-    B4 on the longest admit (1228 positions, f32), B3 W4A16 at a decode
-    step's M = 4 over each projection shape the path launches."""
-    import torch
-    gen = torch.Generator(device="cuda").manual_seed(25)
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    rows = {"B1": [], "B2": [], "B3": [], "B4": []}
-    for T, NP in ((16, 65), (64, 17)):
-        L = NP * T
-        rows["B1"].append(timing_shape(f"hymba ring T={T}", 4, 5, 5, NP, T,
-                                       64, [L] * 4, 0, rate, flush, gen))
-        rows["B2"].append(shared_timing_shape(
-            f"hymba ring T={T}", 4, 5, 5, NP, T, 64, [L] * 4, 4 * NP + 8, 0,
-            rate, flush, gen))
-    rows["B4"].append(flash_timing_shape(
-        "hymba admit", 1, 128 + max(HYMBA_PROMPT_LENS), 25, 5, 64, "float32",
-        rate, flush, gen, 10))
-    for label, D, F in HYMBA_GEMV_SHAPES:
-        if label != "wk/wv":
-            rows["B3"].append(quant_timing_shape(
-                f"hymba {label}, serving", "w4a16", 4, D, F, rate, flush,
-                gen))
-    return rows
+    of the decode step (4 slots x 5 kv heads x G = 5, dh 64; 1040 tokens
+    of 16-token pages, and 1088 of the DSE's 64-token ones), B4 on the
+    longest admit (1228 positions), B3 at a decode step's M = 4 over each
+    projection shape the path launches."""
+    return arch_timing_phase(
+        rate, 25, [(f"hymba ring T={T}", 4, 5, 5, NP, T, 64)
+                   for T, NP in ((16, 65), (64, 17))],
+        ("hymba admit", 128 + max(HYMBA_PROMPT_LENS), 25, 5, 64),
+        [(f"hymba {label}, serving", 4, D, F)
+         for label, D, F in HYMBA_GEMV_SHAPES if label != "wk/wv"])
 
 
 def hymba_golden_phase(cfg, params):
@@ -4050,7 +4117,7 @@ def hymba_replica_run(cfg, params, prompts, solo_outs) -> dict:
     eng = hymba_engine_config(shared_pool=True)
     reps = [build_replica(ServerConfig(
         arch="hymba-1.5b", engine=eng, batch_slots=4, max_context=HYMBA_CTX,
-        prefill_chunk_tokens=64), params=params, device="cuda")
+        prefill_chunk_tokens=64), cfg=cfg, params=params, device="cuda")
         for _ in range(2)]
     check(all(r.params["embedding"] is params["embedding"] for r in reps),
           "Y1 replicas: a replica copied the weights")
@@ -4256,6 +4323,595 @@ def hybrid_phases(rate) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 22: E1, full-width mixtral-8x7b (the MoE family) at W4A16
+# ---------------------------------------------------------------------------
+
+MIXTRAL_CTX = 1024       # max_context of E1's servers
+MIXTRAL_NEW = 16         # new tokens a request
+# B3's launches a mixtral layer: wo only (wq/wk/wv are dequantized per
+# head group and the experts by `moe`, as in the reference)
+MIXTRAL_B3_PER_LAYER = 1
+# `moe` on the card against the card machine's CPU, the same inputs and
+# the same W4A16 layer (dequantized to float32 on each side): max |card -
+# CPU| / max |CPU| of the output, with the kept / dropped sets equal
+MOE_LAYER_TOL = 1e-4
+# the golden run's logits (W4A16 weights, no drops) against the plain
+# forward computing wo as B3's own function (`b3_function`), max |a - b| /
+# max |b|.  The two differ by float32 summation order, which flips the
+# bf16 rounding of wo's input where it crosses a rounding point, and the
+# deep random model carries each flip on.  On an H100 (PERF.md, E1) the
+# full width reads 5.797e-2 with every argmax equal, and the control run
+# with wo dequantized to float32 on both sides (`float_wo`: no B3, no bf16
+# rounding) reads 4.130e-6: so the noise is wo's rounding, and the control
+# holds the engine within GOLDEN_TOL, far below this reading, where a
+# routing flip or a chunk-padding fault in `moe` would show.  This bound,
+# about twice the reading, only catches a wrong B3, whose error is O(1)
+MIXTRAL_GOLDEN_TOL = 0.1
+# two sound E1 runs whose float32 summation orders differ (KVNAND-D's head
+# groups, the splice scheduler's one-shot prefill, a verify span, another
+# replica) part where that noise, carried as above, outweighs a logit
+# margin: the two tokens' logprobs at the first divergence, and the served
+# logprobs before it, within this bound.  On an H100 (PERF.md, E1)
+# KVNAND-D parted from the stripe run at a gap of 2.677e-2 after logprobs
+# within 1.680e-2, and the no-drop stripe run's logprobs read 7.481e-2
+# against the plain forward (wo as B3's function); the bound is twice the
+# largest.  On `float_wo` the same pair serves equal tokens with logprobs
+# within 9.537e-7, and the stripe run's logprobs read 4.768e-6 of the
+# plain forward: the control pair is held within LOGIT_GAP_TOL
+MIXTRAL_GAP_TOL = 0.15
+# kv8 pages against f32 pages on E1's W4A16 model: kv8's noise on every K/V
+# element moves the logits by more than the rounding flips above.  On an
+# H100 (PERF.md, E1) the runs parted at gaps up to 1.132e-1 after served
+# logprobs within 1.528e-1 (Y1's f32 hymba: 1.271e-2 and 2.265e-2, hence
+# KV8_F32_TOL there); the bound is twice the largest.  Two kv8 runs are
+# still held to each other within KV8_GAP_TOL
+MIXTRAL_KV8_F32_TOL = 0.3
+
+
+def mixtral_prompts(V):
+    """6 prompts of 5-600 tokens; the first and the fifth share a 64-token
+    prefix (one chunk, four pages), and the fifth is admitted after the
+    first has registered it, so on the shared pool its prefill starts at
+    the chunk boundary where the stripe run's second chunk starts."""
+    import numpy as np
+    rng = np.random.default_rng(9)
+    prefix = rng.integers(0, V, 64).tolist()
+    return [prefix + rng.integers(0, V, 40).tolist(),
+            rng.integers(0, V, 5).tolist(),
+            rng.integers(0, V, 600).tolist(),
+            rng.integers(0, V, 200).tolist(),
+            prefix + rng.integers(0, V, 300).tolist(),
+            rng.integers(0, V, 17).tolist()]
+
+
+def check_mixtral_widths(cfg):
+    check(cfg.family == "moe" and cfg.n_layers == 32 and cfg.d_model == 4096
+          and cfg.n_heads == 32 and cfg.n_kv_heads == 8
+          and cfg.d_head == 128 and cfg.group_size == 4
+          and cfg.n_experts == 8 and cfg.top_k == 2 and cfg.d_ff == 14336
+          and cfg.vocab_size == 32000 and not cfg.tie_embeddings
+          and cfg.rope_theta == 1e4, "not the full-width mixtral-8x7b")
+
+
+def mixtral_params(cfg):
+    """Random W4A16 weights of `cfg`, built one layer at a time on the
+    device: the port's `init_model` on a one-layer copy of the config,
+    seeded with the layer's index, `quantize_params` on it, and its codes
+    and scales copied into preallocated stacked leaves.  The float32
+    transient is one layer's; the embedding, LM head and norms (layer 0's
+    draw) stay float32, the router too."""
+    import dataclasses
+    import torch
+    from repro_torch.core.quant import QuantizedWeight, quantize_params
+    from repro_torch.models.transformer import init_model
+    dev, L = "cuda", cfg.n_layers
+    one = dataclasses.replace(cfg, n_layers=1)
+
+    def empty(leaf):
+        if isinstance(leaf, dict):
+            return {k: empty(v) for k, v in leaf.items()}
+        if isinstance(leaf, QuantizedWeight):
+            return QuantizedWeight(empty(leaf.q), empty(leaf.scale),
+                                   leaf.scheme, (L,) + leaf.orig_shape[1:])
+        return torch.empty((L,) + tuple(leaf.shape[1:]), dtype=leaf.dtype,
+                           device=dev)
+
+    def put(dst, src, i):
+        if isinstance(src, dict):
+            for k in src:
+                put(dst[k], src[k], i)
+        elif isinstance(src, QuantizedWeight):
+            put(dst.q, src.q, i)
+            put(dst.scale, src.scale, i)
+        else:
+            dst[i].copy_(src[0])
+
+    t0 = time.perf_counter()
+    params = None
+    for i in range(L):
+        tree = quantize_params(
+            init_model(one, torch.Generator(device=dev).manual_seed(i), dev),
+            "w4a16")
+        if params is None:
+            params = {k: v for k, v in tree.items() if k != "layers"}
+            params["layers"] = empty(tree["layers"])
+        put(params["layers"], tree["layers"], i)
+        del tree
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    moe_p = params["layers"]["moe"]
+    check(all(isinstance(moe_p[k], QuantizedWeight)
+              and tuple(moe_p[k].q.shape[:2]) == (L, cfg.n_experts)
+              for k in ("w_gate", "w_up", "w_down"))
+          and isinstance(moe_p["router_w"], torch.Tensor)
+          and moe_p["router_w"].dtype == torch.float32,
+          "E1: the experts are not W4A16 stacks beside a float router")
+    n = code = 0
+    for leaf in _leaves(params):
+        if isinstance(leaf, QuantizedWeight):
+            n += math.prod(leaf.orig_shape)
+            code += (leaf.q.numel() * leaf.q.element_size()
+                     + leaf.scale.numel() * 4)
+        else:
+            n += leaf.numel()
+            code += leaf.numel() * leaf.element_size()
+    print(f"E1: {cfg.name} W4A16 weights, {n / 1e9:.3f}B params "
+          f"(config: {cfg.param_count() / 1e9:.3f}B), {code / 1e9:.2f} GB "
+          f"of codes, scales and float leaves, built layer by layer on "
+          f"{dev} in {wall:.2f} s")
+    return params, {"params": n, "bytes": code, "build_wall_s": wall}
+
+
+def mixtral_kernel_phase(cfg) -> dict:
+    """B1, B2, B3 and B4 at the shapes E1's main path gives them: B1/B2 at
+    4 slots x 8 kv heads x G = 4 queries x dh 128, pages of 16 and 64
+    tokens over MIXTRAL_CTX tokens, ragged lengths, f32, bf16, kv8 and
+    kv4; all heads in one launch and a KVNAND-D group (one kv head, first
+    and last).  B4: causal one-shot prefill at 32 / 8 heads x 128, f32, 64
+    and 600 positions.  B3: W4A16 at 4096 -> 4096 (wo), M = 4 (a decode
+    step) and 64 (a chunk)."""
+    return arch_kernel_phase(
+        "E1", cfg, 26, (133, 600, 1000, MIXTRAL_CTX - 1), (16, 64),
+        MIXTRAL_CTX, False, ("f32", "bf16", "kv8", "kv4"),
+        ((64, (None,)), (600, (None,))),
+        ((4, 64), (("wo", cfg.q_dim, cfg.d_model),)),
+        head_groups=(None, 0, cfg.n_kv_heads - 1))
+
+
+def mixtral_timing_phase(rate) -> dict:
+    """Each kernel timed at E1's serving shapes: B1 and B2 over a full
+    decode step's pool (4 slots x 8 kv heads x G = 4, dh 128, pages of 16
+    tokens, MIXTRAL_CTX tokens), B4 on the 600-token admit, B3 on wo at a
+    decode step's M = 4."""
+    return arch_timing_phase(
+        rate, 27, [("mixtral decode", 4, 8, 4, MIXTRAL_CTX // 16, 16, 128)],
+        ("mixtral admit", 600, 32, 8, 128),
+        [("mixtral wo, serving", 4, 4096, 4096)])
+
+
+def moe_layer_phase(cfg, params) -> dict:
+    """Layer 0's `moe` on the device and on the CPU, on the same inputs
+    (a 64-token chunk, a 4-row decode, and the chunk at a capacity factor
+    of 0.5): the routes (`layers.moe_route`: chosen experts, slots, kept
+    pairs) equal, the outputs within MOE_LAYER_TOL."""
+    import torch
+    from repro_torch.models.layers import layer_slice, moe, moe_route
+    dev_layer = layer_slice(params["layers"], 0)["moe"]
+    cpu_layer = tree_to(dev_layer, "cpu")
+    gen = torch.Generator().manual_seed(31)
+    res = {}
+    for label, B, S, cap in (("64-token chunk", 1, 64, 1.25),
+                             ("4-row decode", 4, 1, 1.25),
+                             ("64-token chunk, capacity 0.5", 1, 64, 0.5)):
+        x = torch.randn(B, S, cfg.d_model, generator=gen)
+        kw = dict(top_k=cfg.top_k, capacity_factor=cap)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            got = moe(dev_layer, x.cuda(), **kw)
+            torch.cuda.synchronize()
+            dev_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = moe(cpu_layer, x, **kw)
+            cpu_s = time.perf_counter() - t0
+            rd = moe_route(dev_layer, x.cuda(), **kw)
+            rc = moe_route(cpu_layer, x, **kw)
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(
+            (rd.top_idx, rd.slot, rd.keep), (rc.top_idx, rc.slot, rc.keep)))
+        kept = int(rc.keep.sum())
+        print(f"E1 moe layer: {label} (B={B}, S={S}, C={rc.capacity}): "
+              f"{kept} of {rc.keep.numel()} (token, expert) pairs kept, "
+              f"routes equal {same}; max |device - CPU| / max |CPU| = "
+              f"{err:.3e} (tol {MOE_LAYER_TOL:.0e}); device {dev_s:.3f} s, "
+              f"CPU {cpu_s:.3f} s")
+        check(same, f"E1 moe layer {label}: the device and the CPU route "
+              "tokens apart")
+        check(err <= MOE_LAYER_TOL and bool(torch.isfinite(got).all()),
+              f"E1 moe layer {label}: outputs disagree")
+        res[label] = {"capacity": rc.capacity, "kept": kept,
+                      "pairs": rc.keep.numel(), "rel_err": err,
+                      "device_s": dev_s, "cpu_s": cpu_s}
+    half = res["64-token chunk, capacity 0.5"]
+    check(half["kept"] < half["pairs"],
+          "E1 moe layer: capacity 0.5 dropped no token")
+    res["timing"] = moe_layer_timing(cfg, dev_layer)
+    return res
+
+
+def moe_layer_timing(cfg, layer) -> dict:
+    """Where one layer's `moe` spends its device time (medians of
+    `time_ms`): one expert stack dequantized to float32, its batched
+    product at a decode step's rows (4 rows x top-2, C = 1) and a chunk's
+    (C = 20), and the whole `moe` at a 4-row decode and a 64-token chunk."""
+    import torch
+    from repro_torch.core.quant import dequantize
+    from repro_torch.models.layers import moe
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    E, D, k = cfg.n_experts, cfg.d_model, cfg.top_k
+    w = dequantize(layer["w_gate"], torch.float32)
+    xs = {n: torch.randn(E, n, D, generator=gen, device="cuda")
+          for n in (4, 20)}
+    x_dec = torch.randn(4, 1, D, generator=gen, device="cuda")
+    x_chunk = torch.randn(1, 64, D, generator=gen, device="cuda")
+    times = {
+        "dequantize_ms": time_ms(
+            lambda: dequantize(layer["w_gate"], torch.float32), 5, flush),
+        "bmm_decode_ms": time_ms(lambda: torch.bmm(xs[4], w), 5, flush),
+        "bmm_chunk_ms": time_ms(lambda: torch.bmm(xs[20], w), 5, flush),
+        "moe_decode_ms": time_ms(lambda: moe(layer, x_dec, top_k=k), 5,
+                                 flush),
+        "moe_chunk_ms": time_ms(lambda: moe(layer, x_chunk, top_k=k), 5,
+                                flush)}
+    res = {key: statistics.median(t) for key, t in times.items()}
+    print("timing E1 moe layer (medians, ms): "
+          + " ".join(f"{key}={v:.4f}" for key, v in res.items())
+          + f"; a step's 32 layers of moe at decode "
+          f"{cfg.n_layers * res['moe_decode_ms']:.1f} ms")
+    return res
+
+
+def mixtral_runtime(capacity):
+    from repro_torch.models.transformer import Runtime
+    return Runtime(moe_capacity=capacity)
+
+
+def float_wo(params):
+    """`params` with wo dequantized to float32 (the other leaves shared):
+    wo is then a plain matrix product on every side, with no bf16 rounding
+    of its input, so what parts two runs on this tree is their float32
+    summation order alone."""
+    import torch
+    from repro_torch.core.quant import dequantize
+    attn = dict(params["layers"]["attn"])
+    attn["wo_w"] = dequantize(attn["wo_w"], torch.float32)
+    return {**params, "layers": {**params["layers"], "attn": attn}}
+
+
+def mixtral_golden_phase(cfg, params, control):
+    """E1 golden: the 600-token prompt in 64-token chunks into an f32
+    stripe pool, engine-level, then 8 greedy decode steps, at the no-drop
+    capacity E / top_k; every step's logits against the port's plain full
+    forward on the card (plain attention) over the prompt and the emitted
+    tokens, with the same argmax.  Run twice: on the W4A16 weights, wo
+    through B3 against the forward computing it as B3's own function,
+    within MIXTRAL_GOLDEN_TOL; and on `control` (`float_wo`), where no B3
+    runs and the bf16 rounding of wo's input is gone on both sides,
+    within GOLDEN_TOL."""
+    res = {}
+    for key, tree, tol in (("w4a16", params, MIXTRAL_GOLDEN_TOL),
+                           ("float_wo", control, GOLDEN_TOL)):
+        res[key] = mixtral_golden_run(cfg, tree, key, tol)
+    return res
+
+
+def mixtral_golden_run(cfg, params, key, tol):
+    import torch
+    from repro_torch.configs import EngineConfig
+    from repro_torch.core.engine import KVNANDEngine
+    from repro_torch.kernels import quant_gemv
+    from repro_torch.kernels.paged_attention import launches
+    from repro_torch.models.registry import Model
+    L = cfg.n_layers
+    rt = mixtral_runtime(cfg.n_experts / cfg.top_k)
+    t0 = time.perf_counter()
+    eng = KVNANDEngine(cfg, EngineConfig(page_tokens=16,
+                                         uniform_lengths=False,
+                                         kv_dtype="float32"), rt,
+                       device="cuda")
+    prompt = mixtral_prompts(cfg.vocab_size)[2]
+    n, V, C = len(prompt), cfg.vocab_size, 64
+    cache = eng.init_cache(1, MIXTRAL_CTX)
+    launches.reset()
+    quant_gemv.launches.reset()
+    with torch.no_grad():
+        for pos in range(0, n, C):
+            k = min(C, n - pos)
+            toks = torch.zeros((1, C), dtype=torch.long, device="cuda")
+            toks[0, :k] = torch.tensor(prompt[pos:pos + k])
+            lg, _ = eng.prefill_chunk(params, cache, {"tokens": toks}, 0,
+                                      pos, k, first=pos == 0)
+        rows, out = [lg[0, :V]], [int(lg[0, :V].argmax())]
+        for _ in range(8):
+            lg, _ = eng.decode_step(params, cache, torch.tensor(
+                [[out[-1]]], device="cuda"))
+            rows.append(lg[0, :V])
+            out.append(int(lg[0, :V].argmax()))
+        b1, b3 = launches.value, quant_gemv.launches.value
+        got = torch.stack(rows).float()
+        with b3_function():
+            full = Model(cfg, rt).forward(params, {"tokens": torch.tensor(
+                [prompt + out[:8]], device="cuda")})[0, n - 1:, :V].float()
+    torch.cuda.synchronize()
+    err = float((got - full).abs().max() / full.abs().max())
+    want = full.argmax(-1).tolist()
+    wall = time.perf_counter() - t0
+    chunks = -(-n // C)
+    per_layer = MIXTRAL_B3_PER_LAYER if key == "w4a16" else 0
+    print(f"E1 golden ({key} wo): {n}-token prompt in {chunks} chunks + 8 "
+          f"decode steps, capacity {rt.moe_capacity} (no drops), f32 stripe "
+          f"pool: max |logits - plain forward| / max |logits| = {err:.3e} "
+          f"(tol {tol:.0e}); argmax {out} vs {want}; launches B1 {b1}, B3 "
+          f"{b3}; {wall:.3f} s")
+    check(b1 == 8 * L and b3 == per_layer * L * (chunks + 8),
+          f"E1 golden ({key} wo): launches B1 {b1}, B3 {b3} != 8 x {L}, "
+          f"{per_layer} x {L} x ({chunks} chunks + 8 steps)")
+    check(err <= tol, f"E1 golden ({key} wo): logits disagree with the "
+          "plain forward")
+    check(out == want, f"E1 golden ({key} wo): a greedy token differs from "
+          "the plain forward's")
+    del eng, cache, full
+    torch.cuda.empty_cache()
+    return {"rel_err": err, "tokens": out, "launches_B1": b1,
+            "launches_B3": b3, "wall_s": wall}
+
+
+def mixtral_engine_config(**over):
+    """f32 pages of 16 tokens, compact, as `launch/serve.py` serves
+    without `--use-dse`, and `over`."""
+    from repro_torch.configs import EngineConfig
+    return EngineConfig(**{"page_tokens": 16, "uniform_lengths": False,
+                           "kv_dtype": "float32", **over})
+
+
+def mixtral_server_config(eng, **over):
+    from repro_torch.serving.api import ServerConfig
+    return ServerConfig(**{"arch": "mixtral-8x7b", "engine": eng,
+                           "batch_slots": 4, "max_context": MIXTRAL_CTX,
+                           "prefill_chunk_tokens": 64, "device": "cuda",
+                           **over})
+
+
+def mixtral_replica_run(cfg, params, prompts, solo_outs) -> dict:
+    """Two replicas on E1's weights (f32 pages of 16 tokens, shared
+    pools, capacity 1.25): replica 0 prefills every request in the
+    stripe run's chunks, each migrates once through the envelope's wire
+    bytes and decodes on replica 1; the tokens are one shared-pool
+    server's (or part only at a near tie)."""
+    import torch
+    import repro_torch.serving.router as router_mod
+    from repro_torch.kernels import flash_attention, quant_gemv, wkv6
+    from repro_torch.kernels.paged_attention import launches, launches_shared
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.replica import build_replica
+    config = mixtral_server_config(mixtral_engine_config(shared_pool=True))
+    reps = [build_replica(config, cfg=cfg, params=params,
+                          rt=mixtral_runtime(1.25), device="cuda")
+            for _ in range(2)]
+    check(all(r.params["embedding"] is params["embedding"] for r in reps),
+          "E1 replicas: a replica copied the weights")
+    router = router_mod.ReplicaRouter(reps, disaggregate=True)
+    counters = {"B1": launches, "B2": launches_shared,
+                "B3": quant_gemv.launches, "B4": flash_attention.launches,
+                "B5": wkv6.launches}
+    steps0 = [r.stats["decode_steps"] for r in reps]
+    chunks0 = [r.stats["prefill_chunks"] for r in reps]
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    sp = SamplingParams(max_new_tokens=MIXTRAL_NEW, logprobs=True)
+    uids = [router.submit(p, sp) for p in prompts]
+    router.run()
+    outs = [router.output(u) for u in uids]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: c.value for k, c in counters.items()}
+    steps = [r.stats["decode_steps"] - s for r, s in zip(reps, steps0)]
+    chunks = [r.stats["prefill_chunks"] - s for r, s in zip(reps, chunks0)]
+    st = router.stats
+    L = cfg.n_layers
+    print(f"E1 replicas: {st['migrations']} migrations "
+          f"({st['migration_bytes']} wire bytes), decode steps per replica "
+          f"{steps}, prefill chunks {chunks}, launches {counts}, "
+          f"{wall:.3f} s")
+    check(st["migrations"] == len(prompts) and steps[0] == 0,
+          "E1 replicas: not every request migrated once to the decode "
+          "replica")
+    want = {"B2": sum(steps) * L,
+            "B3": MIXTRAL_B3_PER_LAYER * L * (sum(steps) + sum(chunks)),
+            "B1": 0, "B4": 0, "B5": 0}
+    check(counts == want, f"E1 replicas: launches {counts} != {want}")
+    for r in reps:
+        r._batcher.alloc.check()
+    same, before, gap = near_tie_check("E1 replicas vs one shared server",
+                                       outs, solo_outs, MIXTRAL_GAP_TOL,
+                                       MIXTRAL_GAP_TOL)
+    res = {"migrations": st["migrations"],
+           "migration_bytes": st["migration_bytes"], "decode_steps": steps,
+           "prefill_chunks": chunks, "launches": counts, "wall_s": wall,
+           "same_as_one_server": same, "logprob_err": before,
+           "max_gap_at_divergence": gap}
+    del router, reps
+    return res
+
+
+def mixtral_server_runs(cfg, params, control) -> dict:
+    """E1's servers on one set of W4A16 weights (see the module
+    docstring), and the control pair on `control` (`float_wo`): stripe
+    and KVNAND-D at the no-drop capacity on the first two prompts, where
+    no B3 runs; returns each run's counts, walls and agreement."""
+    import torch
+    from repro_torch.serving.api import KVNANDServer
+    L, K = cfg.n_layers, cfg.n_kv_heads
+    B3 = MIXTRAL_B3_PER_LAYER * L
+    nodrop = cfg.n_experts / cfg.top_k
+    prompts = mixtral_prompts(cfg.vocab_size)
+    zero = {k: 0 for k in ("B1", "B2", "B3", "B4", "B5")}
+    runs, res = {}, {}
+    for key, label, over, server, cap, want in (
+            ("stripe", "E1 stripe f32", {}, {}, 1.25,
+             lambda s, a, c, v: {"B1": s * L, "B3": B3 * (s + c)}),
+            ("shared", "E1 shared f32", {"shared_pool": True}, {}, 1.25,
+             lambda s, a, c, v: {"B2": s * L, "B3": B3 * (s + c)}),
+            ("overlap", "E1 overlapped stripe f32", {}, {"overlap": True},
+             1.25, lambda s, a, c, v: {"B1": s * L, "B3": B3 * (s + c)}),
+            ("discrete", "E1 discrete (KVNAND-D) f32",
+             {"variant": "discrete"}, {}, 1.25,
+             lambda s, a, c, v: {"B1": s * L * K, "B3": B3 * (s + c)}),
+            ("kv8", "E1 stripe kv8", {"kv_quant": "kv8"}, {}, 1.25,
+             lambda s, a, c, v: {"B1": s * L, "B3": B3 * (s + c)}),
+            ("kv8_shared", "E1 shared kv8",
+             {"kv_quant": "kv8", "shared_pool": True}, {}, 1.25,
+             lambda s, a, c, v: {"B2": s * L, "B3": B3 * (s + c)}),
+            ("stripe_nodrop", "E1 stripe f32, no drops", {}, {}, nodrop,
+             lambda s, a, c, v: {"B1": s * L, "B3": B3 * (s + c)}),
+            ("splice_nodrop", "E1 splice f32, no drops", {},
+             {"scheduler": "splice"}, nodrop,
+             lambda s, a, c, v: {"B1": s * L, "B4": a * L,
+                                 "B3": B3 * (s + a)}),
+            ("spec_nodrop", "E1 speculative (k=4) f32, no drops", {},
+             {"speculation_k": 4}, nodrop,
+             lambda s, a, c, v: {"B1": s * L, "B3": B3 * (s + v + c)}),
+            ("stripe_float_wo", "E1 stripe f32, float wo, no drops", {}, {},
+             nodrop, lambda s, a, c, v: {"B1": s * L}),
+            ("discrete_float_wo",
+             "E1 discrete (KVNAND-D) f32, float wo, no drops",
+             {"variant": "discrete"}, {}, nodrop,
+             lambda s, a, c, v: {"B1": s * L * K})):
+        srv = KVNANDServer(mixtral_server_config(
+            mixtral_engine_config(**over), **server), cfg=cfg,
+            params=control if key.endswith("float_wo") else params,
+            rt=mixtral_runtime(cap))
+        v0 = srv.stats.get("verify_steps", 0)
+        # the control pair serves the first two prompts (where the W4A16
+        # KVNAND-D run parts from stripe), to keep the script's time
+        outs, counts, steps, wall, tokens = serve(
+            label, srv, prompts[:2] if key.endswith("float_wo") else prompts,
+            MIXTRAL_NEW)
+        verify = srv.stats.get("verify_steps", 0) - v0
+        admits, chunks = counts["admits"], counts["prefill_chunks"]
+        expect = {**zero, **want(steps, admits, chunks, verify)}
+        check(steps > 0 and counts == {**counts, **expect},
+              f"{label}: launches {counts} != {expect} ({steps} decode "
+              f"steps, {verify} verify steps, {chunks} chunks, "
+              f"{admits} admits x {L} layers)")
+        if over.get("shared_pool"):
+            b = srv._batcher
+            b.alloc.check()
+            check(srv.stats["prefix_hit_pages"] >= 4,
+                  f"{label}: the shared prefix was not hit")
+        runs[key] = outs
+        res[key] = {"decode_steps": steps, "verify_steps": verify,
+                    "prefill_chunks": chunks, "admits": admits,
+                    "launches": {k: counts[k] for k in zero},
+                    "wall_s": wall, "tokens": tokens}
+        if key == "shared":
+            res[key]["prefix_hit_pages"] = srv.stats["prefix_hit_pages"]
+        if key == "spec_nodrop":
+            check(verify > 0 and srv.stats["spec_accepted"] > 0,
+                  f"{label}: no draft was accepted")
+            res[key]["spec_accepted"] = srv.stats["spec_accepted"]
+        if key in ("stripe_nodrop", "stripe_float_wo"):
+            # without drops the plain forward is the served function, up
+            # to the W4A16 rounding noise MIXTRAL_GOLDEN_TOL explains; with
+            # float wo, up to float32 summation order
+            control_run = key == "stripe_float_wo"
+            with b3_function():
+                lp, gap = teacher_forced_check(
+                    label, srv, outs, argmax=control_run,
+                    tol=LOGIT_GAP_TOL if control_run else QUANT_LOGPROB_TOL,
+                    rt=mixtral_runtime(nodrop))
+            res[key].update(logprob_err_vs_plain_forward=lp, max_gap=gap)
+        del srv
+    # the f32 runs differ in summation order only (MIXTRAL_GAP_TOL); kv8
+    # reads its K/V through kv8 codes (KV8_F32_TOL against f32, KV8_GAP_TOL
+    # between two kv8 runs); splice and speculation call `moe` at other
+    # lengths, so they are held to the stripe run at the same no-drop
+    # capacity
+    w4 = (MIXTRAL_GAP_TOL, MIXTRAL_GAP_TOL)
+    for key, ref, tols in (
+            ("shared", "stripe", w4),
+            ("overlap", "stripe", w4),
+            ("discrete", "stripe", w4),
+            ("kv8", "stripe", (MIXTRAL_KV8_F32_TOL, MIXTRAL_KV8_F32_TOL)),
+            ("kv8_shared", "kv8", (KV8_GAP_TOL, LOGPROB_TOL)),
+            ("splice_nodrop", "stripe_nodrop", w4),
+            ("spec_nodrop", "stripe_nodrop", w4),
+            ("discrete_float_wo", "stripe_float_wo",
+             (LOGIT_GAP_TOL, LOGIT_GAP_TOL))):
+        same, before, gap = near_tie_check(f"E1 {key} vs {ref}", runs[key],
+                                           runs[ref], *tols)
+        res[key].update(same_as_reference=same, logprob_err=before,
+                        max_gap_at_divergence=gap)
+    res["replicas"] = mixtral_replica_run(cfg, params, prompts,
+                                          runs["shared"])
+    # `moe` must leave the overlapped schedule's dispatch free of host
+    # reads, as O1's probe holds the stripe pool's
+    site = sync_probe(KVNANDServer(mixtral_server_config(
+        mixtral_engine_config(), overlap=True), cfg=cfg, params=params,
+        rt=mixtral_runtime(1.25)))
+    print(f"E1 stripe: decode-only dispatch under "
+          f"set_sync_debug_mode('error'): first host sync {site}")
+    check(site == "none", "E1: a decode-only dispatch through `moe` "
+          f"synchronizes: {site}")
+    res["sync_probe"] = site
+    return res
+
+
+def moe_phases(rate) -> dict:
+    """Phase 22, E1 (see the module docstring)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("mixtral-8x7b")
+    check_mixtral_widths(cfg)
+    params, build = mixtral_params(cfg)
+    res = {"build": build,
+           "build_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "kernels": mixtral_kernel_phase(cfg),
+           "timing": mixtral_timing_phase(rate),
+           "moe_layer": moe_layer_phase(cfg, params)}
+    control = float_wo(params)
+    res["golden"] = mixtral_golden_phase(cfg, params, control)
+    res.update(mixtral_server_runs(cfg, params, control))
+    del params, control
+    gc.collect()
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    zero = ("B1", "B2", "B3", "B4", "B5")
+    res["launches"] = {k: sum(r["launches"][k] for r in res.values()
+                              if isinstance(r, dict) and "launches" in r
+                              and isinstance(r["launches"], dict)
+                              and k in r["launches"])
+                       for k in zero}
+    walls = {k: v["wall_s"] for k, v in res.items()
+             if isinstance(v, dict) and "wall_s" in v}
+    for key, g in res["golden"].items():
+        res["launches"]["B1"] += g["launches_B1"]
+        res["launches"]["B3"] += g["launches_B3"]
+        walls[f"golden {key}"] = g["wall_s"]
+    print(f"E1: launches on the main path {res['launches']}; build peak "
+          f"memory {res['build_peak_memory_gb']:.2f} GB, peak memory "
+          f"{res['peak_memory_gb']:.2f} GB; walls (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+          + f"; on {smi_line()}")
+    return res
+
+
 def serving_phases() -> dict:
     """Phases 17-19 on one set of full-width weights."""
     import gc
@@ -4300,7 +4956,7 @@ def main(argv) -> int:
                      ["--wkv"], ["--wkv-timing"], ["--gemv"], ["--flash"],
                      ["--flash-timing"], ["--dse"], ["--verify-ab"],
                      ["--window"], ["--tier"], ["--overlap"], ["--http"],
-                     ["--replicas"], ["--hybrid"])
+                     ["--replicas"], ["--hybrid"], ["--moe"])
             and not (len(argv) == 2
                      and argv[0] in ("--gemv-ab", "--flash-ab", "--wkv-ab"))):
         print(__doc__, file=sys.stderr)
@@ -4323,6 +4979,11 @@ def main(argv) -> int:
     print(f"build: {len(libs)} libraries "
           f"({', '.join(p.name for p in libs.values())}) in "
           f"{time.perf_counter() - t0:.2f} s (parallel nvcc)")
+
+    def lap(done: str):
+        """The wall since the build started, after each stage of the run
+        (the script must finish well inside its time limit)."""
+        print(f"clock: {done} done at {time.perf_counter() - t0:.1f} s")
     if argv in (["--paged"], ["--paged-timing"]):
         paged = {}
         if argv == ["--paged"]:
@@ -4396,6 +5057,11 @@ def main(argv) -> int:
         print(card)
         print(json.dumps({"hybrid": y1}))
         return 0
+    if argv == ["--moe"]:
+        e1 = moe_phases(rate)
+        print(card)
+        print(json.dumps({"moe": e1}))
+        return 0
     one = {"--tier": ("tier", tier_phase), "--overlap": ("overlap",
                                                          overlap_phase),
            "--http": ("http", http_phase)}.get(argv[0] if argv else None)
@@ -4412,6 +5078,7 @@ def main(argv) -> int:
         b1_err = max(b1_err, split_err["B1"])
         b2_err = max(b2_err, split_err["B2"])
         b1_shapes, b2_shapes = timing_phase(rate)
+        lap("phases 2-3 (B1/B2)")
         stripe = server_phase()
         shared = shared_server_phase("bfloat16")
         shared32 = shared_server_phase("float32")
@@ -4421,15 +5088,19 @@ def main(argv) -> int:
               "tokens from the bf16 and the f32 pool")
         for r in (shared, shared32):
             del r["token_ids"]
+        lap("phases 4-6 (servers)")
         b3_err = quant_kernel_phase()
         b3_shapes, b3_crossover = quant_timing_phase(rate)
         b4_err = flash_kernel_phase()
         b4_shapes = flash_timing_phase(rate)
         s1 = splice_server_phase()
+        lap("phases 7, 9-10 (B3, B4, S1)")
         b5_err = wkv_kernel_phase()
         b5_shapes = wkv_timing_phase(rate)
         r1 = rwkv_server_phase()
+        lap("phases 11-12 (B5, R1)")
         tier_served = serving_phases()
+        lap("phases 17-19 (T1, O1, H1)")
     q1 = quant_server_phase("Q1 (w4a16, stripe, kv4)", "w4a16", "kv4",
                             False, stripe_prompts)
     q2 = quant_server_phase("Q2 (w8a8, shared, kv8)", "w8a8", "kv8", True,
@@ -4445,7 +5116,9 @@ def main(argv) -> int:
         print(card)
         print(json.dumps({"quant_servers": [q1, q2]}))
         return 0
+    lap("phase 8 (Q1, Q2)")
     dse = dse_phases(rate, replicas=True)
+    lap("phases 13-15, 20 (D1, V1, M1)")
     d1, v1, head, m1 = dse["D1"], dse["V1"], dse["head_range"], dse["M1"]
     b1_err = max(b1_err, head["B1"])
     b2_err = max(b2_err, head["B2"])
@@ -4456,7 +5129,9 @@ def main(argv) -> int:
     g1_b1 = sum(g1[k]["launches"] for k in ("stripe", "splice", "discrete",
                                             "speculative"))
     g1_b1 += g1["golden"]["launches_B1"]
+    lap("phase 16 (G1)")
     y1 = hybrid_phases(rate)
+    lap("phase 21 (Y1)")
     for k in ("B1", "B2", "B3", "B4"):
         check(y1["launches"][k] > 0, f"Y1 launched {k} no time")
     b1_err = max(b1_err, y1["kernels"]["B1"])
@@ -4465,6 +5140,19 @@ def main(argv) -> int:
     b4_err = max(b4_err, y1["kernels"]["B4"])
     y1_runs = {k: y1[k] for k in ("stripe", "shared", "splice", "discrete",
                                   "kv8", "overlap", "replicas", "dse")}
+    e1 = moe_phases(rate)
+    lap("phase 22 (E1)")
+    for k in ("B1", "B2", "B3", "B4"):
+        check(e1["launches"][k] > 0, f"E1 launched {k} no time")
+    b1_err = max(b1_err, e1["kernels"]["B1"])
+    b2_err = max(b2_err, e1["kernels"]["B2"])
+    b3_err = max(b3_err, e1["kernels"]["B3"])
+    b4_err = max(b4_err, e1["kernels"]["B4"])
+    e1_runs = {k: e1[k] for k in ("stripe", "shared", "overlap", "discrete",
+                                  "kv8", "kv8_shared", "stripe_nodrop",
+                                  "splice_nodrop", "spec_nodrop",
+                                  "stripe_float_wo", "discrete_float_wo",
+                                  "replicas", "golden", "moe_layer")}
     t1, o1, h1 = (tier_served[k] for k in ("T1", "O1", "H1"))
     kernels = [
         kernel_entry("paged_attention", "src/repro_torch/csrc/"
@@ -4472,31 +5160,37 @@ def main(argv) -> int:
                      "src/repro/kernels/paged_attention/kernel.py:311",
                      stripe["launches"] + d1["launches_B1"]
                      + v1["launches_B1"] + g1_b1 + o1["launches_B1"]
-                     + y1["launches"]["B1"], b1_err,
+                     + y1["launches"]["B1"] + e1["launches"]["B1"], b1_err,
                      list(b1_shapes) + dse["group_timing"][:1]
-                     + y1["timing"]["B1"],
+                     + y1["timing"]["B1"] + e1["timing"]["B1"],
                      [stripe, {"D1": d1, "V1": v1, "G1": g1, "O1": o1,
-                               "Y1": y1_runs}]),
+                               "Y1": y1_runs, "E1": e1_runs}]),
         kernel_entry("paged_attention_shared", "src/repro_torch/csrc/"
                      "paged_attention_shared.cu",
                      "src/repro/kernels/paged_attention/kernel.py:209",
                      shared["launches"] + d1["shared_launches_B2"]
                      + g1["shared"]["launches"] + t1["launches_B2"]
                      + o1["launches_B2"] + h1["launches_B2"]
-                     + m1["launches_B2"] + y1["launches"]["B2"], b2_err,
+                     + m1["launches_B2"] + y1["launches"]["B2"]
+                     + e1["launches"]["B2"], b2_err,
                      list(b2_shapes) + dse["group_timing"][1:]
-                     + y1["timing"]["B2"],
+                     + y1["timing"]["B2"] + e1["timing"]["B2"],
                      [shared, shared32, {"D1 shared": d1,
                                          "G1 shared": g1["shared"],
                                          "T1": t1, "H1": h1, "M1": m1,
                                          "Y1 shared": y1["shared"],
                                          "Y1 shared kv8": y1["kv8_shared"],
-                                         "Y1 replicas": y1["replicas"]}]),
+                                         "Y1 replicas": y1["replicas"],
+                                         "E1 shared": e1["shared"],
+                                         "E1 shared kv8": e1["kv8_shared"],
+                                         "E1 replicas": e1["replicas"]}]),
         kernel_entry("quant_gemv", "src/repro_torch/csrc/quant_gemv.cu",
                      "src/repro/kernels/quant_gemv/kernel.py:68",
-                     q1["launches"] + q2["launches"] + y1["launches"]["B3"],
-                     b3_err, list(b3_shapes) + y1["timing"]["B3"],
-                     [q1, q2, {"Y1 DSE pick": y1["dse"]}]) | {
+                     q1["launches"] + q2["launches"] + y1["launches"]["B3"]
+                     + e1["launches"]["B3"], b3_err,
+                     list(b3_shapes) + y1["timing"]["B3"]
+                     + e1["timing"]["B3"],
+                     [q1, q2, {"Y1 DSE pick": y1["dse"], "E1": e1_runs}]) | {
             "design": "tensor-core mma.sync (bf16 / s8) with the weights "
                       "dequantized into the A operand; stream path (M <= "
                       "STREAM_MAX_M, 8 or 16 rows a CTA) and tile path (64 "
@@ -4506,10 +5200,12 @@ def main(argv) -> int:
                      "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention/kernel.py:82",
                      s1["launches"] + g1["splice"]["launches_B4"]
-                     + y1["launches"]["B4"], b4_err,
-                     list(b4_shapes) + y1["timing"]["B4"],
+                     + y1["launches"]["B4"] + e1["launches"]["B4"], b4_err,
+                     list(b4_shapes) + y1["timing"]["B4"]
+                     + e1["timing"]["B4"],
                      [s1, {"G1 splice": g1["splice"],
-                           "Y1 splice": y1["splice"]}]) | {
+                           "Y1 splice": y1["splice"],
+                           "E1 splice": e1["splice_nodrop"]}]) | {
             "bound_cuda_core_ms": b4_shapes[0]["bound_cuda_core_ms"],
             "design": "f32 as 3xTF32 mma.sync (hi/lo split, f32-exact), "
                       "bf16 on bf16 mma.sync, cp.async K/V ring, each q "

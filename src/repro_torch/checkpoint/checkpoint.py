@@ -18,6 +18,13 @@ leaf to the dtype of the matching leaf of `like`.  A payload that does
 carry 2-byte bfloat16 (manifest dtype "bfloat16") is read through an
 int16 view, never through `ml_dtypes`.
 
+A quantized weight (`core.quant.QuantizedWeight`) is stored as the
+record of its arrays, ``<path>/q`` and ``<path>/scale``, and restored
+into the scheme and shape of the `like` leaf.  That is the form the
+reference writes and reads for a NamedTuple with fields (q, scale); its
+own `QuantizedWeight` leaf goes into the npz as a pickled object, which
+its restore refuses (ROADMAP §C).
+
 A corrupt or partial checkpoint (bad hash, missing file, a `.tmp-`
 directory never renamed) is skipped: `latest_step` reports only
 directories whose manifest validates.
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.bridge import SEP, flatten_with_paths, to_numpy
+from repro_torch.core.quant import QuantizedWeight
 
 
 def _host(leaf) -> np.ndarray:
@@ -51,9 +59,16 @@ def _host(leaf) -> np.ndarray:
 
 
 def _flatten_with_paths(tree) -> Dict[str, np.ndarray]:
-    """{path: host array}, the reference's flat checkpoint dict."""
-    return {k: np.zeros((), np.int8) if v is None else _host(v)
-            for k, v in flatten_with_paths(tree, records=True).items()}
+    """{path: host array}, the reference's flat checkpoint dict (a
+    quantized weight as its q and scale)."""
+    flat = {}
+    for k, v in flatten_with_paths(tree, records=True).items():
+        if isinstance(v, QuantizedWeight):
+            flat[f"{k}{SEP}q"], flat[f"{k}{SEP}scale"] = (_host(v.q),
+                                                          _host(v.scale))
+        else:
+            flat[k] = np.zeros((), np.int8) if v is None else _host(v)
+    return flat
 
 
 def _write(ckpt_dir: str, step: int, flat: Dict[str, np.ndarray],
@@ -176,6 +191,10 @@ def restore_checkpoint(ckpt_dir: str, step: int, like, device=None
                         getattr(node, k)) for k in node._fields])
         if node is None:
             return None
+        if isinstance(node, QuantizedWeight):
+            return QuantizedWeight(leaf(f"{prefix}{SEP}q", node.q),
+                                   leaf(f"{prefix}{SEP}scale", node.scale),
+                                   node.scheme, node.orig_shape)
         return leaf(prefix, node)
 
     return rebuild("", like), manifest.get("extra", {})

@@ -78,9 +78,17 @@ the params (`core.quant.quantize_params`), and `layers.dense` sends each
 2-D quantized weight through kernel B3; `EngineConfig.quant` is not read,
 as in the reference.  A tiered pool (`EngineConfig.hot_pages`) is a
 shared pool of `hot_pages` device pages whose tables the scheduler fills
-with hot-slot indices; the engine walks it like any shared pool.  Not
-ported yet, and refused here: the MoE, VLM and encoder-decoder families
-and a device mesh.
+with hot-slot indices; the engine walks it like any shared pool.
+
+An MoE arch (mixtral) runs `layers.moe` as each layer's feed-forward at
+the four sites the reference has (`transformer.ffn`), each call on the
+reference's own [B, S]: decode's [B, 1], the verify span's [B, k + 1],
+the one-shot prefill's bucketed [B, S] and the chunk bucket's [1, C].
+The experts' capacity follows S, so tokens past an expert's capacity are
+dropped per call, and schedulers that call it at other lengths (chunks
+against one-shot buckets, spans against single tokens) serve other
+tokens, in both packages.  Not ported yet, and refused here: the VLM and
+encoder-decoder families and a device mesh.
 """
 from __future__ import annotations
 
@@ -97,9 +105,9 @@ from repro_torch.kernels.paged_attention import (paged_attention_partial,
                                                  paged_chunk_attention_ref)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import rwkv6, ssm
-from repro_torch.models.layers import embed_lookup, layer_slice, mlp, rms_norm
+from repro_torch.models.layers import embed_lookup, layer_slice, rms_norm
 from repro_torch.models.transformer import (Runtime, check_supported,
-                                            embed_inputs, hybrid_mix,
+                                            embed_inputs, ffn, hybrid_mix,
                                             lm_head_logits)
 
 
@@ -330,7 +338,7 @@ class KVNANDEngine:
                     active=active, decode=True))
             x = x + aout
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
-            x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
+            x = x + ffn(pl_, cfg, h, self.rt)
         return x
 
     # ------------------------------------------------------------------
@@ -413,7 +421,7 @@ class KVNANDEngine:
                     table if shared else None, lengths, positions, window)
             x = x + attn_mod.project_out(pl_["attn"], cfg, o.to(h.dtype))
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
-            x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
+            x = x + ffn(pl_, cfg, h, self.rt)
             span_k.append(k)
             span_v.append(v)
         logits = lm_head_logits(params, cfg, x)                 # [B, S, V]
@@ -635,7 +643,7 @@ class KVNANDEngine:
                                     true_len=n if ring else None,
                                     table=table, scale=sc, kv_quant=fmt)
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
-            x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
+            x = x + ffn(pl_, cfg, h, self.rt)
         cache.lengths.fill_(n)
         if cache.page_pos_w is not None:
             paged_kv.write_ring_bases(cache.page_pos_w, slice(None), n,
@@ -754,7 +762,7 @@ class KVNANDEngine:
                     fill(pl, kv, j, slot, page0, v_len, scale=sc,
                          kv_quant=fmt)
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
-            x = x + mlp(pl_["mlp"], h, cfg.gated_mlp)
+            x = x + ffn(pl_, cfg, h, self.rt)
         if cache.page_pos_w is not None:
             paged_kv.write_ring_bases(cache.page_pos_w, slot,
                                       start + v_len, self.eng.page_tokens)

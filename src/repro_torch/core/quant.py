@@ -136,18 +136,18 @@ def quantize_weight(w: torch.Tensor, scheme: str) -> QuantizedWeight:
 
 
 def unpack_int4(q: torch.Tensor) -> torch.Tensor:
-    """[..., D/2, F] uint8 -> [..., D, F] int32 in [-8, 7] (row 2i from the
-    high nibble)."""
-    hi = ((q >> 4) & 0xF).to(torch.int32) - 8
-    lo = (q & 0xF).to(torch.int32) - 8
-    out = torch.stack([hi, lo], dim=-2)                        # [..., D/2, 2, F]
-    return out.reshape(q.shape[:-2] + (2 * q.shape[-2],) + q.shape[-1:])
+    """[..., D/2, F] uint8 -> [..., D, F] int8 in [-8, 7] (row 2i from the
+    high nibble), in byte-wide passes (nibbles 0..15 less 8 fit int8)."""
+    codes = torch.stack([q >> 4, q & 0xF], dim=-2).view(torch.int8).sub_(8)
+    return codes.reshape(q.shape[:-2] + (2 * q.shape[-2], q.shape[-1]))
 
 
 def dequantize(qw: QuantizedWeight, dtype=torch.bfloat16) -> torch.Tensor:
-    wf = (qw.q.float() if qw.scheme == "w8a8"
-          else unpack_int4(qw.q).float())
-    return (wf * qw.scale[..., None, :]).to(dtype)
+    """code x scale in float32, then `dtype`.  The codes stay int8 until
+    the product converts them (exactly), so an expert stack [E, D, F]
+    makes one float32 tensor, the result."""
+    codes = qw.q if qw.scheme == "w8a8" else unpack_int4(qw.q)
+    return (codes * qw.scale[..., None, :]).to(dtype)
 
 
 def quantize_activations_int8(x: torch.Tensor):

@@ -20,8 +20,10 @@ def quant_gemv(x: torch.Tensor, qw: QuantizedWeight, *,
     """x: [..., D] @ quantized [D, F] -> [..., F] in x.dtype."""
     if qw.q.ndim != 2:
         raise NotImplementedError(
-            f"quant_gemv: expert-batched quantized weights (q of shape "
-            f"{tuple(qw.q.shape)}) are not ported yet (ROADMAP A15, MoE)")
+            f"quant_gemv: a stacked quantized weight (q of shape "
+            f"{tuple(qw.q.shape)}) has no GEMV: `layers.moe` dequantizes "
+            "expert weights, as the reference does, and an expert-batched "
+            "B3 is beyond the reference (ROADMAP B)")
     if impl == "auto":
         impl = "ref" if x.device.type == "cpu" else "cuda"
     if impl == "ref":

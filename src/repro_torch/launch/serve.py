@@ -12,6 +12,8 @@ TTFT/TPOT reporting.
       --use-dse --max-context 2048
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --use-dse --max-context 2048
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+      --reduced --use-dse --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --speculation-k 2
   PYTHONPATH=src python -m repro_torch.launch.serve --shared-pool \
       --total-pages 64 --hot-pages 12

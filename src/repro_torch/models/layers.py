@@ -9,12 +9,12 @@ numbers — torch's generator is not jax's threefry).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.quant import QuantizedWeight
+from repro_torch.core.quant import QuantizedWeight, dequantize
 from repro_torch.kernels.quant_gemv import quant_gemv
 
 # ---------------------------------------------------------------------------
@@ -149,6 +149,109 @@ def mlp(params: Dict[str, Any], x: torch.Tensor, gated: bool, *,
     else:
         h = F.gelu(dense(params, "up", x, impl=impl), approximate="tanh")
     return dense(params, "down", h, impl=impl)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (capacity-based top-k dispatch, per batch row)
+# ---------------------------------------------------------------------------
+
+def init_moe(b: ParamInit, d_model: int, d_ff: int, n_experts: int):
+    b.param("router_w", (d_model, n_experts))
+    b.param("w_gate", (n_experts, d_model, d_ff))
+    b.param("w_up", (n_experts, d_model, d_ff))
+    b.param("w_down", (n_experts, d_ff, d_model))
+
+
+def moe_capacity(seq_len: int, n_experts: int, top_k: int,
+                 capacity_factor: float) -> int:
+    """Slots per expert and batch row: C = max(1, ceil(f · k · S / E)),
+    taken from the padded length S of the call, as in the reference."""
+    return max(1, math.ceil(capacity_factor * top_k * seq_len / n_experts))
+
+
+class MoeRoute(NamedTuple):
+    """Where `moe` sends each (token, choice) pair of every row.
+
+    top_idx, top_vals: [B, S, k] chosen experts (ties to the lower id) and
+    their renormalized gates; slot: [B, S·k] the pair's row in the
+    dispatch buffer (expert · C + position, or E · C when dropped); keep:
+    [B, S·k] the pairs within capacity; capacity: C."""
+    top_idx: torch.Tensor
+    top_vals: torch.Tensor
+    slot: torch.Tensor
+    keep: torch.Tensor
+    capacity: int
+
+
+def moe_route(params: Dict[str, Any], x: torch.Tensor, *, top_k: int,
+              capacity_factor: float = 1.25) -> MoeRoute:
+    """The router and the dispatch plan of `moe` for x [B, S, D].
+
+    The router runs in float32: softmax, top-k, renormalization with
+    + 1e-9.  The top k come from a stable descending sort, so equal gates
+    pick the lower expert id first, as `jax.lax.top_k` does (`torch.topk`
+    promises no order on ties).  A pair's position within its expert is
+    its rank in a stable sort of the row's flattened [S·k] expert ids,
+    counted from the expert's start; pairs at positions >= C are dropped.
+    Static shapes only, and no read on the host."""
+    B, S, _ = x.shape
+    E = params["router_w"].shape[-1]
+    Tk = S * top_k
+    C = moe_capacity(S, E, top_k, capacity_factor)
+    logits = torch.matmul(x.float(), params["router_w"].float())   # [B, S, E]
+    gates = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    top_vals, top_idx = vals[..., :top_k], idx[..., :top_k]
+    top_vals = top_vals / (top_vals.sum(-1, keepdim=True) + 1e-9)
+    fe = top_idx.reshape(B, Tk)
+    order = torch.sort(fe, dim=-1, stable=True).indices
+    counts = torch.zeros((B, E), dtype=fe.dtype, device=x.device)
+    counts.scatter_add_(1, fe, torch.ones_like(fe))
+    starts = counts.cumsum(-1) - counts                            # [B, E]
+    rank = torch.arange(Tk, device=x.device)[None]
+    pos_sorted = rank - starts.gather(1, fe.gather(1, order))
+    pos = torch.empty_like(fe).scatter_(1, order, pos_sorted)
+    keep = pos < C
+    slot = torch.where(keep, fe * C + pos, torch.full_like(fe, E * C))
+    return MoeRoute(top_idx, top_vals, slot, keep, C)
+
+
+def _expert_weight(w, dtype) -> torch.Tensor:
+    """An expert stack [E, ., .] in `dtype`, a quantized one dequantized
+    (the reference's `_maybe_dequant`)."""
+    if isinstance(w, QuantizedWeight):
+        return dequantize(w, dtype)
+    return w.to(dtype)
+
+
+def moe(params: Dict[str, Any], x: torch.Tensor, *, top_k: int,
+        capacity_factor: float = 1.25) -> torch.Tensor:
+    """Capacity-based top-k MoE: x [B, S, D] -> [B, S, D].
+
+    Dispatch is per batch row (`moe_route`): each kept (token, choice)
+    pair is copied to its expert's slot of a [B, E, C, D] buffer, the
+    experts run their SwiGLU on it as one batched product per weight
+    (each weight dequantized to x.dtype first when quantized, as in the
+    reference), and each token's output is the gate-weighted sum of its
+    kept choices, a dropped one adding zero.  The sum runs over the k
+    choices in order, which is the reference's scatter-add over the
+    token ids.  Plain torch on every device."""
+    B, S, D = x.shape
+    r = moe_route(params, x, top_k=top_k, capacity_factor=capacity_factor)
+    E, C = params["router_w"].shape[-1], r.capacity
+    rows = torch.arange(B, device=x.device)[:, None]
+    tok = torch.arange(S, device=x.device).repeat_interleave(top_k)
+    # dropped pairs all land on the extra row E·C, which is cut off
+    buf = x.new_zeros((B, E * C + 1, D))
+    buf[rows, r.slot] = x[:, tok]
+    xe = buf[:, :-1].reshape(B, E, C, D).transpose(0, 1).reshape(E, B * C, D)
+    h = F.silu(torch.bmm(xe, _expert_weight(params["w_gate"], x.dtype)))
+    h = h * torch.bmm(xe, _expert_weight(params["w_up"], x.dtype))
+    out = torch.bmm(h, _expert_weight(params["w_down"], x.dtype))
+    out = out.reshape(E, B, C, D).transpose(0, 1).reshape(B, E * C, D)
+    out = torch.cat([out, out.new_zeros((B, 1, D))], dim=1)
+    weighted = out[rows, r.slot] * r.top_vals.reshape(B, -1, 1).to(out.dtype)
+    return weighted.reshape(B, S, top_k, D).sum(2)
 
 
 # ---------------------------------------------------------------------------

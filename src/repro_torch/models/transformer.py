@@ -1,5 +1,5 @@
-"""Decoder stack (port of the dense, ssm and hybrid branches of
-`repro.models.transformer`): pre-norm attention + MLP blocks, RWKV6
+"""Decoder stack (port of the dense, moe, ssm and hybrid branches of
+`repro.models.transformer`): pre-norm attention + MLP (or MoE) blocks, RWKV6
 time-mix + channel-mix blocks (`models/rwkv6.py`), or hymba's hybrid
 blocks, where a selective-SSM mixer (`models/ssm.py`) runs beside
 attention on the same normed input and the two outputs are averaged.
@@ -11,8 +11,10 @@ global layers) attends over `cfg.window` tokens on its local layers and
 over the whole context on its global ones: the loop passes the window
 per layer where the reference scans a traced `is_global` flag.  A
 meta-token arch (hymba) prepends its learned prefix to every sequence
-and strips it again before the LM head.  The MoE, VLM and
-encoder-decoder families are not ported yet (ROADMAP A15) and raise.
+and strips it again before the LM head.  An MoE arch (mixtral, dbrx,
+kimi-k2) runs `layers.moe` in place of the MLP, with the capacity factor
+`Runtime.moe_capacity`.  The VLM and encoder-decoder families are not
+ported yet (ROADMAP A15) and raise.
 """
 from __future__ import annotations
 
@@ -25,19 +27,20 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import rwkv6, ssm
 from repro_torch.models.layers import (ParamInit, embed_lookup,
-                                       init_embedding, init_mlp, layer_slice,
-                                       mlp, rms_norm)
+                                       init_embedding, init_mlp, init_moe,
+                                       layer_slice, mlp, moe, rms_norm)
 
 
 @dataclasses.dataclass(frozen=True)
 class Runtime:
     activ_dtype: Any = torch.float32
     attn_impl: str = "auto"          # flash attention dispatch
+    moe_capacity: float = 1.25
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the configurations this slice of the port leaves out."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
             "(ROADMAP A15, other families)")
@@ -67,7 +70,10 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
         if cfg.family == "hybrid":
             ssm.init_ssm(lb.scope("ssm"), cfg)
         lb.param("ln2", (cfg.d_model,), init="zeros")
-        init_mlp(lb.scope("mlp"), cfg.d_model, cfg.d_ff, cfg.gated_mlp)
+        if cfg.is_moe:
+            init_moe(lb.scope("moe"), cfg.d_model, cfg.d_ff, cfg.n_experts)
+        else:
+            init_mlp(lb.scope("mlp"), cfg.d_model, cfg.d_ff, cfg.gated_mlp)
     b.params["layers"] = lb.params
     b.param("final_norm", (cfg.d_model,), init="zeros")
     if not cfg.tie_embeddings:
@@ -97,6 +103,17 @@ def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 def hybrid_mix(aout: torch.Tensor, sout: torch.Tensor) -> torch.Tensor:
     """A hybrid block's attention and SSM outputs, averaged."""
     return (aout + sout) * 0.5
+
+
+def ffn(pl_, cfg: ModelConfig, h: torch.Tensor, rt: Runtime, *,
+        impl: str = "auto") -> torch.Tensor:
+    """A block's feed-forward on its normed input h [B, S, D]: the MoE of
+    an MoE arch, called on h's own [B, S] (its capacity depends on S),
+    else the MLP (impl as `layers.dense` takes it)."""
+    if cfg.is_moe:
+        return moe(pl_["moe"], h, top_k=cfg.top_k,
+                   capacity_factor=rt.moe_capacity)
+    return mlp(pl_["mlp"], h, cfg.gated_mlp, impl=impl)
 
 
 def lm_head_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -142,7 +159,7 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                 aout = hybrid_mix(aout, sout)
             x = x + aout
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
-            x = x + mlp(pl_["mlp"], h, cfg.gated_mlp, impl="ref")
+            x = x + ffn(pl_, cfg, h, rt, impl="ref")
     # strip the meta-token prefix before the LM head
     x = x[:, x.shape[1] - batch["tokens"].shape[1]:]
     return lm_head_logits(params, cfg, x)

@@ -34,7 +34,9 @@ acceptance counts).  Sliding-window archs (``arch="gemma3-12b"``) are
 served on every path, their local layers from window rings, and so is
 the hybrid family (``arch="hymba-1.5b"``: a selective-SSM mixer beside
 attention over window rings, a 128-token meta prefix, per-slot SSM
-state; speculation refused, as for RWKV6).  A tiered
+state; speculation refused, as for RWKV6), and the MoE family
+(``arch="mixtral-8x7b"``: capacity-based top-2 dispatch over 8 experts,
+W4A16 expert weights dequantized per call, as in the reference).  A tiered
 shared pool (``EngineConfig(hot_pages=...)``) keeps only its hot tier on
 the device and stages the rest through a host capacity store, with a
 queue-ahead prefetch (``ServerConfig.tier_prefetch``); `RequestOutput`
@@ -44,7 +46,7 @@ step N+1 before collecting step N, so the host's emission and
 bookkeeping run while the card computes; the tokens are the synchronous
 schedule's.  Configurations the port does not serve yet raise
 NotImplementedError at construction, naming their ROADMAP item: (through
-the engine) the MoE, VLM and encoder-decoder families.
+the engine) the VLM and encoder-decoder families.
 """
 from __future__ import annotations
 

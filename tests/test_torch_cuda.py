@@ -553,7 +553,7 @@ def test_quant_gemv_expert_batched_weight_raises(cuda_device):
     w = torch.randn(2, 64, 32, device=cuda_device)
     qw = quantize_weight(w, "w8a8")
     tqg.launches.reset()
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(NotImplementedError, match="ROADMAP B"):
         tqg.quant_gemv(torch.randn(4, 64, device=cuda_device), qw)
     assert tqg.launches.value == 0
 

@@ -162,10 +162,10 @@ def test_launch_serve_use_dse_refuses_partitions_over_a_ring(capsys):
 
 
 def test_launch_serve_use_dse_refuses_a_pick_it_cannot_serve(capsys):
-    """mixtral-8x7b's pick needs the MoE family: exit 2 naming the item
+    """pixtral-12b's pick needs the VLM family: exit 2 naming the item
     that ports it."""
     with pytest.raises(SystemExit) as exc:
-        serve(["--arch", "mixtral-8x7b", "--use-dse", "--reduced",
+        serve(["--arch", "pixtral-12b", "--use-dse", "--reduced",
                "--device", "cpu"])
     assert exc.value.code == 2
     assert "ROADMAP A15" in capsys.readouterr().err

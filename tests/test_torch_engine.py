@@ -102,7 +102,9 @@ def _trace(arch, kv_dtype):
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "llama3.1-8b",
                                   "gemma3-12b", "hymba-1.5b", "qwen1.5-4b",
-                                  "qwen2.5-32b", "opt-30b", "llama3.1-70b"])
+                                  "qwen2.5-32b", "opt-30b", "llama3.1-70b",
+                                  "mixtral-8x7b", "dbrx-132b",
+                                  "kimi-k2-1t-a32b"])
 def test_engine_trace_matches_reference_f32(arch):
     errs, jc, tc = _trace(arch, "float32")
     assert max(errs) < 1e-4, errs

@@ -163,12 +163,14 @@ def test_disaggregated_token_identity(kv_quant, hot_pages, overlap,
     _conserved(servers)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-12b", "rwkv6-3b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["gemma3-12b", "rwkv6-3b", "hymba-1.5b",
+                                  "mixtral-8x7b"])
 def test_disaggregated_window_and_recurrent_archs(arch):
     """Window rings (ring pages + `page_pos_w`), RWKV6 state rows and
     hymba's (ring and global pages, SSM state and conv tail, a length
-    that counts the meta tokens) migrate: the router serves one server's
-    tokens exactly."""
+    that counts the meta tokens) migrate, and mixtral's pages (its MoE
+    runs on the prefill replica's chunks as on one server's): the router
+    serves one server's tokens exactly."""
     vocab = _weights(arch)[2].vocab_size
     rng = np.random.default_rng(1)
     prompts = [rng.integers(1, vocab, k).tolist() for k in (5, 90, 30)]

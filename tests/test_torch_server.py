@@ -177,11 +177,11 @@ def test_abort_mid_prefill_frees_the_slot():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: KVNANDServer(ServerConfig(arch="mixtral-8x7b", reduced=True,
+    lambda: KVNANDServer(ServerConfig(arch="pixtral-12b", reduced=True,
                                       device="cpu")),
     lambda: KVNANDEngine(tget("qwen1.5-0.5b").reduced(), mesh=object(),
                          device="cpu"),
-], ids=["hybrid_arch", "mesh"])
+], ids=["vlm_arch", "mesh"])
 def test_unported_configurations_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make()
