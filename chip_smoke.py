@@ -22,6 +22,13 @@
     python3 chip_smoke.py --replicas         # the build and phase 20 (M1, multi-replica serving) only
     python3 chip_smoke.py --hybrid           # the build and phase 21 (Y1, hymba-1.5b) only
     python3 chip_smoke.py --moe              # the build and phase 22 (E1, mixtral-8x7b) only
+    python3 chip_smoke.py --vlm              # the build and phase 23 (P1, pixtral-12b) only
+    python3 chip_smoke.py --audio            # the build and phase 24 (W1, whisper-base) only
+
+A call that runs one model's phase alone (--dse, --window, --replicas,
+--hybrid, --moe, --vlm) runs that model at full depth; the default run
+cuts D1 / V1 / M1, G1, Y1 and E1 in depth (never in width) to fit every
+phase into its time limit.
 
 Phases (each one fails the run when it fails):
 
@@ -169,7 +176,8 @@ Phases (each one fails the run when it fails):
             dh 128, kv8, B=4 x 128 tokens) the timed group held against
             its plain version and the all-heads launch, then timed beside
             the latter;
-14. D1      full-width llama2-7b cut to 8 of its 32 layers (LLAMA2_LAYERS;
+14. D1      full-width llama2-7b, in the default run cut to 8 of its 32
+            layers (LLAMA2_LAYERS;
             d_model 4096, 32 heads x 128, d_ff 11008; random f32 weights
             from seed 0) under the
             design-space search's pick at max_context 128 (asserted:
@@ -183,7 +191,8 @@ Phases (each one fails the run when it fails):
 15. V1      D1's stripe deployment with speculation_k = 4 (prompt-lookup
             draft-and-verify): the same tokens as D1's sequential run, at
             least one verify step, and the acceptance counts printed;
-16. G1      full-width gemma3-12b cut to 12 of its 48 layers (GEMMA_LAYERS:
+16. G1      full-width gemma3-12b, in the default run cut to 12 of its 48
+            layers (GEMMA_LAYERS:
             10 local over a 1024-token window in ring-recycled pages, 2
             global; d_model 3840, 16 heads (8 kv) x 256, d_ff 15360, vocab
             262144; 15 GB of random f32 weights from seed 0, drawn after
@@ -278,8 +287,8 @@ Phases (each one fails the run when it fails):
             the migration pump's host wall, the wall, peak memory and the
             card printed.  `--replicas` runs the build and this phase on
             freshly drawn weights;
-21. Y1      full-width hymba-1.5b, the hybrid family, cut to 24 of its 32
-            layers (HYMBA_LAYERS: 23 local over a 1024-token window in
+21. Y1      full-width hymba-1.5b, the hybrid family, in the default run
+            cut to 24 of its 32 layers (HYMBA_LAYERS: 23 local over a 1024-token window in
             ring-recycled pages, global 15; d_model 1600, 25 heads (5 kv, a head group of 5) x
             64, d_ff 5504, vocab 32001 padded to 32256, an untied LM
             head; a selective-SSM mixer (state 16) beside attention in
@@ -324,7 +333,8 @@ Phases (each one fails the run when it fails):
             the bound.  Launch counts, walls and peak memory printed
             beside the card.  `--hybrid` runs the build and this phase
             only;
-22. E1      full-width mixtral-8x7b, the MoE family (32 layers, d_model
+22. E1      full-width mixtral-8x7b, the MoE family (32 layers, in the
+            default run cut to 16 (MIXTRAL_LAYERS), d_model
             4096, 32 heads over 8 kv heads x 128 (G = 4), 8 experts,
             top-2, d_ff 14336 an expert, vocab 32000, an untied LM head,
             rope theta 1e4) at W4A16: random weights built one layer at a
@@ -370,7 +380,55 @@ Phases (each one fails the run when it fails):
             `torch.cuda.set_sync_debug_mode("error")` must not
             synchronize.  Launch counts, walls and peak memory printed
             beside the card.
-            `--moe` runs the build and this phase only.
+            `--moe` runs the build and this phase only;
+23. P1      full-width pixtral-12b, the VLM family, at full depth (40
+            layers, d_model 5120, 32 heads over 8 kv x 160 (G = 4), d_ff
+            14336, vocab 131072, an untied LM head, rope theta 1e6; 51 GB
+            of random f32 weights from seed 0, drawn after E1's are
+            freed).  Kernels at P1's shapes against their plain versions:
+            B1 and B2 (16- and 64-token pages over PIXTRAL_CTX tokens, f32
+            and bf16, all heads and a KVNAND-D group), B4 (32 / 8 heads x
+            160, causal, 320 and 600 positions), B3 (W4A16 at wo, gate/up
+            and down, M 4 and 64), then timed.  Golden: 256 patch
+            embeddings before a 64-token prompt, one-shot prefill (B4 =
+            40, the slot's length counting the patches) and 8 decode steps
+            (B1 = 8 x 40) against the plain forward over the same patches
+            within GOLDEN_TOL, every argmax equal.  Servers (4 slots,
+            max_context 1024, 64-token chunks, 6 greedy prompts of 5-600
+            tokens, two behind a 64-token prefix, x 16, f32 pages of 16;
+            the schedulers feed no patches, as the reference's): stripe
+            (B1 = decode steps x 40, the teacher-forced check with the
+            argmax), shared (B2, the prefix cache hitting the shared
+            prefix), splice (B4 = admits x 40) and KVNAND-D (B1 = steps x
+            40 x 8), each serving the stripe run's tokens or parting only
+            at a near tie (LOGIT_GAP_TOL).  Then the f32 tree is freed and
+            the design-space search's pick (asserted: compact, 64-token
+            bf16 pages, W4A16) served on W4A16 weights built one layer at
+            a time: B3 = 4 x 40 per decode step and chunk, B1 = steps x
+            40, logprobs against the plain forward within
+            QUANT_LOGPROB_TOL, and the prompts of at most
+            PIXTRAL_CPU_PROMPT tokens prefilled on the card and on the
+            card machine's CPU computing B3's function within
+            PIXTRAL_PREFILL_TOL, with Y1's two controls.  `--vlm` runs the
+            build and this phase only;
+24. W1      full-width whisper-base, the encoder-decoder family, at full
+            depth (6 encoder + 6 decoder layers, d_model 512, 8 heads x 64,
+            d_ff 2048 GELU, vocab 51865, tied; random f32 weights from seed
+            0).  Kernels against their plain versions: B1/B2 over the
+            decoder's self-attention pool (G = 1, dh 64), B1 over the
+            encoder's 96 pages of 16 (WHISPER_FRAMES = 1536, whisper's
+            1500 rounded up to whole pages) in one and four partitions, B4
+            non-causal on the encoder (1536 x 1536) and the
+            cross-attention (40 and 1 rows against 1536), each under the
+            host's plan and S forced to 1 and 8, f32 and bf16; then timed.
+            Golden, compact and KVNAND-D, f32 and bf16 K/V: 1536 frames
+            and a 40-token prompt, one-shot prefill (the encoder once; B4
+            = 6 + 6 + 6) and 8 decode steps (B1 = 8 x (6 + 6), KVNAND-D 8
+            x (6 x 8 + 6)) against the plain forward over the same frames:
+            f32 within GOLDEN_TOL with every argmax equal, bf16 within
+            WHISPER_BF16_TOL.  The reference's servers cannot serve
+            whisper (ROADMAP §C), so neither do the port's: W1 is the
+            engine.  `--audio` runs the build and this phase only.
 
 It needs a CUDA card (exits non-zero without one, printing no result),
 imports nothing of JAX, and prints the card's name and power limit, a
@@ -1644,16 +1702,19 @@ def flash_kernel_phase() -> float:
     return max_abs
 
 
-def flash_bound(B, S, H, K, dh, dtype, rate) -> dict:
+def flash_bound(B, S, H, K, dh, dtype, rate, Sk=None,
+                causal=True) -> dict:
     """The least time the card could take for one causal prompt (Sq = Sk
-    = S): 4·dh FLOPs per visible (query, key) pair at the fastest exact
-    route of the input type (f32: three TF32 products at the TF32 peak;
-    bf16: the bf16 peak), against q, k, v and o moved once at the HBM
-    rate; and the same FLOPs at the f32 CUDA-core peak beside it."""
-    pairs = S * (S + 1) // 2
+    = S), or S queries against Sk keys without a mask (causal=False):
+    4·dh FLOPs per visible (query, key) pair at the fastest exact route
+    of the input type (f32: three TF32 products at the TF32 peak; bf16:
+    the bf16 peak), against q, k, v and o moved once at the HBM rate; and
+    the same FLOPs at the f32 CUDA-core peak beside it."""
+    Sk = S if Sk is None else Sk
+    pairs = S * (S + 1) // 2 if causal else S * Sk
     flops = 4 * B * H * dh * pairs
     f32 = dtype == "float32"
-    nbytes = (4 if f32 else 2) * B * S * dh * (2 * H + 2 * K)
+    nbytes = (4 if f32 else 2) * B * dh * (2 * H * S + 2 * K * Sk)
     t_ops = (3 * flops / TF32_FLOPS if f32 else flops / BF16_FLOPS) * 1e3
     t_bytes = nbytes / rate * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
@@ -1663,45 +1724,49 @@ def flash_bound(B, S, H, K, dh, dtype, rate) -> dict:
 
 
 def flash_timing_shape(label, B, S, H, K, dh, dtype, rate, flush, gen, reps,
-                       splits=()):
-    """B4 at one causal shape: the kernel under the host's plan (and, for
-    each of `splits`, with S forced), the plain version, and one SDPA call
-    in the same dtype on the same tensors (K/V expanded to H heads
+                       splits=(), Sk=None, causal=True):
+    """B4 at one shape, causal over S positions, or S queries against Sk
+    keys without a mask (causal=False: an encoder's self-attention, a
+    decoder's cross-attention): the kernel under the host's plan (and,
+    for each of `splits`, with S forced), the plain version, and one SDPA
+    call in the same dtype on the same tensors (K/V expanded to H heads
     beforehand, [B, H, S, dh] copies)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_ref)
     dt = getattr(torch, dtype)
-    q, k, v = flash_inputs(B, S, S, H, K, dh, dt, gen)
+    Sk = S if Sk is None else Sk
+    q, k, v = flash_inputs(B, S, Sk, H, K, dh, dt, gen)
     G = H // K
     qs = q.transpose(1, 2).contiguous()
     ks = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
     vs = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
-    kw = dict(causal=True, window=None, q_offset=0)
+    kw = dict(causal=causal, window=None, q_offset=0)
     plan = flash_plan(q, k, None, **kw)
     times = {
-        "ms": time_ms(lambda: flash_attention_cuda(q, k, v, causal=True),
+        "ms": time_ms(lambda: flash_attention_cuda(q, k, v, causal=causal),
                       reps, flush),
-        "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
-                            3, flush),
+        "plain_ms": time_ms(lambda: flash_attention_ref(
+            q, k, v, causal=causal), 3, flush),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True), reps, flush),
+            qs, ks, vs, is_causal=causal), reps, flush),
     }
     for split in splits:
         forced = flash_plan(q, k, split, **kw)
         times[f"S{split}_ms"] = time_ms(
-            lambda: flash_attention_cuda(q, k, v, causal=True, plan=forced),
-            reps, flush)
-    res = {"shape": label, "B": B, "S": S, "H": H, "K": K, "dh": dh,
-           "dtype": dtype, "causal": True, "split": plan.split,
-           "library": f"scaled_dot_product_attention(is_causal=True), "
+            lambda: flash_attention_cuda(q, k, v, causal=causal,
+                                         plan=forced), reps, flush)
+    res = {"shape": label, "B": B, "S": S, "Sk": Sk, "H": H, "K": K,
+           "dh": dh, "dtype": dtype, "causal": causal, "split": plan.split,
+           "library": f"scaled_dot_product_attention(is_causal={causal}), "
                       f"{dtype}",
-           **flash_bound(B, S, H, K, dh, dtype, rate)}
+           **flash_bound(B, S, H, K, dh, dtype, rate, Sk, causal)}
     for key, t in times.items():
         res[key] = statistics.median(t)
         res[f"{key}_min_max"] = [t[0], t[-1]]
-    print(f"timing B4 {label} B={B} S={S} H={H} K={K} dh={dh} {dtype} causal "
+    print(f"timing B4 {label} B={B} S={S} Sk={Sk} H={H} K={K} dh={dh} "
+          f"{dtype} {'causal' if causal else 'non-causal'} "
           f"(median [min, max]; chosen split S={plan.split}): " + " ".join(
               f"{k}={res[k]:.6f} [{t[0]:.6f}, {t[-1]:.6f}]"
               for k, t in times.items())
@@ -2239,6 +2304,18 @@ LLAMA2_CTX = 128         # --max-context at which the DSE picks KVNAND-D
 # command time with 16 layers here, 24 in G1 and 32 in Y1 on a card whose
 # host ran the launch-bound phases 1.4-1.5x slower than another's)
 LLAMA2_LAYERS = 8
+# A call that runs one model's phase alone (--dse, --window, --replicas,
+# --hybrid, --moe, --vlm) runs that model at full depth; only the default
+# run, which must fit every phase into its limit, takes the depth cuts
+# (LLAMA2_LAYERS, GEMMA_LAYERS, HYMBA_LAYERS, MIXTRAL_LAYERS).  Widths are
+# never cut.
+FULL_DEPTH = False
+
+
+def depth(cut: int, full: int) -> int:
+    """A model's layer count in this run: `full` in a single-phase call,
+    `cut` in the default run."""
+    return full if FULL_DEPTH else cut
 
 
 def head_range_phase() -> dict:
@@ -2497,7 +2574,7 @@ def llama2_cfg():
     check(cfg.n_layers == 32 and cfg.d_model == 4096 and cfg.n_heads == 32
           and cfg.n_kv_heads == 32 and cfg.d_head == 128
           and cfg.d_ff == 11008, "not the full-width llama2-7b")
-    return dataclasses.replace(cfg, n_layers=LLAMA2_LAYERS)
+    return dataclasses.replace(cfg, n_layers=depth(LLAMA2_LAYERS, 32))
 
 
 def build_llama2_server(params=None, speculation_k=None, **over):
@@ -3089,7 +3166,7 @@ def gemma_params():
           and cfg.d_ff == 15360 and cfg.window == 1024
           and cfg.global_every == 6 and cfg.vocab_size == 262144,
           "not the full-width gemma3-12b")
-    cfg = dataclasses.replace(cfg, n_layers=GEMMA_LAYERS)
+    cfg = dataclasses.replace(cfg, n_layers=depth(GEMMA_LAYERS, 48))
     t0 = time.perf_counter()
     params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
@@ -3913,7 +3990,7 @@ def hymba_params():
           and cfg.window == 1024 and cfg.n_meta_tokens == 128
           and [i for i in range(32) if cfg.is_global_layer(i)] == [15, 31],
           "not the full-width hymba-1.5b")
-    cfg = dataclasses.replace(cfg, n_layers=HYMBA_LAYERS)
+    cfg = dataclasses.replace(cfg, n_layers=depth(HYMBA_LAYERS, 32))
     t0 = time.perf_counter()
     params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
@@ -4328,6 +4405,9 @@ def hybrid_phases(rate) -> dict:
 # ---------------------------------------------------------------------------
 
 MIXTRAL_CTX = 1024       # max_context of E1's servers
+# E1's depth in the default run, cut from 32 to make room for P1 and W1
+# (see LLAMA2_LAYERS); `--moe` runs all 32
+MIXTRAL_LAYERS = 16
 MIXTRAL_NEW = 16         # new tokens a request
 # B3's launches a mixtral layer: wo only (wq/wk/wv are dequantized per
 # head group and the experts by `moe`, as in the reference)
@@ -4394,13 +4474,14 @@ def check_mixtral_widths(cfg):
           and cfg.rope_theta == 1e4, "not the full-width mixtral-8x7b")
 
 
-def mixtral_params(cfg):
+def w4a16_params(cfg, tag):
     """Random W4A16 weights of `cfg`, built one layer at a time on the
     device: the port's `init_model` on a one-layer copy of the config,
     seeded with the layer's index, `quantize_params` on it, and its codes
     and scales copied into preallocated stacked leaves.  The float32
     transient is one layer's; the embedding, LM head and norms (layer 0's
-    draw) stay float32, the router too."""
+    draw) stay float32, an MoE router too.  Returns (params, build
+    info)."""
     import dataclasses
     import torch
     from repro_torch.core.quant import QuantizedWeight, quantize_params
@@ -4440,13 +4521,6 @@ def mixtral_params(cfg):
         del tree
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    moe_p = params["layers"]["moe"]
-    check(all(isinstance(moe_p[k], QuantizedWeight)
-              and tuple(moe_p[k].q.shape[:2]) == (L, cfg.n_experts)
-              for k in ("w_gate", "w_up", "w_down"))
-          and isinstance(moe_p["router_w"], torch.Tensor)
-          and moe_p["router_w"].dtype == torch.float32,
-          "E1: the experts are not W4A16 stacks beside a float router")
     n = code = 0
     for leaf in _leaves(params):
         if isinstance(leaf, QuantizedWeight):
@@ -4456,7 +4530,7 @@ def mixtral_params(cfg):
         else:
             n += leaf.numel()
             code += leaf.numel() * leaf.element_size()
-    print(f"E1: {cfg.name} W4A16 weights, {n / 1e9:.3f}B params "
+    print(f"{tag}: {cfg.name} W4A16 weights, {n / 1e9:.3f}B params "
           f"(config: {cfg.param_count() / 1e9:.3f}B), {code / 1e9:.2f} GB "
           f"of codes, scales and float leaves, built layer by layer on "
           f"{dev} in {wall:.2f} s")
@@ -4871,15 +4945,26 @@ def mixtral_server_runs(cfg, params, control) -> dict:
 
 def moe_phases(rate) -> dict:
     """Phase 22, E1 (see the module docstring)."""
+    import dataclasses
     import gc
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantizedWeight
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg = get_config("mixtral-8x7b")
     check_mixtral_widths(cfg)
-    params, build = mixtral_params(cfg)
+    cfg = dataclasses.replace(cfg, n_layers=depth(MIXTRAL_LAYERS, 32))
+    params, build = w4a16_params(cfg, "E1")
+    moe_p = params["layers"]["moe"]
+    check(all(isinstance(moe_p[k], QuantizedWeight)
+              and tuple(moe_p[k].q.shape[:2]) == (cfg.n_layers,
+                                                  cfg.n_experts)
+              for k in ("w_gate", "w_up", "w_down"))
+          and isinstance(moe_p["router_w"], torch.Tensor)
+          and moe_p["router_w"].dtype == torch.float32,
+          "E1: the experts are not W4A16 stacks beside a float router")
     res = {"build": build,
            "build_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "kernels": mixtral_kernel_phase(cfg),
@@ -4909,6 +4994,568 @@ def moe_phases(rate) -> dict:
           f"{res['peak_memory_gb']:.2f} GB; walls (s): "
           + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
           + f"; on {smi_line()}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 23: P1, full-width pixtral-12b (the VLM family)
+# ---------------------------------------------------------------------------
+
+PIXTRAL_CTX = 1024       # max_context of P1's servers (the DSE: compact,
+#                          W4A16, 64-token pages, bf16 KV from 256 to 2048)
+PIXTRAL_NEW = 16         # new tokens a request
+# the stub frontend's patch prefix (`Runtime.vlm_patches`) and the golden
+# run's prompt behind it
+PIXTRAL_PATCHES = 256
+PIXTRAL_GOLDEN_PROMPT = 64
+# B3's launches a pixtral layer at W4A16: wo, gate, up, down (wq/wk/wv
+# are dequantized, as in the reference; the LM head is float)
+PIXTRAL_B3_PER_LAYER = 4
+# B3 at pixtral's projection shapes: (label, D, F)
+PIXTRAL_GEMV_SHAPES = (("wo", 5120, 5120), ("gate/up", 5120, 14336),
+                       ("down", 14336, 5120))
+# the longest prompt the CPU side of the DSE check prefills (a 12.8 B
+# model on 8 cores, B3's function in float64)
+PIXTRAL_CPU_PROMPT = 17
+# The DSE pick's prefill logits, the card against the CPU computing B3's
+# function (`b3_function`), ||card - CPU|| / ||CPU|| at the last token.
+# pixtral's random model carries far less of the bf16 rounding of x than
+# hymba's: on an H100 (PERF.md, P1) B3 reads 5.26e-3-5.31e-3, the card
+# computing B3's function itself 5.27e-3-5.56e-3 (so the gap is the
+# card's float32 order, not B3), and the plain version, which rounds each
+# product to bf16, 9.59e-3-9.70e-3.  The bound lies between the two, and
+# the run checks that the plain version reads above it, as Y1's does
+PIXTRAL_PREFILL_TOL = 7.5e-3
+
+
+def pixtral_prompts(V):
+    """6 prompts of 5-600 tokens; the first and the fifth share a 64-token
+    prefix (one chunk, four pages), which the shared pool's prefix cache
+    hits (as E1's)."""
+    import numpy as np
+    rng = np.random.default_rng(10)
+    prefix = rng.integers(0, V, 64).tolist()
+    return [prefix + rng.integers(0, V, 40).tolist(),
+            rng.integers(0, V, 5).tolist(),
+            rng.integers(0, V, 600).tolist(),
+            rng.integers(0, V, 200).tolist(),
+            prefix + rng.integers(0, V, 300).tolist(),
+            rng.integers(0, V, 17).tolist()]
+
+
+def check_pixtral_widths(cfg):
+    check(cfg.family == "vlm" and cfg.n_layers == 40 and cfg.d_model == 5120
+          and cfg.n_heads == 32 and cfg.n_kv_heads == 8
+          and cfg.d_head == 160 and cfg.group_size == 4
+          and cfg.d_ff == 14336 and cfg.vocab_size == 131072
+          and not cfg.tie_embeddings and cfg.rope_theta == 1e6,
+          "not the full-width pixtral-12b")
+
+
+def pixtral_params(cfg):
+    """Full-width pixtral-12b at full depth, random float32 weights on the
+    card, seed 0."""
+    import torch
+    from repro_torch.models.registry import Model
+    t0 = time.perf_counter()
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    print(f"P1: {cfg.name} weights, {n / 1e9:.3f}B params ({4 * n / 1e9:.2f}"
+          f" GB float32), drawn on the card in {time.perf_counter() - t0:.2f}"
+          " s")
+    return params, n
+
+
+def pixtral_kernel_phase(cfg) -> dict:
+    """B1, B2, B3 and B4 at the shapes P1's main path gives them: B1/B2 at
+    4 slots x 8 kv heads x G = 4 queries x dh 160, pages of 16 and 64
+    tokens (the DSE's) over PIXTRAL_CTX tokens, ragged lengths, f32 and
+    bf16; all heads and a KVNAND-D group (the first kv head, the last).
+    B4: the golden admit (256 patches + 64 tokens) and the 600-token
+    prompt, 32 / 8 heads x 160, causal, f32.  B3: W4A16 at pixtral's
+    projections, M = 4 (a decode step) and 64 (a chunk)."""
+    return arch_kernel_phase(
+        "P1", cfg, 32, (69, 320, 616, PIXTRAL_CTX - 1), (16, 64),
+        PIXTRAL_CTX, False, ("f32", "bf16"),
+        ((PIXTRAL_PATCHES + PIXTRAL_GOLDEN_PROMPT, (None,)), (600, (None,))),
+        ((4, 64), PIXTRAL_GEMV_SHAPES),
+        head_groups=(None, 0, cfg.n_kv_heads - 1))
+
+
+def pixtral_timing_phase(rate) -> dict:
+    """Each kernel timed at P1's serving shapes: B1 and B2 over a decode
+    step's pool (4 slots x 8 kv heads x G = 4, dh 160, PIXTRAL_CTX tokens
+    of 16-token pages), B4 on the golden admit (256 patches + 64 tokens),
+    B3 at a decode step's M = 4 over each projection shape."""
+    return arch_timing_phase(
+        rate, 33, [("pixtral decode", 4, 8, 4, PIXTRAL_CTX // 16, 16, 160)],
+        ("pixtral admit", PIXTRAL_PATCHES + PIXTRAL_GOLDEN_PROMPT, 32, 8,
+         160),
+        [(f"pixtral {label}, serving", 4, D, F)
+         for label, D, F in PIXTRAL_GEMV_SHAPES])
+
+
+def pixtral_golden_phase(cfg, params):
+    """P1 golden: 256 patch embeddings (standard normal, as the
+    reference's golden test draws them) before a 64-token prompt, one-shot
+    prefill into an f32 stripe pool (B4 = 40), then 8 greedy decode steps
+    (B1 = 8 x 40); every step's logits against the port's plain full
+    forward on the card over the same patches, the prompt and the emitted
+    tokens, within GOLDEN_TOL of max |logits|, the same argmax at every
+    step.  The slot's length counts the patches."""
+    import torch
+    from repro_torch.configs import EngineConfig
+    from repro_torch.core.engine import KVNANDEngine
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.paged_attention import launches
+    from repro_torch.models.registry import Model
+    t0 = time.perf_counter()
+    eng = KVNANDEngine(cfg, EngineConfig(page_tokens=16,
+                                         uniform_lengths=False,
+                                         kv_dtype="float32"), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    prompt = pixtral_prompts(cfg.vocab_size)[2][:PIXTRAL_GOLDEN_PROMPT]
+    n, P, V = len(prompt), PIXTRAL_PATCHES, cfg.vocab_size
+    patches = torch.randn(1, P, cfg.d_model, generator=gen, device="cuda")
+    with torch.no_grad():
+        flash_attention.launches.reset()
+        launches.reset()
+        lg, cache = eng.prefill(params, {
+            "tokens": torch.tensor([prompt], device="cuda"),
+            "patches": patches}, PIXTRAL_CTX)
+        b4 = flash_attention.launches.value
+        check(int(cache.lengths[0]) == P + n,
+              "P1 golden: the slot's length does not count the patches")
+        rows, out = [lg[0, :V]], [int(lg[0, :V].argmax())]
+        for _ in range(8):
+            lg, _ = eng.decode_step(params, cache, torch.tensor(
+                [[out[-1]]], device="cuda"))
+            rows.append(lg[0, :V])
+            out.append(int(lg[0, :V].argmax()))
+        b1 = launches.value
+        got = torch.stack(rows).float()
+        full = Model(cfg).forward(params, {
+            "tokens": torch.tensor([prompt + out[:8]], device="cuda"),
+            "patches": patches})[0, n - 1:, :V].float()
+    torch.cuda.synchronize()
+    err = float((got - full).abs().max() / full.abs().max())
+    want = full.argmax(-1).tolist()
+    wall = time.perf_counter() - t0
+    print(f"P1 golden: {P} patches + {n}-token prompt, one-shot prefill + 8 "
+          f"decode steps, f32 stripe pool: max |logits - plain forward| / "
+          f"max |logits| = {err:.3e} (tol {GOLDEN_TOL:.0e}); argmax {out} vs "
+          f"{want}; B4 launches {b4}, B1 launches {b1}; {wall:.3f} s")
+    check(b4 == cfg.n_layers and b1 == 8 * cfg.n_layers,
+          f"P1 golden: B4 {b4} != {cfg.n_layers} or B1 {b1} != 8 x "
+          f"{cfg.n_layers}")
+    check(err <= GOLDEN_TOL, "P1 golden: logits disagree with the plain "
+          "forward")
+    check(out == want, "P1 golden: a greedy token differs from the plain "
+          "forward's")
+    del eng, cache, full
+    torch.cuda.empty_cache()
+    return {"rel_err": err, "tokens": out, "launches_B1": b1,
+            "launches_B4": b4, "wall_s": wall}
+
+
+def pixtral_dse_engine_config():
+    """The design-space search's pick at PIXTRAL_CTX, asserted compact,
+    64-token pages, W4A16, bf16 pages without kv quantization, one
+    partition, served as it is (its page size, ragged appends)."""
+    from repro_torch.configs import EngineConfig
+    from repro_torch.core.dse import recommend_engine_config
+    pick = recommend_engine_config("pixtral-12b", PIXTRAL_CTX)
+    check(pick.variant == "compact" and not pick.hg_pipeline
+          and pick.page_tokens == 64 and pick.quant == "w4a16"
+          and pick.kv_quant == "none" and pick.kv_dtype == "bfloat16"
+          and pick.attn_partitions == 1,
+          f"the DSE's pixtral-12b pick at {PIXTRAL_CTX} is not compact, "
+          f"T=64, w4a16, bf16 pages, one partition: {pick}")
+    return EngineConfig(**{**pick.__dict__, "uniform_lengths": False})
+
+
+def build_pixtral_server(cfg, params, eng, scheduler="interleaved",
+                         device="cuda"):
+    from repro_torch.serving.api import KVNANDServer, ServerConfig
+    return KVNANDServer(ServerConfig(
+        arch="pixtral-12b", engine=eng, scheduler=scheduler, batch_slots=4,
+        max_context=PIXTRAL_CTX, prefill_chunk_tokens=64, device=device),
+        cfg=cfg, params=params)
+
+
+def pixtral_server_runs(cfg, params) -> dict:
+    """P1's f32 servers (16-token pages): stripe (B1 = decode steps x 40,
+    every token checked against the plain forward), shared (B2, the
+    prefix cache hits the shared 64-token prefix), splice (B4 = admits x
+    40) and KVNAND-D (B1 = steps x 40 x 8); the last three serve the
+    stripe run's tokens or part only at a near tie (LOGIT_GAP_TOL)."""
+    from repro_torch.configs import EngineConfig
+    L, K = cfg.n_layers, cfg.n_kv_heads
+    prompts = pixtral_prompts(cfg.vocab_size)
+    zero = {k: 0 for k in ("B1", "B2", "B3", "B4", "B5")}
+    res, runs = {}, {}
+    for key, label, over, sched, want in (
+            ("stripe", "P1 stripe f32", {}, "interleaved",
+             lambda s, a: {"B1": s * L}),
+            ("shared", "P1 shared f32", {"shared_pool": True},
+             "interleaved", lambda s, a: {"B2": s * L}),
+            ("splice", "P1 splice f32", {}, "splice",
+             lambda s, a: {"B1": s * L, "B4": a * L}),
+            ("discrete", "P1 discrete (KVNAND-D) f32",
+             {"variant": "discrete"}, "interleaved",
+             lambda s, a: {"B1": s * L * K})):
+        eng = EngineConfig(page_tokens=16, uniform_lengths=False,
+                           kv_dtype="float32", **over)
+        srv = build_pixtral_server(cfg, params, eng, sched)
+        outs, counts, steps, wall, tokens = serve(label, srv, prompts,
+                                                  PIXTRAL_NEW)
+        expect = {**zero, **want(steps, counts["admits"])}
+        check(steps > 0 and counts == {**counts, **expect},
+              f"{label}: launches {counts} != {expect} ({steps} decode "
+              f"steps, {counts['admits']} admits x {L} layers)")
+        runs[key] = outs
+        res[key] = {"decode_steps": steps, "admits": counts["admits"],
+                    "prefill_chunks": counts["prefill_chunks"],
+                    "launches": {k: counts[k] for k in zero},
+                    "wall_s": wall, "tokens": tokens}
+        if key == "stripe":
+            lp, gap = teacher_forced_check(label, srv, outs)
+            res[key].update(logprob_err_vs_plain_forward=lp, max_gap=gap)
+        if key == "shared":
+            b = srv._batcher
+            hits = srv.stats["prefix_hit_pages"]
+            print(f"{label}: {hits} prompt pages from the prefix cache")
+            check(b.prefix_cache is not None and hits > 0,
+                  f"{label}: the prefix cache did not hit")
+            b.alloc.check()
+            check(b.alloc.live_count == b.prefix_cache.evictable_pages(),
+                  f"{label}: pages other than the prefix cache's still "
+                  "mapped after the drain")
+            res[key]["prefix_hit_pages"] = hits
+        del srv
+    for key in ("shared", "splice", "discrete"):
+        same, before, gap = near_tie_check(
+            f"P1 {key} vs stripe", runs[key], runs["stripe"], LOGIT_GAP_TOL)
+        res[key].update(same_as_reference=same, logprob_err=before,
+                        max_gap_at_divergence=gap)
+    return res
+
+
+def pixtral_dse_run(cfg) -> dict:
+    """The DSE's pick on W4A16 weights built layer by layer on the card
+    (after the f32 tree is freed): stripe, 64-token bf16 pages, B3 = 4 x
+    40 per decode step and prefill chunk, B1 = steps x 40; served
+    logprobs against the plain forward within QUANT_LOGPROB_TOL; the
+    prompts of at most PIXTRAL_CPU_PROMPT tokens prefilled on the card and
+    on the card machine's CPU computing B3's function, within
+    PIXTRAL_PREFILL_TOL, beside the two controls of Y1."""
+    import gc
+    import torch
+    L = cfg.n_layers
+    qparams, build = w4a16_params(cfg, "P1")
+    eng = pixtral_dse_engine_config()
+    srv = build_pixtral_server(cfg, qparams, eng)
+    label = "P1 DSE pick (w4a16, bf16 pages, T=64)"
+    prompts = pixtral_prompts(cfg.vocab_size)
+    outs, counts, steps, wall, tokens = serve(label, srv, prompts,
+                                              PIXTRAL_NEW)
+    chunks = counts["prefill_chunks"]
+    b3 = PIXTRAL_B3_PER_LAYER * L * (steps + chunks)
+    check(steps > 0 and counts["B3"] == b3 and counts["B1"] == steps * L
+          and all(counts[k] == 0 for k in ("B2", "B4", "B5")),
+          f"{label}: launches {counts} != (B3 {PIXTRAL_B3_PER_LAYER} x {L} "
+          f"x ({steps} decode steps + {chunks} chunks), B1 {steps} x {L}, "
+          "B2/B4/B5 0)")
+    lp, _ = teacher_forced_check(label, srv, outs, argmax=False,
+                                 tol=QUANT_LOGPROB_TOL)
+    cpu = build_pixtral_server(cfg, tree_to(qparams, "cpu"), eng,
+                               device="cpu")
+    short = [p for p in prompts if len(p) <= PIXTRAL_CPU_PROMPT]
+    t0 = time.perf_counter()
+    with b3_function():
+        cpu_logits = [whole_prompt_logits(cpu, p) for p in short]
+    cpu_wall = time.perf_counter() - t0
+    gaps = {}
+    for key, ctx in (("B3", contextlib.nullcontext),
+                     ("function", b3_function), ("plain", plain_gemv)):
+        with ctx():
+            gaps[key] = [float((whole_prompt_logits(srv, p) - r).norm()
+                               / r.norm())
+                         for p, r in zip(short, cpu_logits)]
+    for key, what in (("B3", "B3"), ("function", "B3's function in "
+                      "float64 on the card too"), ("plain", "the plain "
+                      "version on the card")):
+        print(f"check {label}: {len(short)} prompts of <= "
+              f"{PIXTRAL_CPU_PROMPT} tokens prefilled through {what} against"
+              f" the CPU computing B3's function ({cpu_wall:.3f} s), "
+              f"||logit difference|| / ||CPU logits|| at the last token: "
+              f"{', '.join(f'{g:.4e}' for g in gaps[key])} (tol "
+              f"{PIXTRAL_PREFILL_TOL:.1e})")
+    check(max(gaps["B3"]) <= PIXTRAL_PREFILL_TOL, f"{label}: prefill "
+          "logits disagree with the CPU run")
+    check(max(gaps["plain"]) > PIXTRAL_PREFILL_TOL, f"{label}: the gate "
+          "cannot tell B3's function from the plain version's")
+    del srv, cpu, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"build": build, "decode_steps": steps, "prefill_chunks": chunks,
+            "launches": {k: counts[k] for k in ("B1", "B2", "B3", "B4",
+                                                "B5")},
+            "wall_s": wall, "tokens": tokens,
+            "logprob_err_vs_plain_forward": lp, "prefill_gaps": gaps["B3"],
+            "prefill_gaps_function_on_card": gaps["function"],
+            "prefill_gaps_plain_on_card": gaps["plain"],
+            "cpu_wall_s": cpu_wall}
+
+
+def vlm_phases(rate) -> dict:
+    """Phase 23, P1 (see the module docstring)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("pixtral-12b")
+    check_pixtral_widths(cfg)
+    params, n = pixtral_params(cfg)
+    res = {"params": n, "kernels": pixtral_kernel_phase(cfg),
+           "timing": pixtral_timing_phase(rate),
+           "golden": pixtral_golden_phase(cfg, params)}
+    res.update(pixtral_server_runs(cfg, params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["f32_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["dse"] = pixtral_dse_run(cfg)
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    zero = ("B1", "B2", "B3", "B4", "B5")
+    res["launches"] = {k: sum(r["launches"][k] for r in res.values()
+                              if isinstance(r, dict) and "launches" in r
+                              and isinstance(r["launches"], dict))
+                       for k in zero}
+    res["launches"]["B1"] += res["golden"]["launches_B1"]
+    res["launches"]["B4"] += res["golden"]["launches_B4"]
+    print(f"P1: launches on the main path {res['launches']}; peak memory "
+          f"{res['f32_peak_memory_gb']:.2f} GB (f32), "
+          f"{res['peak_memory_gb']:.2f} GB (with the W4A16 build); walls "
+          "(s): " + ", ".join(f"{k} {v['wall_s']:.3f}"
+                              for k, v in res.items()
+                              if isinstance(v, dict) and "wall_s" in v)
+          + f"; on {smi_line()}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 24: W1, full-width whisper-base (the encoder-decoder family)
+# ---------------------------------------------------------------------------
+
+# whisper's 30 s window is 1500 encoder positions; the decode step walks
+# the cross K/V as whole pages (in both packages), so W1 rounds it up to
+# 96 pages of 16 tokens
+WHISPER_FRAMES = 1536
+WHISPER_PROMPT = 40      # decoder prompt tokens of the golden runs
+WHISPER_STEPS = 8        # greedy decode steps after the prefill
+# a bf16 run's cross and self K/V are rounded to bf16 in the cache, the
+# plain forward's are not: its logits are held to the bf16 pools' kernel
+# tolerance (TOL["bf16"]), its argmax reported
+WHISPER_BF16_TOL = TOL["bf16"]
+
+
+def check_whisper_widths(cfg):
+    check(cfg.family == "audio" and cfg.is_encoder_decoder
+          and cfg.encoder_layers == 6 and cfg.n_layers == 6
+          and cfg.d_model == 512 and cfg.n_heads == 8
+          and cfg.n_kv_heads == 8 and cfg.d_head == 64 and cfg.d_ff == 2048
+          and not cfg.gated_mlp and cfg.vocab_size == 51865
+          and cfg.tie_embeddings, "not the full-width whisper-base")
+
+
+def whisper_kernel_phase(cfg) -> dict:
+    """B1, B2 and B4 at the shapes W1's main path gives them, against
+    their plain versions: B1/B2 over the decoder's self-attention pool (4
+    rows x 8 kv heads x G = 1 x dh 64, ragged, 16-token pages, f32 and
+    bf16); B1 over the encoder's 96 pages of 16 (length 1536 every row,
+    f32 and bf16, one partition and 4); B4 non-causal on the encoder
+    (1536 x 1536, 8 heads x 64) and the decoder's cross-attention
+    (Sq != Sk: 40 and 1 prompt rows against 1536 encoder positions), f32
+    and bf16, each under the host's plan and S forced to 1 and 8."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    errs = arch_kernel_phase("W1", cfg, 40, (41, 45, 49, 130), (16,), 256,
+                             False, ("f32", "bf16"), ())
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    K, dh, T = cfg.n_kv_heads, cfg.d_head, 16
+    NP, B = WHISPER_FRAMES // T, 4
+    n = 0
+    for fmt in ("f32", "bf16"):
+        q, kp, vp, base, _, _, _ = make_inputs(
+            B, K, 1, NP, T, dh, fmt, [WHISPER_FRAMES] * B, gen)
+        length = torch.full((B,), WHISPER_FRAMES, dtype=torch.int32,
+                            device="cuda")
+        for parts in (1, 4):
+            # the partitions' merged (o, m, l) against one whole walk
+            got = pa.paged_attention_partial(q, kp, vp, base, length,
+                                             partitions=parts)
+            want = pa.paged_attention_partial_ref(q, kp, vp, base, length)
+            want32 = (pa.paged_attention_partial_ref(
+                q, kp.float(), vp.float(), base, length)
+                if fmt == "bf16" else None)
+            errs["B1"] = max(errs["B1"], hold_case(
+                f"W1 kernels: B1 cross over {NP} encoder pages {fmt} "
+                f"partitions {parts}", got, want, fmt, want32))
+            n += 1
+    errs.setdefault("B4", 0.0)
+    for fmt, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for label, Sq in (("encoder", WHISPER_FRAMES),
+                          ("cross, prompt", WHISPER_PROMPT),
+                          ("cross, one row", 1)):
+            q, k, v = flash_inputs(1, Sq, WHISPER_FRAMES, cfg.n_heads, K, dh,
+                                   dt, gen)
+            want = fa.flash_attention_ref(q, k, v, causal=False)
+            for split in (None, 1, 8):
+                plan = (None if split is None else
+                        flash_plan(q, k, split, causal=False, window=None,
+                                   q_offset=0))
+                got = fa.flash_attention_cuda(q, k, v, causal=False,
+                                              plan=plan)
+                err = close_err(got, want, FLASH_TOL[fmt])
+                abs_o = float((got.float() - want.float()).abs().max())
+                print(f"W1 kernels: B4 {label} {Sq} x {WHISPER_FRAMES} "
+                      f"non-causal {cfg.n_heads}/{K} heads x {dh} {fmt} "
+                      f"split {split or 'host'}: max_abs_err {abs_o:.3e} "
+                      f"rel_err={err:.3e} tol={FLASH_TOL[fmt]:.0e}")
+                check(err <= FLASH_TOL[fmt], f"W1 kernels: B4 {label} "
+                      f"{fmt} split {split} disagrees with its plain "
+                      "version")
+                errs["B4"] = max(errs["B4"], abs_o)
+                n += 1
+    torch.cuda.synchronize()
+    print(f"W1 kernels: {n} more cases within tolerance; max_abs_err {errs}")
+    return errs
+
+
+def whisper_timing_phase(rate) -> dict:
+    """Each kernel timed at W1's shapes: B1 over the encoder's pages at a
+    decode step (4 rows x 8 kv heads x G = 1, dh 64, 96 pages of 16,
+    bf16), B4 on the encoder (1536 x 1536 non-causal) and on the
+    decoder's cross-attention (40 rows x 1536 non-causal), f32."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    NP = WHISPER_FRAMES // 16
+    return {
+        "B1": [timing_shape("whisper cross decode", 4, 8, 1, NP, 16, 64,
+                            [WHISPER_FRAMES] * 4, 0, rate, flush, gen)],
+        "B4": [flash_timing_shape("whisper encoder", 1, WHISPER_FRAMES, 8, 8,
+                                  64, "float32", rate, flush, gen, 10,
+                                  causal=False),
+               flash_timing_shape("whisper cross", 1, WHISPER_PROMPT, 8, 8,
+                                  64, "float32", rate, flush, gen, 10,
+                                  Sk=WHISPER_FRAMES, causal=False)]}
+
+
+def whisper_golden_run(cfg, params, variant, kv_dtype) -> dict:
+    """One W1 golden run: 1536 frames (standard normal) and a 40-token
+    prompt, one-shot prefill (the encoder once; B4 = 6 encoder + 6
+    decoder self + 6 cross), then 8 greedy decode steps (B1 = 8 x (6 self
+    + 6 cross) compact, 8 x (6 x 8 + 6) KVNAND-D: the cross-attention is
+    one all-heads launch a layer in both variants); every step's logits
+    against the port's plain forward on the card over the same frames,
+    the prompt and the emitted tokens: within GOLDEN_TOL and the same
+    argmax at f32, within WHISPER_BF16_TOL at bf16 (argmax reported)."""
+    import torch
+    from repro_torch.configs import EngineConfig
+    from repro_torch.core.engine import KVNANDEngine
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.paged_attention import launches
+    from repro_torch.models.registry import Model
+    t0 = time.perf_counter()
+    L, E, K = cfg.n_layers, cfg.encoder_layers, cfg.n_kv_heads
+    eng = KVNANDEngine(cfg, EngineConfig(
+        page_tokens=16, uniform_lengths=False, kv_dtype=kv_dtype,
+        variant=variant), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    frames = torch.randn(1, WHISPER_FRAMES, cfg.d_model, generator=gen,
+                         device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (WHISPER_PROMPT,),
+                           generator=gen, device="cuda").tolist()
+    n, V = len(prompt), cfg.vocab_size
+    with torch.no_grad():
+        flash_attention.launches.reset()
+        launches.reset()
+        lg, cache = eng.prefill(params, {
+            "tokens": torch.tensor([prompt], device="cuda"),
+            "frames": frames}, 256)
+        b4 = flash_attention.launches.value
+        check(tuple(cache.cross_k.shape) == (L, 1, WHISPER_FRAMES, K,
+                                             cfg.d_head)
+              and cache.cross_k.dtype == getattr(torch, kv_dtype),
+              "W1 golden: the cross K/V leaves are not [L, 1, Senc, K, dh] "
+              "in the pool dtype")
+        rows, out = [lg[0, :V]], [int(lg[0, :V].argmax())]
+        for _ in range(WHISPER_STEPS):
+            lg, _ = eng.decode_step(params, cache, torch.tensor(
+                [[out[-1]]], device="cuda"))
+            rows.append(lg[0, :V])
+            out.append(int(lg[0, :V].argmax()))
+        b1 = launches.value
+        got = torch.stack(rows).float()
+        full = Model(cfg).forward(params, {
+            "tokens": torch.tensor([prompt + out[:WHISPER_STEPS]],
+                                   device="cuda"),
+            "frames": frames})[0, n - 1:, :V].float()
+    torch.cuda.synchronize()
+    err = float((got - full).abs().max() / full.abs().max())
+    want = full.argmax(-1).tolist()
+    wall = time.perf_counter() - t0
+    f32 = kv_dtype == "float32"
+    tol = GOLDEN_TOL if f32 else WHISPER_BF16_TOL
+    same = sum(a == b for a, b in zip(out, want))
+    label = f"W1 golden {variant} {kv_dtype}"
+    print(f"{label}: {WHISPER_FRAMES} frames, {n}-token prompt, one-shot "
+          f"prefill + {WHISPER_STEPS} decode steps: max |logits - plain "
+          f"forward| / max |logits| = {err:.3e} (tol {tol:.0e}); argmax "
+          f"{same} of {len(out)} equal ({out} vs {want}); B4 launches {b4}, "
+          f"B1 launches {b1}; {wall:.3f} s")
+    self_b1 = L * (K if variant == "discrete" else 1)
+    check(b4 == E + 2 * L and b1 == WHISPER_STEPS * (self_b1 + L),
+          f"{label}: B4 {b4} != {E} + 2 x {L} or B1 {b1} != "
+          f"{WHISPER_STEPS} x ({self_b1} + {L})")
+    check(err <= tol, f"{label}: logits disagree with the plain forward")
+    check(out == want or not f32, f"{label}: a greedy token differs from "
+          "the plain forward's")
+    return {"rel_err": err, "argmax_equal": same, "tokens": out,
+            "launches_B1": b1, "launches_B4": b4, "wall_s": wall}
+
+
+def audio_phases(rate) -> dict:
+    """Phase 24, W1 (see the module docstring)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import Model
+    cfg = get_config("whisper-base")
+    check_whisper_widths(cfg)
+    t0 = time.perf_counter()
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    print(f"W1: {cfg.name} weights, {n / 1e6:.2f}M params (config: "
+          f"{cfg.param_count() / 1e6:.2f}M), drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    res = {"params": n, "kernels": whisper_kernel_phase(cfg),
+           "timing": whisper_timing_phase(rate), "golden": {}}
+    for variant in ("compact", "discrete"):
+        for kv_dtype in ("float32", "bfloat16"):
+            res["golden"][f"{variant} {kv_dtype}"] = whisper_golden_run(
+                cfg, params, variant, kv_dtype)
+    res["launches"] = {k: sum(g[f"launches_{k}"]
+                              for g in res["golden"].values())
+                       for k in ("B1", "B4")}
+    print(f"W1: launches on the main path {res['launches']}; on "
+          f"{smi_line()}")
     return res
 
 
@@ -4956,12 +5603,16 @@ def main(argv) -> int:
                      ["--wkv"], ["--wkv-timing"], ["--gemv"], ["--flash"],
                      ["--flash-timing"], ["--dse"], ["--verify-ab"],
                      ["--window"], ["--tier"], ["--overlap"], ["--http"],
-                     ["--replicas"], ["--hybrid"], ["--moe"])
+                     ["--replicas"], ["--hybrid"], ["--moe"], ["--vlm"],
+                     ["--audio"])
             and not (len(argv) == 2
                      and argv[0] in ("--gemv-ab", "--flash-ab", "--wkv-ab"))):
         print(__doc__, file=sys.stderr)
         return 2
     quant_only = argv == ["--quant-servers"]
+    global FULL_DEPTH
+    FULL_DEPTH = argv in (["--dse"], ["--window"], ["--replicas"],
+                          ["--hybrid"], ["--moe"], ["--vlm"])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -5062,6 +5713,16 @@ def main(argv) -> int:
         print(card)
         print(json.dumps({"moe": e1}))
         return 0
+    if argv == ["--vlm"]:
+        p1 = vlm_phases(rate)
+        print(card)
+        print(json.dumps({"vlm": p1}))
+        return 0
+    if argv == ["--audio"]:
+        w1 = audio_phases(rate)
+        print(card)
+        print(json.dumps({"audio": w1}))
+        return 0
     one = {"--tier": ("tier", tier_phase), "--overlap": ("overlap",
                                                          overlap_phase),
            "--http": ("http", http_phase)}.get(argv[0] if argv else None)
@@ -5153,6 +5814,20 @@ def main(argv) -> int:
                                   "splice_nodrop", "spec_nodrop",
                                   "stripe_float_wo", "discrete_float_wo",
                                   "replicas", "golden", "moe_layer")}
+    p1 = vlm_phases(rate)
+    lap("phase 23 (P1)")
+    for k in ("B1", "B2", "B3", "B4"):
+        check(p1["launches"][k] > 0, f"P1 launched {k} no time")
+    w1 = audio_phases(rate)
+    lap("phase 24 (W1)")
+    for k in ("B1", "B4"):
+        check(w1["launches"][k] > 0, f"W1 launched {k} no time")
+    b1_err = max(b1_err, p1["kernels"]["B1"], w1["kernels"]["B1"])
+    b2_err = max(b2_err, p1["kernels"]["B2"], w1["kernels"]["B2"])
+    b3_err = max(b3_err, p1["kernels"]["B3"])
+    b4_err = max(b4_err, p1["kernels"]["B4"], w1["kernels"]["B4"])
+    p1_runs = {k: p1[k] for k in ("stripe", "shared", "splice", "discrete",
+                                  "golden", "dse")}
     t1, o1, h1 = (tier_served[k] for k in ("T1", "O1", "H1"))
     kernels = [
         kernel_entry("paged_attention", "src/repro_torch/csrc/"
@@ -5160,11 +5835,14 @@ def main(argv) -> int:
                      "src/repro/kernels/paged_attention/kernel.py:311",
                      stripe["launches"] + d1["launches_B1"]
                      + v1["launches_B1"] + g1_b1 + o1["launches_B1"]
-                     + y1["launches"]["B1"] + e1["launches"]["B1"], b1_err,
+                     + y1["launches"]["B1"] + e1["launches"]["B1"]
+                     + p1["launches"]["B1"] + w1["launches"]["B1"], b1_err,
                      list(b1_shapes) + dse["group_timing"][:1]
-                     + y1["timing"]["B1"] + e1["timing"]["B1"],
+                     + y1["timing"]["B1"] + e1["timing"]["B1"]
+                     + p1["timing"]["B1"] + w1["timing"]["B1"],
                      [stripe, {"D1": d1, "V1": v1, "G1": g1, "O1": o1,
-                               "Y1": y1_runs, "E1": e1_runs}]),
+                               "Y1": y1_runs, "E1": e1_runs, "P1": p1_runs,
+                               "W1": w1["golden"]}]),
         kernel_entry("paged_attention_shared", "src/repro_torch/csrc/"
                      "paged_attention_shared.cu",
                      "src/repro/kernels/paged_attention/kernel.py:209",
@@ -5172,9 +5850,10 @@ def main(argv) -> int:
                      + g1["shared"]["launches"] + t1["launches_B2"]
                      + o1["launches_B2"] + h1["launches_B2"]
                      + m1["launches_B2"] + y1["launches"]["B2"]
-                     + e1["launches"]["B2"], b2_err,
+                     + e1["launches"]["B2"] + p1["launches"]["B2"], b2_err,
                      list(b2_shapes) + dse["group_timing"][1:]
-                     + y1["timing"]["B2"] + e1["timing"]["B2"],
+                     + y1["timing"]["B2"] + e1["timing"]["B2"]
+                     + p1["timing"]["B2"],
                      [shared, shared32, {"D1 shared": d1,
                                          "G1 shared": g1["shared"],
                                          "T1": t1, "H1": h1, "M1": m1,
@@ -5183,14 +5862,16 @@ def main(argv) -> int:
                                          "Y1 replicas": y1["replicas"],
                                          "E1 shared": e1["shared"],
                                          "E1 shared kv8": e1["kv8_shared"],
-                                         "E1 replicas": e1["replicas"]}]),
+                                         "E1 replicas": e1["replicas"],
+                                         "P1 shared": p1["shared"]}]),
         kernel_entry("quant_gemv", "src/repro_torch/csrc/quant_gemv.cu",
                      "src/repro/kernels/quant_gemv/kernel.py:68",
                      q1["launches"] + q2["launches"] + y1["launches"]["B3"]
-                     + e1["launches"]["B3"], b3_err,
+                     + e1["launches"]["B3"] + p1["launches"]["B3"], b3_err,
                      list(b3_shapes) + y1["timing"]["B3"]
-                     + e1["timing"]["B3"],
-                     [q1, q2, {"Y1 DSE pick": y1["dse"], "E1": e1_runs}]) | {
+                     + e1["timing"]["B3"] + p1["timing"]["B3"],
+                     [q1, q2, {"Y1 DSE pick": y1["dse"], "E1": e1_runs,
+                               "P1 DSE pick": p1["dse"]}]) | {
             "design": "tensor-core mma.sync (bf16 / s8) with the weights "
                       "dequantized into the A operand; stream path (M <= "
                       "STREAM_MAX_M, 8 or 16 rows a CTA) and tile path (64 "
@@ -5200,12 +5881,16 @@ def main(argv) -> int:
                      "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention/kernel.py:82",
                      s1["launches"] + g1["splice"]["launches_B4"]
-                     + y1["launches"]["B4"] + e1["launches"]["B4"], b4_err,
+                     + y1["launches"]["B4"] + e1["launches"]["B4"]
+                     + p1["launches"]["B4"] + w1["launches"]["B4"], b4_err,
                      list(b4_shapes) + y1["timing"]["B4"]
-                     + e1["timing"]["B4"],
+                     + e1["timing"]["B4"] + p1["timing"]["B4"]
+                     + w1["timing"]["B4"],
                      [s1, {"G1 splice": g1["splice"],
                            "Y1 splice": y1["splice"],
-                           "E1 splice": e1["splice_nodrop"]}]) | {
+                           "E1 splice": e1["splice_nodrop"],
+                           "P1 splice": p1["splice"],
+                           "W1": w1["golden"]}]) | {
             "bound_cuda_core_ms": b4_shapes[0]["bound_cuda_core_ms"],
             "design": "f32 as 3xTF32 mma.sync (hi/lo split, f32-exact), "
                       "bf16 on bf16 mma.sync, cp.async K/V ring, each q "

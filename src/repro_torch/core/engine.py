@@ -87,8 +87,22 @@ the one-shot prefill's bucketed [B, S] and the chunk bucket's [1, C].
 The experts' capacity follows S, so tokens past an expert's capacity are
 dropped per call, and schedulers that call it at other lengths (chunks
 against one-shot buckets, spans against single tokens) serve other
-tokens, in both packages.  Not ported yet, and refused here: the VLM and
-encoder-decoder families and a device mesh.
+tokens, in both packages.
+
+A VLM arch (pixtral) is a dense decoder whose one-shot prefill may take
+`batch["patches"]`, precomputed patch embeddings placed before the
+tokens: `lengths` and the pages count them, with `prompt_len` too, as in
+the reference.  An encoder-decoder arch (whisper) runs its encoder once
+in `prefill` over `batch["frames"]` [B, Senc, D] (kernel B4,
+non-causal), writes each decoder layer's cross K/V into the cache
+(`cross_k` / `cross_v`, laid out as pages once, there) and attends the
+prompt to them through B4 (non-causal, prompt rows against Senc keys).
+Its decode step adds cross-attention after self-attention, in both
+variants one launch of the stripe kernel B1 a layer over the encoder's
+Senc / T pages (all heads; the reference's `_cross_attention`).
+`prefill_chunk` and `verify_step` refuse it, as the reference does: its
+servers never build the cross K/V.  Not ported, and refused here: a
+device mesh.
 """
 from __future__ import annotations
 
@@ -106,9 +120,9 @@ from repro_torch.kernels.paged_attention import (paged_attention_partial,
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import rwkv6, ssm
 from repro_torch.models.layers import embed_lookup, layer_slice, rms_norm
-from repro_torch.models.transformer import (Runtime, check_supported,
-                                            embed_inputs, ffn, hybrid_mix,
-                                            lm_head_logits)
+from repro_torch.models.transformer import (Runtime, embed_inputs, ffn,
+                                            hybrid_mix, lm_head_logits,
+                                            run_encoder)
 
 
 class KVNANDEngine:
@@ -122,7 +136,6 @@ class KVNANDEngine:
         self.eng = eng or EngineConfig()
         self.rt = rt or Runtime()
         self.device = torch.device(device)
-        check_supported(cfg)
         # the reference's selection (`_decode_attn_layer`)
         self._discrete = (self.eng.variant == "discrete"
                           or self.eng.hg_pipeline)
@@ -139,10 +152,11 @@ class KVNANDEngine:
                 "(ROADMAP A24, split-page partitions over window rings)")
 
     # ------------------------------------------------------------------
-    def init_cache(self, batch: int, max_context: int) -> DecodeCache:
+    def init_cache(self, batch: int, max_context: int,
+                   enc_len: int = 0) -> DecodeCache:
         return paged_kv.init_cache(self.cfg, self.eng, batch, max_context,
                                    dtype=getattr(torch, self.eng.kv_dtype),
-                                   device=self.device)
+                                   device=self.device, enc_len=enc_len)
 
     def _page_bases(self, table: torch.Tensor) -> torch.Tensor:
         """Page base positions [B, NP] (the reference's `_global_bases`).
@@ -228,6 +242,24 @@ class KVNANDEngine:
             outs.append(o)
             q_cur = q_next
         return torch.cat(outs, dim=1)
+
+    def _cross_attend(self, pcross, h, cache: DecodeCache, layer: int,
+                      base, length):
+        """A decoder layer's cross-attention at decode (the reference's
+        `_cross_attention`): q [B, H, dh] from h [B, 1, D], no RoPE, over
+        the layer's encoder K/V walked as Senc / T whole pages of the
+        stripe kernel (`paged_kv.cross_pages`, no copy), with `base` the
+        pages' positions and `length` = Senc every row, all heads in one
+        launch in either variant.  Returns [B, 1, D]."""
+        cfg = self.cfg
+        T = self.eng.page_tokens
+        q = attn_mod._proj(pcross, "wq", h).reshape(h.shape[0], cfg.n_heads,
+                                                    cfg.d_head)
+        o, _, _ = paged_attention_partial(
+            q, paged_kv.cross_pages(cache.cross_k[layer], T),
+            paged_kv.cross_pages(cache.cross_v[layer], T), base, length,
+            partitions=self.eng.attn_partitions)
+        return attn_mod.project_out(pcross, cfg, o[:, None])
 
     def _decode_attention(self, pl_, x, cache: DecodeCache, layer: int,
                            lengths, base_g, active, rows):
@@ -328,6 +360,15 @@ class KVNANDEngine:
         row_writers = self.eng.shared_pool or self.eng.kv_quant != "none"
         rows = (active.nonzero()[:, 0]
                 if row_writers and active is not None else None)
+        if cache.cross_k is not None:
+            # the encoder's pages: every row's NP whole pages, base j·T
+            B, Senc = cache.cross_k.shape[1:3]
+            T = self.eng.page_tokens
+            cross_base = (torch.arange(Senc // T, dtype=torch.int32,
+                                       device=x.device) * T)[None].expand(
+                B, Senc // T).contiguous()
+            cross_len = torch.full((B,), Senc, dtype=torch.int32,
+                                   device=x.device)
         for i in range(cfg.n_layers):
             pl_ = layer_slice(params["layers"], i)
             h, aout = self._decode_attention(pl_, x, cache, i, lengths,
@@ -337,6 +378,10 @@ class KVNANDEngine:
                     pl_, h, cache, i, slice(None), fresh=False,
                     active=active, decode=True))
             x = x + aout
+            if cache.cross_k is not None:
+                h = rms_norm(x, pl_["ln_cross"], cfg.norm_eps)
+                x = x + self._cross_attend(pl_["cross"], h, cache, i,
+                                           cross_base, cross_len)
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
             x = x + ffn(pl_, cfg, h, self.rt)
         return x
@@ -377,6 +422,9 @@ class KVNANDEngine:
             raise ValueError(
                 f"{cfg.family}: speculative verification cannot roll back "
                 "carried recurrent state; decode sequentially")
+        if cfg.is_encoder_decoder:
+            raise ValueError("verify_step does not support encoder-decoder "
+                             "archs")
         if self.eng.uniform_lengths:
             raise ValueError("verify_step requires the ragged "
                              "(uniform_lengths=False) append path: slots "
@@ -594,7 +642,12 @@ class KVNANDEngine:
         overwritten by decode appends), and never to a ring.  An RWKV6 or
         hybrid model takes exact-length prompts only (the padding would
         fold into its recurrent state), as in the reference.  A hybrid
-        model's meta tokens lead every row: `lengths` count them.
+        model's meta tokens lead every row, and a VLM's
+        `batch["patches"]` [B, P, D] when given: `lengths` count them,
+        with `prompt_len` too (it counts the real tokens only).  An
+        encoder-decoder model runs its encoder over `batch["frames"]`
+        [B, Senc, D] (Senc a multiple of page_tokens), fills the cache's
+        cross K/V and adds cross-attention to every decoder layer.
         A tiered pool is refused, as in the reference: its hot tier is
         managed by the serving scheduler."""
         cfg, rt = self.cfg, self.rt
@@ -611,7 +664,13 @@ class KVNANDEngine:
                 "hot_pages=0 here, or serve via KVNANDServer")
         x, positions = embed_inputs(params, cfg, batch, rt)
         B, S = x.shape[:2]
-        cache = self.init_cache(B, max(max_context, S + 1))
+        enc_out = None
+        if cfg.is_encoder_decoder:
+            enc_out = run_encoder(params, cfg, batch["frames"], rt,
+                                  impl=rt.attn_impl)
+        cache = self.init_cache(B, max(max_context, S + 1),
+                                enc_len=0 if enc_out is None
+                                else enc_out.shape[1])
         if cfg.family == "ssm":
             x = self._recurrent_layers(params, x, cache, slice(None),
                                        fresh=True)
@@ -619,7 +678,9 @@ class KVNANDEngine:
             return lm_head_logits(params, cfg, x[:, -1:])[:, 0], cache
         shared = self.eng.shared_pool
         fmt = self.eng.kv_quant
-        n = S if prompt_len is None else prompt_len
+        # the frontend prefix (meta tokens, patches) counts as prompt
+        n = S if prompt_len is None else (
+            prompt_len + S - batch["tokens"].shape[1])
         for i in range(cfg.n_layers):
             pl_ = layer_slice(params["layers"], i)
             h = rms_norm(x, pl_["ln1"], cfg.norm_eps)
@@ -642,6 +703,12 @@ class KVNANDEngine:
                 paged_kv.fill_layer(pool, kv, j, ring=ring,
                                     true_len=n if ring else None,
                                     table=table, scale=sc, kv_quant=fmt)
+            if enc_out is not None:
+                h = rms_norm(x, pl_["ln_cross"], cfg.norm_eps)
+                ck, cv = attn_mod.project_cross_kv(pl_["cross"], enc_out)
+                x = x + attn_mod.cross_attention(pl_["cross"], cfg, h, ck, cv,
+                                                 impl=rt.attn_impl)
+                paged_kv.write_cross_kv(cache, i, ck, cv)
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
             x = x + ffn(pl_, cfg, h, self.rt)
         cache.lengths.fill_(n)
@@ -673,6 +740,10 @@ class KVNANDEngine:
         exact-length chunk.  A meta-token arch takes only that form: a
         later chunk's `start` would not count the prefix."""
         cfg = self.cfg
+        if cfg.is_encoder_decoder:
+            raise ValueError("chunked prefill does not support "
+                             "encoder-decoder archs (cross-KV is built by "
+                             "full prefill)")
         if cfg.n_meta_tokens and not first:
             raise ValueError(
                 f"prefill_chunk: {cfg.name} prepends {cfg.n_meta_tokens} "

@@ -73,6 +73,15 @@ state `ssm_state` [L, B, D, N] (float32) and conv tail `conv_tail`
 [L, B, CONV_K-1, D] (the pool dtype, so a bf16 pool rounds the tail to
 bf16 between steps, as the reference's does), through the same writer.
 
+An encoder-decoder (whisper) cache holds, beside its pool, each decoder
+layer's cross-attention K/V over the encoder's Senc positions,
+`cross_k` / `cross_v` [L, B, Senc, K, dh] in the pool dtype (never
+quantized, even beside kv8/kv4 pages), written once by the prefill and
+read-only after it.  They are views of a page-major store [L, B, K, NP,
+T, dh] (Senc = NP·T, so Senc must be a page multiple): `cross_pages`
+hands the decode step a layer's pages as the contiguous [B, K, NP, T,
+dh] stripe the paged kernel walks, with no copy a step.
+
 The span writers (`append_span*`) append a speculative verify step's
 kept positions: position s of the span is written for the rows in
 `rows[s]` only (a row keeps a prefix of its span), in span order, through
@@ -180,12 +189,56 @@ class DecodeCache:
     # selective-SSM state (hybrid)
     ssm_state: Optional[torch.Tensor] = None    # [L, B, D, N] float32
     conv_tail: Optional[torch.Tensor] = None    # [L, B, CONV_K-1, D]
+    # encoder-decoder cross-attention K/V (read-only after prefill)
+    cross_k: Optional[torch.Tensor] = None      # [L, B, Senc, K, dh]
+    cross_v: Optional[torch.Tensor] = None
     lengths: Optional[torch.Tensor] = None      # [B] int32
+
+
+def cross_store(cfg: ModelConfig, batch: int, enc_len: int,
+                page_tokens: int, dtype, device):
+    """Zeroed cross_k and cross_v [L, B, Senc, K, dh], each a view of a
+    page-major store [L, B, K, Senc / T, T, dh].  Raises ValueError when
+    Senc is not a multiple of T (the decode step walks whole pages; the
+    reference fails there, reshaping Senc into pages)."""
+    T = page_tokens
+    if enc_len % T:
+        raise ValueError(
+            f"{cfg.name}: the encoder's {enc_len} positions are not a "
+            f"multiple of page_tokens={T}; decode walks the cross K/V as "
+            "whole pages, so pad the frames to a page multiple")
+    L, K, dh = cfg.n_layers, cfg.n_kv_heads, cfg.d_head
+    NP = enc_len // T
+
+    def one():
+        store = torch.zeros((L, batch, K, NP, T, dh), dtype=dtype,
+                            device=device)
+        return store.permute(0, 1, 3, 4, 2, 5).view(L, batch, enc_len, K,
+                                                     dh)
+    return one(), one()
+
+
+def write_cross_kv(cache: DecodeCache, layer: int, k: torch.Tensor,
+                   v: torch.Tensor) -> None:
+    """Store one decoder layer's cross K/V [B, Senc, K, dh] (the prefill's
+    projection of the encoder output) in the cache's dtype, into its
+    pages."""
+    cache.cross_k[layer].copy_(k)
+    cache.cross_v[layer].copy_(v)
+
+
+def cross_pages(leaf: torch.Tensor, page_tokens: int) -> torch.Tensor:
+    """One layer's cross K or V, leaf [B, Senc, K, dh] (a `cross_store`
+    view), as pages [B, K, Senc / T, T, dh]: the store itself,
+    contiguous, which the paged kernel reads in place."""
+    B, Senc, K, dh = leaf.shape
+    return leaf.view(B, Senc // page_tokens, page_tokens, K, dh).permute(
+        0, 3, 1, 2, 4)
 
 
 def init_cache(cfg: ModelConfig, eng: EngineConfig, batch: int,
                max_context: int, *, dtype=torch.bfloat16,
-               device="cuda") -> DecodeCache:
+               device="cuda", enc_len: int = 0) -> DecodeCache:
     """Zeroed pools (and kv8/kv4 scales), zero lengths.  Global pool:
     NP = ceil(max_context / T) pages per slot; window rings: NPw pages a
     slot, every base RING_EMPTY.  Stripe tables are identities; shared:
@@ -196,7 +249,9 @@ def init_cache(cfg: ModelConfig, eng: EngineConfig, batch: int,
     scheduler overwrites the tables from its allocator).  `dtype` is the
     pool's dtype when kv_quant is "none", the shifts' dtype of an RWKV6
     cache, which has no pool (zero states and shifts instead), and the
-    conv tail's dtype of a hybrid cache (whatever kv_quant is)."""
+    conv tail's and the cross K/V's dtype (whatever kv_quant is).  An
+    encoder-decoder arch given `enc_len` gets zeroed cross K/V over
+    enc_len encoder positions (`cross_store`)."""
     T = eng.page_tokens
     K, dh, L = cfg.n_kv_heads, cfg.d_head, cfg.n_layers
     lengths = torch.zeros(batch, dtype=torch.int32, device=device)
@@ -216,6 +271,9 @@ def init_cache(cfg: ModelConfig, eng: EngineConfig, batch: int,
                                           dtype=torch.float32, device=device)
         leaves["conv_tail"] = torch.zeros((L, batch, CONV_K - 1, D),
                                           dtype=dtype, device=device)
+    if cfg.is_encoder_decoder and enc_len:
+        leaves["cross_k"], leaves["cross_v"] = cross_store(
+            cfg, batch, enc_len, T, dtype, device)
     fmt = eng.kv_quant
     quantized = fmt != "none"
     if quantized:

@@ -14,6 +14,8 @@ TTFT/TPOT reporting.
       --use-dse --max-context 2048
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
       --reduced --use-dse --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \
+      --reduced --use-dse --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --speculation-k 2
   PYTHONPATH=src python -m repro_torch.launch.serve --shared-pool \
       --total-pages 64 --hot-pages 12
@@ -23,7 +25,11 @@ TTFT/TPOT reporting.
 Takes every flag of the reference's `launch/serve.py`, and `--device`.
 `--use-dse` takes the variant, kv_quant and speculation_k from the
 design-space search (`core/dse.recommend_engine_config`) and serves float
-weights, as the reference does.  `--http` serves over HTTP instead of
+weights, as the reference does.  pixtral-12b serves as text (the
+schedulers feed no patch embeddings, in either package); whisper-base's
+first step raises the reference's ValueError (chunked prefill) or
+KeyError (`--scheduler splice`: no frames), as the reference's
+`launch.serve` ends.  `--http` serves over HTTP instead of
 running the batch trace (`serving/async_server.py`; as in the reference
 it takes --arch, --reduced, --slots, --max-context, --port and
 --overlap, and here --device).  A configuration the port does not serve

@@ -8,6 +8,11 @@ between (`project_qkv` / `project_out`; for the discrete variant
 full-sequence attention
 of the one-shot prefill and the reference forward (`attention_train`
 through `sharded_flash_attention`, on one device) are ported.
+Cross-attention (`attention_train(kv_x=...)`, an encoder-decoder
+decoder's) projects q from x and k/v from the encoder output, with no
+RoPE on either side, and attends non-causally; its two halves,
+`project_cross_kv` and `cross_attention`, let the engine keep the
+projected encoder K/V as cache leaves.
 """
 from __future__ import annotations
 
@@ -21,7 +26,9 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import ParamInit, apply_rope, dense
 
 
-def init_attention(b: ParamInit, cfg: ModelConfig):
+def init_attention(b: ParamInit, cfg: ModelConfig, *, cross: bool = False):
+    """The projections of one attention block; a cross-attention block
+    (`cross`) has the same leaves, as in the reference."""
     d = cfg.d_model
     K, G, dh = cfg.n_kv_heads, cfg.group_size, cfg.d_head
     b.param("wq_w", (K, d, G * dh))
@@ -100,6 +107,26 @@ def project_out(params: Dict[str, Any], cfg: ModelConfig,
     return dense(params, "wo", attn.reshape(B, S, cfg.q_dim), impl=impl)
 
 
+def project_cross_kv(params: Dict[str, Any], enc_out: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention k/v [B, Senc, K, dh] from the encoder output
+    enc_out [B, Senc, D], no RoPE."""
+    return _proj(params, "wk", enc_out), _proj(params, "wv", enc_out)
+
+
+def cross_attention(params: Dict[str, Any], cfg: ModelConfig,
+                    x: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    impl: str = "auto") -> torch.Tensor:
+    """Cross-attention of x [B, S, D] over the encoder's projected k/v
+    [B, Senc, K, dh] (`project_cross_kv`): q without RoPE, non-causal
+    flash attention (kernel B4 on a card, Sq = S against Sk = Senc), the
+    output projection.  -> [B, S, D]."""
+    B, S, _ = x.shape
+    q = _proj(params, "wq", x).reshape(B, S, cfg.n_heads, cfg.d_head)
+    out = sharded_flash_attention(q, k, v, causal=False, impl=impl)
+    return project_out(params, cfg, out, impl=impl)
+
+
 def attention_train(params: Dict[str, Any], cfg: ModelConfig,
                     x: torch.Tensor, *, window: Optional[int] = None,
                     is_global=None, causal: bool = True, impl: str = "auto",
@@ -108,11 +135,12 @@ def attention_train(params: Dict[str, Any], cfg: ModelConfig,
     """Full-sequence attention (prefill, and the reference forward):
     x [B, S, D] -> [B, S, D].  `impl` picks the flash-attention path and
     the quantized output projection's alike ("ref": the plain versions on
-    any device)."""
+    any device).  With `kv_x` (an encoder's output) it is
+    cross-attention, non-causal and without RoPE, whatever `causal`,
+    `window` and `positions` say."""
     if kv_x is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_x) belongs to the encoder-decoder family, "
-            "which is not ported yet (ROADMAP A15)")
+        return cross_attention(params, cfg, x,
+                               *project_cross_kv(params, kv_x), impl=impl)
     q, k, v = project_qkv(params, cfg, x, positions)
     out = sharded_flash_attention(q, k, v, causal=causal, window=window,
                                   is_global=is_global, impl=impl)

@@ -11,10 +11,9 @@ from repro_torch.models.transformer import Runtime
 
 
 class Model:
-    """Thin, stateless facade over the functional dense decoder."""
+    """Thin, stateless facade over the functional model stack."""
 
     def __init__(self, cfg: ModelConfig, rt: Optional[Runtime] = None):
-        transformer.check_supported(cfg)
         self.cfg = cfg
         self.rt = rt or Runtime()
 

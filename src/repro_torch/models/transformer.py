@@ -1,5 +1,5 @@
-"""Decoder stack (port of the dense, moe, ssm and hybrid branches of
-`repro.models.transformer`): pre-norm attention + MLP (or MoE) blocks, RWKV6
+"""Model stack (port of `repro.models.transformer`, every family):
+pre-norm attention + MLP (or MoE) blocks, RWKV6
 time-mix + channel-mix blocks (`models/rwkv6.py`), or hymba's hybrid
 blocks, where a selective-SSM mixer (`models/ssm.py`) runs beside
 attention on the same normed input and the two outputs are averaged.
@@ -13,8 +13,16 @@ per layer where the reference scans a traced `is_global` flag.  A
 meta-token arch (hymba) prepends its learned prefix to every sequence
 and strips it again before the LM head.  An MoE arch (mixtral, dbrx,
 kimi-k2) runs `layers.moe` in place of the MLP, with the capacity factor
-`Runtime.moe_capacity`.  The VLM and encoder-decoder families are not
-ported yet (ROADMAP A15) and raise.
+`Runtime.moe_capacity`.  A VLM arch (pixtral) prepends
+`batch["patches"]`, precomputed patch embeddings, when they are given
+(after any meta tokens, before the tokens) and strips them again before
+the LM head.  An encoder-decoder arch (whisper) runs a bidirectional
+encoder over `batch["frames"]` (`encoder_layers` dense blocks with
+n_kv_heads = n_heads, non-causal attention with RoPE over the frame
+positions, then `encoder_norm`), and every decoder block adds
+cross-attention over the encoder's output after its self-attention
+(`ln_cross`, `cross`: q from the decoder, k/v from the encoder, no RoPE,
+non-causal).
 """
 from __future__ import annotations
 
@@ -38,12 +46,11 @@ class Runtime:
     moe_capacity: float = 1.25
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the configurations this slice of the port leaves out."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            "(ROADMAP A15, other families)")
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """The config an encoder block runs under: dense, no cross-attention,
+    one kv head a query head (the reference's `cfg_blk` / `cfg_enc`)."""
+    return dataclasses.replace(cfg, family="dense", is_encoder_decoder=False,
+                               n_kv_heads=cfg.n_heads)
 
 
 def layer_window(cfg: ModelConfig, layer: int):
@@ -52,32 +59,46 @@ def layer_window(cfg: ModelConfig, layer: int):
     return None if cfg.is_global_layer(layer) else cfg.window
 
 
-def init_model(cfg: ModelConfig, generator: torch.Generator,
-               device) -> Dict[str, Any]:
-    """Fresh float32 parameters with the reference's tree, shapes and
-    scales."""
-    check_supported(cfg)
-    b = ParamInit(generator, device)
-    init_embedding(b, cfg.padded_vocab, cfg.d_model)
-    lb = ParamInit(generator, device, stack=cfg.n_layers)
+def _init_stacked_layers(cfg: ModelConfig, n_layers: int,
+                         generator: torch.Generator, device):
+    """`n_layers` blocks with a leading layer axis on every leaf (the
+    reference's `_init_block` under `_init_stacked_layers`)."""
+    lb = ParamInit(generator, device, stack=n_layers)
     lb.param("ln1", (cfg.d_model,), init="zeros")
     if cfg.family == "ssm":
         rwkv6.init_rwkv_timemix(lb.scope("tmix"), cfg)
         lb.param("ln2", (cfg.d_model,), init="zeros")
         rwkv6.init_rwkv_channelmix(lb.scope("cmix"), cfg)
+        return lb.params
+    attn_mod.init_attention(lb.scope("attn"), cfg)
+    if cfg.family == "hybrid":
+        ssm.init_ssm(lb.scope("ssm"), cfg)
+    if cfg.is_encoder_decoder:
+        lb.param("ln_cross", (cfg.d_model,), init="zeros")
+        attn_mod.init_attention(lb.scope("cross"), cfg, cross=True)
+    lb.param("ln2", (cfg.d_model,), init="zeros")
+    if cfg.is_moe:
+        init_moe(lb.scope("moe"), cfg.d_model, cfg.d_ff, cfg.n_experts)
     else:
-        attn_mod.init_attention(lb.scope("attn"), cfg)
-        if cfg.family == "hybrid":
-            ssm.init_ssm(lb.scope("ssm"), cfg)
-        lb.param("ln2", (cfg.d_model,), init="zeros")
-        if cfg.is_moe:
-            init_moe(lb.scope("moe"), cfg.d_model, cfg.d_ff, cfg.n_experts)
-        else:
-            init_mlp(lb.scope("mlp"), cfg.d_model, cfg.d_ff, cfg.gated_mlp)
-    b.params["layers"] = lb.params
+        init_mlp(lb.scope("mlp"), cfg.d_model, cfg.d_ff, cfg.gated_mlp)
+    return lb.params
+
+
+def init_model(cfg: ModelConfig, generator: torch.Generator,
+               device) -> Dict[str, Any]:
+    """Fresh float32 parameters with the reference's tree, shapes and
+    scales."""
+    b = ParamInit(generator, device)
+    init_embedding(b, cfg.padded_vocab, cfg.d_model)
+    b.params["layers"] = _init_stacked_layers(cfg, cfg.n_layers, generator,
+                                              device)
     b.param("final_norm", (cfg.d_model,), init="zeros")
     if not cfg.tie_embeddings:
         b.param("lm_head", (cfg.padded_vocab, cfg.d_model))
+    if cfg.is_encoder_decoder:
+        b.params["encoder"] = _init_stacked_layers(
+            encoder_config(cfg), cfg.encoder_layers, generator, device)
+        b.param("encoder_norm", (cfg.d_model,), init="zeros")
     if cfg.n_meta_tokens:
         b.param("meta_tokens", (cfg.n_meta_tokens, cfg.d_model), scale=0.02)
     return b.params
@@ -85,16 +106,20 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
 
 def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                  rt: Runtime) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Input activations [B, S, D] + positions [B, S]: the token
-    embeddings, after the broadcast meta tokens of a meta-token arch
-    (S = n_meta_tokens + tokens; positions run over both)."""
+    """Input activations [B, S, D] + positions [B, S]: the broadcast meta
+    tokens of a meta-token arch, then a VLM's `batch["patches"]` [B, P, D]
+    when given, then the token embeddings (S counts all three; positions
+    run over all of them).  An encoder-decoder arch's frames are not part
+    of it (`run_encoder`)."""
     tok = batch["tokens"]
-    x = embed_lookup(params["embedding"], tok, rt.activ_dtype)
+    parts = [embed_lookup(params["embedding"], tok, rt.activ_dtype)]
+    if cfg.family == "vlm" and "patches" in batch:
+        parts.insert(0, batch["patches"].to(rt.activ_dtype))
     if cfg.n_meta_tokens:
         B = tok.shape[0]
-        meta = params["meta_tokens"].to(rt.activ_dtype)[None].expand(
-            B, cfg.n_meta_tokens, cfg.d_model)
-        x = torch.cat([meta, x], dim=1)
+        parts.insert(0, params["meta_tokens"].to(rt.activ_dtype)[None]
+                     .expand(B, cfg.n_meta_tokens, cfg.d_model))
+    x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     B, S = x.shape[:2]
     positions = torch.arange(S, device=tok.device)[None].expand(B, S)
     return x, positions
@@ -116,6 +141,28 @@ def ffn(pl_, cfg: ModelConfig, h: torch.Tensor, rt: Runtime, *,
     return mlp(pl_["mlp"], h, cfg.gated_mlp, impl=impl)
 
 
+def run_encoder(params, cfg: ModelConfig, frames: torch.Tensor, rt: Runtime,
+                *, impl: str = "auto") -> torch.Tensor:
+    """The bidirectional encoder over frames [B, Senc, D] -> enc_out
+    [B, Senc, D], `encoder_norm` applied (the reference's `run_layers(...,
+    stack="encoder")` and the norm after it).  Each block: non-causal
+    self-attention with RoPE over the frame positions (kernel B4 on a
+    card unless impl="ref"), then the MLP."""
+    enc_cfg = encoder_config(cfg)
+    x = frames.to(rt.activ_dtype)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    for i in range(cfg.encoder_layers):
+        pl_ = layer_slice(params["encoder"], i)
+        h = rms_norm(x, pl_["ln1"], cfg.norm_eps)
+        x = x + attn_mod.attention_train(pl_["attn"], enc_cfg, h,
+                                         causal=False, impl=impl,
+                                         positions=positions)
+        h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
+        x = x + mlp(pl_["mlp"], h, cfg.gated_mlp, impl=impl)
+    return rms_norm(x, params["encoder_norm"], cfg.norm_eps)
+
+
 def lm_head_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = params.get("lm_head", params["embedding"])
@@ -130,8 +177,9 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     quantized weights take their plain versions, impl="ref", whatever
     `rt.attn_impl` says): the reference the engine and the served tokens
     are held against, never the serving path."""
-    check_supported(cfg)
     x, positions = embed_inputs(params, cfg, batch, rt)
+    enc_out = (run_encoder(params, cfg, batch["frames"], rt, impl="ref")
+               if cfg.is_encoder_decoder else None)
     B = x.shape[0]
     for i in range(cfg.n_layers):
         pl_ = layer_slice(params["layers"], i)
@@ -158,8 +206,12 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                                      impl="ref")[0]
                 aout = hybrid_mix(aout, sout)
             x = x + aout
+            if enc_out is not None:
+                h = rms_norm(x, pl_["ln_cross"], cfg.norm_eps)
+                x = x + attn_mod.attention_train(pl_["cross"], cfg, h,
+                                                 kv_x=enc_out, impl="ref")
             h = rms_norm(x, pl_["ln2"], cfg.norm_eps)
             x = x + ffn(pl_, cfg, h, rt, impl="ref")
-    # strip the meta-token prefix before the LM head
+    # strip the meta-token and patch prefix before the LM head
     x = x[:, x.shape[1] - batch["tokens"].shape[1]:]
     return lm_head_logits(params, cfg, x)

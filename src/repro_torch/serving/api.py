@@ -36,7 +36,14 @@ the hybrid family (``arch="hymba-1.5b"``: a selective-SSM mixer beside
 attention over window rings, a 128-token meta prefix, per-slot SSM
 state; speculation refused, as for RWKV6), and the MoE family
 (``arch="mixtral-8x7b"``: capacity-based top-2 dispatch over 8 experts,
-W4A16 expert weights dequantized per call, as in the reference).  A tiered
+W4A16 expert weights dequantized per call, as in the reference).  The
+VLM family (``arch="pixtral-12b"``) serves as text on every path, as the
+reference's does (neither scheduler feeds patch embeddings; the engine's
+one-shot prefill takes them).  An encoder-decoder arch
+(``arch="whisper-base"``) constructs, and its first step fails where the
+reference's does: the interleaved scheduler's chunked prefill refuses it
+(ValueError), the splice scheduler's batches carry no frames (KeyError);
+its encoder and cross-attention run at the engine level.  A tiered
 shared pool (``EngineConfig(hot_pages=...)``) keeps only its hot tier on
 the device and stages the rest through a host capacity store, with a
 queue-ahead prefetch (``ServerConfig.tier_prefetch``); `RequestOutput`
@@ -44,9 +51,9 @@ carries each request's hot-tier hits and stalls.  With
 ``ServerConfig.overlap`` `stream()` / `run()` / `generate()` dispatch
 step N+1 before collecting step N, so the host's emission and
 bookkeeping run while the card computes; the tokens are the synchronous
-schedule's.  Configurations the port does not serve yet raise
-NotImplementedError at construction, naming their ROADMAP item: (through
-the engine) the VLM and encoder-decoder families.
+schedule's.  A configuration the port does not serve yet (a device
+mesh, through the engine) raises NotImplementedError at construction,
+naming its ROADMAP item.
 """
 from __future__ import annotations
 

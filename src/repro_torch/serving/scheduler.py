@@ -390,7 +390,8 @@ class ContinuousBatcher:
         self._resv = np.zeros(self.B, np.int64)   # reserved, not yet alloc'd
         self._outstanding = 0
         if (self.alloc is not None and self.alloc_w is None
-                and not self._whole_prompt):
+                and not self._whole_prompt
+                and not self.cfg.is_encoder_decoder):
             self.prefix_cache = PrefixCache(self.alloc,
                                             self.engine.eng.page_tokens)
         self._tables_dirty = True

@@ -162,10 +162,18 @@ def test_launch_serve_use_dse_refuses_partitions_over_a_ring(capsys):
 
 
 def test_launch_serve_use_dse_refuses_a_pick_it_cannot_serve(capsys):
-    """pixtral-12b's pick needs the VLM family: exit 2 naming the item
-    that ports it."""
-    with pytest.raises(SystemExit) as exc:
-        serve(["--arch", "pixtral-12b", "--use-dse", "--reduced",
-               "--device", "cpu"])
-    assert exc.value.code == 2
-    assert "ROADMAP A15" in capsys.readouterr().err
+    """pixtral-12b's pick (compact, W4A16, 64-token pages, bf16 KV; the
+    CLI serves it with float weights and 16-token pages, as the
+    reference's does) now serves.  whisper-base's pick cannot be served
+    by either package: its server constructs, and its first step raises
+    the reference's chunked-prefill ValueError."""
+    pick = dse.recommend_engine_config("pixtral-12b", 256)
+    assert (pick.variant, pick.quant, pick.page_tokens, pick.kv_quant,
+            pick.kv_dtype) == ("compact", "w4a16", 64, "none", "bfloat16")
+    outs = serve(["--arch", "pixtral-12b", "--use-dse", "--reduced",
+                  "--device", "cpu", "--requests", "2", "--max-new", "3"])
+    assert all(len(o.token_ids) == 3 for o in outs.values())
+    assert "DSE picked variant=compact" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        serve(["--arch", "whisper-base", "--use-dse", "--reduced",
+               "--device", "cpu", "--requests", "2", "--max-new", "3"])

@@ -49,6 +49,10 @@ SWEEP = [
     # config's 32 and gemma3-12b's 256
     (2, 70, 70, 4, 2, 32, True, None, "bfloat16"),
     (1, 64, 64, 4, 2, 256, True, 16, "float32"),
+    # non-causal with Sq != Sk: an encoder-decoder's cross-attention
+    # (decoder rows against the encoder's positions), MHA as whisper's
+    (2, 24, 96, 4, 4, 64, False, None, "float32"),
+    (1, 70, 40, 2, 2, 32, False, None, "bfloat16"),
 ]
 
 
@@ -178,14 +182,34 @@ def test_refusals_on_the_cpu(call, err):
 
 
 def test_single_device_attention_refuses_mesh_and_cross_attention():
+    """A mesh is refused (ROADMAP A17).  Cross-attention (`kv_x`, the
+    encoder-decoder family's) is served: one whisper decoder layer's
+    `attention_train(kv_x=...)`, 24 decoder rows against 40 encoder
+    positions (q from x, k/v from the encoder output, no RoPE,
+    non-causal), on the reference's weights matches the reference's."""
+    from repro.configs import get_config
+    from repro.models import attention as jattn
+    from repro.models.registry import Model
+    from repro_torch import bridge
     cfg = tget("qwen1.5-0.5b").reduced()
     _, (q, k, v) = _mk(1, 8, 8, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
                        "float32")
     with pytest.raises(NotImplementedError, match="A17"):
         tattn.sharded_flash_attention(q, k, v, mesh=object())
-    x = torch.zeros(1, 8, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="A15"):
-        tattn.attention_train({}, cfg, x, kv_x=x)
+    jcfg = get_config("whisper-base").reduced()
+    params = Model(jcfg).init(jax.random.PRNGKey(0))
+    cross0 = jax.tree.map(lambda a: a[0], params["layers"]["cross"])
+    tp = bridge.params_from_numpy(jax.tree.map(np.asarray, cross0), "cpu")
+    r = np.random.default_rng(0)
+    x, enc = (r.standard_normal((2, n, jcfg.d_model)).astype(np.float32)
+              for n in (24, 40))
+    want = jattn.attention_train(cross0, jcfg, jnp.asarray(x),
+                                 kv_x=jnp.asarray(enc))
+    got = tattn.attention_train(tp, tget("whisper-base").reduced(),
+                                torch.from_numpy(x),
+                                kv_x=torch.from_numpy(enc))
+    assert got.shape == (2, 24, jcfg.d_model)
+    _close(got, want, 2e-5)
 
 
 def test_attention_train_matches_reference():

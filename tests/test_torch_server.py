@@ -6,8 +6,9 @@ same weights at a float32 pool, for an MHA (qwen1.5-0.5b) and a GQA
 longer than one chunk (the past-page partial runs) and generations that
 cross page boundaries; gemma3-12b's window rings the same way.  Also:
 `outputs()` against the reference's, abort mid-prefill, the
-NotImplementedError guards of what the port does not serve yet, and the
-ValueError for an unknown scheduler name."""
+NotImplementedError guard of what the port does not serve yet (a mesh),
+pixtral's server serving and whisper's failing where the reference's
+does, and the ValueError for an unknown scheduler name."""
 import collections
 
 import jax
@@ -176,14 +177,29 @@ def test_abort_mid_prefill_frees_the_slot():
     assert srv._batcher.slots == [None, None]
 
 
-@pytest.mark.parametrize("make", [
-    lambda: KVNANDServer(ServerConfig(arch="pixtral-12b", reduced=True,
-                                      device="cpu")),
-    lambda: KVNANDEngine(tget("qwen1.5-0.5b").reduced(), mesh=object(),
-                         device="cpu"),
+def _vlm_and_encdec_servers():
+    """pixtral's server constructs and serves; whisper's constructs and
+    its first step raises the reference's chunked-prefill ValueError."""
+    srv = KVNANDServer(ServerConfig(arch="pixtral-12b", reduced=True,
+                                    device="cpu"))
+    assert len(srv.generate([[1, 2, 3]],
+                            SamplingParams(max_new_tokens=2))[0].token_ids) == 2
+    srv = KVNANDServer(ServerConfig(arch="whisper-base", reduced=True,
+                                    device="cpu"))
+    srv.submit([1, 2, 3], SamplingParams(max_new_tokens=2))
+    srv.step()
+
+
+@pytest.mark.parametrize("make,err,match", [
+    (_vlm_and_encdec_servers, ValueError, "encoder-decoder archs"),
+    (lambda: KVNANDEngine(tget("qwen1.5-0.5b").reduced(), mesh=object(),
+                          device="cpu"), NotImplementedError, "ROADMAP"),
 ], ids=["vlm_arch", "mesh"])
-def test_unported_configurations_raise(make):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_configurations_raise(make, err, match):
+    """A mesh raises at construction, naming its ROADMAP item.  The VLM
+    and encoder-decoder families are ported: the one serves, the other
+    fails where the reference's server does."""
+    with pytest.raises(err, match=match):
         make()
 
 
