@@ -24,11 +24,14 @@
     python3 chip_smoke.py --moe              # the build and phase 22 (E1, mixtral-8x7b) only
     python3 chip_smoke.py --vlm              # the build and phase 23 (P1, pixtral-12b) only
     python3 chip_smoke.py --audio            # the build and phase 24 (W1, whisper-base) only
+    python3 chip_smoke.py --train            # the build and phase 25 (L1, training) only
 
-A call that runs one model's phase alone (--dse, --window, --replicas,
---hybrid, --moe, --vlm) runs that model at full depth; the default run
-cuts D1 / V1 / M1, G1, Y1 and E1 in depth (never in width) to fit every
-phase into its time limit.
+A call that runs one model's phase alone (--quant-servers, --dse,
+--window, --replicas, --hybrid, --moe, --vlm, --train) runs that model at
+full depth; the default run cuts Q1 / Q2, D1 / V1 / M1, G1, Y1, E1 and
+L1's hymba in depth (never in width), and the CPU sides of Y1's and P1's
+DSE checks to their shorter prompts, to fit every phase into its time
+limit.
 
 Phases (each one fails the run when it fails):
 
@@ -90,14 +93,15 @@ Phases (each one fails the run when it fails):
             `git show 3411943:src/repro_torch/csrc/quant_gemv.cu`) beside
             the current one at the 8 timed shapes, old, new, new, old, in
             one process;
-8. Q1, Q2   the quantized deployments at the full width of qwen1.5-0.5b:
-            Q1 W4A16 weights, stripe pool, kv4 pages (the design-space
-            search's fallback); Q2 W8A8 weights, shared pool, kv8 pages
-            (prefix hits, copy-on-write of codes and scales).  B3's
-            counter must equal 4 x 24 per decode step and prefill chunk
-            (wo, gate, up, down; wq/wk/wv are dequantized, the LM head is
-            the float embedding), B1's (Q1) or B2's (Q2) 24 per decode
-            step, the other 0.  Each is held against the same server run
+8. Q1, Q2   the quantized deployments at the full width of qwen1.5-0.5b
+            (in the default run cut to QWEN_QUANT_LAYERS of its 24 layers;
+            `--quant-servers` runs all 24): Q1 W4A16 weights, stripe
+            pool, kv4 pages (the design-space search's fallback); Q2 W8A8
+            weights, shared pool, kv8 pages (prefix hits, copy-on-write of
+            codes and scales).  B3's counter must equal 4 x L per decode
+            step and prefill chunk (wo, gate, up, down; wq/wk/wv are
+            dequantized, the LM head is the float embedding), B1's (Q1) or
+            B2's (Q2) L per decode step, the other 0.  Each is held against the same server run
             on the CPU (plain versions, the same quantized params, the
             same prompts): each prompt's last-token prefill logits within
             QUANT_PREFILL_TOL (relative Euclidean distance), and served
@@ -325,7 +329,8 @@ Phases (each one fails the run when it fails):
             chunk (wo, gate, up, down and the mixer's six projections), B1
             = steps x 24; served logprobs against the plain forward within
             QUANT_LOGPROB_TOL, and each prompt of at most HYMBA_CPU_PROMPT
-            tokens prefilled on the card and on the CPU within
+            tokens (HYMBA_CPU_PROMPT_CUT in the default run) prefilled on
+            the card and on the CPU within
             HYMBA_PREFILL_TOL, the CPU computing B3's own function
             (`b3_function`); two controls beside it, printed: the card
             computing that function too (what the gap owes to the rest of
@@ -334,7 +339,7 @@ Phases (each one fails the run when it fails):
             beside the card.  `--hybrid` runs the build and this phase
             only;
 22. E1      full-width mixtral-8x7b, the MoE family (32 layers, in the
-            default run cut to 16 (MIXTRAL_LAYERS), d_model
+            default run cut to 8 (MIXTRAL_LAYERS), d_model
             4096, 32 heads over 8 kv heads x 128 (G = 4), 8 experts,
             top-2, d_ff 14336 an expert, vocab 32000, an untied LM head,
             rope theta 1e4) at W4A16: random weights built one layer at a
@@ -407,7 +412,8 @@ Phases (each one fails the run when it fails):
             a time: B3 = 4 x 40 per decode step and chunk, B1 = steps x
             40, logprobs against the plain forward within
             QUANT_LOGPROB_TOL, and the prompts of at most
-            PIXTRAL_CPU_PROMPT tokens prefilled on the card and on the
+            PIXTRAL_CPU_PROMPT tokens (PIXTRAL_CPU_PROMPT_CUT in the
+            default run) prefilled on the card and on the
             card machine's CPU computing B3's function within
             PIXTRAL_PREFILL_TOL, with Y1's two controls.  `--vlm` runs the
             build and this phase only;
@@ -428,7 +434,40 @@ Phases (each one fails the run when it fails):
             f32 within GOLDEN_TOL with every argmax equal, bf16 within
             WHISPER_BF16_TOL.  The reference's servers cannot serve
             whisper (ROADMAP §C), so neither do the port's: W1 is the
-            engine.  `--audio` runs the build and this phase only.
+            engine.  `--audio` runs the build and this phase only;
+25. L1      training (`training/train_step.py`, `launch/train.py`), every
+            attention forward through B4 under autograd
+            (`FlashAttentionFn`: B4's forward, a torch-op backward).
+            First B4's gradients: dq / dk / dv against autograd through
+            the plain version on the card (FLASH_TOL of max |grad|, f32
+            and bf16) at FLASH_GRAD_SHAPES (qwen1.5-0.5b's 16 x 64 causal
+            at 256, hymba's 25 / 5 x 64 at window 1024 over 1152
+            positions, 32 / 8 x 128 at 600, whisper's non-causal 8 x 64
+            encoder at 1536 and its cross-attention 256 x 1536), and the
+            forward and backward timed at qwen's training shape beside
+            the plain version under autograd and SDPA's.  Then
+            qwen1.5-0.5b at full width and depth (random f32 weights
+            from seed 0, `SyntheticLM` seed 0, seq TRAIN_SEQ x batch
+            TRAIN_BATCH): (a) step 0's gradients on the kernel path
+            against impl="ref" on the card (TRAIN_LOSS_TOL,
+            TRAIN_NORM_TOL, TRAIN_LEAF_TOL); (b) remat "block", "full"
+            and 2 microbatches against remat "none" within the same
+            bounds, each run's peak memory printed; (c) B4 launches =
+            24 a step, 48 under remat or 2 microbatches, B1-B3 and B5 0;
+            the step time and tokens/s; (d) TRAIN_STEPS steps through
+            `launch.train` at the reference driver's TRAIN_LR on the
+            kernel path and on impl="ref", loss for loss within
+            TRAIN_TRACK_TOL, then TRAIN_STEPS steps at TRAIN_FALL_LR,
+            every loss finite and the mean of the last 5 below the first
+            5's by TRAIN_FALL; (e)
+            RESUME_STEPS steps straight against RESUME_AT steps and a
+            resume from the checkpoint directory for the rest: losses
+            and final state bit for bit or within the bound printed.
+            Then hymba-1.5b at full width (in the default run cut to
+            HYMBA_TRAIN_LAYERS of 32), 1024 tokens after its 128 meta
+            tokens x 2 rows, remat "block": (a) and HYMBA_TRAIN_STEPS
+            steps of finite, falling loss.  `--train` runs the build and
+            this phase only.
 
 It needs a CUDA card (exits non-zero without one, printing no result),
 imports nothing of JAX, and prints the card's name and power limit, a
@@ -974,18 +1013,23 @@ def server_config(device="cuda", scheduler="interleaved", server=None,
 
 
 def build_server(params=None, device="cuda", scheduler="interleaved",
-                 server=None, **engine):
+                 server=None, layers=24, **engine):
     """The full-width qwen1.5-0.5b server on `device`: random weights from
-    seed 0, or `params` (e.g. a quantized tree)."""
+    seed 0, or `params` (e.g. a quantized tree), and `layers` of its 24
+    (the default run cuts Q1 / Q2 in depth)."""
+    import dataclasses
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.serving.api import KVNANDServer
     t0 = time.perf_counter()
     config = server_config(device, scheduler, server, **engine)
     eng = config.engine
-    srv = KVNANDServer(config, params=params)
+    srv = KVNANDServer(config, cfg=dataclasses.replace(
+        get_config("qwen1.5-0.5b"), n_layers=layers), params=params)
     cfg = srv.cfg
-    check(cfg.n_layers == 24 and cfg.d_model == 1024 and cfg.n_heads == 16
-          and cfg.padded_vocab == 152064, "not the full-width qwen1.5-0.5b")
+    check(cfg.n_layers == layers and cfg.d_model == 1024
+          and cfg.n_heads == 16 and cfg.padded_vocab == 152064,
+          "not the full-width qwen1.5-0.5b")
     pool = {"kv8": torch.int8, "kv4": torch.uint8}.get(
         eng.kv_quant, getattr(torch, eng.kv_dtype))
     check(srv._batcher.cache.k_pages_g.dtype == pool,
@@ -1510,21 +1554,30 @@ def prefill_gaps(card, cpu, prompts):
     return gaps
 
 
+# Q1 / Q2's depth in the default run, cut from 24 for L1 (the CPU runs,
+# 68 s of a fast host at 24 layers, scale with it; PERF.md, PR 27);
+# `--quant-servers` runs all 24
+QWEN_QUANT_LAYERS = 12
+
+
 def quant_server_phase(label, scheme, kv_quant, shared, prompts_of):
     """A quantized deployment of full-width qwen1.5-0.5b on the card (the
-    random model of the server phases, quantized by `quantize_params`),
-    then the same server on the CPU with the same params, both serving the
-    same prompts.  Every copy-on-write is checked as it happens: the new
-    page's codes and scales equal its source's."""
+    random model of the server phases at QWEN_QUANT_LAYERS of its 24 in
+    the default run, quantized by `quantize_params`), then the same server
+    on the CPU with the same params, both serving the same prompts.  Every
+    copy-on-write is checked as it happens: the new page's codes and
+    scales equal its source's."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import paged_kv
     from repro_torch.core.quant import quantize_params
     from repro_torch.models.registry import Model
-    cfg = get_config("qwen1.5-0.5b")
+    layers = depth(QWEN_QUANT_LAYERS, 24)
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"), n_layers=layers)
     gen = torch.Generator(device="cuda").manual_seed(0)
     qparams = quantize_params(Model(cfg).init(gen), scheme)
-    eng = dict(kv_quant=kv_quant, shared_pool=shared)
+    eng = dict(kv_quant=kv_quant, shared_pool=shared, layers=layers)
     srv = build_server(params=qparams, **eng)
     prompts = prompts_of(srv.cfg.vocab_size)
     copies = []
@@ -2304,17 +2357,19 @@ LLAMA2_CTX = 128         # --max-context at which the DSE picks KVNAND-D
 # command time with 16 layers here, 24 in G1 and 32 in Y1 on a card whose
 # host ran the launch-bound phases 1.4-1.5x slower than another's)
 LLAMA2_LAYERS = 8
-# A call that runs one model's phase alone (--dse, --window, --replicas,
-# --hybrid, --moe, --vlm) runs that model at full depth; only the default
-# run, which must fit every phase into its limit, takes the depth cuts
-# (LLAMA2_LAYERS, GEMMA_LAYERS, HYMBA_LAYERS, MIXTRAL_LAYERS).  Widths are
-# never cut.
+# A call that runs one model's phase alone (--quant-servers, --dse,
+# --window, --replicas, --hybrid, --moe, --vlm, --train) runs that model at
+# full depth; only the default run, which must fit every phase into its
+# limit, takes the depth cuts (QWEN_QUANT_LAYERS, LLAMA2_LAYERS,
+# GEMMA_LAYERS, HYMBA_LAYERS, MIXTRAL_LAYERS, HYMBA_TRAIN_LAYERS) and the
+# cuts of Y1's and P1's CPU sides (HYMBA_CPU_PROMPT_CUT,
+# PIXTRAL_CPU_PROMPT_CUT).  Widths are never cut.
 FULL_DEPTH = False
 
 
 def depth(cut: int, full: int) -> int:
-    """A model's layer count in this run: `full` in a single-phase call,
-    `cut` in the default run."""
+    """A model's layer count (or another size the default run cuts) in
+    this run: `full` in a single-phase call, `cut` in the default run."""
     return full if FULL_DEPTH else cut
 
 
@@ -3937,8 +3992,11 @@ HYMBA_NEW = 24           # new tokens a request
 # of 16-token pages in prefill (1228 positions), the 900-token one in
 # decode (1028 + 24 > 1040)
 HYMBA_PROMPT_LENS = (5, 17, 60, 200, 900, 1100)
-# the longest prompt the CPU side of the DSE check prefills
-HYMBA_CPU_PROMPT = 200
+# the longest prompt the CPU side of the DSE check prefills: 200 in
+# `--hybrid`; the default run cuts it to HYMBA_CPU_PROMPT_CUT since L1
+# came (the 200-token prompt took 54 s of the CPU side on a slow host, and
+# its plain-GEMV control read lowest, 6.16e-2; PERF.md, PR 27)
+HYMBA_CPU_PROMPT, HYMBA_CPU_PROMPT_CUT = 200, 60
 # The DSE pick's prefill logits, the card against the CPU computing B3's
 # function (`b3_function`), ||card - CPU|| / ||CPU|| at the last token.
 # Hymba's random model amplifies the f32-level differences of a sound
@@ -4347,7 +4405,8 @@ def hybrid_phases(rate) -> dict:
                                  tol=QUANT_LOGPROB_TOL)
     cpu = build_hymba_server(cfg, tree_to(qparams, "cpu"), eng,
                              device="cpu")
-    short = [p for p in prompts if len(p) <= HYMBA_CPU_PROMPT]
+    longest = depth(HYMBA_CPU_PROMPT_CUT, HYMBA_CPU_PROMPT)
+    short = [p for p in prompts if len(p) <= longest]
     t0 = time.perf_counter()
     cpu_logits = []
     with b3_function():
@@ -4366,7 +4425,7 @@ def hybrid_phases(rate) -> dict:
                       "cause)"), ("plain", "the plain version on the card "
                       "(the control of a B3 computing it)")):
         print(f"check {label}: {len(short)} prompts of <= "
-              f"{HYMBA_CPU_PROMPT} tokens prefilled through {what} against "
+              f"{longest} tokens prefilled through {what} against "
               f"the CPU computing B3's function ({cpu_wall:.3f} s), "
               f"||logit difference|| / ||CPU logits|| at the last token: "
               f"{', '.join(f'{g:.4e}' for g in gaps[key])} (tol "
@@ -4406,8 +4465,9 @@ def hybrid_phases(rate) -> dict:
 
 MIXTRAL_CTX = 1024       # max_context of E1's servers
 # E1's depth in the default run, cut from 32 to make room for P1 and W1
-# (see LLAMA2_LAYERS); `--moe` runs all 32
-MIXTRAL_LAYERS = 16
+# (see LLAMA2_LAYERS), and from 16 to 8 for L1 (PERF.md, PR 27); `--moe`
+# runs all 32
+MIXTRAL_LAYERS = 8
 MIXTRAL_NEW = 16         # new tokens a request
 # B3's launches a mixtral layer: wo only (wq/wk/wv are dequantized per
 # head group and the experts by `moe`, as in the reference)
@@ -4873,6 +4933,18 @@ def mixtral_server_runs(cfg, params, control) -> dict:
         outs, counts, steps, wall, tokens = serve(
             label, srv, prompts[:2] if key.endswith("float_wo") else prompts,
             MIXTRAL_NEW)
+        if key == "spec_nodrop":
+            # a request with one token of its budget left cannot draft, so
+            # the speculative server takes a sequential decode step for
+            # it: a 2-token request drives that path whatever the six
+            # above accepted (at the default run's depth they end on
+            # verify steps only)
+            _, more, s2, w2, t2 = serve(f"{label}, a 2-token request", srv,
+                                        prompts[1:2], 2)
+            counts = {k: counts[k] + more[k] for k in counts}
+            steps, wall, tokens = steps + s2, wall + w2, tokens + t2
+            check(s2 > 0, f"{label}: the 2-token request took no decode "
+                  "step")
         verify = srv.stats.get("verify_steps", 0) - v0
         admits, chunks = counts["admits"], counts["prefill_chunks"]
         expect = {**zero, **want(steps, admits, chunks, verify)}
@@ -5015,8 +5087,11 @@ PIXTRAL_B3_PER_LAYER = 4
 PIXTRAL_GEMV_SHAPES = (("wo", 5120, 5120), ("gate/up", 5120, 14336),
                        ("down", 14336, 5120))
 # the longest prompt the CPU side of the DSE check prefills (a 12.8 B
-# model on 8 cores, B3's function in float64)
-PIXTRAL_CPU_PROMPT = 17
+# model on 8 cores, B3's function in float64): 17 in `--vlm`, the 5- and
+# the 17-token prompts (the 17-token one takes B3's tile path); the default
+# run cuts it to the 5-token prompt since L1 came (~73 s of a slow host
+# for both; PERF.md, PR 27)
+PIXTRAL_CPU_PROMPT, PIXTRAL_CPU_PROMPT_CUT = 17, 5
 # The DSE pick's prefill logits, the card against the CPU computing B3's
 # function (`b3_function`), ||card - CPU|| / ||CPU|| at the last token.
 # pixtral's random model carries far less of the bf16 rounding of x than
@@ -5247,9 +5322,10 @@ def pixtral_dse_run(cfg) -> dict:
     (after the f32 tree is freed): stripe, 64-token bf16 pages, B3 = 4 x
     40 per decode step and prefill chunk, B1 = steps x 40; served
     logprobs against the plain forward within QUANT_LOGPROB_TOL; the
-    prompts of at most PIXTRAL_CPU_PROMPT tokens prefilled on the card and
-    on the card machine's CPU computing B3's function, within
-    PIXTRAL_PREFILL_TOL, beside the two controls of Y1."""
+    prompts of at most PIXTRAL_CPU_PROMPT tokens (PIXTRAL_CPU_PROMPT_CUT
+    in the default run) prefilled on the card and on the card machine's
+    CPU computing B3's function, within PIXTRAL_PREFILL_TOL, beside the
+    two controls of Y1."""
     import gc
     import torch
     L = cfg.n_layers
@@ -5271,7 +5347,8 @@ def pixtral_dse_run(cfg) -> dict:
                                  tol=QUANT_LOGPROB_TOL)
     cpu = build_pixtral_server(cfg, tree_to(qparams, "cpu"), eng,
                                device="cpu")
-    short = [p for p in prompts if len(p) <= PIXTRAL_CPU_PROMPT]
+    longest = depth(PIXTRAL_CPU_PROMPT_CUT, PIXTRAL_CPU_PROMPT)
+    short = [p for p in prompts if len(p) <= longest]
     t0 = time.perf_counter()
     with b3_function():
         cpu_logits = [whole_prompt_logits(cpu, p) for p in short]
@@ -5287,7 +5364,7 @@ def pixtral_dse_run(cfg) -> dict:
                       "float64 on the card too"), ("plain", "the plain "
                       "version on the card")):
         print(f"check {label}: {len(short)} prompts of <= "
-              f"{PIXTRAL_CPU_PROMPT} tokens prefilled through {what} against"
+              f"{longest} tokens prefilled through {what} against"
               f" the CPU computing B3's function ({cpu_wall:.3f} s), "
               f"||logit difference|| / ||CPU logits|| at the last token: "
               f"{', '.join(f'{g:.4e}' for g in gaps[key])} (tol "
@@ -5559,6 +5636,476 @@ def audio_phases(rate) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# L1: training (qwen1.5-0.5b at full width and depth, hymba-1.5b)
+# ---------------------------------------------------------------------------
+
+# launch/train.py's defaults, the reference driver's
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR = 256, 8, 3e-3
+TRAIN_STEPS = 40
+# step 0 on the kernel path (B4 under autograd) against impl="ref" on the
+# card: the loss (relative), the global gradient norm (relative), and
+# every gradient leaf within TRAIN_LEAF_TOL of its own max |g|; the same
+# bounds hold remat and microbatches against remat="none".  The k bias's
+# gradient is 0 in exact arithmetic (the softmax cancels a shift of a
+# row's scores), so both sides of it are float32 noise: that leaf is held
+# to TRAIN_LEAF_TOL of the max |g| of its layers' wk_w instead
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_NORM_TOL = 1e-3
+TRAIN_LEAF_TOL = 2e-3
+# (d): the mean of the last 5 of the 40 losses below the mean of the
+# first 5 by at least TRAIN_FALL nats, at TRAIN_FALL_LR.  At the reference
+# driver's lr 3e-3 full-width qwen1.5-0.5b does not learn SyntheticLM in 40
+# steps (first 5 12.3639, last 5 12.3859 on the card; the successor table
+# of 151936 tokens is barely seen and the normalized updates random-walk
+# every embedding row); a CPU rehearsal at full width and vocab, 1 layer,
+# fell 0.1117 at 3e-3 (spiking mid-run), 0.1162 at 1e-3 and 0.0248 at
+# 3e-4 (PERF.md §4, PR 27)
+TRAIN_FALL_LR = 1e-3
+TRAIN_FALL = 0.05
+# (d)'s witness at the reference driver's lr (TRAIN_LR): the same
+# TRAIN_STEPS steps through launch.train on the kernel path and on the
+# plain path (impl="ref", no B4), loss for loss within TRAIN_TRACK_TOL
+# nats, so that what the kernel path does at 3e-3 is what the plain
+# attention does too
+TRAIN_TRACK_TOL = 2e-2
+RESUME_STEPS, RESUME_AT = 6, 3
+# hymba-1.5b: 1024 tokens after its 128 meta tokens, so the 1024-token
+# window cuts in; 2 rows; remat="block" (each layer's SSM scan keeps ~4 GB
+# of activations); the default run cuts it to HYMBA_TRAIN_LAYERS (15 is
+# its first global layer), `--train` runs all 32
+HYMBA_TRAIN_SEQ, HYMBA_TRAIN_BATCH, HYMBA_TRAIN_STEPS = 1024, 2, 5
+HYMBA_TRAIN_LAYERS = 16
+# B4 under autograd: FlashAttentionFn (B4 forward, torch-op backward)
+# against autograd through the plain version, at the training shapes
+FLASH_GRAD_SHAPES = (
+    # label, B, Sq, Sk, H, K, dh, causal, window
+    ("qwen1.5-0.5b", 2, 256, 256, 16, 16, 64, True, None),
+    ("hymba-1.5b", 2, 1152, 1152, 25, 5, 64, True, 1024),
+    ("GQA 32/8 x 128", 2, 600, 600, 32, 8, 128, True, None),
+    ("whisper encoder", 2, 1536, 1536, 8, 8, 64, False, None),
+    ("whisper cross", 2, 256, 1536, 8, 8, 64, False, None),
+)
+
+
+def flash_grad_phase() -> dict:
+    """dq / dk / dv of `FlashAttentionFn` with B4's forward against
+    autograd through the plain version on the card (FLASH_TOL of max
+    |grad|, f32 and bf16), then fwd + bwd timed at qwen1.5-0.5b's
+    training shape beside the plain version under autograd and SDPA's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                     flash_attention_cuda,
+                                                     flash_attention_ref)
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    worst = {}
+    for label, B, Sq, Sk, H, K, dh, causal, window in FLASH_GRAD_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = (t.requires_grad_() for t in flash_inputs(
+                B, Sq, Sk, H, K, dh, getattr(torch, dtype), gen))
+            dout = torch.randn_like(q)
+            got = torch.autograd.grad(FlashAttentionFn.apply(
+                q, k, v, causal, window, 0, flash_attention_cuda),
+                (q, k, v), dout)
+            want = torch.autograd.grad(flash_attention_ref(
+                q, k, v, causal=causal, window=window), (q, k, v), dout)
+            tol = FLASH_TOL["f32" if dtype == "float32" else "bf16"]
+            errs = [float((a.float() - b.float()).abs().max())
+                    / float(b.float().abs().max()) for a, b in zip(got, want)]
+            print(f"L1 B4 grad {label} B={B} Sq={Sq} Sk={Sk} {H}/{K} x {dh} "
+                  f"{'causal' if causal else 'non-causal'} window={window} "
+                  f"{dtype}: dq/dk/dv within "
+                  + " / ".join(f"{e:.3e}" for e in errs)
+                  + f" of max |grad| (tol {tol:.0e})")
+            check(max(errs) <= tol, f"L1: B4's gradient at {label} {dtype} "
+                  f"off by {max(errs):.3e} > {tol:.0e}")
+            worst[f"{label} {dtype}"] = max(errs)
+    B, S, H, K, dh = TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64
+    q, k, v = (t.requires_grad_() for t in flash_inputs(
+        B, S, S, H, K, dh, torch.float32, gen))
+    dout = torch.randn_like(q)
+    qs, ks, vs = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+
+    def fwd_bwd(fn, args, grad):
+        return lambda: torch.autograd.grad(fn(*args), args, grad)
+    times = {
+        "ms": time_ms(fwd_bwd(lambda *a: FlashAttentionFn.apply(
+            *a, True, None, 0, flash_attention_cuda), (q, k, v), dout),
+            10, flush),
+        "plain_ms": time_ms(fwd_bwd(lambda *a: flash_attention_ref(*a),
+                                    (q, k, v), dout), 5, flush),
+        "library_ms": time_ms(fwd_bwd(
+            lambda *a: F.scaled_dot_product_attention(*a, is_causal=True),
+            (qs, ks, vs), dout.transpose(1, 2).contiguous()), 10, flush)}
+    timing = {k: statistics.median(t) for k, t in times.items()}
+    print(f"L1 B4 under autograd, fwd + bwd at B={B} S={S} {H} x {dh} f32 "
+          "causal (median): " + " ".join(f"{k}={t:.6f}"
+                                         for k, t in timing.items())
+          + " (library: SDPA forward and backward, f32)")
+    return {"max_rel_err": worst, "timing": timing}
+
+
+def grad_compare(label, got, want) -> dict:
+    """Step-0 readings of one run against another: the loss, the global
+    gradient norm, every leaf (TRAIN_* bounds; the k bias against its
+    layers' wk_w, see TRAIN_LEAF_TOL)."""
+    import torch
+    from repro_torch.bridge import flatten_with_paths
+    (gg, gm), (wg, wm) = got, want
+    loss = abs(float(gm["loss"]) - float(wm["loss"])) / abs(float(wm["loss"]))
+    norm = (lambda t: float(torch.sqrt(sum(torch.sum(x.double() ** 2)
+                                           for x in _leaves(t)))))
+    gnorm = abs(norm(gg) - norm(wg)) / norm(wg)
+    gflat, wflat = flatten_with_paths(gg), flatten_with_paths(wg)
+    leaf = {}
+    for path, w in wflat.items():
+        scale = float(wflat[path[:-1] + "w" if path.endswith("wk_b")
+                            else path].abs().max())
+        leaf[path] = float((gflat[path] - w).abs().max()) / scale
+    worst = max(leaf, key=leaf.get)
+    print(f"L1 {label}: loss {float(gm['loss']):.6f} vs "
+          f"{float(wm['loss']):.6f} ({loss:.3e}), grad norm {gnorm:.3e}, "
+          f"worst leaf {worst} {leaf[worst]:.3e} (k bias "
+          + ", ".join(f"{leaf[p]:.3e}" for p in leaf if p.endswith("wk_b"))
+          + ")")
+    check(loss <= TRAIN_LOSS_TOL and gnorm <= TRAIN_NORM_TOL
+          and leaf[worst] <= TRAIN_LEAF_TOL,
+          f"L1 {label}: loss {loss:.3e} (tol {TRAIN_LOSS_TOL:.0e}), grad "
+          f"norm {gnorm:.3e} ({TRAIN_NORM_TOL:.0e}), {worst} "
+          f"{leaf[worst]:.3e} ({TRAIN_LEAF_TOL:.0e})")
+    return {"loss_rel": loss, "grad_norm_rel": gnorm, "worst_leaf": worst,
+            "worst_leaf_rel": leaf[worst]}
+
+
+def train_batch(cfg, seq, batch, index=0):
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    src = SyntheticLM(DataConfig(seq_len=seq, global_batch=batch,
+                                 vocab_size=cfg.vocab_size, seed=0))
+    return {k: torch.from_numpy(v).cuda() for k, v in
+            src.batch(index).items()}
+
+
+def grads_run(params, cfg, batch, rt, remat="none", microbatches=1):
+    """Step 0's gradients and metrics, with the B1-B5 launches it made
+    and its peak device memory."""
+    import torch
+    from repro_torch.kernels import flash_attention, paged_attention, \
+        quant_gemv, wkv6
+    from repro_torch.training.train_step import grads_and_metrics
+    counters = {"B1": paged_attention.launches,
+                "B2": paged_attention.launches_shared,
+                "B3": quant_gemv.launches, "B4": flash_attention.launches,
+                "B5": wkv6.launches}
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = grads_and_metrics(params, batch, cfg, rt, remat, microbatches)
+    torch.cuda.synchronize()
+    info = {"wall_s": time.perf_counter() - t0,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": {k: c.value for k, c in counters.items()}}
+    check(all(n == 0 for k, n in info["launches"].items() if k != "B4"),
+          f"L1: a kernel other than B4 ran in training: {info['launches']}")
+    return out, info
+
+
+def step_timing(cfg, params, batch, rt, acfg, remat, reps=5) -> dict:
+    """Host wall of `reps` train steps after one warm-up (each ending in
+    a synchronize), tokens a second over the batch's token positions,
+    and the B4 launches of the reps + 1 steps.  Updates `params` in
+    place."""
+    import torch
+    from repro_torch.configs import EngineConfig
+    from repro_torch.kernels import flash_attention
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    step = make_train_step(cfg, rt, acfg, EngineConfig(remat=remat))
+    state = init_train_state(params, acfg)
+    flash_attention.launches.reset()
+    walls, losses = [], []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+    ms = statistics.median(walls[1:]) * 1e3
+    tokens = batch["tokens"].numel()
+    return {"step_ms": ms, "tokens_per_s": tokens / ms * 1e3,
+            "losses": losses, "step_ms_all": [w * 1e3 for w in walls],
+            "launches_B4": flash_attention.launches.value}
+
+
+def qwen_train_phase() -> dict:
+    """L1's qwen1.5-0.5b gates (a)-(e) (see the module docstring)."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.train import train
+    from repro_torch.models.registry import Model
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.training.optimizer import AdamWConfig
+    cfg = get_config("qwen1.5-0.5b")
+    check(cfg.n_layers == 24 and cfg.d_model == 1024 and cfg.n_heads == 16
+          and cfg.n_kv_heads == 16 and cfg.d_head == 64 and cfg.attn_bias
+          and cfg.d_ff == 2816 and cfg.vocab_size == 151936
+          and cfg.tie_embeddings, "not the full-width qwen1.5-0.5b")
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    n = sum(t.numel() for t in _leaves(params))
+    print(f"L1: {cfg.name}, {n / 1e9:.3f}B params ({4 * n / 1e9:.2f} GB "
+          f"float32, AdamW state {12 * n / 1e9:.2f} GB), seq {TRAIN_SEQ} x "
+          f"batch {TRAIN_BATCH}")
+    batch = train_batch(cfg, TRAIN_SEQ, TRAIN_BATCH)
+    res = {"params": n, "runs": {}}
+    kern, info = grads_run(params, cfg, batch, Runtime())
+    res["runs"]["kernel"] = info
+    plain, pinfo = grads_run(params, cfg, batch, Runtime(attn_impl="ref"))
+    res["runs"]["plain"] = pinfo
+    check(pinfo["launches"]["B4"] == 0, "L1: impl='ref' launched B4")
+    res["a"] = grad_compare("(a) kernel vs plain, step 0", kern, plain)
+    del plain
+    check(info["launches"]["B4"] == cfg.n_layers,
+          f"L1: {info['launches']['B4']} B4 launches in a step, not "
+          f"{cfg.n_layers}")
+    res["b"] = {}
+    for label, remat, mb in (("remat block", "block", 1),
+                             ("remat full", "full", 1),
+                             ("2 microbatches", "none", 2)):
+        got, ginfo = grads_run(params, cfg, batch, Runtime(), remat, mb)
+        res["runs"][label] = ginfo
+        res["b"][label] = grad_compare(f"(b) {label} vs none", got, kern)
+        del got
+        check(ginfo["launches"]["B4"] == 2 * cfg.n_layers,
+              f"L1: {label} launched B4 {ginfo['launches']['B4']} times, "
+              f"not {2 * cfg.n_layers}")
+    del kern
+    for label, r in res["runs"].items():
+        print(f"L1 (c) {label}: B4 {r['launches']['B4']} launches, peak "
+              f"{r['peak_gb']:.2f} GB, {r['wall_s']:.2f} s")
+    acfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=TRAIN_STEPS)
+    res["timing"] = step_timing(cfg, params, batch, Runtime(), acfg, "none")
+    print(f"L1 step time: {res['timing']['step_ms']:.1f} ms median of 5 "
+          f"(after one), {res['timing']['tokens_per_s']:.0f} tokens/s, "
+          f"remat none, on {smi_line()}")
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["witness"] = lr_witness(cfg)
+    flash_attention.launches.reset()
+    t0 = time.perf_counter()
+    losses = train(["--steps", str(TRAIN_STEPS), "--lr", str(TRAIN_FALL_LR),
+                    "--log-every", "10"])
+    res["d"] = {"losses": losses, "wall_s": time.perf_counter() - t0,
+                "launches_B4": flash_attention.launches.value}
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    print(f"L1 (d) {TRAIN_STEPS} steps through launch.train at lr "
+          f"{TRAIN_FALL_LR}: first 5 mean "
+          f"{first:.4f}, last 5 mean {last:.4f} (fall {first - last:.4f}, "
+          f"gate {TRAIN_FALL}), B4 {res['d']['launches_B4']}, "
+          f"{res['d']['wall_s']:.1f} s")
+    check(all(np.isfinite(losses)) and last < first - TRAIN_FALL,
+          f"L1: the loss did not fall by {TRAIN_FALL}: {first} -> {last}")
+    check(res["d"]["launches_B4"] == TRAIN_STEPS * cfg.n_layers,
+          f"L1: {res['d']['launches_B4']} B4 launches over {TRAIN_STEPS} "
+          "steps")
+    res["e"] = resume_phase(cfg)
+    check(res["timing"]["launches_B4"] == 6 * cfg.n_layers,
+          f"L1: {res['timing']['launches_B4']} B4 launches in 6 steps")
+    res["launches_B4"] = (sum(r["launches"]["B4"]
+                              for r in res["runs"].values())
+                          + res["timing"]["launches_B4"]
+                          + res["witness"]["launches_B4"]
+                          + res["d"]["launches_B4"] + res["e"]["launches_B4"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ROOT / "build" / "train_ckpt", ignore_errors=True)
+    return res
+
+
+def lr_witness(cfg) -> dict:
+    """(d)'s witness: TRAIN_STEPS steps of `launch.train` at the reference
+    driver's lr on the kernel path and on the plain path (impl="ref"),
+    held loss for loss within TRAIN_TRACK_TOL; each run's fall (the mean
+    of the first 5 losses less that of the last 5) printed."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.train import train
+    from repro_torch.models.transformer import Runtime
+    argv = ["--steps", str(TRAIN_STEPS), "--lr", str(TRAIN_LR),
+            "--log-every", "10"]
+    runs, launches = {}, {}
+    for key, rt in (("kernel", Runtime()),
+                    ("plain", Runtime(attn_impl="ref"))):
+        flash_attention.launches.reset()
+        runs[key] = np.array(train(argv, rt=rt))
+        launches[key] = flash_attention.launches.value
+    gap = np.abs(runs["kernel"] - runs["plain"])
+    fall = {k: float(v[:5].mean() - v[-5:].mean()) for k, v in runs.items()}
+    at = [*range(0, TRAIN_STEPS - 1, 10), TRAIN_STEPS - 1]
+    print(f"L1 (d) witness at lr {TRAIN_LR}, {TRAIN_STEPS} steps: kernel "
+          f"path fall {fall['kernel']:.4f}, plain path fall "
+          f"{fall['plain']:.4f}; losses apart by at most {gap.max():.3e} "
+          f"(step {int(gap.argmax())}; tol {TRAIN_TRACK_TOL:.0e}); kernel / "
+          f"plain at steps {at}: " + ", ".join(
+              f"{runs['kernel'][i]:.4f}/{runs['plain'][i]:.4f}" for i in at))
+    check(all(np.isfinite(v).all() for v in runs.values())
+          and gap.max() <= TRAIN_TRACK_TOL,
+          f"L1: at lr {TRAIN_LR} the kernel path parts from the plain path "
+          f"by {gap.max():.3e} nats")
+    check(launches["kernel"] == TRAIN_STEPS * cfg.n_layers
+          and launches["plain"] == 0,
+          f"L1: witness B4 launches {launches}")
+    return {"losses": {k: v.tolist() for k, v in runs.items()},
+            "fall": fall, "max_gap": float(gap.max()),
+            "launches_B4": launches["kernel"]}
+
+
+def resume_phase(cfg) -> dict:
+    """(e): RESUME_STEPS steps straight through launch.train, saving every
+    RESUME_AT - 1 steps (the save after step RESUME_AT - 1 holds RESUME_AT
+    updates); then its later checkpoints set aside and a resume from the
+    step-RESUME_AT one for the remaining steps: its losses and final
+    state against the straight run's, bit for bit or within the bound
+    printed."""
+    import shutil
+    import numpy as np
+    from repro_torch.checkpoint import checkpoint as ck
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.train import train
+    d = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    free = shutil.disk_usage(d).free / 1e9
+    print(f"L1 (e): {free:.1f} GB free beside {d}")
+    argv = ["--steps", str(RESUME_STEPS), "--log-every", "1", "--ckpt-dir",
+            str(d / "run")]
+    flash_attention.launches.reset()
+    t0 = time.perf_counter()
+    straight = train(argv + ["--ckpt-every", str(RESUME_AT - 1)])
+    walls = [time.perf_counter() - t0]
+    steps = ck.list_steps(str(d / "run"))
+    check(steps == [RESUME_AT, RESUME_STEPS - 1, RESUME_STEPS],
+          f"L1: checkpoints {steps}")
+    (d / "run" / f"step_{RESUME_STEPS:08d}").rename(d / "straight")
+    shutil.rmtree(d / "run" / f"step_{RESUME_STEPS - 1:08d}")
+    t0 = time.perf_counter()
+    # no periodic save on the way: only the final one is compared
+    resumed = train(argv + ["--ckpt-every", str(RESUME_STEPS)])
+    walls.append(time.perf_counter() - t0)
+    launches = flash_attention.launches.value
+    want = np.load(d / "straight" / "arrays.npz")
+    got = np.load(d / "run" / f"step_{RESUME_STEPS:08d}" / "arrays.npz")
+    check(sorted(got.files) == sorted(want.files), "L1: resumed keys")
+    worst, bitwise = 0.0, True
+    for key in want.files:
+        a, b = got[key], want[key]
+        bitwise &= bool(np.array_equal(a, b))
+        if a.dtype.kind == "f":
+            worst = max(worst, float(np.max(np.abs(a - b))))
+    loss_gap = max(abs(a - b) for a, b in zip(resumed,
+                                              straight[RESUME_AT:]))
+    print(f"L1 (e) resume: straight {['%.6f' % x for x in straight]}, "
+          f"resumed {['%.6f' % x for x in resumed]}; losses "
+          f"{'equal' if loss_gap == 0 else f'apart by {loss_gap:.3e}'}, "
+          f"final state {'bit for bit' if bitwise else f'within {worst:.3e}'}"
+          f"; walls {walls[0]:.1f} / {walls[1]:.1f} s (checkpoints of "
+          f"params, m and v included)")
+    check(len(resumed) == RESUME_STEPS - RESUME_AT
+          and loss_gap <= 1e-5 * abs(straight[-1]) and worst <= 1e-5,
+          f"L1: the resumed run parts from the straight one: losses "
+          f"{loss_gap:.3e}, state {worst:.3e}")
+    check(launches == (2 * RESUME_STEPS - RESUME_AT) * cfg.n_layers,
+          f"L1: {launches} B4 launches over the resume runs")
+    return {"straight": straight, "resumed": resumed, "bitwise": bitwise,
+            "loss_gap": loss_gap, "state_gap": worst, "walls_s": walls,
+            "launches_B4": launches}
+
+
+def hymba_train_phase() -> dict:
+    """L1's hymba-1.5b gates: step 0 on the kernel path against impl="ref"
+    on the card, then HYMBA_TRAIN_STEPS steps of finite, falling loss."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import Model
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.training.optimizer import AdamWConfig
+    cfg = get_config("hymba-1.5b")
+    check(cfg.d_model == 1600 and cfg.n_heads == 25 and cfg.n_kv_heads == 5
+          and cfg.d_head == 64 and cfg.n_meta_tokens == 128
+          and cfg.window == 1024, "not the full-width hymba-1.5b")
+    cfg = dataclasses.replace(cfg, n_layers=depth(HYMBA_TRAIN_LAYERS, 32))
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    n = sum(t.numel() for t in _leaves(params))
+    print(f"L1: {cfg.name} at {cfg.n_layers} layers, {n / 1e9:.3f}B params "
+          f"({16 * n / 1e9:.2f} GB with grads and AdamW state), seq "
+          f"{HYMBA_TRAIN_SEQ} + {cfg.n_meta_tokens} meta x batch "
+          f"{HYMBA_TRAIN_BATCH}, remat block")
+    batch = train_batch(cfg, HYMBA_TRAIN_SEQ, HYMBA_TRAIN_BATCH)
+    kern, info = grads_run(params, cfg, batch, Runtime(), "block")
+    plain, pinfo = grads_run(params, cfg, batch, Runtime(attn_impl="ref"),
+                             "block")
+    res = {"layers": cfg.n_layers, "params": n,
+           "runs": {"kernel": info, "plain": pinfo},
+           "a": grad_compare("hymba (a) kernel vs plain, step 0", kern,
+                             plain)}
+    del kern, plain
+    check(info["launches"]["B4"] == 2 * cfg.n_layers,
+          f"L1 hymba: {info['launches']['B4']} B4 launches in a step")
+    acfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                       total_steps=HYMBA_TRAIN_STEPS)
+    res["timing"] = step_timing(cfg, params, batch, Runtime(), acfg, "block",
+                                reps=HYMBA_TRAIN_STEPS - 1)
+    losses = res["timing"]["losses"]
+    print(f"L1 hymba: B4 {info['launches']['B4']} a step, peak "
+          f"{info['peak_gb']:.2f} GB (plain {pinfo['peak_gb']:.2f}); losses "
+          f"{['%.4f' % x for x in losses]}; step {res['timing']['step_ms']:.1f}"
+          f" ms, {res['timing']['tokens_per_s']:.0f} tokens/s on "
+          f"{smi_line()}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"L1 hymba: the loss did not fall: {losses}")
+    check(res["timing"]["launches_B4"]
+          == HYMBA_TRAIN_STEPS * 2 * cfg.n_layers,
+          f"L1 hymba: {res['timing']['launches_B4']} B4 launches in "
+          f"{HYMBA_TRAIN_STEPS} steps")
+    res["launches_B4"] = (info["launches"]["B4"]
+                          + res["timing"]["launches_B4"])
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_phases(rate) -> dict:
+    """L1 (see the module docstring)."""
+    import torch
+    flash = flash_grad_phase()
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    timing = [flash_timing_shape("L1 train qwen", TRAIN_BATCH, TRAIN_SEQ,
+                                 16, 16, 64, "float32", rate, flush, gen, 10)]
+    del flush
+    qwen = qwen_train_phase()
+    hymba = hymba_train_phase()
+    res = {"flash_grad": flash, "timing": timing, "qwen": qwen,
+           "hymba": hymba,
+           "launches_B4": qwen["launches_B4"] + hymba["launches_B4"]}
+    print(f"L1: B4 launches on the main path {res['launches_B4']}; on "
+          f"{smi_line()}")
+    return res
+
+
 def serving_phases() -> dict:
     """Phases 17-19 on one set of full-width weights."""
     import gc
@@ -5604,7 +6151,7 @@ def main(argv) -> int:
                      ["--flash-timing"], ["--dse"], ["--verify-ab"],
                      ["--window"], ["--tier"], ["--overlap"], ["--http"],
                      ["--replicas"], ["--hybrid"], ["--moe"], ["--vlm"],
-                     ["--audio"])
+                     ["--audio"], ["--train"])
             and not (len(argv) == 2
                      and argv[0] in ("--gemv-ab", "--flash-ab", "--wkv-ab"))):
         print(__doc__, file=sys.stderr)
@@ -5612,7 +6159,8 @@ def main(argv) -> int:
     quant_only = argv == ["--quant-servers"]
     global FULL_DEPTH
     FULL_DEPTH = argv in (["--dse"], ["--window"], ["--replicas"],
-                          ["--hybrid"], ["--moe"], ["--vlm"])
+                          ["--hybrid"], ["--moe"], ["--vlm"], ["--train"],
+                          ["--quant-servers"])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -5723,6 +6271,11 @@ def main(argv) -> int:
         print(card)
         print(json.dumps({"audio": w1}))
         return 0
+    if argv == ["--train"]:
+        l1 = train_phases(rate)
+        print(card)
+        print(json.dumps({"train": l1}))
+        return 0
     one = {"--tier": ("tier", tier_phase), "--overlap": ("overlap",
                                                          overlap_phase),
            "--http": ("http", http_phase)}.get(argv[0] if argv else None)
@@ -5822,6 +6375,9 @@ def main(argv) -> int:
     lap("phase 24 (W1)")
     for k in ("B1", "B4"):
         check(w1["launches"][k] > 0, f"W1 launched {k} no time")
+    l1 = train_phases(rate)
+    lap("L1 (training)")
+    check(l1["launches_B4"] > 0, "L1 launched B4 no time")
     b1_err = max(b1_err, p1["kernels"]["B1"], w1["kernels"]["B1"])
     b2_err = max(b2_err, p1["kernels"]["B2"], w1["kernels"]["B2"])
     b3_err = max(b3_err, p1["kernels"]["B3"])
@@ -5882,15 +6438,16 @@ def main(argv) -> int:
                      "src/repro/kernels/flash_attention/kernel.py:82",
                      s1["launches"] + g1["splice"]["launches_B4"]
                      + y1["launches"]["B4"] + e1["launches"]["B4"]
-                     + p1["launches"]["B4"] + w1["launches"]["B4"], b4_err,
+                     + p1["launches"]["B4"] + w1["launches"]["B4"]
+                     + l1["launches_B4"], b4_err,
                      list(b4_shapes) + y1["timing"]["B4"]
                      + e1["timing"]["B4"] + p1["timing"]["B4"]
-                     + w1["timing"]["B4"],
+                     + w1["timing"]["B4"] + l1["timing"],
                      [s1, {"G1 splice": g1["splice"],
                            "Y1 splice": y1["splice"],
                            "E1 splice": e1["splice_nodrop"],
                            "P1 splice": p1["splice"],
-                           "W1": w1["golden"]}]) | {
+                           "W1": w1["golden"], "L1": l1}]) | {
             "bound_cuda_core_ms": b4_shapes[0]["bound_cuda_core_ms"],
             "design": "f32 as 3xTF32 mma.sync (hi/lo split, f32-exact), "
                       "bf16 on bf16 mma.sync, cp.async K/V ring, each q "

@@ -13,6 +13,13 @@ view.  A quantized weight leaf (the reference's `QuantizedWeight`, a
 registered pytree class holding numpy `q` and `scale` after the tree map)
 is recognised by its attributes and carried over, codes and scales bit
 for bit, into the port's `core.quant.QuantizedWeight`.
+
+A train state crosses both ways: `train_state_from_numpy` takes the
+reference's `TrainState(params, AdamWState(step, m, v), ef)` with numpy
+leaves and builds the port's, and `train_state_to_numpy` gives the
+port's back as the same NamedTuples (the port's types) of numpy leaves.
+The error-feedback leaf `ef` (compressed data parallelism, ROADMAP A17)
+is None on both sides.
 """
 from __future__ import annotations
 
@@ -24,6 +31,35 @@ import torch
 from repro_torch.core.quant import QuantizedWeight
 
 SEP = "/"
+
+
+def tree_leaves(tree):
+    """The leaves of a nested dict in the reference's flattening order
+    (sorted keys), which is the order `jax.tree.leaves` gives."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """`fn` over the leaves of nested dicts of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_unflatten(like, leaves):
+    """Nested dicts of `like`'s structure holding `leaves`, given in
+    `tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return build(like)
 
 
 def flatten_with_paths(tree, *, records: bool = False) -> Dict[str, Any]:
@@ -105,3 +141,34 @@ def params_from_numpy(tree, device="cuda") -> Dict[str, Any]:
 
     return unflatten({p: leaf(a)
                       for p, a in flatten_with_paths(tree).items()})
+
+
+def train_state_from_numpy(state, device="cuda") -> "TrainState":
+    """A reference `TrainState` with numpy leaves (`jax.tree.map(
+    np.asarray, state)`) -> the port's on `device`: the params and both
+    moments through `params_from_numpy`, the step a 0-d int32 tensor."""
+    from repro_torch.training.optimizer import AdamWState
+    from repro_torch.training.train_step import TrainState
+    if state.ef is not None:
+        raise ValueError("train_state_from_numpy: error-feedback residuals "
+                         "(compressed data parallelism) are not ported "
+                         "(ROADMAP A17)")
+    opt = state.opt
+    return TrainState(
+        params_from_numpy(state.params, device),
+        AdamWState(torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                                device=device),
+                   params_from_numpy(opt.m, device),
+                   params_from_numpy(opt.v, device)))
+
+
+def train_state_to_numpy(state: "TrainState") -> "TrainState":
+    """The port's `TrainState` -> the same NamedTuples of host numpy
+    leaves (bfloat16 moments as float32, as the checkpoint stores them),
+    from which a test rebuilds the reference's with `jnp.asarray`."""
+    from repro_torch.training.optimizer import AdamWState
+    from repro_torch.training.train_step import TrainState
+    opt = state.opt
+    return TrainState(tree_map(to_numpy, state.params),
+                      AdamWState(to_numpy(opt.step), tree_map(to_numpy, opt.m),
+                                 tree_map(to_numpy, opt.v)), None)

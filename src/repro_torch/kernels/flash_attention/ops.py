@@ -13,6 +13,11 @@ quietly taking the plain path.  The port's callers loop over layers in
 Python and pass each layer's window as an int (None on a global layer),
 so a sliding-window arch's one-shot prefill runs the kernel on every
 layer.
+
+Under autograd (grad mode on and an input that requires grad) a CUDA
+call runs B4 through `FlashAttentionFn` (`autograd.py`), whose backward
+is torch ops; the plain version never runs on a card's training path.
+A CPU call's plain version is differentiated by autograd itself.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention.autograd import FlashAttentionFn
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -42,5 +48,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "flash_attention: a per-layer window switch (is_global) or a "
             "tensor q_offset has no kernel path; pass the layer's window "
             "(None on a global layer) and an int q_offset")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_offset,
+                                      flash_attention_cuda)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset)

@@ -9,9 +9,13 @@ the kernel.  Inputs stay in the model's [B, S, H, dh] layout: B5 reads
 them through their strides and masks the ragged tail itself, where the
 reference pads S and transposes for its TPU kernel.  r/k/v/logw in any
 float dtype (the activation dtype) are upcast to float32 for B5, which
-reads float32 only; the output comes back in r's dtype.
+reads float32 only; the output comes back in r's dtype.  B5 has no
+backward yet: a CUDA call under autograd raises, naming ROADMAP A18b,
+rather than take a plain version on the card.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels.wkv6.kernel import MAX_CHUNK, wkv6_cuda
 from repro_torch.kernels.wkv6.ref import wkv_chunked, wkv_recurrent
@@ -30,6 +34,11 @@ def wkv6(r, k, v, logw, u, state, *, impl: str = "auto",
         return wkv_recurrent(r, k, v, logw, u, state)
     if impl != "cuda":
         raise ValueError(f"wkv6: unknown impl {impl!r}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, logw, u, state)):
+        raise NotImplementedError(
+            "wkv6: kernel B5 has no backward yet, so RWKV6 does not train "
+            "on a card (ROADMAP A18b); train it on the CPU")
     # the kernel reads float32, as the reference's kernel upcasts inside;
     # its chunk is clamped as the reference clamps its TPU kernel's
     out, sT = wkv6_cuda(*(a.float() for a in (r, k, v, logw)),

@@ -254,8 +254,24 @@ def moe(params: Dict[str, Any], x: torch.Tensor, *, top_k: int,
     return weighted.reshape(B, S, top_k, D).sum(2)
 
 
+def moe_aux_loss(params: Dict[str, Any], x: torch.Tensor,
+                 top_k: int) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss (fraction·prob product):
+    E · sum_e frac_e · prob_e, frac_e the share of (token, choice) pairs
+    routed to expert e (top k by the stable sort of `moe_route`), prob_e
+    its mean gate.  Only prob carries a gradient, as in the reference."""
+    E = params["router_w"].shape[-1]
+    logits = torch.matmul(x.float(), params["router_w"].float())
+    gates = torch.softmax(logits, dim=-1)                          # [B, S, E]
+    top_idx = torch.sort(gates, dim=-1, descending=True,
+                         stable=True).indices[..., :top_k]
+    frac = F.one_hot(top_idx, E).float().mean(dim=(0, 1, 2))
+    prob = gates.mean(dim=(0, 1))
+    return E * torch.sum(frac * prob)
+
+
 # ---------------------------------------------------------------------------
-# Embedding
+# Embedding / loss
 # ---------------------------------------------------------------------------
 
 def init_embedding(b: ParamInit, vocab: int, d_model: int,
@@ -266,4 +282,34 @@ def init_embedding(b: ParamInit, vocab: int, d_model: int,
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
                  dtype) -> torch.Tensor:
-    return table[ids.long()].to(dtype)
+    """The rows of `table` at `ids`, in `dtype`.  `F.embedding` gathers
+    the same rows as indexing does; its backward sums each row's
+    gradient in a fixed order on the CPU too, where indexing's
+    accumulates in the order the threads run (so a resumed train step
+    repeats the straight run's bits)."""
+    return F.embedding(ids.long(), table).to(dtype)
+
+
+def nll_sum(logits: torch.Tensor, labels: torch.Tensor,
+            true_vocab: int):
+    """(sum of the negative log-likelihoods over labels >= 0, their
+    count), in float32, the padded vocab entries (ids >= true_vocab)
+    pushed down by -1e9 as in the reference."""
+    V = logits.shape[-1]
+    logits = logits.float()
+    if true_vocab < V:
+        neg = torch.zeros(V, dtype=logits.dtype, device=logits.device)
+        neg[true_vocab:] = -1e9
+        logits = logits + neg
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       true_vocab: int) -> torch.Tensor:
+    """Mean CE over labels >= 0, masking padded vocab entries."""
+    nll, count = nll_sum(logits, labels, true_vocab)
+    return nll / torch.clamp(count, min=1.0)

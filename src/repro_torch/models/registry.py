@@ -23,4 +23,11 @@ class Model:
         return transformer.init_model(self.cfg, generator, generator.device)
 
     def forward(self, params, batch):
+        """The plain, kernel-free forward -> logits."""
         return transformer.forward(params, self.cfg, batch, self.rt)
+
+    def loss(self, params, batch, remat: str = "none"):
+        """The training loss (kernels under autograd on a card) -> (loss,
+        {"ce", "aux"})."""
+        return transformer.loss_fn(params, self.cfg, batch, self.rt,
+                                   remat=remat)

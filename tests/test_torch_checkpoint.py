@@ -7,10 +7,22 @@ shared with the reference: a checkpoint the reference saves restores in
 the port to equal tensors and the reverse, a bfloat16 leaf included;
 the flat dicts of the two flatteners are equal key for key; and a raw
 2-byte bfloat16 payload is read through its int16 view.
+
+Train states cross between the packages: three steps of one package's
+`launch.train` write a `TrainState(params, AdamWState(step, m, v),
+ef=None)` checkpoint; from copies of it the reference's driver and the
+port's (`--device cpu`) each resume for steps 3-5, with losses within
+1e-4 and step-6 states within the bounds of
+`tests/test_torch_train.py::test_five_train_steps_match_reference`
+(the reference's read back through `bridge.train_state_from_numpy`),
+both ways.  The reference's periodic save is labelled one step behind
+the updates it holds (ROADMAP §C).
 """
 import collections
 import json
 import os
+import shutil
+import signal
 
 import jax
 import jax.numpy as jnp
@@ -19,9 +31,18 @@ import pytest
 import torch
 
 from repro.checkpoint import checkpoint as jck
+from repro.configs import get_config
+from repro.launch import train as jtrain
+from repro.models.registry import Model as JModel
 from repro.training.optimizer import AdamWConfig, init_adamw
+from repro.training.train_step import init_train_state as j_init_state
 from repro_torch import bridge
 from repro_torch.checkpoint import checkpoint as ck
+from repro_torch.configs import get_config as tget
+from repro_torch.launch import train as ttrain
+from repro_torch.models.registry import Model as TModel
+from repro_torch.training import optimizer as topt
+from repro_torch.training.train_step import init_train_state as t_init_state
 
 torch.set_num_threads(2)
 
@@ -194,3 +215,88 @@ def test_raw_bfloat16_payload_reads_through_its_int16_view(tmp_path):
     restored, _ = ck.restore_checkpoint(str(tmp_path), 1,
                                         {"w": torch.zeros_like(w)})
     assert torch.equal(restored["w"].view(torch.int16), w.view(torch.int16))
+
+
+# ---------------------------------------------------------------------------
+# train states: a run of one package resumes in the other
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGS = ["--reduced", "--seq-len", "32", "--global-batch", "4",
+              "--lr", "3e-3", "--log-every", "1"]
+
+
+def _reference_train(argv):
+    before = signal.getsignal(signal.SIGTERM)
+    try:
+        return jtrain.train(TRAIN_ARGS + argv)
+    finally:   # the reference's driver leaves its handler installed
+        signal.signal(signal.SIGTERM, before)
+
+
+def _port_train(argv):
+    return ttrain.train(TRAIN_ARGS + argv + ["--device", "cpu"])
+
+
+def _restored_states(d_ref, d_port, step):
+    """The step's checkpoint of each directory, the reference's restored
+    by the reference and carried over by the bridge, the port's by the
+    port."""
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    jlike = j_init_state(JModel(cfg).init(jax.random.PRNGKey(0)),
+                         AdamWConfig())
+    jstate, jextra = jck.restore_checkpoint(d_ref, step, jlike)
+    assert jstate.ef is None
+    tlike = t_init_state(TModel(tget("qwen1.5-0.5b").reduced()).init(
+        torch.Generator().manual_seed(0)), topt.AdamWConfig())
+    tstate, textra = ck.restore_checkpoint(d_port, step, tlike)
+    assert jextra == textra and tstate.ef is None
+    return (bridge.train_state_from_numpy(
+        jax.tree.map(np.asarray, jstate), "cpu"), tstate)
+
+
+def _assert_states_close(want, got, lr_sum):
+    assert int(want.opt.step) == int(got.opt.step)
+    for path, w in bridge.flatten_with_paths(want.params).items():
+        g = bridge.flatten_with_paths(got.params)[path]
+        diff = (g - w).abs()
+        assert float(diff.max()) <= 2 * lr_sum, path
+        if not path.endswith("wk_b"):     # see test_torch_train.py
+            assert float((diff <= 1e-6).float().mean()) >= 0.99, path
+    for name in ("m", "v"):
+        for w, g in zip(topt.tree_leaves(getattr(want.opt, name)),
+                        topt.tree_leaves(getattr(got.opt, name))):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-2)
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_train_state_resumes_across_the_packages(tmp_path, writer):
+    d, d_ref, d_port = (str(tmp_path / n) for n in ("d", "ref", "port"))
+    first = (_reference_train if writer == "reference" else _port_train)(
+        ["--steps", "3", "--ckpt-dir", d])
+    assert len(first) == 3 and jck.latest_step(d) == ck.latest_step(d) == 3
+    for dst in (d_ref, d_port):
+        shutil.copytree(d, dst)
+    want = _reference_train(["--steps", "6", "--ckpt-dir", d_ref])
+    got = _port_train(["--steps", "6", "--ckpt-dir", d_port])
+    assert len(got) == len(want) == 3
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    acfg = topt.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=6)
+    lr_sum = sum(float(topt.lr_schedule(acfg, torch.tensor(s)))
+                 for s in (4, 5, 6))
+    _assert_states_close(*_restored_states(d_ref, d_port, 6), lr_sum)
+
+
+def test_reference_periodic_save_is_one_step_behind(tmp_path):
+    """The reference labels a periodic save with the loop step just run,
+    which has applied one more update; the port labels it with the
+    updates (ROADMAP §C, `launch/train.py`)."""
+    d_ref, d_port = str(tmp_path / "ref"), str(tmp_path / "port")
+    _reference_train(["--steps", "4", "--ckpt-every", "2", "--ckpt-dir",
+                      d_ref])
+    _port_train(["--steps", "4", "--ckpt-every", "2", "--ckpt-dir", d_port])
+    for d, label in ((d_ref, 2), (d_port, 3)):
+        data = np.load(os.path.join(d, f"step_{label:08d}", "arrays.npz"))
+        assert int(data["opt/step"]) == 3
+        assert json.load(open(os.path.join(
+            d, f"step_{label:08d}", "manifest.json")))["extra"] == {
+                "data_index": 3}

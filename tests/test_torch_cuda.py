@@ -1274,3 +1274,83 @@ def test_reduced_window_server_serves_the_cpu_tokens(cuda_device, case):
         else b4 == 0
     for c, g in zip(outs["cpu"], outs["cuda"]):
         assert g.token_ids == c.token_ids and len(g.token_ids) == 16
+
+
+# ---------------------------------------------------------------------------
+# training: B4 under autograd; RWKV6 refused (ROADMAP A18b)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", [
+    # B, Sq, Sk, H, K, dh, causal, window, dtype
+    (2, 256, 256, 16, 16, 64, True, None, torch.float32),
+    (1, 300, 300, 8, 2, 64, True, 100, torch.float32),
+    (2, 40, 200, 8, 8, 64, False, None, torch.float32),
+    (2, 130, 130, 8, 4, 128, True, None, torch.bfloat16)])
+def test_flash_attention_fn_grads_match_the_plain_version(cuda_device, case):
+    """`FlashAttentionFn` (B4's forward, the torch-op backward) against
+    autograd through the plain version on the card: 2e-5 (f32) / 2e-2
+    (bf16) of max |grad|, one B4 launch a forward."""
+    B, Sq, Sk, H, K, dh, causal, window, dtype = case
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               .requires_grad_() for shape in
+               ((B, Sq, H, dh), (B, Sk, K, dh), (B, Sk, K, dh)))
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    tfa.launches.reset()
+    out = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    want = torch.autograd.grad(tfa.flash_attention_ref(
+        q, k, v, causal=causal, window=window), (q, k, v), dout)
+    assert tfa.launches.value == 1
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        assert float((a.float() - b.float()).abs().max()) <= \
+            tol * float(b.float().abs().max())
+
+
+def test_reduced_train_step_grads_match_the_plain_path(cuda_device):
+    """Reduced qwen1.5-0.5b's step-0 gradients on the kernel path (B4
+    under autograd, one launch a layer, two under remat) against
+    impl="ref" on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import Model
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.bridge import tree_leaves
+    from repro_torch.training.train_step import grads_and_metrics
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    params = _tree_to(Model(cfg).init(torch.Generator().manual_seed(0)),
+                      "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                              device="cuda") for k in ("tokens", "labels")}
+    want = grads_and_metrics(params, batch, cfg, Runtime(attn_impl="ref"),
+                             "none", 1)
+    for remat, n in (("none", 1), ("block", 2), ("full", 2)):
+        tfa.launches.reset()
+        got = grads_and_metrics(params, batch, cfg, Runtime(), remat, 1)
+        torch.cuda.synchronize()
+        assert tfa.launches.value == n * cfg.n_layers
+        assert abs(float(got[1]["loss"]) - float(want[1]["loss"])) < 1e-5
+        for a, b in zip(tree_leaves(got[0]), tree_leaves(want[0])):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
+
+
+def test_rwkv6_training_on_the_card_raises_a18b(cuda_device):
+    """B5 has no backward: RWKV6's loss under grad on the card raises,
+    naming ROADMAP A18b, and never takes the plain recurrence."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import wkv6 as twkv
+    from repro_torch.models.registry import Model
+    from repro_torch.training.train_step import grads_and_metrics
+    from repro_torch.models.transformer import Runtime
+    cfg = get_config("rwkv6-3b").reduced()
+    params = _tree_to(Model(cfg).init(torch.Generator().manual_seed(0)),
+                      "cuda")
+    batch = {k: torch.zeros((1, 16), dtype=torch.int32, device="cuda")
+             for k in ("tokens", "labels")}
+    twkv.launches.reset()
+    with pytest.raises(NotImplementedError, match="A18b"):
+        grads_and_metrics(params, batch, cfg, Runtime(), "none", 1)
+    assert twkv.launches.value == 0
