@@ -25,12 +25,14 @@
     python3 chip_smoke.py --vlm              # the build and phase 23 (P1, pixtral-12b) only
     python3 chip_smoke.py --audio            # the build and phase 24 (W1, whisper-base) only
     python3 chip_smoke.py --train            # the build and phase 25 (L1, training) only
+    python3 chip_smoke.py --mesh             # the build and phase 26 (X1, the device mesh) only
 
 A call that runs one model's phase alone (--quant-servers, --dse,
---window, --replicas, --hybrid, --moe, --vlm, --train) runs that model at
-full depth; the default run cuts Q1 / Q2, D1 / V1 / M1, G1, Y1, E1 and
-L1's hymba in depth (never in width), and the CPU sides of Y1's and P1's
-DSE checks to their shorter prompts, to fit every phase into its time
+--window, --replicas, --hybrid, --moe, --vlm, --train, --mesh, and
+--tier, --overlap, --http) runs that model at full depth; the default
+run cuts Q1 / Q2, T1 / O1 / H1, D1 / V1 / M1, G1, Y1, E1, L1's hymba and
+X1 in depth (never in width), and the CPU sides of Y1's and P1's DSE
+checks to their shorter prompts, to fit every phase into its time
 limit.
 
 Phases (each one fails the run when it fails):
@@ -195,9 +197,9 @@ Phases (each one fails the run when it fails):
 15. V1      D1's stripe deployment with speculation_k = 4 (prompt-lookup
             draft-and-verify): the same tokens as D1's sequential run, at
             least one verify step, and the acceptance counts printed;
-16. G1      full-width gemma3-12b, in the default run cut to 12 of its 48
+16. G1      full-width gemma3-12b, in the default run cut to 6 of its 48
             layers (GEMMA_LAYERS:
-            10 local over a 1024-token window in ring-recycled pages, 2
+            5 local over a 1024-token window in ring-recycled pages, 1
             global; d_model 3840, 16 heads (8 kv) x 256, d_ff 15360, vocab
             262144; 15 GB of random f32 weights from seed 0, drawn after
             D1's are freed), 4 slots,
@@ -225,7 +227,8 @@ Phases (each one fails the run when it fails):
             run's wall printed beside the card.  `--window` runs the build
             and this phase only;
 17. T1      the tiered pool at the full width of qwen1.5-0.5b (random
-            weights from seed 0), 4 slots, 512 tokens of context, a flash
+            weights from seed 0; T1, O1 and H1 share them, in the default
+            run SERVING_LAYERS of its 24 layers), 4 slots, 512 tokens of context, a flash
             pool of 512 pages (`total_pages`) and a hot tier of
             `dse.recommend_hot_pages(flashsim.kvnand_c(), cfg, 512,
             slots=4, page_tokens=16, total_pages=512)` pages (asserted:
@@ -468,6 +471,38 @@ Phases (each one fails the run when it fails):
             tokens x 2 rows, remat "block": (a) and HYMBA_TRAIN_STEPS
             steps of finite, falling loss.  `--train` runs the build and
             this phase only.
+26. X1      the device mesh (`distributed/sharding.py`, `core/seqpar.py`,
+            the engine's mesh path), on a single-process mesh of eight
+            `cuda:0` entries: the sharded dataflow on one card.  First
+            B1 and B2 through the sharded decode at (a)'s decode shape
+            (data 2 x model 4: each shard 2 slots x 9 of 36 pages, or 36
+            of the shared pool's 144 through a permuted table; f32 and
+            kv8; one launch a shard) against the single-device kernel
+            over the whole pool and the plain version (TOL), and the
+            sharded call timed beside one whole-pool launch.  (a)
+            full-width llama3.1-8b (32 / 8 heads x 128; in the default
+            run cut to MESH_LAYERS of 32), f32 weights from seed 0, 4
+            slots of 512-token prompts, T = 16: a one-shot prefill
+            through the ring (B4 launched no time) and MESH_STEPS greedy
+            decode steps on f32 pools, the same on kv8 pools, the same
+            prefilled by `prefill_chunk` in 64-token chunks; each against
+            the same engine with mesh=None on the card, fed that run's
+            greedy tokens: every step's argmax equal, logits within
+            MESH_F32_TOL / MESH_KV8_TOL of max |logit|, and B1 launched
+            data shards x page shards x layers a decode step (printed
+            beside the count).  (b) the shared pool on the mesh: 64
+            decode steps from an empty cache whose tables scatter each
+            slot's pages over the shards, against mesh=None, B2 launched
+            8 x layers a step.  (c) full-width qwen1.5-0.5b on a (pod 2,
+            data 2, model 2) mesh at batch 8 x 256: the exact step (ring
+            attention over `model`) against the same step through B4
+            without a mesh (MESH_RING_LOSS_TOL), one int8-compressed
+            step against the exact step (the reference's bounds,
+            MESH_TRAIN_LOSS_TOL, MESH_TRAIN_PARAM_TOL), and a second from
+            each pod's own residual.  The mesh decode step's host wall is
+            printed beside mesh=None's: shards that share one card show
+            no link cost, so nothing is claimed from it.  `--mesh` runs
+            the build and this phase only, at full depth.
 
 It needs a CUDA card (exits non-zero without one, printing no result),
 imports nothing of JAX, and prints the card's name and power limit, a
@@ -1013,14 +1048,17 @@ def server_config(device="cuda", scheduler="interleaved", server=None,
 
 
 def build_server(params=None, device="cuda", scheduler="interleaved",
-                 server=None, layers=24, **engine):
+                 server=None, layers=None, **engine):
     """The full-width qwen1.5-0.5b server on `device`: random weights from
     seed 0, or `params` (e.g. a quantized tree), and `layers` of its 24
-    (the default run cuts Q1 / Q2 in depth)."""
+    (default: all 24, or the depth of `params`; the default run cuts Q1 /
+    Q2 and T1 / O1 / H1 in depth)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.serving.api import KVNANDServer
+    if layers is None:
+        layers = 24 if params is None else params["layers"]["ln1"].shape[0]
     t0 = time.perf_counter()
     config = server_config(device, scheduler, server, **engine)
     eng = config.engine
@@ -2358,12 +2396,12 @@ LLAMA2_CTX = 128         # --max-context at which the DSE picks KVNAND-D
 # host ran the launch-bound phases 1.4-1.5x slower than another's)
 LLAMA2_LAYERS = 8
 # A call that runs one model's phase alone (--quant-servers, --dse,
-# --window, --replicas, --hybrid, --moe, --vlm, --train) runs that model at
-# full depth; only the default run, which must fit every phase into its
-# limit, takes the depth cuts (QWEN_QUANT_LAYERS, LLAMA2_LAYERS,
-# GEMMA_LAYERS, HYMBA_LAYERS, MIXTRAL_LAYERS, HYMBA_TRAIN_LAYERS) and the
-# cuts of Y1's and P1's CPU sides (HYMBA_CPU_PROMPT_CUT,
-# PIXTRAL_CPU_PROMPT_CUT).  Widths are never cut.
+# --window, --replicas, --hybrid, --moe, --vlm, --train, --mesh) runs that
+# model at full depth; only the default run, which must fit every phase
+# into its limit, takes the depth cuts (QWEN_QUANT_LAYERS, SERVING_LAYERS,
+# LLAMA2_LAYERS, GEMMA_LAYERS, HYMBA_LAYERS, MIXTRAL_LAYERS,
+# HYMBA_TRAIN_LAYERS, MESH_LAYERS) and the cuts of Y1's and P1's CPU sides
+# (HYMBA_CPU_PROMPT_CUT, PIXTRAL_CPU_PROMPT_CUT).  Widths are never cut.
 FULL_DEPTH = False
 
 
@@ -3186,9 +3224,10 @@ def verify_ab_phase() -> dict:
 
 GEMMA_CTX = 2048         # --max-context at which the DSE picks kv8 pages
 # G1's depth, cut from 48 so that the whole run stays well inside its time
-# limit (see LLAMA2_LAYERS): 10 local layers over the window ring and 2
-# global ones, the same 5:1 pattern
-GEMMA_LAYERS = 12
+# limit (see LLAMA2_LAYERS), and from 12 to 6 to make room for X1 (PR 28):
+# 5 local layers over the window ring and 1 global one, the same 5:1
+# pattern
+GEMMA_LAYERS = 6
 GEMMA_NEW = 24           # new tokens a request
 # the prompts: the 1100-token one wraps the 1040-token ring in prefill, the
 # 1030-token one in decode (1030 + 24 > 1040)
@@ -3935,8 +3974,12 @@ def http_phase(params=None) -> dict:
             errors.append(f"request {k}: {e!r}")
 
     launches_shared.reset()
+    import dataclasses
+    L = params["layers"]["ln1"].shape[0]
     with BackgroundServer(server_config(**engine),
                           AsyncServerConfig(overlap=True),
+                          cfg=dataclasses.replace(
+                              get_config("qwen1.5-0.5b"), n_layers=L),
                           params=params) as srv:
         t0 = time.perf_counter()
         threads = [threading.Thread(target=fire, args=(k,))
@@ -3967,9 +4010,9 @@ def http_phase(params=None) -> dict:
           and counts.get("kvnand_decode_tokens_total") == 6 * 15,
           f"H1: /metrics does not report the 6 served requests: "
           f"{ {k: v for k, v in counts.items() if 'total' in k} }")
-    check(launches_shared.value == steps * 24,
+    check(launches_shared.value == steps * L,
           f"H1: B2 launches {launches_shared.value} != decode steps "
-          f"{steps} x 24")
+          f"{steps} x {L}")
     print(f"H1: 6 concurrent completions (3 one-shot, 3 SSE) in {wall:.3f} "
           f"s, equal to generate(); {steps} decode steps, B2 "
           f"{launches_shared.value}; on {smi_line()}")
@@ -4465,8 +4508,8 @@ def hybrid_phases(rate) -> dict:
 
 MIXTRAL_CTX = 1024       # max_context of E1's servers
 # E1's depth in the default run, cut from 32 to make room for P1 and W1
-# (see LLAMA2_LAYERS), and from 16 to 8 for L1 (PERF.md, PR 27); `--moe`
-# runs all 32
+# (see LLAMA2_LAYERS), and from 16 to 8 for L1 (PERF.md, PR 27); at 4 its
+# speculative run accepted no draft (PR 28); `--moe` runs all 32
 MIXTRAL_LAYERS = 8
 MIXTRAL_NEW = 16         # new tokens a request
 # B3's launches a mixtral layer: wo only (wq/wk/wv are dequantized per
@@ -6106,11 +6149,445 @@ def train_phases(rate) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 26: X1, the device mesh
+# ---------------------------------------------------------------------------
+
+# X1 runs on a single-process mesh of eight `cuda:0` entries: the sharded
+# dataflow (per-shard pools, one B1 / B2 launch a shard, the combine) on
+# one card.  llama3.1-8b's depth in the default run (`--mesh`: 32 layers)
+MESH_LAYERS = 8
+MESH_SHAPE = (2, 4)                         # (data, model)
+MESH_PROMPT, MESH_SLOTS, MESH_STEPS, MESH_CHUNK = 512, 4, 16, 64
+MESH_T = 16
+# the mesh run against the same engine with mesh=None on the card, max
+# |logit difference| / max |logit|: f32 pools differ in summation order
+# only (the partials split over 4 page shards, the ring's blocks); kv8 is
+# held to the reference's own kv8 mesh bound (tests/test_multidevice.py)
+MESH_F32_TOL = 1e-4
+MESH_KV8_TOL = 5e-3
+# the compressed train step against the exact step: the reference's own
+# bounds (tests/test_multidevice.py::test_compressed_train_step_close_to_exact)
+MESH_TRAIN_LOSS_TOL = 1e-3
+MESH_TRAIN_PARAM_TOL = 0.05
+# the exact step under the ring (mesh) against the same step through B4
+MESH_RING_LOSS_TOL = 1e-5
+
+
+def card_mesh(shape, axes):
+    """A mesh of `cuda:0` entries (the card named once per coordinate)."""
+    from repro_torch.distributed.sharding import Mesh
+    return Mesh(["cuda:0"] * math.prod(shape), axes, shape=shape)
+
+
+def llama3_cfg():
+    """Full-width llama3.1-8b (GQA 32 / 8 heads x 128, like the paper's
+    70B) cut to MESH_LAYERS layers in the default run."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("llama3.1-8b")
+    check(cfg.n_layers == 32 and cfg.d_model == 4096 and cfg.n_heads == 32
+          and cfg.n_kv_heads == 8 and cfg.d_head == 128
+          and cfg.d_ff == 14336 and cfg.vocab_size == 128256,
+          "not the full-width llama3.1-8b")
+    return dataclasses.replace(cfg, n_layers=depth(MESH_LAYERS, 32))
+
+
+def mesh_counts() -> dict:
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import paged_attention as tpa
+    return {"B1": tpa.launches.value, "B2": tpa.launches_shared.value,
+            "B4": tfa.launches.value}
+
+
+def mesh_reset():
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import paged_attention as tpa
+    for c in (tpa.launches, tpa.launches_shared, tfa.launches):
+        c.reset()
+
+
+def mesh_engine_run(engine, params, toks, feed=None, chunked=False,
+                    empty=False) -> dict:
+    """Prefill toks [B, MESH_PROMPT] (one-shot, or MESH_CHUNK-token chunks
+    slot by slot), then MESH_STEPS decode steps, each fed the previous
+    step's argmax, or `feed` [B, steps] (teacher forcing: the mesh=None
+    run's greedy tokens).  `empty`: no prefill, 4 x MESH_T decode steps
+    from an empty shared-pool cache whose tables scatter every slot's
+    pages over the pool (the same permutation in every run), fed
+    toks[:, :steps].  Returns the logits of every step, the tokens, the
+    host walls and the launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.core import paged_kv
+    B = toks.shape[0]
+    ctx = MESH_PROMPT + MESH_STEPS
+    steps = mesh_steps(empty)
+    mesh_reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = []
+    if empty:
+        cache = engine.init_cache(B, ctx)
+        NP = cache.page_table_g.shape[1]
+        perm = np.random.default_rng(11).permutation(
+            cache.k_pages_g.shape[2])[:B * NP]
+        paged_kv.write_page_table(cache.page_table_g,
+                                  perm.reshape(B, NP).astype(np.int32))
+    elif chunked:
+        cache = engine.init_cache(B, ctx)
+        last = []
+        for b in range(B):
+            for c0 in range(0, MESH_PROMPT, MESH_CHUNK):
+                lg, cache = engine.prefill_chunk(
+                    params, cache, {"tokens": toks[b:b + 1, c0:c0 + MESH_CHUNK]},
+                    b, c0, MESH_CHUNK, first=c0 == 0)
+            last.append(lg)
+        logits.append(torch.cat(last))
+    else:
+        lg, cache = engine.prefill(params, {"tokens": toks}, ctx)
+        logits.append(lg)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_counts = mesh_counts()
+    walls = []
+    for i in range(steps):
+        if empty:
+            nxt = toks[:, i:i + 1]
+        elif feed is not None:
+            nxt = feed[:, i:i + 1]
+        else:
+            nxt = logits[-1].argmax(-1)[:, None]
+        t1 = time.perf_counter()
+        lg, cache = engine.decode_step(params, cache, nxt)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        logits.append(lg)
+    out = torch.stack(logits[1:] if empty else logits)
+    counts = mesh_counts()
+    return {"logits": out, "tokens": out.argmax(-1), "prefill_s": prefill_s,
+            "step_ms": statistics.median(walls) * 1e3,
+            "prefill_counts": prefill_counts,
+            "decode_counts": {k: counts[k] - prefill_counts[k]
+                              for k in counts},
+            "finite": bool(torch.isfinite(out).all()), "cache": cache}
+
+
+def mesh_steps(empty: bool) -> int:
+    """Decode steps of a run: MESH_STEPS after a prefill, 4 pages' worth
+    from an empty cache."""
+    return 4 * MESH_T if empty else MESH_STEPS
+
+
+def mesh_pair(label, cfg, params, eng, toks, tol, chunked=False,
+              empty=False) -> dict:
+    """One deployment on the mesh against the same engine with mesh=None
+    on the card: greedy tokens identical at every step, logits within
+    `tol` of max |logit|; B1 (stripe) or B2 (shared) launched once a
+    page shard a layer a decode step."""
+    import torch
+    from repro_torch.core.engine import KVNANDEngine
+    from repro_torch.distributed.sharding import ShardedTensor
+    mesh = card_mesh(MESH_SHAPE, ("data", "model"))
+    solo = mesh_engine_run(KVNANDEngine(cfg, eng, device="cuda"), params,
+                           toks, chunked=chunked, empty=empty)
+    feed = None if empty else solo["tokens"][:-1].t().contiguous()
+    run = mesh_engine_run(KVNANDEngine(cfg, eng, mesh=mesh), params, toks,
+                          feed=feed, chunked=chunked, empty=empty)
+    cache = run.pop("cache")
+    solo.pop("cache")
+    pool = cache.k_pages_g
+    check(isinstance(pool, ShardedTensor) and len(pool.shards) == mesh.size
+          and len({t.data_ptr() for t in pool.shards}) == mesh.size,
+          f"X1 {label}: the pool is not eight shard-local tensors")
+    del cache
+    check(run["finite"] and solo["finite"], f"X1 {label}: logits not finite")
+    gap = float((run["logits"] - solo["logits"]).abs().max()
+                / solo["logits"].abs().max())
+    same = bool(torch.equal(run["tokens"], solo["tokens"]))
+    kernel = "B2" if eng.shared_pool else "B1"
+    shards = mesh.shape["data"] * mesh.shape["model"]
+    steps = mesh_steps(empty)
+    predicted = steps * shards * cfg.n_layers
+    counted = run["decode_counts"][kernel]
+    print(f"X1 {label}: logit gap {gap:.3e} (tol {tol:.0e}); greedy tokens "
+          f"{'identical' if same else 'DIFFER'} over "
+          f"{steps + (0 if empty else 1)} steps x {toks.shape[0]} slots; "
+          f"{kernel} launches predicted {predicted} (data "
+          f"{mesh.shape['data']} x page shards {mesh.shape['model']} x "
+          f"{cfg.n_layers} layers x {steps} steps), counted {counted}; "
+          f"mesh=None {solo['decode_counts'][kernel]}"
+          f"; prefill counts {run['prefill_counts']}; host wall per decode "
+          f"step {run['step_ms']:.1f} ms (mesh=None {solo['step_ms']:.1f} "
+          f"ms), prefill {run['prefill_s']:.2f} s (mesh=None "
+          f"{solo['prefill_s']:.2f} s)")
+    check(same, f"X1 {label}: greedy tokens differ from mesh=None's")
+    check(gap <= tol, f"X1 {label}: logit gap {gap:.3e} > {tol:.0e}")
+    check(counted == predicted, f"X1 {label}: {kernel} launched {counted} "
+          f"times, predicted {predicted}")
+    other = "B1" if kernel == "B2" else "B2"
+    check(run["decode_counts"][other] == 0 and run["prefill_counts"]["B1"]
+          == 0 and run["prefill_counts"]["B2"] == 0,
+          f"X1 {label}: unexpected launches {run['decode_counts']}")
+    if not chunked and not empty:
+        check(run["prefill_counts"]["B4"] == 0,
+              f"X1 {label}: the mesh prefill took B4, not the ring")
+    return {"logit_gap": gap, "tokens_identical": same,
+            "launches": {kernel: counted}, "predicted": predicted,
+            "step_ms": run["step_ms"], "step_ms_no_mesh": solo["step_ms"],
+            "prefill_s": run["prefill_s"],
+            "prefill_s_no_mesh": solo["prefill_s"]}
+
+
+def mesh_kernel_holds(gen) -> dict:
+    """B1 and B2 through the sharded decode at X1's shape (4 slots x 36
+    pages of 16 tokens, 32 / 8 heads x 128; each of the 8 shards holds 2
+    slots x 9 pages, or 36 of the shared pool's 144): the sharded call
+    (one launch a shard, the combine) against the single-device kernel
+    over the whole pool and against the plain version, f32 and kv8;
+    ragged lengths, a permuted table."""
+    import torch
+    from repro_torch.core import seqpar
+    from repro_torch.kernels import paged_attention as tpa
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_partial, paged_attention_partial_ref,
+        paged_attention_shared_ref)
+    mesh = card_mesh(MESH_SHAPE, ("data", "model"))
+    B, K, G, NP, T, dh = MESH_SLOTS, 8, 4, 36, MESH_T, 128
+    lengths = [528, 301, 17, 576]
+    errs = {"B1": 0.0, "B2": 0.0}
+    times = {}
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    for fmt in ("f32", "kv8"):
+        fq = kv_quant_of(fmt)
+        q, kp, vp, base, length, ks, vs = make_inputs(B, K, G, NP, T, dh,
+                                                      fmt, lengths, gen)
+        tpa.launches.reset()
+        got = seqpar.paged_decode_attention_sharded(
+            q, kp, vp, base, length, mesh, kv_quant=fq, k_scale=ks,
+            v_scale=vs)
+        torch.cuda.synchronize()
+        check(tpa.launches.value == 8, "X1 hold: B1 not launched once a "
+              f"shard: {tpa.launches.value}")
+        whole = paged_attention_partial(q, kp, vp, base, length, kv_quant=fq,
+                                        k_scale=ks, v_scale=vs)[0]
+        plain = paged_attention_partial_ref(q, kp, vp, base, length,
+                                            kv_quant=fq, k_scale=ks,
+                                            v_scale=vs)[0]
+        e1, e2 = close_err(got, whole, TOL[fmt]), close_err(got, plain,
+                                                            TOL[fmt])
+        errs["B1"] = max(errs["B1"], float((got - plain).abs().max()))
+        print(f"X1 hold B1 {fmt}: sharded vs whole-pool kernel {e1:.3e}, vs "
+              f"plain {e2:.3e} (tol {TOL[fmt]:.0e})")
+        check(max(e1, e2) <= TOL[fmt], f"X1 hold B1 {fmt}: sharded decode "
+              "disagrees")
+        if fmt == "f32":
+            times["B1_sharded_ms"] = statistics.median(time_ms(
+                lambda: seqpar.paged_decode_attention_sharded(
+                    q, kp, vp, base, length, mesh), 10, flush))
+            times["B1_whole_ms"] = statistics.median(time_ms(
+                lambda: paged_attention_partial(q, kp, vp, base, length),
+                10, flush))
+        Pt = B * NP
+        q, kp, vp, table, base, length, ks, vs = make_shared_inputs(
+            B, K, G, NP, T, dh, fmt, lengths, gen, Pt)
+        tpa.launches_shared.reset()
+        got = seqpar.paged_decode_attention_sharded_shared(
+            q, kp, vp, table, base, length, mesh, kv_quant=fq, k_scale=ks,
+            v_scale=vs)
+        torch.cuda.synchronize()
+        check(tpa.launches_shared.value == 8, "X1 hold: B2 not launched "
+              f"once a shard: {tpa.launches_shared.value}")
+        whole = paged_attention_partial(q, kp, vp, base, length, kv_quant=fq,
+                                        k_scale=ks, v_scale=vs,
+                                        page_table=table)[0]
+        plain = paged_attention_shared_ref(q, kp, vp, table, base, length,
+                                           kv_quant=fq, k_scale=ks,
+                                           v_scale=vs)[0]
+        e1, e2 = close_err(got, whole, TOL[fmt]), close_err(got, plain,
+                                                            TOL[fmt])
+        errs["B2"] = max(errs["B2"], float((got - plain).abs().max()))
+        print(f"X1 hold B2 {fmt}: sharded vs whole-pool kernel {e1:.3e}, vs "
+              f"plain {e2:.3e} (tol {TOL[fmt]:.0e})")
+        check(max(e1, e2) <= TOL[fmt], f"X1 hold B2 {fmt}: sharded decode "
+              "disagrees")
+        if fmt == "f32":
+            times["B2_sharded_ms"] = statistics.median(time_ms(
+                lambda: seqpar.paged_decode_attention_sharded_shared(
+                    q, kp, vp, table, base, length, mesh), 10, flush))
+            times["B2_whole_ms"] = statistics.median(time_ms(
+                lambda: paged_attention_partial(q, kp, vp, base, length,
+                                                page_table=table),
+                10, flush))
+    print("X1 timing (device ms, median; the sharded call's 8 launches and "
+          "its combine against one launch over the whole pool, f32): "
+          + " ".join(f"{k}={v:.6f}" for k, v in times.items()))
+    del flush
+    return {"errs": errs, "times": times}
+
+
+def mesh_train_phase() -> dict:
+    """(c): full-width qwen1.5-0.5b on a (pod 2, data 2, model 2) mesh:
+    the exact step (ring attention over `model`) against the same step
+    without a mesh (B4), then two int8-compressed steps, the first held
+    to the exact step with the reference's bounds."""
+    import torch
+    from repro_torch.bridge import tree_leaves, tree_map
+    from repro_torch.configs import EngineConfig, get_config
+    from repro_torch.models.registry import Model
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_compressed_train_step,
+                                                 make_train_step)
+    cfg = get_config("qwen1.5-0.5b")
+    check(cfg.n_layers == 24 and cfg.d_model == 1024,
+          "not the full-width qwen1.5-0.5b")
+    mesh = card_mesh((2, 2, 2), ("pod", "data", "model"))
+    rt, eng = Runtime(), EngineConfig()
+    acfg = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=100,
+                       min_lr_ratio=1.0)
+    p0 = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    fresh = lambda: tree_map(lambda p: p.clone(), p0)          # noqa: E731
+    b0 = train_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, 0)
+    b1 = train_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, 1)
+    t0 = time.perf_counter()
+    mesh_reset()
+    _, m_solo = make_train_step(cfg, rt, acfg, eng)(
+        init_train_state(fresh(), acfg), b0)
+    b4_solo = mesh_counts()["B4"]
+    mesh_reset()
+    with mesh:
+        exact, m_ring = make_train_step(cfg, rt, acfg, eng)(
+            init_train_state(fresh(), acfg), b0)
+    cstep = make_compressed_train_step(cfg, rt, acfg, eng, mesh)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    comp, m_c1 = cstep(init_train_state(fresh(), acfg, compressed=True), b0)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    b4_mesh = mesh_counts()["B4"]
+    scale = max(float(p.abs().max()) for p in tree_leaves(exact.params))
+    param_gap = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(exact.params), tree_leaves(comp.params))) / scale
+    del exact
+    comp, m_c2 = cstep(comp, b1)              # from each pod's residual
+    torch.cuda.synchronize()
+    ring_gap = abs(float(m_ring["loss"]) - float(m_solo["loss"])) / abs(
+        float(m_solo["loss"]))
+    norm_gap = abs(float(m_ring["grad_norm"]) - float(m_solo["grad_norm"])
+                   ) / float(m_solo["grad_norm"])
+    loss_gap = abs(float(m_ring["loss"]) - float(m_c1["loss"]))
+    ef = [e.assemble() for e in tree_leaves(comp.ef)]
+    pods_apart = any(not torch.equal(e[0], e[1]) for e in ef)
+    res = {"ring_vs_B4_loss_rel": ring_gap,
+           "ring_vs_B4_grad_norm_rel": norm_gap,
+           "launches_B4_no_mesh": b4_solo, "launches_B4_mesh": b4_mesh,
+           "loss_exact": float(m_ring["loss"]),
+           "loss_compressed": float(m_c1["loss"]),
+           "loss_compressed_step2": float(m_c2["loss"]),
+           "loss_gap": loss_gap, "param_gap": param_gap,
+           "exact_steps_s": t1 - t0, "compressed_step_s": t2 - t1,
+           "pods_apart": pods_apart}
+    print(f"X1 (c) qwen1.5-0.5b (pod 2, data 2, model 2), batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: exact step loss "
+          f"{res['loss_exact']:.6f}, through B4 without a mesh "
+          f"{float(m_solo['loss']):.6f} (rel {ring_gap:.3e}, tol "
+          f"{MESH_RING_LOSS_TOL:.0e}; grad norm rel {norm_gap:.3e}, tol "
+          f"{TRAIN_NORM_TOL:.0e}; B4 launches {b4_solo} without the mesh, "
+          f"{b4_mesh} in the mesh's exact and compressed steps); "
+          f"compressed {res['loss_compressed']:.6f}"
+          f" (gap {loss_gap:.3e}, tol {MESH_TRAIN_LOSS_TOL:.0e}), max param "
+          f"gap / max |param| {param_gap:.3e} (tol {MESH_TRAIN_PARAM_TOL}); "
+          f"step 2 from each pod's residual {res['loss_compressed_step2']:.6f}"
+          f"; the pods' residuals {'differ' if pods_apart else 'EQUAL'}; "
+          f"walls: the two exact steps {t1 - t0:.2f} s, one compressed "
+          f"step {t2 - t1:.2f} s")
+    check(ring_gap <= MESH_RING_LOSS_TOL and norm_gap <= TRAIN_NORM_TOL,
+          "X1 (c): the ring's step disagrees with B4's")
+    # without a mesh every layer's attention is B4, again in the
+    # rematerialized backward; on the mesh the ring replaces it
+    check(b4_solo == 2 * cfg.n_layers and b4_mesh == 0,
+          f"X1 (c): B4 launches {b4_solo} / {b4_mesh}, not "
+          f"{2 * cfg.n_layers} / 0")
+    check(loss_gap <= MESH_TRAIN_LOSS_TOL and param_gap
+          <= MESH_TRAIN_PARAM_TOL, "X1 (c): the compressed step strays "
+          "from the exact step")
+    check(math.isfinite(res["loss_compressed_step2"]) and pods_apart,
+          "X1 (c): the second compressed step")
+    return res
+
+
+def mesh_phases(rate) -> dict:
+    """X1 (see the module docstring)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import EngineConfig
+    from repro_torch.models.registry import Model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    holds = mesh_kernel_holds(torch.Generator(device="cuda").manual_seed(26))
+    cfg = llama3_cfg()
+    t0 = time.perf_counter()
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    print(f"X1: {cfg.name} at {cfg.n_layers} of 32 layers, {n / 1e9:.3f}B "
+          f"params ({4 * n / 1e9:.1f} GB float32) in "
+          f"{time.perf_counter() - t0:.2f} s; mesh {dict(zip(('data', 'model'), MESH_SHAPE))}"
+          " of cuda:0 entries")
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (MESH_SLOTS, MESH_PROMPT))).cuda()
+    base = dict(page_tokens=MESH_T, kv_dtype="float32")
+    runs = {
+        "f32": mesh_pair("(a) f32, one-shot prefill through the ring", cfg,
+                         params, EngineConfig(**base), toks, MESH_F32_TOL),
+        "kv8": mesh_pair("(a) kv8, one-shot prefill through the ring", cfg,
+                         params, EngineConfig(**base, kv_quant="kv8"), toks,
+                         MESH_KV8_TOL),
+        "chunked": mesh_pair("(a) f32, prefill_chunk in 64-token chunks",
+                             cfg, params, EngineConfig(**base), toks,
+                             MESH_F32_TOL, chunked=True),
+        "shared": mesh_pair("(b) shared pool, decode from an empty cache "
+                            "over a permuted table", cfg, params,
+                            EngineConfig(**base, shared_pool=True,
+                                         uniform_lengths=False), toks,
+                            MESH_F32_TOL, empty=True),
+    }
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_serve = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    train = mesh_train_phase()
+    peak_train = torch.cuda.max_memory_allocated() / 1e9
+    launches = {"B1": sum(runs[k]["launches"]["B1"]
+                          for k in ("f32", "kv8", "chunked")),
+                "B2": runs["shared"]["launches"]["B2"]}
+    print(f"X1: launches on the main path B1 {launches['B1']}, B2 "
+          f"{launches['B2']}; peak memory {peak_serve:.2f} GB ((a), (b)), "
+          f"{peak_train:.2f} GB ((c)); on {smi_line()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"kernels": holds["errs"], "timing": holds["times"], **runs,
+            "train": train, "launches": launches, "layers": cfg.n_layers,
+            "peak_memory_gb": {"serve": peak_serve, "train": peak_train}}
+
+
+# T1 / O1 / H1's depth in the default run (their weights' layers), cut from
+# 24 to make room for X1 (PR 28); `--tier`, `--overlap` and `--http` run
+# all 24.  Their gates compare schedules and pools on one set of weights
+SERVING_LAYERS = 12
+
+
 def serving_phases() -> dict:
-    """Phases 17-19 on one set of full-width weights."""
+    """Phases 17-19 on one set of full-width weights, SERVING_LAYERS
+    deep."""
     import gc
     import torch
-    params = build_server().params
+    params = build_server(layers=depth(SERVING_LAYERS, 24)).params
     res = {"T1": tier_phase(params), "O1": overlap_phase(params),
            "H1": http_phase(params)}
     del params
@@ -6151,7 +6628,7 @@ def main(argv) -> int:
                      ["--flash-timing"], ["--dse"], ["--verify-ab"],
                      ["--window"], ["--tier"], ["--overlap"], ["--http"],
                      ["--replicas"], ["--hybrid"], ["--moe"], ["--vlm"],
-                     ["--audio"], ["--train"])
+                     ["--audio"], ["--train"], ["--mesh"])
             and not (len(argv) == 2
                      and argv[0] in ("--gemv-ab", "--flash-ab", "--wkv-ab"))):
         print(__doc__, file=sys.stderr)
@@ -6160,7 +6637,7 @@ def main(argv) -> int:
     global FULL_DEPTH
     FULL_DEPTH = argv in (["--dse"], ["--window"], ["--replicas"],
                           ["--hybrid"], ["--moe"], ["--vlm"], ["--train"],
-                          ["--quant-servers"])
+                          ["--quant-servers"], ["--mesh"])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -6276,6 +6753,11 @@ def main(argv) -> int:
         print(card)
         print(json.dumps({"train": l1}))
         return 0
+    if argv == ["--mesh"]:
+        x1 = mesh_phases(rate)
+        print(card)
+        print(json.dumps({"mesh": x1}))
+        return 0
     one = {"--tier": ("tier", tier_phase), "--overlap": ("overlap",
                                                          overlap_phase),
            "--http": ("http", http_phase)}.get(argv[0] if argv else None)
@@ -6378,6 +6860,12 @@ def main(argv) -> int:
     l1 = train_phases(rate)
     lap("L1 (training)")
     check(l1["launches_B4"] > 0, "L1 launched B4 no time")
+    x1 = mesh_phases(rate)
+    lap("phase 26 (X1)")
+    for k in ("B1", "B2"):
+        check(x1["launches"][k] > 0, f"X1 launched {k} no time")
+    b1_err = max(b1_err, x1["kernels"]["B1"])
+    b2_err = max(b2_err, x1["kernels"]["B2"])
     b1_err = max(b1_err, p1["kernels"]["B1"], w1["kernels"]["B1"])
     b2_err = max(b2_err, p1["kernels"]["B2"], w1["kernels"]["B2"])
     b3_err = max(b3_err, p1["kernels"]["B3"])
@@ -6392,13 +6880,14 @@ def main(argv) -> int:
                      stripe["launches"] + d1["launches_B1"]
                      + v1["launches_B1"] + g1_b1 + o1["launches_B1"]
                      + y1["launches"]["B1"] + e1["launches"]["B1"]
-                     + p1["launches"]["B1"] + w1["launches"]["B1"], b1_err,
+                     + p1["launches"]["B1"] + w1["launches"]["B1"]
+                     + x1["launches"]["B1"], b1_err,
                      list(b1_shapes) + dse["group_timing"][:1]
                      + y1["timing"]["B1"] + e1["timing"]["B1"]
                      + p1["timing"]["B1"] + w1["timing"]["B1"],
                      [stripe, {"D1": d1, "V1": v1, "G1": g1, "O1": o1,
                                "Y1": y1_runs, "E1": e1_runs, "P1": p1_runs,
-                               "W1": w1["golden"]}]),
+                               "W1": w1["golden"], "X1": x1}]),
         kernel_entry("paged_attention_shared", "src/repro_torch/csrc/"
                      "paged_attention_shared.cu",
                      "src/repro/kernels/paged_attention/kernel.py:209",
@@ -6406,7 +6895,8 @@ def main(argv) -> int:
                      + g1["shared"]["launches"] + t1["launches_B2"]
                      + o1["launches_B2"] + h1["launches_B2"]
                      + m1["launches_B2"] + y1["launches"]["B2"]
-                     + e1["launches"]["B2"] + p1["launches"]["B2"], b2_err,
+                     + e1["launches"]["B2"] + p1["launches"]["B2"]
+                     + x1["launches"]["B2"], b2_err,
                      list(b2_shapes) + dse["group_timing"][1:]
                      + y1["timing"]["B2"] + e1["timing"]["B2"]
                      + p1["timing"]["B2"],
@@ -6419,7 +6909,8 @@ def main(argv) -> int:
                                          "E1 shared": e1["shared"],
                                          "E1 shared kv8": e1["kv8_shared"],
                                          "E1 replicas": e1["replicas"],
-                                         "P1 shared": p1["shared"]}]),
+                                         "P1 shared": p1["shared"],
+                                         "X1 shared": x1["shared"]}]),
         kernel_entry("quant_gemv", "src/repro_torch/csrc/quant_gemv.cu",
                      "src/repro/kernels/quant_gemv/kernel.py:68",
                      q1["launches"] + q2["launches"] + y1["launches"]["B3"]

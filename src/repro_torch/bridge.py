@@ -18,8 +18,11 @@ A train state crosses both ways: `train_state_from_numpy` takes the
 reference's `TrainState(params, AdamWState(step, m, v), ef)` with numpy
 leaves and builds the port's, and `train_state_to_numpy` gives the
 port's back as the same NamedTuples (the port's types) of numpy leaves.
-The error-feedback leaf `ef` (compressed data parallelism, ROADMAP A17)
-is None on both sides.
+The error-feedback residuals `ef` (the compressed data-parallel step's)
+cross too: a reference residual (one array a leaf, what a reference
+restore replicates) becomes one plain bfloat16 tensor a leaf, which the
+port's compressed step gives to every pod; the port's per-pod residuals
+([n_pods, ...] over the mesh's pod axis) come back as those stacks.
 """
 from __future__ import annotations
 
@@ -92,11 +95,14 @@ def flatten_with_paths(tree, *, records: bool = False) -> Dict[str, Any]:
     return flat
 
 
-def to_numpy(t: torch.Tensor) -> np.ndarray:
+def to_numpy(t) -> np.ndarray:
     """A private host copy of a tensor (the way back from `_to_tensor`):
     bfloat16 as float32, which npz can store and which holds every bf16
     value exactly, as the reference's checkpoint flattener stores it.  A
-    card's tensor is read with a same-stream copy."""
+    card's tensor is read with a same-stream copy; a mesh's sharded leaf
+    is assembled first."""
+    if hasattr(t, "assemble"):
+        t = t.assemble()
     t = t.detach()
     if t.dtype == torch.bfloat16:
         return t.float().cpu().numpy()
@@ -145,21 +151,19 @@ def params_from_numpy(tree, device="cuda") -> Dict[str, Any]:
 
 def train_state_from_numpy(state, device="cuda") -> "TrainState":
     """A reference `TrainState` with numpy leaves (`jax.tree.map(
-    np.asarray, state)`) -> the port's on `device`: the params and both
-    moments through `params_from_numpy`, the step a 0-d int32 tensor."""
+    np.asarray, state)`) -> the port's on `device`: the params, both
+    moments and the error-feedback residuals (when there are) through
+    `params_from_numpy`, the step a 0-d int32 tensor."""
     from repro_torch.training.optimizer import AdamWState
     from repro_torch.training.train_step import TrainState
-    if state.ef is not None:
-        raise ValueError("train_state_from_numpy: error-feedback residuals "
-                         "(compressed data parallelism) are not ported "
-                         "(ROADMAP A17)")
     opt = state.opt
     return TrainState(
         params_from_numpy(state.params, device),
         AdamWState(torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
                                 device=device),
                    params_from_numpy(opt.m, device),
-                   params_from_numpy(opt.v, device)))
+                   params_from_numpy(opt.v, device)),
+        None if state.ef is None else params_from_numpy(state.ef, device))
 
 
 def train_state_to_numpy(state: "TrainState") -> "TrainState":
@@ -171,4 +175,6 @@ def train_state_to_numpy(state: "TrainState") -> "TrainState":
     opt = state.opt
     return TrainState(tree_map(to_numpy, state.params),
                       AdamWState(to_numpy(opt.step), tree_map(to_numpy, opt.m),
-                                 tree_map(to_numpy, opt.v)), None)
+                                 tree_map(to_numpy, opt.v)),
+                      None if state.ef is None
+                      else tree_map(to_numpy, state.ef))

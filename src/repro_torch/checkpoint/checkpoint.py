@@ -28,6 +28,12 @@ its restore refuses (ROADMAP §C).
 A corrupt or partial checkpoint (bad hash, missing file, a `.tmp-`
 directory never renamed) is skipped: `latest_step` reports only
 directories whose manifest validates.
+
+Checkpoints are topology-agnostic: a leaf sharded over a device mesh
+(`distributed.sharding.ShardedTensor`) is stored whole, and
+`restore_checkpoint(shardings=...)` places each leaf on whatever mesh the
+restart has (elastic restart on fewer devices); a sharded `like` leaf
+with no sharding given goes back onto its own mesh.
 """
 from __future__ import annotations
 
@@ -45,12 +51,13 @@ import torch
 
 from repro_torch.bridge import SEP, flatten_with_paths, to_numpy
 from repro_torch.core.quant import QuantizedWeight
+from repro_torch.distributed.sharding import ShardedTensor, place
 
 
 def _host(leaf) -> np.ndarray:
     """One leaf as the npz stores it (bf16 as float32); a tensor as a
     private copy, since torch tensors are written in place."""
-    if isinstance(leaf, torch.Tensor):
+    if isinstance(leaf, (torch.Tensor, ShardedTensor)):
         return to_numpy(leaf)
     arr = np.asarray(leaf)
     if arr.dtype.name == "bfloat16":       # an ml_dtypes array handed in
@@ -160,11 +167,15 @@ def _tensor(arr: np.ndarray, stored: Optional[str]) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, like, device=None
-                       ) -> Tuple[Any, Dict[str, Any]]:
+def restore_checkpoint(ckpt_dir: str, step: int, like, device=None,
+                       shardings=None) -> Tuple[Any, Dict[str, Any]]:
     """Restore into the structure of `like` (values replaced): every
     leaf becomes a tensor of the like-leaf's dtype, on `device` or else
-    on the like-leaf's device (the CPU for a non-tensor leaf)."""
+    on the like-leaf's device (the CPU for a non-tensor leaf).
+    `shardings`: an optional tree of `like`'s structure holding a
+    `NamedSharding` (or None) a leaf: that leaf is split onto its mesh
+    (`sharding.place`), so a restore works on any mesh; a sharded `like`
+    leaf without one keeps its own."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     if not validate_checkpoint(path):
         raise ValueError(f"checkpoint {path} failed integrity check")
@@ -173,31 +184,40 @@ def restore_checkpoint(ckpt_dir: str, step: int, like, device=None
     stored = manifest.get("dtypes", {})
     data = np.load(os.path.join(path, "arrays.npz"))
 
-    def leaf(key, node):
+    def leaf(key, node, sh):
         t = _tensor(data[key], stored.get(key))
+        if isinstance(node, ShardedTensor):
+            return place(t.to(node.dtype), sh or node.sharding)
         if isinstance(node, torch.Tensor):
-            return t.to(device=device or node.device, dtype=node.dtype)
-        if hasattr(node, "dtype"):
-            t = torch.from_numpy(t.numpy().astype(node.dtype))
-        return t.to(device or "cpu")
+            t = t.to(device=device or node.device, dtype=node.dtype)
+        else:
+            if hasattr(node, "dtype"):
+                t = torch.from_numpy(t.numpy().astype(node.dtype))
+            t = t.to(device or "cpu")
+        return place(t, sh)
 
-    def rebuild(prefix, node):
+    def rebuild(prefix, node, sh):
+        def sub(k):
+            if sh is None:
+                return None
+            return sh[k] if isinstance(sh, dict) else getattr(sh, k)
         if isinstance(node, dict):
-            return {k: rebuild(f"{prefix}{SEP}{k}" if prefix else str(k), v)
-                    for k, v in node.items()}
+            return {k: rebuild(f"{prefix}{SEP}{k}" if prefix else str(k), v,
+                               sub(k)) for k, v in node.items()}
         if hasattr(node, "_fields"):
             return type(node)(*[
                 rebuild(f"{prefix}{SEP}{k}" if prefix else k,
-                        getattr(node, k)) for k in node._fields])
+                        getattr(node, k), sub(k)) for k in node._fields])
         if node is None:
             return None
         if isinstance(node, QuantizedWeight):
-            return QuantizedWeight(leaf(f"{prefix}{SEP}q", node.q),
-                                   leaf(f"{prefix}{SEP}scale", node.scale),
-                                   node.scheme, node.orig_shape)
-        return leaf(prefix, node)
+            return QuantizedWeight(
+                leaf(f"{prefix}{SEP}q", node.q, sh and sh.q),
+                leaf(f"{prefix}{SEP}scale", node.scale, sh and sh.scale),
+                node.scheme, node.orig_shape)
+        return leaf(prefix, node, sh)
 
-    return rebuild("", like), manifest.get("extra", {})
+    return rebuild("", like, shardings), manifest.get("extra", {})
 
 
 class AsyncCheckpointer:

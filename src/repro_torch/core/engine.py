@@ -101,12 +101,35 @@ Its decode step adds cross-attention after self-attention, in both
 variants one launch of the stripe kernel B1 a layer over the encoder's
 Senc / T pages (all heads; the reference's `_cross_attention`).
 `prefill_chunk` and `verify_step` refuse it, as the reference does: its
-servers never build the cross K/V.  Not ported, and refused here: a
-device mesh.
+servers never build the cross K/V.
+
+On a device mesh (`mesh=`, the single-process mesh of
+`distributed/sharding.py`; the paper's G2 dataflow, `core/seqpar.py`)
+the pools are built shard-local (`plan_sharding` picks the batch and
+page axes, the page counts rounded up to the page shards), and KV pages
+never move: every layer's new K/V goes to the shard that owns its page
+(`seqpar.sharded_append_uniform` on the stripe,
+`sharded_append_shared` on a shared pool), each page shard computes its
+partial over its own pages (kernel B1 on the stripe, B2 through the
+table, on a card) and the partials combine by log-sum-exp.  The one-shot
+prefill runs ring attention under the engine's mesh
+(`attention.sharded_flash_attention`) and fills each shard's pages
+(`sharded_prefill_fill`, `sharded_window_fill`); `prefill_chunk` on the
+stripe fills the chunk's pages in the shards that hold them and reads
+the past partial from those shards (`sharded_chunk_fill`,
+`sharded_chunk_attention`).  Weights, the non-attention work, the tables,
+the lengths, recurrent state and an encoder-decoder's cross K/V stay
+whole on the mesh's first device.  The reference's mesh refusals stand
+at the same calls: `verify_step`, a bucketed `prompt_len`, a one-shot
+prefill into a shared pool, and chunked prefill for window or recurrent
+archs or a shared pool.  The shared pool's appends read the step's new
+pages to the host once a step (each shard's writing rows).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from contextlib import nullcontext
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -114,6 +137,9 @@ import torch
 from repro_torch.configs.base import EngineConfig, ModelConfig
 from repro_torch.core import paged_kv, seqpar
 from repro_torch.core.paged_kv import DecodeCache
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import (P, ShardedTensor, axes_spec,
+                                              entry_axes)
 from repro_torch.kernels.paged_attention import (paged_attention_partial,
                                                  paged_chunk_attention,
                                                  paged_chunk_attention_ref)
@@ -125,17 +151,65 @@ from repro_torch.models.transformer import (Runtime, embed_inputs, ffn,
                                             run_encoder)
 
 
+# ---------------------------------------------------------------------------
+# Mesh planning
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardPlan:
+    batch_axes: Tuple[str, ...] = ()
+    page_axes_g: Tuple[str, ...] = ()
+    page_axes_w: Tuple[str, ...] = ()
+
+
+def _axes_size(mesh, axes) -> int:
+    if mesh is None:
+        return 1
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    return max(n, 1)
+
+
+def plan_sharding(mesh, batch: int, np_g_raw: int) -> ShardPlan:
+    """Pick batch vs page mesh axes.  Batch-1 long context pushes spare
+    data/pod axes onto the global page dimension."""
+    if mesh is None or mesh.size == 1:
+        return ShardPlan()
+    batch_axes: List[str] = []
+    spare: List[str] = []
+    rem = batch
+    for a in ("pod", "data"):
+        if a not in mesh.shape:
+            continue
+        if rem % mesh.shape[a] == 0 and rem >= mesh.shape[a]:
+            batch_axes.append(a)
+            rem //= mesh.shape[a]
+        else:
+            spare.append(a)
+    page_axes_g: List[str] = []
+    n = mesh.shape["model"]
+    for a in spare:
+        if np_g_raw >= n * mesh.shape[a]:
+            page_axes_g.append(a)
+            n *= mesh.shape[a]
+    page_axes_g.append("model")
+    return ShardPlan(tuple(batch_axes), tuple(page_axes_g), ("model",))
+
+
 class KVNANDEngine:
     def __init__(self, cfg: ModelConfig, eng: Optional[EngineConfig] = None,
                  rt: Optional[Runtime] = None, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP A17, multiple "
-                "GPUs)")
+        """`mesh` (a `distributed.sharding.Mesh`) shards the pools; the
+        weights and every tensor the caller hands in then live on its
+        first device, which replaces `device`."""
         self.cfg = cfg
         self.eng = eng or EngineConfig()
         self.rt = rt or Runtime()
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self._mesh_on = mesh is not None and mesh.size > 1
+        self.device = (mesh.first_device if mesh is not None
+                       else torch.device(device))
         # the reference's selection (`_decode_attn_layer`)
         self._discrete = (self.eng.variant == "discrete"
                           or self.eng.hg_pipeline)
@@ -154,9 +228,52 @@ class KVNANDEngine:
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_context: int,
                    enc_len: int = 0) -> DecodeCache:
+        kw = {}
+        if self._mesh_on:
+            plan = plan_sharding(
+                self.mesh, batch,
+                paged_kv.ceil_div(max_context, self.eng.page_tokens))
+            b = axes_spec(plan.batch_axes)
+
+            def place(name, shape, dtype):
+                pg = axes_spec(plan.page_axes_w if name.endswith("_w")
+                               else plan.page_axes_g)
+                spec = ((None, None, pg, None, None) if self.eng.shared_pool
+                        else (None, b, None, pg, None, None))
+                return sharding.zeros(self.mesh, P(*spec[:len(shape)]),
+                                      shape, dtype)
+
+            kw = dict(page_shards_g=_axes_size(self.mesh, plan.page_axes_g),
+                      page_shards_w=_axes_size(self.mesh, plan.page_axes_w),
+                      place=place)
         return paged_kv.init_cache(self.cfg, self.eng, batch, max_context,
                                    dtype=getattr(torch, self.eng.kv_dtype),
-                                   device=self.device, enc_len=enc_len)
+                                   device=self.device, enc_len=enc_len, **kw)
+
+    def _cache_plan(self, cache: DecodeCache) -> ShardPlan:
+        """The mesh axes of `cache`, read from its pools' own layout
+        (batch axes from the plan when the pool is shared, which has no
+        batch dimension)."""
+        if not self._mesh_on:
+            return ShardPlan()
+        g, w = cache.k_pages_g, cache.k_pages_w
+        shared = self.eng.shared_pool
+        plan = plan_sharding(self.mesh, cache.lengths.shape[0], 1)
+        pos = 2 if shared else 3
+        ref = g if g is not None else w
+        batch = (plan.batch_axes if shared or ref is None
+                 else entry_axes(ref.spec[1]))
+        return ShardPlan(batch,
+                         entry_axes(g.spec[pos]) if g is not None else (),
+                         entry_axes(w.spec[pos]) if w is not None else ())
+
+    @staticmethod
+    def _at_layer(leaf, j: int):
+        """Layer j of a stacked pool leaf: a view, shard by shard on a
+        mesh."""
+        if leaf is None or not isinstance(leaf, ShardedTensor):
+            return None if leaf is None else leaf[j]
+        return leaf.map(lambda t: t[j], spec=P(*leaf.spec[1:]))
 
     def _page_bases(self, table: torch.Tensor) -> torch.Tensor:
         """Page base positions [B, NP] (the reference's `_global_bases`).
@@ -203,21 +320,43 @@ class KVNANDEngine:
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
+    def _partial_o(self, q, kp, vp, base, length, window, table, ks, vs,
+                   ring: bool, kv_heads=None):
+        """Decode attention of q [B, H', dh] over one layer's pool slices
+        (the reference's `_paged_attn`): one `paged_attention_partial`
+        on one device; on a mesh each page shard's partial over its own
+        pages, combined (`seqpar.paged_decode_attention_sharded*`, the
+        pool's page axes from `self._plan`).  Returns o."""
+        fmt = self.eng.kv_quant if ks is not None else "none"
+        parts = self.eng.attn_partitions
+        if not self._mesh_on:
+            o, _, _ = paged_attention_partial(
+                q, kp, vp, base, length, window=window, kv_quant=fmt,
+                k_scale=ks, v_scale=vs, page_table=table, partitions=parts,
+                kv_heads=kv_heads)
+            return o
+        plan = self._plan
+        kw = dict(window=window, batch_axes=plan.batch_axes,
+                  page_axes=plan.page_axes_w if ring else plan.page_axes_g,
+                  kv_quant=fmt, k_scale=ks, v_scale=vs, partitions=parts,
+                  kv_heads=kv_heads)
+        if table is not None:
+            return seqpar.paged_decode_attention_sharded_shared(
+                q, kp, vp, table, base, length, self.mesh, **kw)
+        return seqpar.paged_decode_attention_sharded(
+            q, kp, vp, base, length, self.mesh, **kw)
+
     def _attend_heads(self, q, kp, vp, base, lengths, window=None,
-                      table=None, ks=None, vs=None):
+                      table=None, ks=None, vs=None, ring=False):
         """All heads at once (KVNAND-C, the reference's `_attend_compact`):
         q [B, 1, H, dh] against the layer's already-appended pool slices
         kp/vp (a shared pool's through `table`; ks/vs their kv8/kv4
         scales), over the last `window` tokens on a local layer."""
-        o, _, _ = paged_attention_partial(
-            q[:, 0], kp, vp, base, lengths + 1, window=window,
-            kv_quant=self.eng.kv_quant if ks is not None else "none",
-            k_scale=ks, v_scale=vs, page_table=table,
-            partitions=self.eng.attn_partitions)
-        return o
+        return self._partial_o(q[:, 0], kp, vp, base, lengths + 1, window,
+                               table, ks, vs, ring)
 
     def _attend_groups(self, pl_, h, kp, vp, base, lengths, window=None,
-                       table=None, ks=None, vs=None):
+                       table=None, ks=None, vs=None, ring=False):
         """Head-group pipelined attention (KVNAND-D, the reference's
         `_attend_discrete`): group i's q projection and its attention over
         kv head i of the already-appended layer pool, in the reference's
@@ -227,7 +366,6 @@ class KVNANDEngine:
         cfg = self.cfg
         K = cfg.n_kv_heads
         x_tok = h[:, 0]
-        fmt = self.eng.kv_quant if ks is not None else "none"
         length = lengths + 1
         q_cur = attn_mod.project_q_group(pl_["attn"], cfg, x_tok, 0, lengths)
         outs = []
@@ -235,11 +373,8 @@ class KVNANDEngine:
             q_next = (attn_mod.project_q_group(pl_["attn"], cfg, x_tok,
                                                i + 1, lengths)
                       if i + 1 < K else None)
-            o, _, _ = paged_attention_partial(
-                q_cur, kp, vp, base, length, window=window, kv_quant=fmt,
-                k_scale=ks, v_scale=vs, page_table=table,
-                partitions=self.eng.attn_partitions, kv_heads=(i, 1))
-            outs.append(o)
+            outs.append(self._partial_o(q_cur, kp, vp, base, length, window,
+                                        table, ks, vs, ring, (i, 1)))
             q_cur = q_next
         return torch.cat(outs, dim=1)
 
@@ -260,6 +395,27 @@ class KVNANDEngine:
             paged_kv.cross_pages(cache.cross_v[layer], T), base, length,
             partitions=self.eng.attn_partitions)
         return attn_mod.project_out(pcross, cfg, o[:, None])
+
+    def _append_on_shards(self, ring, j, kpool, vpool, kscale, vscale,
+                          k1, v1, phys, slot, active, rows):
+        """A decode token's K/V into the shard that owns its page (the
+        reference's sharded branches of `_decode_attn_layer`): the stripe
+        through each shard's owned-row mask, the shared pool through each
+        shard's writing rows, from the pages read to the host once a
+        step (`self._mesh_phys`)."""
+        plan = self._plan
+        kw = dict(batch_axes=plan.batch_axes,
+                  page_axes=plan.page_axes_w if ring else plan.page_axes_g,
+                  k_scale=kscale, v_scale=vscale,
+                  kv_quant=self.eng.kv_quant)
+        if self.eng.shared_pool:
+            seqpar.sharded_append_shared(kpool, vpool, j, k1, v1,
+                                         self._mesh_phys[ring], slot,
+                                         self.mesh, rows=rows, **kw)
+        else:
+            seqpar.sharded_append_uniform(kpool, vpool, j, k1, v1, phys,
+                                          slot, self.mesh, active=active,
+                                          **kw)
 
     def _decode_attention(self, pl_, x, cache: DecodeCache, layer: int,
                            lengths, base_g, active, rows):
@@ -289,34 +445,37 @@ class KVNANDEngine:
         slot = lengths % T
         shared = self.eng.shared_pool
         fmt = self.eng.kv_quant
-        for pool, scale, new in ((kpool, kscale, k_new),
-                                 (vpool, vscale, v_new)):
-            if fmt != "none":
-                append = (paged_kv.append_token_quant_shared if shared
-                          else paged_kv.append_token_quant)
-                append(pool, scale, j, phys, slot, new[:, 0], fmt, rows)
-            elif shared:
-                paged_kv.append_global_shared(pool, j, phys, slot,
-                                              new[:, 0], rows)
-            else:
-                paged_kv.append_token_inplace(pool, j, phys, slot,
-                                              new[:, 0], active)
+        if self._mesh_on:
+            self._append_on_shards(ring, j, kpool, vpool, kscale, vscale,
+                                   k_new[:, 0], v_new[:, 0], phys, slot,
+                                   active, rows)
+        else:
+            for pool, scale, new in ((kpool, kscale, k_new),
+                                     (vpool, vscale, v_new)):
+                if fmt != "none":
+                    append = (paged_kv.append_token_quant_shared if shared
+                              else paged_kv.append_token_quant)
+                    append(pool, scale, j, phys, slot, new[:, 0], fmt, rows)
+                elif shared:
+                    paged_kv.append_global_shared(pool, j, phys, slot,
+                                                  new[:, 0], rows)
+                else:
+                    paged_kv.append_token_inplace(pool, j, phys, slot,
+                                                  new[:, 0], active)
         if ring:
             base, window = cache.page_pos_w, cfg.window
             table = cache.page_table_w if shared else None
         else:
             base, window = base_g, None
             table = cache.page_table_g if shared else None
-        ks = vs = None
-        if fmt != "none":
-            ks, vs = kscale[j], vscale[j]
-        kp, vp = kpool[j], vpool[j]
+        ks, vs, kp, vp = (self._at_layer(a, j)
+                          for a in (kscale, vscale, kpool, vpool))
         if self._discrete:
             o = self._attend_groups(pl_, h, kp, vp, base, lengths, window,
-                                    table, ks, vs)
+                                    table, ks, vs, ring)
         else:
             o = self._attend_heads(q, kp, vp, base, lengths, window, table,
-                                   ks, vs)
+                                   ks, vs, ring)
         return h, attn_mod.project_out(pl_["attn"], cfg, o[:, None])
 
     def decode_step(self, params, cache: DecodeCache, tokens: torch.Tensor,
@@ -360,6 +519,13 @@ class KVNANDEngine:
         row_writers = self.eng.shared_pool or self.eng.kv_quant != "none"
         rows = (active.nonzero()[:, 0]
                 if row_writers and active is not None else None)
+        self._plan = self._cache_plan(cache)
+        if self._mesh_on and self.eng.shared_pool:
+            # each shard's writing rows come from the new tokens' pages,
+            # read to the host once a step
+            self._mesh_phys = {ring: self._page_of(cache, ring, lengths).cpu()
+                               for ring in {r for r, _ in self._pool_of}}
+            rows = None if rows is None else rows.cpu()
         if cache.cross_k is not None:
             # the encoder's pages: every row's NP whole pages, base j·T
             B, Senc = cache.cross_k.shape[1:3]
@@ -425,6 +591,10 @@ class KVNANDEngine:
         if cfg.is_encoder_decoder:
             raise ValueError("verify_step does not support encoder-decoder "
                              "archs")
+        if self._mesh_on:
+            raise NotImplementedError(
+                "sharded verify_step is not wired; run speculation "
+                "single-host (the mesh path covers sequential decode)")
         if self.eng.uniform_lengths:
             raise ValueError("verify_step requires the ragged "
                              "(uniform_lengths=False) append path: slots "
@@ -655,6 +825,14 @@ class KVNANDEngine:
             raise ValueError(
                 f"{cfg.family}: bucketed prefill would fold padding into "
                 "recurrent state; pass exact-length prompts instead")
+        if prompt_len is not None and self._mesh_on:
+            raise ValueError("bucketed prefill is a single-host scheduler "
+                             "feature; sharded fills take exact lengths")
+        if self.eng.shared_pool and self._mesh_on:
+            raise NotImplementedError(
+                "sharded one-shot prefill into a shared pool is not wired; "
+                "shared-pool serving prefills via prefill_chunk (the mesh "
+                "path covers decode and chunk attention)")
         if self.eng.shared_pool and self.eng.hot_pages:
             raise ValueError(
                 "one-shot prefill cannot run against a TIERED pool: the "
@@ -662,6 +840,16 @@ class KVNANDEngine:
                 "hot tier's few device pages; tiered pools are managed by "
                 "the serving scheduler's residency machinery — run "
                 "hot_pages=0 here, or serve via KVNANDServer")
+        # ring attention reads the ambient mesh (the reference's caller
+        # enters it); the engine enters its own
+        with self.mesh if self._mesh_on else nullcontext():
+            return self._prefill_layers(params, batch, max_context,
+                                        prompt_len)
+
+    def _prefill_layers(self, params, batch, max_context: int,
+                        prompt_len: Optional[int]):
+        """`prefill` after its refusals."""
+        cfg, rt = self.cfg, self.rt
         x, positions = embed_inputs(params, cfg, batch, rt)
         B, S = x.shape[:2]
         enc_out = None
@@ -678,6 +866,7 @@ class KVNANDEngine:
             return lm_head_logits(params, cfg, x[:, -1:])[:, 0], cache
         shared = self.eng.shared_pool
         fmt = self.eng.kv_quant
+        plan = self._cache_plan(cache)
         # the frontend prefix (meta tokens, patches) counts as prompt
         n = S if prompt_len is None else (
             prompt_len + S - batch["tokens"].shape[1])
@@ -700,9 +889,18 @@ class KVNANDEngine:
             # a ring keeps the newest pages of the n real tokens, so
             # bucket padding never evicts a live page
             for pool, sc, kv in ((kpool, kscale, k), (vpool, vscale, v)):
-                paged_kv.fill_layer(pool, kv, j, ring=ring,
-                                    true_len=n if ring else None,
-                                    table=table, scale=sc, kv_quant=fmt)
+                if self._mesh_on:
+                    fill = (seqpar.sharded_window_fill if ring
+                            else seqpar.sharded_prefill_fill)
+                    fill(pool, kv, j, self.mesh,
+                         batch_axes=plan.batch_axes,
+                         page_axes=(plan.page_axes_w if ring
+                                    else plan.page_axes_g),
+                         scale=sc, kv_quant=fmt)
+                else:
+                    paged_kv.fill_layer(pool, kv, j, ring=ring,
+                                        true_len=n if ring else None,
+                                        table=table, scale=sc, kv_quant=fmt)
             if enc_out is not None:
                 h = rms_norm(x, pl_["ln_cross"], cfg.norm_eps)
                 ck, cv = attn_mod.project_cross_kv(pl_["cross"], enc_out)
@@ -744,6 +942,16 @@ class KVNANDEngine:
             raise ValueError("chunked prefill does not support "
                              "encoder-decoder archs (cross-KV is built by "
                              "full prefill)")
+        if self._mesh_on and (cfg.window is not None
+                              or cfg.family in ("ssm", "hybrid")):
+            raise NotImplementedError(
+                "sharded chunked prefill covers global-pool attention "
+                "archs; window-ring / recurrent archs are single-host")
+        if self._mesh_on and self.eng.shared_pool:
+            raise NotImplementedError(
+                "sharded chunked prefill into a shared pool is not wired "
+                "(the mesh path covers shared-pool decode); run the "
+                "scheduler single-host or use the stripe layout on a mesh")
         if cfg.n_meta_tokens and not first:
             raise ValueError(
                 f"prefill_chunk: {cfg.name} prepends {cfg.n_meta_tokens} "
@@ -780,6 +988,7 @@ class KVNANDEngine:
         shared = self.eng.shared_pool
         fmt = self.eng.kv_quant
         scale = cfg.d_head ** -0.5
+        plan = self._cache_plan(cache)
         # the slot's table rows (shared pool) and page bases; a ring's
         # bases are read as they stood before this chunk (they are
         # rewritten after the layers), and chunk 0 reads none
@@ -802,7 +1011,18 @@ class KVNANDEngine:
             o, m, l = seqpar._attn_block_partial(
                 q, k, v, q_pos, start, causal=True, window=window,
                 scale=scale)
-            if not first:
+            if not first and self._mesh_on:
+                # the past partial on the shards that hold the slot's row
+                kp, vp, ks, vs = (
+                    None if a is None else seqpar.slot_stripe(
+                        a, j, slot, plan.batch_axes) for a in pool)
+                o2, m2, l2 = seqpar.sharded_chunk_attention(
+                    q, kp, vp, base[ring], start, q_pos, kp.mesh,
+                    window=window, page_axes=plan.page_axes_g,
+                    kv_quant=fmt, k_scale=ks, v_scale=vs,
+                    partitions=self.eng.attn_partitions)
+                o, m, l = seqpar.merge_two(o, m, l, o2, m2, l2)
+            elif not first:
                 # past-context partial from the slot's already-written
                 # pages, read before this layer's fill below overwrites a
                 # ring's oldest slots
@@ -822,7 +1042,12 @@ class KVNANDEngine:
             x = x + aout
             kpool, vpool, kscale, vscale = pool
             for pl, sc, kv in ((kpool, kscale, k), (vpool, vscale, v)):
-                if shared:
+                if self._mesh_on:
+                    seqpar.sharded_chunk_fill(
+                        pl, kv, j, slot, page0, v_len, self.mesh,
+                        batch_axes=plan.batch_axes,
+                        page_axes=plan.page_axes_g, scale=sc, kv_quant=fmt)
+                elif shared:
                     fill = (paged_kv.fill_chunk_window_at_shared if ring
                             else paged_kv.fill_chunk_global_at_shared)
                     fill(pl, kv, j, trow[ring], page0, v_len, scale=sc,

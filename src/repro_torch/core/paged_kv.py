@@ -238,7 +238,8 @@ def cross_pages(leaf: torch.Tensor, page_tokens: int) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, eng: EngineConfig, batch: int,
                max_context: int, *, dtype=torch.bfloat16,
-               device="cuda", enc_len: int = 0) -> DecodeCache:
+               device="cuda", enc_len: int = 0, page_shards_g: int = 1,
+               page_shards_w: int = 1, place=None) -> DecodeCache:
     """Zeroed pools (and kv8/kv4 scales), zero lengths.  Global pool:
     NP = ceil(max_context / T) pages per slot; window rings: NPw pages a
     slot, every base RING_EMPTY.  Stripe tables are identities; shared:
@@ -251,7 +252,14 @@ def init_cache(cfg: ModelConfig, eng: EngineConfig, batch: int,
     cache, which has no pool (zero states and shifts instead), and the
     conv tail's and the cross K/V's dtype (whatever kv_quant is).  An
     encoder-decoder arch given `enc_len` gets zeroed cross K/V over
-    enc_len encoder positions (`cross_store`)."""
+    enc_len encoder positions (`cross_store`).
+
+    On a device mesh (the reference's `cache_spec`): `page_shards_g` /
+    `page_shards_w` round each pool's page count (NP, NPw and a shared
+    pool's P) up to a multiple of the shards holding its page axis, and
+    `place(name, shape, dtype)` builds each pool and scale leaf (the
+    engine's makes shard-local zeros, `sharding.zeros`); the tables,
+    ring bases and lengths stay whole on `device`."""
     T = eng.page_tokens
     K, dh, L = cfg.n_kv_heads, cfg.d_head, cfg.n_layers
     lengths = torch.zeros(batch, dtype=torch.int32, device=device)
@@ -282,10 +290,15 @@ def init_cache(cfg: ModelConfig, eng: EngineConfig, batch: int,
     else:
         Ts = T
 
-    def zeros(shape, dt):
+    def zeros(name, shape, dt):
+        if place is not None:
+            return place(name, shape, dt)
         return torch.zeros(shape, dtype=dt, device=device)
 
-    def pool_leaves(Lp: int, NP: int, P: int):
+    def round_np(n: int, shards: int) -> int:
+        return max(ceil_div(n, shards), 1) * shards
+
+    def pool_leaves(sfx: str, Lp: int, NP: int, P: int):
         """(k, v, table, k_scale, v_scale) of one layer group."""
         logical = torch.arange(NP, dtype=torch.int32, device=device)
         if eng.shared_pool:
@@ -295,23 +308,28 @@ def init_cache(cfg: ModelConfig, eng: EngineConfig, batch: int,
         else:
             pool, scales = (Lp, batch, K, NP, Ts, dh), (Lp, batch, K, NP)
             table = logical[None].expand(batch, NP).contiguous()
-        sc = (lambda: zeros(scales, torch.float32)) if quantized else (
-            lambda: None)
-        return zeros(pool, dtype), zeros(pool, dtype), table, sc(), sc()
+        sc = ((lambda n: zeros(f"{n}_scale_{sfx}", scales, torch.float32))
+              if quantized else (lambda n: None))
+        return (zeros(f"k_pages_{sfx}", pool, dtype),
+                zeros(f"v_pages_{sfx}", pool, dtype), table, sc("k"),
+                sc("v"))
 
     Lg, Lw = _n_layers_split(cfg)
     if Lg:
-        NP = eng.max_pages_per_seq or ceil_div(max_context, T)
+        NP = round_np(eng.max_pages_per_seq or ceil_div(max_context, T),
+                      page_shards_g)
         # a tiered pool keeps only its hot tier on the device; the flash
         # page count lives in the scheduler's allocator
         (leaves["k_pages_g"], leaves["v_pages_g"], leaves["page_table_g"],
          leaves["k_scale_g"], leaves["v_scale_g"]) = pool_leaves(
-            Lg, NP, eng.hot_pages or eng.total_pages or batch * NP)
+            "g", Lg, NP, round_np(eng.hot_pages or eng.total_pages
+                                  or batch * NP, page_shards_g))
     if Lw:
-        NPw = ring_pages(cfg, T)
+        NPw = round_np(ring_pages(cfg, T), page_shards_w)
         (leaves["k_pages_w"], leaves["v_pages_w"], table_w,
          leaves["k_scale_w"], leaves["v_scale_w"]) = pool_leaves(
-            Lw, NPw, eng.total_pages_w or batch * NPw)
+            "w", Lw, NPw, round_np(eng.total_pages_w or batch * NPw,
+                                   page_shards_w))
         if eng.shared_pool:        # a stripe ring is addressed directly
             leaves["page_table_w"] = table_w
         leaves["page_pos_w"] = torch.full((batch, NPw), RING_EMPTY,
@@ -372,24 +390,31 @@ def _requantize_with_token(qpage, s, slot, val, fmt: str):
 def append_token_quant(pool: torch.Tensor, scale: torch.Tensor, layer: int,
                        phys: torch.Tensor, slot: torch.Tensor,
                        val: torch.Tensor, fmt: str,
-                       rows: Optional[torch.Tensor] = None):
+                       rows: Optional[torch.Tensor] = None,
+                       active: Optional[torch.Tensor] = None):
     """Ragged requantizing append into a stripe pool [L, B, K, NP, Ts, dh]
     with scales [L, B, K, NP].  phys/slot: [B] page and in-page token of
     each row's new token; val: [B, K, dh].  `rows` (int64 indices) selects
-    the rows that write — the active ones; None writes every row."""
+    the rows that write — the active ones; None writes every row.
+    `active` [B] bool instead masks on the device: a masked row writes
+    its page's current codes and scale back (safe on the stripe, where
+    no other row names its cells; a mesh shard's owned-row mask)."""
     b_idx = torch.arange(pool.shape[1], device=pool.device)
     if rows is not None:
         b_idx, phys, slot, val = rows, phys[rows], slot[rows], val[rows]
     p = phys.long()
     pool_l, scale_l = pool[layer], scale[layer]
-    q2, s2 = _requantize_with_token(pool_l[b_idx, :, p], scale_l[b_idx, :, p],
-                                    slot, val, fmt)
+    cur_q, cur_s = pool_l[b_idx, :, p], scale_l[b_idx, :, p]
+    q2, s2 = _requantize_with_token(cur_q, cur_s, slot, val, fmt)
+    if active is not None:
+        q2 = torch.where(active[:, None, None, None], q2, cur_q)
+        s2 = torch.where(active[:, None], s2, cur_s)
     pool_l[b_idx, :, p] = q2
     scale_l[b_idx, :, p] = s2
     return pool, scale
 
 
-def _paged_from_seq(kv_seq: torch.Tensor, T: int) -> torch.Tensor:
+def pages_from_seq(kv_seq: torch.Tensor, T: int) -> torch.Tensor:
     """[B, S, K, dh] -> page-major [B, K, n_pages, T, dh] (zero-padded)."""
     B, S, K, dh = kv_seq.shape
     n_pages = ceil_div(S, T)
@@ -406,7 +431,7 @@ def _chunk_pages(pool: torch.Tensor, kv_chunk: torch.Tensor, NP: int,
     the pages holding at least one of the `valid_len` real tokens and
     lying inside the NP-page walk (the reference drops the rest)."""
     T = pool.shape[-2] * (2 if kv_quant == "kv4" else 1)
-    x = _paged_from_seq(kv_chunk, T)[0]                # [K, n, T, dh]
+    x = pages_from_seq(kv_chunk, T)[0]                # [K, n, T, dh]
     n_w = min(ceil_div(valid_len, T), x.shape[1], max(NP - page0, 0))
     if n_w <= 0 or kv_quant == "none":
         return x[:, :n_w].to(pool.dtype), None, n_w
@@ -516,7 +541,7 @@ def _ring_pages(kv_seq: torch.Tensor, T: int, NP: int, valid_len: int,
     page keeps its padding tokens, as the reference's pages do."""
     n_w = min(ceil_div(valid_len, T), ceil_div(kv_seq.shape[1], T))
     lo = max(0, n_w - NP)
-    x = _paged_from_seq(kv_seq[:, lo * T:n_w * T], T)
+    x = pages_from_seq(kv_seq[:, lo * T:n_w * T], T)
     if kv_quant == "none":
         return lo, x, None
     return (lo,) + quant.quantize_kv_page(x, kv_quant)
@@ -563,6 +588,23 @@ def fill_chunk_window_at_shared(pool: torch.Tensor, kv_chunk: torch.Tensor,
     return pool
 
 
+def fill_pages_at(pool: torch.Tensor, pages: torch.Tensor, layer: int,
+                  dst, *, scale: Optional[torch.Tensor] = None,
+                  page_scales: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Write whole pages into every row's stripe at page slots `dst` (a
+    list of n page indices), in place: pool [L, B, K, NP, Ts, dh], pages
+    [B, K, n, Ts, dh] (already quantized for a kv8/kv4 pool, its scales
+    `page_scales` [B, K, n] into `scale` [L, B, K, NP]).  A mesh shard's
+    window-ring fill (`seqpar.sharded_window_fill`) writes its own ring
+    slots through it."""
+    idx = torch.as_tensor(dst, dtype=torch.long, device=pool.device)
+    pool[layer][:, :, idx] = pages.to(pool.dtype)
+    if page_scales is not None:
+        scale[layer][:, :, idx] = page_scales
+    return pool
+
+
 # ---------------------------------------------------------------------------
 # One-shot prefill fill and the splice of a prefilled slot
 # ---------------------------------------------------------------------------
@@ -603,7 +645,7 @@ def fill_layer(pool: torch.Tensor, kv_seq: torch.Tensor, layer: int, *,
         if s is not None:
             scale[layer][:, phys] = s.transpose(0, 1)
         return pool
-    x = _paged_from_seq(kv_seq, T)                  # [B, K, n, T, dh]
+    x = pages_from_seq(kv_seq, T)                  # [B, K, n, T, dh]
     s = None
     if kv_quant != "none":
         x, s = quant.quantize_kv_page(x, kv_quant)

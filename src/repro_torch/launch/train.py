@@ -13,11 +13,13 @@ only (ROADMAP A18b).
 
 Takes every flag of the reference's `launch/train.py` and prints its
 `[train]` lines; `--device` (default cuda) says where the weights, the
-optimizer state and the kernels live.  The reference derives a mesh from
-the live devices; the port runs on one device (the mesh is ROADMAP A17)
-and prints it.  Weights are drawn from a seeded torch generator, so they
-are the reference's in shape and scale, not in value
-(`bridge.train_state_from_numpy` carries a reference state over).
+optimizer state and the kernels live.  As the reference does, it derives
+the elastic mesh from the live devices (`launch.mesh.mesh_from_devices`:
+every visible card, or the CPU under `--device cpu`) and prints its
+shape; it trains on the mesh's first device.  Weights are drawn from a
+seeded torch generator, so they are the reference's in shape and scale,
+not in value (`bridge.train_state_from_numpy` carries a reference state
+over).
 
 A checkpoint's step is the number of updates applied to it, the step the
 loop resumes at.  The reference labels its periodic saves with the step
@@ -43,6 +45,7 @@ from repro_torch.checkpoint import checkpoint as ck
 from repro_torch.configs import EngineConfig, get_config
 from repro_torch.data.pipeline import DataConfig, DataIterator, make_source
 from repro_torch.kernels import _build
+from repro_torch.launch.mesh import mesh_from_devices
 from repro_torch.models.registry import Model
 from repro_torch.models.transformer import Runtime
 from repro_torch.training.optimizer import AdamWConfig
@@ -108,10 +111,10 @@ def train(argv=None, rt=None):
                        total_steps=args.steps)
     eng = EngineConfig(remat=args.remat, microbatches=args.microbatches)
 
-    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
-             else device.type.upper())
+    mesh = mesh_from_devices(None if args.device == "cuda" else [device])
+    device = mesh.first_device
     print(f"[train] {cfg.name}: {cfg.param_count()/1e6:.1f}M params, "
-          f"device {where}")
+          f"mesh {dict(mesh.shape)}")
 
     params = model.init(torch.Generator(device=device).manual_seed(0))
     state = init_train_state(params, acfg)

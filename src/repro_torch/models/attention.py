@@ -5,9 +5,10 @@ wk/wv [K, D, dh], so head h = k·G + g and the kv head of h is h // G.
 The split phases the decode engine interposes the paged KV cache
 between (`project_qkv` / `project_out`; for the discrete variant
 `project_kv` and one head group's `project_q_group`) and the
-full-sequence attention
-of the one-shot prefill and the reference forward (`attention_train`
-through `sharded_flash_attention`, on one device) are ported.
+full-sequence attention of the one-shot prefill, training and the
+reference forward (`attention_train` through `sharded_flash_attention`:
+ring attention over the ambient mesh's `model` axis, else kernel B4)
+are ported.
 Cross-attention (`attention_train(kv_x=...)`, an encoder-decoder
 decoder's) projects q from x and k/v from the encoder output, with no
 RoPE on either side, and attends non-causally; its two halves,
@@ -22,6 +23,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import QuantizedWeight, dequantize
+from repro_torch.distributed.sharding import (current_manual, effective_mesh,
+                                              get_current_mesh)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import ParamInit, apply_rope, dense
 
@@ -148,13 +151,28 @@ def attention_train(params: Dict[str, Any], cfg: ModelConfig,
 
 
 def sharded_flash_attention(q, k, v, *, causal=True, window=None,
-                            is_global=None, impl="auto", mesh=None):
-    """The reference's mesh-adaptive attention, single-device branch:
-    `flash_attention` (kernel B4 on a card).  Ring attention over a mesh
-    is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sequence-parallel ring attention over a device mesh is not "
-            "ported yet (ROADMAP A17, multiple GPUs)")
+                            is_global=None, impl="auto"):
+    """Mesh-adaptive attention: ring attention (sequence parallel,
+    `seqpar.ring_attention`) when the ambient mesh has a `model` axis of
+    more than one, not fixed by an enclosing `manual_axes` (the
+    compressed train step's pod/data), with q's and k's lengths
+    dividing it; `flash_attention` (kernel B4 on a card) otherwise.  The
+    batch is split over the free pod/data axes that divide it."""
+    mesh = get_current_mesh()
+    manual = current_manual()
+    if (mesh is not None and "model" in mesh.shape
+            and mesh.shape["model"] > 1 and "model" not in manual
+            and q.shape[1] % mesh.shape["model"] == 0
+            and k.shape[1] % mesh.shape["model"] == 0 and q.shape[1] > 1):
+        from repro_torch.core.seqpar import ring_attention
+        batch_axes, rem = [], q.shape[0]
+        for a in ("pod", "data"):
+            if a in mesh.shape and a not in manual \
+                    and rem % mesh.shape[a] == 0:
+                batch_axes.append(a)
+                rem //= mesh.shape[a]
+        return ring_attention(q, k, v, effective_mesh(mesh), causal=causal,
+                              window=window, is_global=is_global,
+                              batch_axes=tuple(batch_axes), seq_axis="model")
     return flash_attention(q, k, v, causal=causal, window=window,
                            is_global=is_global, impl=impl)

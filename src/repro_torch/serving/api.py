@@ -51,9 +51,8 @@ carries each request's hot-tier hits and stalls.  With
 ``ServerConfig.overlap`` `stream()` / `run()` / `generate()` dispatch
 step N+1 before collecting step N, so the host's emission and
 bookkeeping run while the card computes; the tokens are the synchronous
-schedule's.  A configuration the port does not serve yet (a device
-mesh, through the engine) raises NotImplementedError at construction,
-naming its ROADMAP item.
+schedule's.  The server runs on one device, as the reference's does; a
+device mesh is the engine's (`KVNANDEngine(mesh=...)`).
 """
 from __future__ import annotations
 

@@ -182,8 +182,13 @@ def test_refusals_on_the_cpu(call, err):
 
 
 def test_single_device_attention_refuses_mesh_and_cross_attention():
-    """A mesh is refused (ROADMAP A17).  Cross-attention (`kv_x`, the
-    encoder-decoder family's) is served: one whisper decoder layer's
+    """The ambient mesh (the mesh refusal it once tested is gone with the
+    port of the mesh): under a (data 2, model 4) CPU mesh
+    `sharded_flash_attention` runs the ring and matches the plain flash
+    attention within 3e-5 (the reference's ring bound); under a mesh
+    whose model axis is 1, and with no mesh, it is the plain flash
+    attention itself.  Cross-attention (`kv_x`, the encoder-decoder
+    family's) is served: one whisper decoder layer's
     `attention_train(kv_x=...)`, 24 decoder rows against 40 encoder
     positions (q from x, k/v from the encoder output, no RoPE,
     non-causal), on the reference's weights matches the reference's."""
@@ -191,11 +196,17 @@ def test_single_device_attention_refuses_mesh_and_cross_attention():
     from repro.models import attention as jattn
     from repro.models.registry import Model
     from repro_torch import bridge
+    from repro_torch.distributed.sharding import Mesh
     cfg = tget("qwen1.5-0.5b").reduced()
-    _, (q, k, v) = _mk(1, 8, 8, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+    _, (q, k, v) = _mk(4, 64, 64, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
                        "float32")
-    with pytest.raises(NotImplementedError, match="A17"):
-        tattn.sharded_flash_attention(q, k, v, mesh=object())
+    want = tfa.flash_attention(q, k, v, causal=True)
+    with Mesh(["cpu"] * 8, ("data", "model"), shape=(2, 4)):
+        ring = tattn.sharded_flash_attention(q, k, v, causal=True)
+    _close(ring, want.numpy(), 3e-5)
+    with Mesh(["cpu"] * 8, ("data", "model"), shape=(8, 1)):
+        assert torch.equal(tattn.sharded_flash_attention(q, k, v), want)
+    assert torch.equal(tattn.sharded_flash_attention(q, k, v), want)
     jcfg = get_config("whisper-base").reduced()
     params = Model(jcfg).init(jax.random.PRNGKey(0))
     cross0 = jax.tree.map(lambda a: a[0], params["layers"]["cross"])

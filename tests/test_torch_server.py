@@ -192,15 +192,38 @@ def _vlm_and_encdec_servers():
 
 @pytest.mark.parametrize("make,err,match", [
     (_vlm_and_encdec_servers, ValueError, "encoder-decoder archs"),
-    (lambda: KVNANDEngine(tget("qwen1.5-0.5b").reduced(), mesh=object(),
-                          device="cpu"), NotImplementedError, "ROADMAP"),
-], ids=["vlm_arch", "mesh"])
+], ids=["vlm_arch"])
 def test_unported_configurations_raise(make, err, match):
-    """A mesh raises at construction, naming its ROADMAP item.  The VLM
-    and encoder-decoder families are ported: the one serves, the other
-    fails where the reference's server does."""
+    """The VLM and encoder-decoder families are ported: the one serves,
+    the other fails where the reference's server does."""
     with pytest.raises(err, match=match):
         make()
+
+
+def test_an_engine_on_a_mesh_serves():
+    """An engine on a (data 2, model 4) mesh of CPU entries (which the
+    port once refused) prefills and decodes, its tokens the single
+    device's; tests/test_torch_mesh_engine.py holds it to the
+    reference."""
+    from repro_torch.distributed.sharding import Mesh
+    cfg = tget("qwen1.5-0.5b").reduced()
+    params = bridge.params_from_numpy(jax.tree.map(
+        np.asarray, Model(get_config("qwen1.5-0.5b").reduced()).init(
+            jax.random.PRNGKey(0))), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (4, 16)))
+    out = []
+    for mesh in (Mesh(["cpu"] * 8, ("data", "model"), shape=(2, 4)), None):
+        e = KVNANDEngine(cfg, TEngineConfig(page_tokens=4,
+                                            kv_dtype="float32"),
+                         mesh=mesh, device="cpu")
+        lg, c = e.prefill(params, {"tokens": toks}, 24)
+        seq = [lg.argmax(-1)]
+        for _ in range(3):
+            lg, c = e.decode_step(params, c, seq[-1][:, None])
+            seq.append(lg.argmax(-1))
+        out.append(torch.stack(seq))
+    assert torch.equal(out[0], out[1])
 
 
 def test_unknown_scheduler_raises():
