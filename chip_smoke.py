@@ -26,6 +26,7 @@
     python3 chip_smoke.py --audio            # the build and phase 24 (W1, whisper-base) only
     python3 chip_smoke.py --train            # the build and phase 25 (L1, training) only
     python3 chip_smoke.py --mesh             # the build and phase 26 (X1, the device mesh) only
+    python3 chip_smoke.py --dryrun           # the build and phase 27 (F1, the dry-run's count on the card) only
 
 A call that runs one model's phase alone (--quant-servers, --dse,
 --window, --replicas, --hybrid, --moe, --vlm, --train, --mesh, and
@@ -503,6 +504,30 @@ Phases (each one fails the run when it fails):
             printed beside mesh=None's: shards that share one card show
             no link cost, so nothing is claimed from it.  `--mesh` runs
             the build and this phase only, at full depth.
+27. F1      the dry-run's count held on the card (`launch/steps.py`,
+            `launch/op_cost.py`, `launch/roofline.py`).  Two cells of
+            full-width qwen1.5-0.5b are built through `launch/steps.py`:
+            (a) the decode step at phase 4's serving shape (4 slots, a
+            512-token context, T = 16, the stripe pool in bf16; B1) and
+            (b) L1's training step at batch 8 x 256 (bf16 weights, f32
+            AdamW moments, remat "block", its forward through B4).  For
+            each: the dry-run's prediction from one run of the step on
+            meta tensors (FLOPs, fused and raw bytes, argument bytes,
+            peak, the eager program's terms), the bound of the step's
+            function (`steps.function_cost`: the FLOPs and bytes the
+            function needs, against one H100's peaks), and the count's
+            fused bytes held between that function's bytes and
+            F1_BYTES_CEILING times them; then the same cell on the card
+            with seed-0 weights through the kernels: its argument bytes
+            equal to the prediction exactly, `max_memory_allocated` over
+            a warm step and F1_STEPS timed ones (after
+            `reset_peak_memory_stats`) (less what earlier phases hold)
+            inside F1_PEAK_BAND of the predicted peak, the median device
+            time of the F1_STEPS steps by CUDA events, and the roofline
+            share = the function's bound / time at most F1_SHARE_MAX (a
+            share above it means the bound is wrong); B1 launched 24 a
+            decode step, B4 48 a train step (the remat recompute reruns
+            it).  `--dryrun` runs the build and this phase only.
 
 It needs a CUDA card (exits non-zero without one, printing no result),
 imports nothing of JAX, and prints the card's name and power limit, a
@@ -6579,6 +6604,192 @@ def mesh_phases(rate) -> dict:
 # T1 / O1 / H1's depth in the default run (their weights' layers), cut from
 # 24 to make room for X1 (PR 28); `--tier`, `--overlap` and `--http` run
 # all 24.  Their gates compare schedules and pools on one set of weights
+# ---------------------------------------------------------------------------
+# phase 27: F1, the dry-run's count on the card
+# ---------------------------------------------------------------------------
+
+F1_ARCH = "qwen1.5-0.5b"
+F1_STEPS = 5             # timed steps after one warm step
+F1_SHARE_MAX = 1.05      # bound / time above this: the bound is wrong
+# the card's peak against the meta count's (arguments + the storages the
+# step holds at once): sound runs read 0.987x (decode) and 1.0014x
+# (train), a port fault 0.667x; the slack is the caching allocator's
+# rounding and cuBLAS's workspace (PERF.md §4)
+F1_PEAK_BAND = (0.93, 1.07)
+F1_PEAK_SLACK = 64 * 2**20
+# the eager count's fused bytes over the function's bytes (its floor):
+# 1.85 (decode) and 38.1 (train, the stacked layers' gradients) when the
+# ceilings were set (PERF.md §4)
+F1_BYTES_CEILING = {"decode": 2.3, "train": 48.0}
+
+
+def f1_cells():
+    """(label, shape, engine overrides, card runtime) of F1's two
+    cells."""
+    import dataclasses
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.steps import runtime_for
+    cfg = get_config(F1_ARCH)
+    return (("decode", ShapeConfig("serve_512", 512, 4, "decode"),
+             {"page_tokens": 16}, None),
+            ("train", ShapeConfig("train_256", 256, 8, "train"), None,
+             dataclasses.replace(runtime_for(cfg, "train"),
+                                 attn_impl="auto")))
+
+
+def f1_predict(label, shape, overrides) -> dict:
+    """The dry-run's numbers of one cell: its step run once on meta."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_cost
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.mesh import mesh_from_devices
+    from repro_torch.launch.steps import build_cell, function_cost
+    t0 = time.perf_counter()
+    cell = build_cell(F1_ARCH, shape, mesh_from_devices(
+        [torch.device("meta")]), multi_pod=False, eng_overrides=overrides)
+    cost = op_cost.count(cell.jitted, *cell.abstract_args,
+                         fusible_last2=cell.fusible_last2)
+    mem = rl.memory_summary(cost, cell.argument_bytes)
+    roof = rl.analyze(cost, 1, rl.model_flops_estimate(
+        get_config(F1_ARCH), shape))
+    bound = rl.function_bound(*function_cost(cell, cost))
+    pred = {"flops": cost.flops, "bytes_fused": cost.bytes_accessed,
+            "bytes_raw": cost.bytes_accessed + cost.fusible_bytes,
+            "argument_bytes": mem["argument_bytes"],
+            "peak_bytes": mem["total_bytes"], "temp_bytes":
+            mem["temp_bytes"], "eager_compute_ms": roof.compute_s * 1e3,
+            "eager_memory_ms": roof.memory_s * 1e3,
+            "eager_memory_raw_ms": roof.memory_raw_s * 1e3,
+            "function_flops": bound.flops, "function_bytes": bound.bytes,
+            "bound_ms": bound.bound_s * 1e3, "bound_by": bound.bound_by,
+            "compute_ms": bound.compute_s * 1e3,
+            "memory_ms": bound.memory_s * 1e3,
+            "count_s": time.perf_counter() - t0}
+    ratio = cost.bytes_accessed / bound.bytes
+    pred["bytes_over_function"] = ratio
+    print(f"F1 {label}: predicted {pred['flops']:.6e} FLOP, "
+          f"{pred['bytes_fused']:.6e} B fused ({pred['bytes_raw']:.6e} "
+          f"raw), arguments {pred['argument_bytes']:.0f} B, peak "
+          f"{pred['peak_bytes']:.6e} B; the eager program's terms: "
+          f"compute {pred['eager_compute_ms']:.6f} ms, memory "
+          f"{pred['eager_memory_ms']:.6f} (raw "
+          f"{pred['eager_memory_raw_ms']:.6f}); the function: "
+          f"{bound.flops:.6e} FLOP, {bound.bytes:.6e} B (the fused count "
+          f"is {ratio:.4f}x), bound {pred['bound_ms']:.6f} ms set by "
+          f"{pred['bound_by']} (operations {pred['compute_ms']:.6f}, bytes "
+          f"{pred['memory_ms']:.6f}); counted in {pred['count_s']:.2f} s")
+    check(1.0 <= ratio <= F1_BYTES_CEILING[label],
+          f"F1 {label}: the count's fused bytes are {ratio:.4f}x the "
+          f"function's, outside [1, {F1_BYTES_CEILING[label]}]")
+    return pred
+
+
+def f1_card(label, shape, overrides, rt, pred, card) -> dict:
+    """The same cell on the card through the kernels, held to `pred`."""
+    import torch
+    from repro_torch.kernels import flash_attention, paged_attention, \
+        quant_gemv, wkv6
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.launch.mesh import mesh_from_devices
+    cell = build_cell(F1_ARCH, shape, mesh_from_devices(
+        [torch.device("cuda")]), multi_pod=False, eng_overrides=overrides,
+        rt=rt)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()     # what earlier phases hold
+    args = cell.args_on(torch.device("cuda"), gen)
+    arg_bytes = sum(t.numel() * t.element_size()
+                    for t in op_cost.tensor_leaves(args))
+    check(arg_bytes == pred["argument_bytes"],
+          f"F1 {label}: the card's arguments hold {arg_bytes} B, the "
+          f"dry-run predicted {pred['argument_bytes']:.0f}")
+    if cell.kind == "decode":
+        args[1].lengths.fill_(shape.seq_len)      # a 512-token context
+    counters = {"B1": paged_attention.launches,
+                "B2": paged_attention.launches_shared,
+                "B3": quant_gemv.launches, "B4": flash_attention.launches,
+                "B5": wkv6.launches}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    step = cell.jitted
+    if cell.kind == "train":
+        state, batch = args
+
+        def run():
+            nonlocal state
+            state, m = step(state, batch)
+            return m
+    else:
+        def run():
+            return step(*args)
+    run()                                          # warm
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(F1_STEPS)]
+    for a, b in events:
+        a.record()
+        out = run()
+        b.record()
+    torch.cuda.synchronize()
+    launches = {k: c.value for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    times = [a.elapsed_time(b) for a, b in events]
+    ms = statistics.median(times)
+    share = pred["bound_ms"] / ms
+    want = ({"B1": 24 * (F1_STEPS + 1)} if cell.kind == "decode"
+            else {"B4": 48 * (F1_STEPS + 1)})
+    lo = F1_PEAK_BAND[0] * pred["peak_bytes"] - F1_PEAK_SLACK
+    hi = F1_PEAK_BAND[1] * pred["peak_bytes"] + F1_PEAK_SLACK
+    res = {"argument_bytes": arg_bytes, "peak_bytes": peak,
+           "base_bytes": base,
+           "peak_band": [lo, hi], "step_ms": ms, "step_ms_all": times,
+           "roofline_share": share, "launches": launches,
+           "want_launches": want}
+    print(f"F1 {label}: card arguments {arg_bytes} B (= predicted), peak "
+          f"{peak} B ({peak / pred['peak_bytes']:.4f}x the count) in "
+          f"[{lo:.0f}, {hi:.0f}], step {ms:.6f} ms median of {F1_STEPS} "
+          f"(CUDA events), the function's bound {pred['bound_ms']:.6f} ms, "
+          f"roofline share {share:.6f}; launches {launches}; {card}")
+    check(lo <= peak <= hi, f"F1 {label}: peak {peak} B outside the "
+          f"band [{lo:.0f}, {hi:.0f}] of the predicted "
+          f"{pred['peak_bytes']:.0f}")
+    check(share <= F1_SHARE_MAX, f"F1 {label}: roofline share "
+          f"{share:.4f} > {F1_SHARE_MAX}: the bound is wrong")
+    for k, n in want.items():
+        check(launches[k] == n, f"F1 {label}: {k} launched "
+              f"{launches[k]} times, want {n}")
+    check(sum(launches.values()) == sum(want.values()),
+          f"F1 {label}: other kernels launched: {launches}")
+    check(all(bool(torch.isfinite(t).all()) for t in
+              op_cost.tensor_leaves(out) if t.is_floating_point()),
+          f"F1 {label}: the step's outputs are not finite")
+    del args, out
+    return res
+
+
+def dryrun_phase(card: str) -> dict:
+    """Phase 27, F1 (see the module docstring)."""
+    import gc
+    import torch
+    t0 = time.perf_counter()
+    res = {"launches": {"B1": 0, "B4": 0}}
+    for label, shape, overrides, rt in f1_cells():
+        pred = f1_predict(label, shape, overrides)
+        got = f1_card(label, shape, overrides, rt, pred, card)
+        res[label] = {"predicted": pred, "card": got}
+        for k in ("B1", "B4"):
+            res["launches"][k] += got["launches"][k]
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"F1: {res['wall_s']:.1f} s; {card}")
+    return res
+
+
 SERVING_LAYERS = 12
 
 
@@ -6628,7 +6839,7 @@ def main(argv) -> int:
                      ["--flash-timing"], ["--dse"], ["--verify-ab"],
                      ["--window"], ["--tier"], ["--overlap"], ["--http"],
                      ["--replicas"], ["--hybrid"], ["--moe"], ["--vlm"],
-                     ["--audio"], ["--train"], ["--mesh"])
+                     ["--audio"], ["--train"], ["--mesh"], ["--dryrun"])
             and not (len(argv) == 2
                      and argv[0] in ("--gemv-ab", "--flash-ab", "--wkv-ab"))):
         print(__doc__, file=sys.stderr)
@@ -6758,6 +6969,11 @@ def main(argv) -> int:
         print(card)
         print(json.dumps({"mesh": x1}))
         return 0
+    if argv == ["--dryrun"]:
+        f1 = dryrun_phase(card)
+        print(card)
+        print(json.dumps({"dryrun": f1}))
+        return 0
     one = {"--tier": ("tier", tier_phase), "--overlap": ("overlap",
                                                          overlap_phase),
            "--http": ("http", http_phase)}.get(argv[0] if argv else None)
@@ -6864,6 +7080,10 @@ def main(argv) -> int:
     lap("phase 26 (X1)")
     for k in ("B1", "B2"):
         check(x1["launches"][k] > 0, f"X1 launched {k} no time")
+    f1 = dryrun_phase(card)
+    lap("phase 27 (F1)")
+    for k in ("B1", "B4"):
+        check(f1["launches"][k] > 0, f"F1 launched {k} no time")
     b1_err = max(b1_err, x1["kernels"]["B1"])
     b2_err = max(b2_err, x1["kernels"]["B2"])
     b1_err = max(b1_err, p1["kernels"]["B1"], w1["kernels"]["B1"])
@@ -6881,13 +7101,14 @@ def main(argv) -> int:
                      + v1["launches_B1"] + g1_b1 + o1["launches_B1"]
                      + y1["launches"]["B1"] + e1["launches"]["B1"]
                      + p1["launches"]["B1"] + w1["launches"]["B1"]
-                     + x1["launches"]["B1"], b1_err,
+                     + x1["launches"]["B1"] + f1["launches"]["B1"], b1_err,
                      list(b1_shapes) + dse["group_timing"][:1]
                      + y1["timing"]["B1"] + e1["timing"]["B1"]
                      + p1["timing"]["B1"] + w1["timing"]["B1"],
                      [stripe, {"D1": d1, "V1": v1, "G1": g1, "O1": o1,
                                "Y1": y1_runs, "E1": e1_runs, "P1": p1_runs,
-                               "W1": w1["golden"], "X1": x1}]),
+                               "W1": w1["golden"], "X1": x1,
+                               "F1": f1["decode"]}]),
         kernel_entry("paged_attention_shared", "src/repro_torch/csrc/"
                      "paged_attention_shared.cu",
                      "src/repro/kernels/paged_attention/kernel.py:209",
@@ -6930,7 +7151,7 @@ def main(argv) -> int:
                      s1["launches"] + g1["splice"]["launches_B4"]
                      + y1["launches"]["B4"] + e1["launches"]["B4"]
                      + p1["launches"]["B4"] + w1["launches"]["B4"]
-                     + l1["launches_B4"], b4_err,
+                     + l1["launches_B4"] + f1["launches"]["B4"], b4_err,
                      list(b4_shapes) + y1["timing"]["B4"]
                      + e1["timing"]["B4"] + p1["timing"]["B4"]
                      + w1["timing"]["B4"] + l1["timing"],
@@ -6938,7 +7159,8 @@ def main(argv) -> int:
                            "Y1 splice": y1["splice"],
                            "E1 splice": e1["splice_nodrop"],
                            "P1 splice": p1["splice"],
-                           "W1": w1["golden"], "L1": l1}]) | {
+                           "W1": w1["golden"], "L1": l1,
+                           "F1": f1["train"]}]) | {
             "bound_cuda_core_ms": b4_shapes[0]["bound_cuda_core_ms"],
             "design": "f32 as 3xTF32 mma.sync (hi/lo split, f32-exact), "
                       "bf16 on bf16 mma.sync, cp.async K/V ring, each q "

@@ -226,13 +226,31 @@ class KVNANDEngine:
                 "(ROADMAP A24, split-page partitions over window rings)")
 
     # ------------------------------------------------------------------
+    def plan(self, batch: int, max_context: int) -> ShardPlan:
+        return plan_sharding(
+            self.mesh, batch,
+            paged_kv.ceil_div(max_context, self.eng.page_tokens))
+
+    def _cache_kw(self, batch: int, max_context: int, enc_len: int):
+        plan = self.plan(batch, max_context)
+        return dict(dtype=getattr(torch, self.eng.kv_dtype), enc_len=enc_len,
+                    page_shards_g=_axes_size(self.mesh, plan.page_axes_g),
+                    page_shards_w=_axes_size(self.mesh, plan.page_axes_w))
+
+    def abstract_cache(self, batch: int, max_context: int,
+                       enc_len: int = 0) -> DecodeCache:
+        """The cache `init_cache` would build, as whole meta tensors (the
+        pools' page counts rounded for the mesh's page shards)."""
+        return paged_kv.abstract_cache(self.cfg, self.eng, batch,
+                                       max_context,
+                                       **self._cache_kw(batch, max_context,
+                                                        enc_len))
+
     def init_cache(self, batch: int, max_context: int,
                    enc_len: int = 0) -> DecodeCache:
         kw = {}
         if self._mesh_on:
-            plan = plan_sharding(
-                self.mesh, batch,
-                paged_kv.ceil_div(max_context, self.eng.page_tokens))
+            plan = self.plan(batch, max_context)
             b = axes_spec(plan.batch_axes)
 
             def place(name, shape, dtype):

@@ -337,6 +337,18 @@ def init_cache(cfg: ModelConfig, eng: EngineConfig, batch: int,
     return DecodeCache(lengths=lengths, **leaves)
 
 
+def abstract_cache(cfg: ModelConfig, eng: EngineConfig, batch: int,
+                   max_context: int, *, dtype=torch.bfloat16,
+                   enc_len: int = 0, page_shards_g: int = 1,
+                   page_shards_w: int = 1) -> DecodeCache:
+    """`init_cache`'s leaves as meta tensors: every shape and dtype, for
+    the dry-run, with nothing allocated."""
+    return init_cache(cfg, eng, batch, max_context, dtype=dtype,
+                      device="meta", enc_len=enc_len,
+                      page_shards_g=page_shards_g,
+                      page_shards_w=page_shards_w)
+
+
 # ---------------------------------------------------------------------------
 # Page write paths (token append / chunk fill), all in place
 # ---------------------------------------------------------------------------

@@ -191,3 +191,31 @@ def quantize_params(params, scheme: str):
         return out
 
     return walk(params)
+
+
+def quantize_params_and_specs(params, specs, scheme: str):
+    """Quantize params and mirror the logical-axis spec tree: a quantized
+    leaf's spec becomes QuantizedWeight(spec_q, spec_scale) so sharding
+    construction stays structurally aligned.  On meta leaves the result
+    carries the codes' and scales' shapes and dtypes only."""
+    if scheme in (None, "none"):
+        return params, specs
+
+    def walk(ptree, stree):
+        pout, sout = {}, {}
+        for k, v in ptree.items():
+            if isinstance(v, dict):
+                pout[k], sout[k] = walk(v, stree[k])
+            elif _should_quantize(k, v):
+                qw = quantize_weight(v, scheme)
+                ax = tuple(stree[k])
+                scale_ax = (ax[:-2] + (ax[-1],)) if len(ax) > 2 \
+                    else (ax[-1],)
+                pout[k] = qw
+                sout[k] = QuantizedWeight(ax, scale_ax, scheme,
+                                          qw.orig_shape)
+            else:
+                pout[k], sout[k] = v, stree[k]
+        return pout, sout
+
+    return walk(params, specs)

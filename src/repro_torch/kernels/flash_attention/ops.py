@@ -1,10 +1,10 @@
 """Public flash attention (port of `repro.kernels.flash_attention.ops`).
 
 `flash_attention` dispatches by the tensors' device, as the port's other
-kernel entry points do: a CPU tensor takes the plain version (`ref.py`),
-a CUDA tensor launches kernel B4, and there is no fallback between the
-two.  impl="ref" asks for the plain version on any device, impl="cuda"
-for the kernel.
+kernel entry points do: a CPU or meta tensor takes the plain version
+(`ref.py`), a CUDA tensor launches kernel B4, and there is no fallback
+between the two.  impl="ref" asks for the plain version on any device,
+impl="cuda" for the kernel.
 
 The reference hands `is_global` (a traced window switch) and a traced
 `q_offset` to its jnp path.  Here the plain version takes them on the
@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import PLAIN_DEVICES
 from repro_torch.kernels.flash_attention.autograd import FlashAttentionFn
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -37,7 +38,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q [B, Sq, H, dh], k/v [B, Sk, K, dh] -> [B, Sq, H, dh] in q's
     dtype."""
     if impl == "auto":
-        impl = "ref" if q.device.type == "cpu" else "cuda"
+        impl = "ref" if q.device.type in PLAIN_DEVICES else "cuda"
     if impl == "ref":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, is_global=is_global)

@@ -2,9 +2,10 @@
 `repro.kernels.paged_attention.ops`).
 
 `paged_attention_partial` dispatches by the tensors' device alone: a CPU
-tensor takes the plain torch version (`ref.py`), a CUDA tensor launches
-a CUDA kernel — the stripe kernel, or the shared-pool kernel when a
-`page_table` is given — and there is no fallback between the two.  Both
+or meta tensor takes the plain torch version (`ref.py`), a CUDA tensor
+launches a CUDA kernel — the stripe kernel, or the shared-pool kernel
+when a `page_table` is given — and there is no fallback between the
+two.  Both
 split the page walk into `partitions` contiguous ranges whose partials
 recombine in `merge.merge_partials` (0 resolves per
 `merge.resolve_partitions`).
@@ -33,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import PLAIN_DEVICES
 from repro_torch.kernels.paged_attention.kernel import (
     paged_attention_cuda, paged_attention_shared_cuda)
 from repro_torch.kernels.paged_attention.merge import (merge_partials,
@@ -113,13 +115,14 @@ def paged_attention_partial(
     NP = page_table.shape[1] if shared else k_pages.shape[2]
     G = H // K
     P = resolve_partitions(partitions, NP)
-    if kv_heads is not None and (shared or q.device.type == "cpu"):
+    plain = q.device.type in PLAIN_DEVICES
+    if kv_heads is not None and (shared or plain):
         k_pages, v_pages, k_scale, v_scale = (
             None if a is None else a.narrow(head_axis, head0, K)
             for a in (k_pages, v_pages, k_scale, v_scale))
         head0 = 0
 
-    if q.device.type == "cpu":
+    if plain:
         def piece(lo, npp):
             kp, vp, base, ks, vs = _slice_pages(lo, npp, k_pages, v_pages,
                                                 page_base, k_scale, v_scale,
@@ -128,9 +131,10 @@ def paged_attention_partial(
                 q, kp, vp, base, length, window=window, kv_quant=kv_quant,
                 k_scale=ks, v_scale=vs)
 
-        if P == 1:
-            return piece(0, NP)
-        return _partition_walk(NP, P, piece)
+        o, m, l = (piece(0, NP) if P == 1
+                   else _partition_walk(NP, P, piece))
+        # o in q's dtype, as the kernel path returns it
+        return o.to(q.dtype), m, l
 
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_partial: no kernel for device "

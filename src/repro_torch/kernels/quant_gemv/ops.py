@@ -1,8 +1,9 @@
 """Public quantized matmul (port of `repro.kernels.quant_gemv.ops`).
 
 `quant_gemv` dispatches by the tensors' device, as the paged-attention
-entry points do: a CPU tensor takes the plain version (`ref.py`), a CUDA
-tensor launches kernel B3, and there is no fallback between the two.
+entry points do: a CPU or meta tensor takes the plain version (`ref.py`),
+a CUDA tensor launches kernel B3, and there is no fallback between the
+two.
 impl="ref" asks for the plain version on any device (the kernel-free
 reference forward uses it).
 """
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import PLAIN_DEVICES
 from repro_torch.core.quant import QuantizedWeight, quantize_activations_int8
 from repro_torch.kernels.quant_gemv.kernel import quant_gemv_cuda
 from repro_torch.kernels.quant_gemv.ref import quant_gemv_ref
@@ -25,7 +27,7 @@ def quant_gemv(x: torch.Tensor, qw: QuantizedWeight, *,
             "expert weights, as the reference does, and an expert-batched "
             "B3 is beyond the reference (ROADMAP B)")
     if impl == "auto":
-        impl = "ref" if x.device.type == "cpu" else "cuda"
+        impl = "ref" if x.device.type in PLAIN_DEVICES else "cuda"
     if impl == "ref":
         return quant_gemv_ref(x, qw.q, qw.scale, qw.scheme)
     if impl != "cuda":

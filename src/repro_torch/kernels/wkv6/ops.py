@@ -1,9 +1,9 @@
 """Public wkv6 (port of `repro.kernels.wkv6.ops`).
 
 `wkv6` dispatches by the tensors' device, as the port's other kernel
-entry points do: a CPU tensor takes the plain chunked form (`ref.py`, the
-reference's CPU path), a CUDA tensor launches kernel B5, and there is no
-fallback between the two.  impl="ref" (the chunked form) and
+entry points do: a CPU or meta tensor takes the plain chunked form
+(`ref.py`, the reference's CPU path), a CUDA tensor launches kernel B5,
+and there is no fallback between the two.  impl="ref" (the chunked form) and
 impl="recurrent" ask for a plain version on any device; impl="cuda" for
 the kernel.  Inputs stay in the model's [B, S, H, dh] layout: B5 reads
 them through their strides and masks the ragged tail itself, where the
@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import PLAIN_DEVICES
 from repro_torch.kernels.wkv6.kernel import MAX_CHUNK, wkv6_cuda
 from repro_torch.kernels.wkv6.ref import wkv_chunked, wkv_recurrent
 
@@ -27,7 +28,7 @@ def wkv6(r, k, v, logw, u, state, *, impl: str = "auto",
 
     Returns (out [B, S, H, dh], new_state [B, H, dh, dh] float32)."""
     if impl == "auto":
-        impl = "ref" if r.device.type == "cpu" else "cuda"
+        impl = "ref" if r.device.type in PLAIN_DEVICES else "cuda"
     if impl == "ref":
         return wkv_chunked(r, k, v, logw, u, state, chunk=chunk)
     if impl == "recurrent":

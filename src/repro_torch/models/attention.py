@@ -34,14 +34,14 @@ def init_attention(b: ParamInit, cfg: ModelConfig, *, cross: bool = False):
     (`cross`) has the same leaves, as in the reference."""
     d = cfg.d_model
     K, G, dh = cfg.n_kv_heads, cfg.group_size, cfg.d_head
-    b.param("wq_w", (K, d, G * dh))
-    b.param("wk_w", (K, d, dh))
-    b.param("wv_w", (K, d, dh))
+    b.param("wq_w", (K, d, G * dh), (None, "embed", "heads"))
+    b.param("wk_w", (K, d, dh), (None, "embed", "head_dim"))
+    b.param("wv_w", (K, d, dh), (None, "embed", "head_dim"))
     if cfg.attn_bias:
-        b.param("wq_b", (K, G * dh), init="zeros")
-        b.param("wk_b", (K, dh), init="zeros")
-        b.param("wv_b", (K, dh), init="zeros")
-    b.param("wo_w", (cfg.q_dim, d))
+        b.param("wq_b", (K, G * dh), (None, "heads"), init="zeros")
+        b.param("wk_b", (K, dh), (None, "head_dim"), init="zeros")
+        b.param("wv_b", (K, dh), (None, "head_dim"), init="zeros")
+    b.param("wo_w", (cfg.q_dim, d), ("heads", "embed"))
 
 
 def _proj(p, name: str, x: torch.Tensor) -> torch.Tensor:

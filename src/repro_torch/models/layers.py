@@ -9,7 +9,7 @@ numbers — torch's generator is not jax's threefry).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Optional, Sequence
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,40 +23,55 @@ from repro_torch.kernels.quant_gemv import quant_gemv
 
 
 class ParamInit:
-    """Builds a parameter tree with the reference initializers.
+    """Builds a parameter tree and its logical-axis spec tree with the
+    reference initializers (`ParamBuilder`).
 
     `param` mirrors `ParamBuilder.param`: "zeros", "ones", or a fan-in
     scaled normal (fan_in = shape[0] for 1-D, else shape[-2]) drawn in
-    float32 on `device` from `generator`.
+    float32 on `device` from `generator`, then cast to `dtype`; `axes`
+    (one logical name or None a dimension) goes into `specs`.
     `stack` prepends a layer axis WITHOUT changing fan-in, as the
-    reference's vmapped per-layer init does.
+    reference's vmapped per-layer init does, and "layer" to each spec.
+    On the meta device nothing is drawn or allocated (`generator` may be
+    None): the leaves carry shapes and dtypes only.
     """
 
-    def __init__(self, generator: torch.Generator, device, stack: int = 0):
+    def __init__(self, generator: Optional[torch.Generator], device,
+                 stack: int = 0, dtype: torch.dtype = torch.float32):
         self.generator = generator
-        self.device = device
+        self.device = torch.device(device)
         self.stack = stack
+        self.dtype = dtype
         self.params: Dict[str, Any] = {}
+        self.specs: Dict[str, Any] = {}
 
-    def param(self, name: str, shape: Sequence[int], *, init: str = "normal",
+    def param(self, name: str, shape: Sequence[int],
+              axes: Sequence[Optional[str]], *, init: str = "normal",
               scale: Optional[float] = None) -> torch.Tensor:
-        full = ((self.stack,) if self.stack else ()) + tuple(shape)
-        if init == "zeros":
-            val = torch.zeros(full, device=self.device)
+        if len(shape) != len(axes):
+            raise ValueError(f"{name}: shape {tuple(shape)}, axes {axes}")
+        lead = (self.stack,) if self.stack else ()
+        full = lead + tuple(shape)
+        if self.device.type == "meta":
+            val = torch.empty(full, dtype=self.dtype, device=self.device)
+        elif init == "zeros":
+            val = torch.zeros(full, dtype=self.dtype, device=self.device)
         elif init == "ones":
-            val = torch.ones(full, device=self.device)
+            val = torch.ones(full, dtype=self.dtype, device=self.device)
         else:
             if scale is None:
                 fan_in = shape[0] if len(shape) == 1 else shape[-2]
                 scale = 1.0 / math.sqrt(max(fan_in, 1))
-            val = torch.randn(full, generator=self.generator,
-                              device=self.device) * scale
+            val = (torch.randn(full, generator=self.generator,
+                               device=self.device) * scale).to(self.dtype)
         self.params[name] = val
+        self.specs[name] = (("layer",) if self.stack else ()) + tuple(axes)
         return val
 
     def scope(self, name: str) -> "ParamInit":
-        sub = ParamInit(self.generator, self.device, self.stack)
+        sub = ParamInit(self.generator, self.device, self.stack, self.dtype)
         self.params[name] = sub.params
+        self.specs[name] = sub.specs
         return sub
 
 
@@ -111,10 +126,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_dense(b: ParamInit, name: str, in_dim: int, out_dim: int,
+               axes: Tuple[Optional[str], Optional[str]],
                bias: bool = False):
-    b.param(f"{name}_w", (in_dim, out_dim))
+    b.param(f"{name}_w", (in_dim, out_dim), axes)
     if bias:
-        b.param(f"{name}_b", (out_dim,), init="zeros")
+        b.param(f"{name}_b", (out_dim,), (axes[1],), init="zeros")
 
 
 def dense(params: Dict[str, Any], name: str, x: torch.Tensor, *,
@@ -136,9 +152,9 @@ def dense(params: Dict[str, Any], name: str, x: torch.Tensor, *,
 
 def init_mlp(b: ParamInit, d_model: int, d_ff: int, gated: bool):
     if gated:
-        init_dense(b, "gate", d_model, d_ff)
-    init_dense(b, "up", d_model, d_ff)
-    init_dense(b, "down", d_ff, d_model)
+        init_dense(b, "gate", d_model, d_ff, ("embed", "mlp"))
+    init_dense(b, "up", d_model, d_ff, ("embed", "mlp"))
+    init_dense(b, "down", d_ff, d_model, ("mlp", "embed"))
 
 
 def mlp(params: Dict[str, Any], x: torch.Tensor, gated: bool, *,
@@ -156,10 +172,13 @@ def mlp(params: Dict[str, Any], x: torch.Tensor, gated: bool, *,
 # ---------------------------------------------------------------------------
 
 def init_moe(b: ParamInit, d_model: int, d_ff: int, n_experts: int):
-    b.param("router_w", (d_model, n_experts))
-    b.param("w_gate", (n_experts, d_model, d_ff))
-    b.param("w_up", (n_experts, d_model, d_ff))
-    b.param("w_down", (n_experts, d_ff, d_model))
+    b.param("router_w", (d_model, n_experts), ("embed", None))
+    b.param("w_gate", (n_experts, d_model, d_ff),
+            ("expert", "embed", "moe_mlp"))
+    b.param("w_up", (n_experts, d_model, d_ff),
+            ("expert", "embed", "moe_mlp"))
+    b.param("w_down", (n_experts, d_ff, d_model),
+            ("expert", "moe_mlp", "embed"))
 
 
 def moe_capacity(seq_len: int, n_experts: int, top_k: int,
@@ -277,7 +296,8 @@ def moe_aux_loss(params: Dict[str, Any], x: torch.Tensor,
 def init_embedding(b: ParamInit, vocab: int, d_model: int,
                    name: str = "embedding"):
     # 1/sqrt(d) keeps tied-lm-head logits O(1) at init
-    b.param(name, (vocab, d_model), scale=d_model ** -0.5)
+    b.param(name, (vocab, d_model), ("vocab", "embed"),
+            scale=d_model ** -0.5)
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor,

@@ -31,27 +31,28 @@ def init_rwkv_timemix(b: ParamInit, cfg: ModelConfig):
     d = cfg.d_model
     H, dh = cfg.n_heads, cfg.d_head
     # data-dependent token shift: base lerp factors + low-rank modulation
-    b.param("mu_base", (5, d), init="zeros")   # r,k,v,g,w
-    b.param("mu_x", (d,), init="zeros")
-    b.param("lora_a", (d, LORA_RANK), scale=0.01)
-    b.param("lora_b", (LORA_RANK, 5, d), scale=0.01)
+    b.param("mu_base", (5, d), (None, "ssm"), init="zeros")   # r,k,v,g,w
+    b.param("mu_x", (d,), ("ssm",), init="zeros")
+    b.param("lora_a", (d, LORA_RANK), ("embed", None), scale=0.01)
+    b.param("lora_b", (LORA_RANK, 5, d), (None, None, "ssm"), scale=0.01)
     # decay + bonus
-    b.param("w0", (d,), init="zeros")
-    b.param("wlora_a", (d, LORA_RANK), scale=0.01)
-    b.param("wlora_b", (LORA_RANK, d), scale=0.01)
-    b.param("u", (H, dh), scale=0.5)
+    b.param("w0", (d,), ("ssm",), init="zeros")
+    b.param("wlora_a", (d, LORA_RANK), ("embed", None), scale=0.01)
+    b.param("wlora_b", (LORA_RANK, d), (None, "ssm"), scale=0.01)
+    b.param("u", (H, dh), (None, "ssm"), scale=0.5)
     # projections
-    for name in ("wr", "wk", "wv", "wg", "wo"):
-        init_dense(b, name, d, d)
-    b.param("ln_scale", (d,), init="ones")     # post-wkv group norm
+    for name in ("wr", "wk", "wv", "wg"):
+        init_dense(b, name, d, d, ("embed", "heads"))
+    init_dense(b, "wo", d, d, ("heads", "embed"))
+    b.param("ln_scale", (d,), ("norm",), init="ones")  # post-wkv group norm
 
 
 def init_rwkv_channelmix(b: ParamInit, cfg: ModelConfig):
-    b.param("mu_k", (cfg.d_model,), init="zeros")
-    b.param("mu_r", (cfg.d_model,), init="zeros")
-    init_dense(b, "ck", cfg.d_model, cfg.d_ff)
-    init_dense(b, "cv", cfg.d_ff, cfg.d_model)
-    init_dense(b, "cr", cfg.d_model, cfg.d_model)
+    b.param("mu_k", (cfg.d_model,), ("ssm",), init="zeros")
+    b.param("mu_r", (cfg.d_model,), ("ssm",), init="zeros")
+    init_dense(b, "ck", cfg.d_model, cfg.d_ff, ("embed", "mlp"))
+    init_dense(b, "cv", cfg.d_ff, cfg.d_model, ("mlp", "embed"))
+    init_dense(b, "cr", cfg.d_model, cfg.d_model, ("embed", "heads"))
 
 
 def rwkv_state_shape(cfg: ModelConfig, batch: int) -> Tuple[int, ...]:

@@ -32,16 +32,16 @@ CHUNK = 64
 
 def init_ssm(b: ParamInit, cfg: ModelConfig):
     d, n = cfg.d_model, cfg.ssm_state
-    init_dense(b, "in_x", d, d)
-    init_dense(b, "in_z", d, d)
-    b.param("conv_w", (CONV_K, d), scale=0.5)
-    b.param("conv_b", (d,), init="zeros")
-    init_dense(b, "w_b", d, n)
-    init_dense(b, "w_c", d, n)
-    init_dense(b, "w_dt", d, 1, bias=True)
-    b.param("a_log", (d, n), init="zeros")
-    b.param("d_skip", (d,), init="ones")
-    init_dense(b, "out", d, d)
+    init_dense(b, "in_x", d, d, ("embed", "heads"))
+    init_dense(b, "in_z", d, d, ("embed", "heads"))
+    b.param("conv_w", (CONV_K, d), (None, "ssm"), scale=0.5)
+    b.param("conv_b", (d,), ("ssm",), init="zeros")
+    init_dense(b, "w_b", d, n, ("embed", None))
+    init_dense(b, "w_c", d, n, ("embed", None))
+    init_dense(b, "w_dt", d, 1, ("embed", None), bias=True)
+    b.param("a_log", (d, n), ("ssm", None), init="zeros")
+    b.param("d_skip", (d,), ("ssm",), init="ones")
+    init_dense(b, "out", d, d, ("heads", "embed"))
 
 
 def ssm_state_shape(cfg: ModelConfig, batch: int) -> Tuple[int, ...]:

@@ -60,6 +60,8 @@ class Runtime:
     activ_dtype: Any = torch.float32
     attn_impl: str = "auto"          # flash attention dispatch
     moe_capacity: float = 1.25
+    vlm_patches: int = 256           # patch-prefix length of a VLM cell
+    enc_frames_ratio: int = 4        # encoder-decoder: frames = S // ratio
     loss_chunk: int = 0              # >0: sequence-chunked CE (one chunk
     #                                  of logits live at a time)
 
@@ -77,49 +79,71 @@ def layer_window(cfg: ModelConfig, layer: int):
     return None if cfg.is_global_layer(layer) else cfg.window
 
 
-def _init_stacked_layers(cfg: ModelConfig, n_layers: int,
-                         generator: torch.Generator, device):
+def _init_stacked_layers(b: ParamInit, cfg: ModelConfig, n_layers: int,
+                         name: str):
     """`n_layers` blocks with a leading layer axis on every leaf (the
-    reference's `_init_block` under `_init_stacked_layers`)."""
-    lb = ParamInit(generator, device, stack=n_layers)
-    lb.param("ln1", (cfg.d_model,), init="zeros")
+    reference's `_init_block` under `_init_stacked_layers`), as b[name]."""
+    lb = ParamInit(b.generator, b.device, stack=n_layers, dtype=b.dtype)
+    lb.param("ln1", (cfg.d_model,), ("norm",), init="zeros")
     if cfg.family == "ssm":
         rwkv6.init_rwkv_timemix(lb.scope("tmix"), cfg)
-        lb.param("ln2", (cfg.d_model,), init="zeros")
+        lb.param("ln2", (cfg.d_model,), ("norm",), init="zeros")
         rwkv6.init_rwkv_channelmix(lb.scope("cmix"), cfg)
-        return lb.params
-    attn_mod.init_attention(lb.scope("attn"), cfg)
-    if cfg.family == "hybrid":
-        ssm.init_ssm(lb.scope("ssm"), cfg)
-    if cfg.is_encoder_decoder:
-        lb.param("ln_cross", (cfg.d_model,), init="zeros")
-        attn_mod.init_attention(lb.scope("cross"), cfg, cross=True)
-    lb.param("ln2", (cfg.d_model,), init="zeros")
-    if cfg.is_moe:
-        init_moe(lb.scope("moe"), cfg.d_model, cfg.d_ff, cfg.n_experts)
     else:
-        init_mlp(lb.scope("mlp"), cfg.d_model, cfg.d_ff, cfg.gated_mlp)
-    return lb.params
+        attn_mod.init_attention(lb.scope("attn"), cfg)
+        if cfg.family == "hybrid":
+            ssm.init_ssm(lb.scope("ssm"), cfg)
+        if cfg.is_encoder_decoder:
+            lb.param("ln_cross", (cfg.d_model,), ("norm",), init="zeros")
+            attn_mod.init_attention(lb.scope("cross"), cfg, cross=True)
+        lb.param("ln2", (cfg.d_model,), ("norm",), init="zeros")
+        if cfg.is_moe:
+            init_moe(lb.scope("moe"), cfg.d_model, cfg.d_ff, cfg.n_experts)
+        else:
+            init_mlp(lb.scope("mlp"), cfg.d_model, cfg.d_ff, cfg.gated_mlp)
+    b.params[name], b.specs[name] = lb.params, lb.specs
+
+
+def init_model_with_specs(cfg: ModelConfig,
+                          generator: Optional[torch.Generator], device,
+                          dtype: torch.dtype = torch.float32):
+    """(params, specs): the reference's `init_model`, a parameter tree
+    and its logical-axis tree of one structure."""
+    b = ParamInit(generator, device, dtype=dtype)
+    init_embedding(b, cfg.padded_vocab, cfg.d_model)
+    _init_stacked_layers(b, cfg, cfg.n_layers, "layers")
+    b.param("final_norm", (cfg.d_model,), ("norm",), init="zeros")
+    if not cfg.tie_embeddings:
+        b.param("lm_head", (cfg.padded_vocab, cfg.d_model),
+                ("vocab", "embed"))
+    if cfg.is_encoder_decoder:
+        _init_stacked_layers(b, encoder_config(cfg), cfg.encoder_layers,
+                             "encoder")
+        b.param("encoder_norm", (cfg.d_model,), ("norm",), init="zeros")
+    if cfg.n_meta_tokens:
+        b.param("meta_tokens", (cfg.n_meta_tokens, cfg.d_model),
+                (None, "embed"), scale=0.02)
+    return b.params, b.specs
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator,
                device) -> Dict[str, Any]:
     """Fresh float32 parameters with the reference's tree, shapes and
     scales."""
-    b = ParamInit(generator, device)
-    init_embedding(b, cfg.padded_vocab, cfg.d_model)
-    b.params["layers"] = _init_stacked_layers(cfg, cfg.n_layers, generator,
-                                              device)
-    b.param("final_norm", (cfg.d_model,), init="zeros")
-    if not cfg.tie_embeddings:
-        b.param("lm_head", (cfg.padded_vocab, cfg.d_model))
-    if cfg.is_encoder_decoder:
-        b.params["encoder"] = _init_stacked_layers(
-            encoder_config(cfg), cfg.encoder_layers, generator, device)
-        b.param("encoder_norm", (cfg.d_model,), init="zeros")
-    if cfg.n_meta_tokens:
-        b.param("meta_tokens", (cfg.n_meta_tokens, cfg.d_model), scale=0.02)
-    return b.params
+    return init_model_with_specs(cfg, generator, device)[0]
+
+
+def abstract_params(cfg: ModelConfig, dtype: torch.dtype = torch.float32):
+    """(params, specs) with every leaf a meta tensor of the reference's
+    shape in `dtype`: nothing drawn, nothing allocated (the dry-run's
+    stand-in for the reference's `jax.eval_shape` of `init_model`)."""
+    return init_model_with_specs(cfg, None, "meta", dtype)
+
+
+def param_specs(cfg: ModelConfig):
+    """The logical-axis tree the reference's `init_model` returns beside
+    its params."""
+    return abstract_params(cfg)[1]
 
 
 def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],

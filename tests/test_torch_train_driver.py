@@ -25,6 +25,7 @@ import torch
 
 from repro.launch import train as jtrain
 from repro_torch.checkpoint import checkpoint as ck
+from repro_torch.launch import train as train_mod
 from repro_torch.launch.train import StragglerMonitor, train
 
 torch.set_num_threads(2)
@@ -41,25 +42,60 @@ def _shape(line: str) -> str:
     return re.sub(r"-?\d+(\.\d+)?(e[-+]\d+)?", "#", line)
 
 
-def test_prints_the_reference_lines_and_the_loss_falls(capsys):
+def _train_lines(out: str):
+    """The masked [train] lines of a run's output, without the straggler
+    lines: those report the host's wall time of a step, which neither
+    training driver fixes (a loaded host flags a step in either)."""
+    return [_shape(x) for x in out.splitlines()
+            if x.startswith("[train]")
+            and not x.startswith("[train] straggler:")]
+
+
+LINES_ARGV = ["--reduced", "--steps", "6", "--seq-len", "32",
+              "--global-batch", "4", "--log-every", "2"]
+
+
+def _reference_lines(capsys):
     before = signal.getsignal(signal.SIGTERM)
-    argv = ["--reduced", "--steps", "6", "--seq-len", "32",
-            "--global-batch", "4", "--log-every", "2"]
     try:
-        jtrain.train(argv)
+        jtrain.train(LINES_ARGV)
     finally:   # the reference leaves its handler installed
         signal.signal(signal.SIGTERM, before)
-    want = [_shape(x) for x in capsys.readouterr().out.splitlines()
-            if x.startswith("[train]")]
-    losses = train(argv + ["--device", "cpu"])
-    got = [_shape(x) for x in capsys.readouterr().out.splitlines()
-           if x.startswith("[train]")]
+    return _train_lines(capsys.readouterr().out), before
+
+
+def test_prints_the_reference_lines_and_the_loss_falls(capsys):
+    want, before = _reference_lines(capsys)
+    losses = train(LINES_ARGV + ["--device", "cpu"])
+    got = _train_lines(capsys.readouterr().out)
     assert got == want and len(got) == 5, (got, want)
     assert signal.getsignal(signal.SIGTERM) is before
     # the README's command: the reference driver's default batch
     losses = train(["--reduced", "--steps", "20", "--device", "cpu"])
     assert all(np.isfinite(losses))
     assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 1.0, losses
+
+
+class _SlowStepClock:
+    """A `time` stand-in whose fourth step takes 10 s (`launch.train` reads
+    the clock twice a step)."""
+
+    def __init__(self):
+        self.t, self.calls = 0.0, 0
+
+    def time(self):
+        self.calls += 1
+        self.t += 10.0 if self.calls == 8 else 0.01
+        return self.t
+
+
+def test_a_slow_port_step_keeps_the_reference_lines(capsys, monkeypatch):
+    want, _ = _reference_lines(capsys)
+    monkeypatch.setattr(train_mod, "time", _SlowStepClock())
+    train(LINES_ARGV + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "[train] straggler: step 3 took 10.00s" in out, out
+    assert _train_lines(out) == want and len(want) == 5, (out, want)
 
 
 def test_resume_from_a_periodic_checkpoint_equals_the_straight_run(tmp_path):
