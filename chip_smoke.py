@@ -256,11 +256,18 @@ Phases (each one fails the run when it fails):
             B2) = decode steps x 24 each way (an overlapped dispatch cannot
             admit into a slot its own collect frees, so the step counts may
             differ); wall, decode steps, host-observed device idle time
-            and phantom tokens printed.  Then a decode-only `dispatch()`,
-            and a second one chained on it, under
-            `torch.cuda.set_sync_debug_mode("error")` on the stripe, shared
-            and tiered pools: the stripe pool's must not synchronize; the
-            first synchronizing call of the others is printed.
+            and phantom tokens printed.  Then a decode-only `dispatch()`
+            (a verify dispatch under speculation), and a second one
+            chained on it, under `torch.cuda.set_sync_debug_mode("warn")`
+            on each of the four deployments: a warnings hook collects every
+            host-sync site in `repro_torch` (the innermost such frame of
+            each sync's stack), the first printed as before; the stripe
+            pool's must not synchronize, and the shared pool's first site
+            must be the one `set_sync_debug_mode("error")` raises at.  The
+            port's linter then runs in-process over src/repro_torch: every
+            site the card saw must be a TK001 finding, live or baselined
+            in kvlint_torch_baseline.txt, or the run fails (the lint's
+            seconds and finding count, and each probe's seconds, printed).
             `--overlap` runs the build and this phase only;
 19. H1      the HTTP front end (`BackgroundServer`, overlapped engine
             loop) around the full-width shared f32 pool: 6 concurrent
@@ -386,7 +393,7 @@ Phases (each one fails the run when it fails):
             within LOGIT_GAP_TOL of the plain forward and of each other.  Then O1's probe on the
             stripe pool: a decode-only dispatch through `moe`, and a
             second chained on it, under
-            `torch.cuda.set_sync_debug_mode("error")` must not
+            `torch.cuda.set_sync_debug_mode("warn")` must not
             synchronize.  Launch counts, walls and peak memory printed
             beside the card.
             `--moe` runs the build and this phase only;
@@ -3846,17 +3853,84 @@ O1_DEPLOYMENTS = (
 )
 
 
-def sync_probe(srv) -> str:
-    """Drive 4 requests (O1's first 4 sampling params) into decode on
-    `srv` (built with overlap=True), then run a decode-only dispatch, and
-    a second one chained on it, under `set_sync_debug_mode("error")`:
-    returns "none" when neither synchronizes the host with the card, else
-    the first synchronizing call site in the port."""
+def port_site(frames):
+    """The innermost `repro_torch` frame of `frames` as "path:line text"
+    (the path relative to the repository), or None."""
+    frames = [f for f in frames if "repro_torch" in f.filename]
+    if not frames:
+        return None
+    f = frames[-1]
+    path = Path(f.filename).resolve()
+    rel = (path.relative_to(ROOT).as_posix() if path.is_relative_to(ROOT)
+           else f.filename)
+    return f"{rel}:{f.lineno} {f.line}"
+
+
+def sync_sites(run) -> list:
+    """Every host-sync site in the port that `run()` reaches, in order of
+    first sight: `run()` goes under `set_sync_debug_mode("warn")`, and a
+    `warnings.showwarning` hook takes the innermost `repro_torch` frame of
+    each sync warning's stack (the call that synchronized) as
+    "path:line text", the path relative to the repository."""
     import traceback
+    import warnings
+    import torch
+    sites = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return shown(message, category, filename, lineno, file, line)
+        site = (port_site(traceback.extract_stack())
+                or f"{filename}:{lineno} (no repro_torch frame)")
+        if site not in sites:
+            sites.append(site)
+
+    # the mode is set before the hook goes in: setting it warns once a
+    # process that the mode is a prototype, which is no sync
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            shown = warnings.showwarning
+            warnings.showwarning = hook
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+def first_sync_error(run) -> str:
+    """The first host-sync site of `run()` under
+    `set_sync_debug_mode("error")`, from the raised error's traceback
+    (the form O1 printed before `sync_sites`), or "none"."""
+    import traceback
+    import torch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    except RuntimeError as e:
+        return (port_site(traceback.extract_tb(e.__traceback__))
+                or str(e).splitlines()[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return "none"
+
+
+def sync_probe(srv, mode: str = "warn"):
+    """Drive 4 requests (O1's first 4 sampling params, 64 new tokens
+    each so that no slot finishes first, speculation's 5-token steps
+    included) into decode on `srv` (built with overlap=True), then run a
+    decode-only dispatch (a verify dispatch under speculation), and a
+    second one chained on it, and return the host-sync sites they reach
+    (`sync_sites`; [] when neither synchronizes the host with the card).
+    `mode="error"` returns the first site as `first_sync_error` finds it
+    instead."""
+    import dataclasses
     import torch
     prompts = stripe_prompts(srv.cfg.vocab_size)[:4]
     # greedy and seeded sampling rows, so the sampler's noise is drawn
-    uids = [srv.submit(p, sp) for p, sp in zip(prompts, mixed_params(()))]
+    uids = [srv.submit(p, dataclasses.replace(sp, max_new_tokens=64))
+            for p, sp in zip(prompts, mixed_params(()))]
     b = srv._batcher
     while b.queue or b._prefill_live or not all(
             srv._requests[u].output for u in uids):
@@ -3864,20 +3938,35 @@ def sync_probe(srv) -> str:
     srv.step()                        # one decode step with every slot
     check(all(r is not None for r in b.slots), "a probe slot finished early")
     torch.cuda.synchronize()
-    site = "none"
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+
+    def run():
         srv.dispatch()
         srv.dispatch()
-    except RuntimeError as e:
-        frames = [f for f in traceback.extract_tb(e.__traceback__)
-                  if "repro_torch" in f.filename]
-        f = frames[-1] if frames else None
-        site = (f"{Path(f.filename).name}:{f.lineno} {f.line}" if f
-                else str(e).splitlines()[0])
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    return site
+    return first_sync_error(run) if mode == "error" else sync_sites(run)
+
+
+def tk001_check(sites_of: dict) -> dict:
+    """Run the port's linter in-process over src/repro_torch and hold
+    every host-sync site the card saw (`sites_of`: deployment -> sites) to
+    a TK001 finding, live or baselined (the card's syncs are TK001's
+    ground truth).  A site TK001 misses fails the run."""
+    from repro_torch.analysis import run_paths
+    t0 = time.perf_counter()
+    findings = run_paths(["src/repro_torch"], ROOT, ["TK001"])
+    secs = time.perf_counter() - t0
+    found = {(f.path, f.line) for f in findings}
+    print(f"O1 lint: TK001 over src/repro_torch in {secs:.2f} s, "
+          f"{len(findings)} finding(s); on {smi_line()}")
+    missed = []
+    for name, sites in sites_of.items():
+        for site in sites:
+            path, _, rest = site.partition(":")
+            line = rest.split(" ", 1)[0]
+            if not (line.isdigit() and (path, int(line)) in found):
+                missed.append(f"{name}: {site}")
+    check(not missed, "O1: host syncs on the card that TK001 does not "
+          "report: " + "; ".join(missed))
+    return {"seconds": secs, "findings": len(findings)}
 
 
 def overlap_phase(params=None) -> dict:
@@ -3936,16 +4025,37 @@ def overlap_phase(params=None) -> dict:
               f"idle {r_over['device_idle_s']:.3f} s, "
               f"{r_over['phantom_tokens']} phantom tokens); finishes "
               f"{r_sync['finish']}; on {smi_line()}")
-    res["sync_probe"] = {}
-    for name, engine, server in O1_DEPLOYMENTS[:3]:
-        site = sync_probe(build_server(
+    t_probe = time.perf_counter()
+    res["sync_probe"], res["probe_s"] = {}, {}
+    for name, engine, server in O1_DEPLOYMENTS:
+        t1 = time.perf_counter()
+        sites = sync_probe(build_server(
             params, server=dict(server, overlap=True), **engine))
-        res["sync_probe"][name] = site
+        res["probe_s"][name] = time.perf_counter() - t1
+        res["sync_probe"][name] = sites
         print(f"O1 {name}: decode-only dispatch under "
-              f"set_sync_debug_mode('error'): first host sync {site}")
-    check(res["sync_probe"]["stripe bf16"] == "none",
+              f"set_sync_debug_mode('warn'): first host sync "
+              f"{sites[0] if sites else 'none'}; {len(sites)} site(s): "
+              f"{sites}; {res['probe_s'][name]:.2f} s; on {smi_line()}")
+    check(res["sync_probe"]["stripe bf16"] == [],
           "O1: a decode-only dispatch on the stripe pool synchronizes: "
-          + res["sync_probe"]["stripe bf16"])
+          f"{res['sync_probe']['stripe bf16']}")
+    # the hook names the caller's line: its first site is the one the
+    # raised error's traceback names
+    name, engine, server = O1_DEPLOYMENTS[1]
+    t1 = time.perf_counter()
+    first = sync_probe(build_server(params, server=dict(server, overlap=True),
+                                    **engine), mode="error")
+    res["probe_s"]["error cross-check"] = time.perf_counter() - t1
+    seen = res["sync_probe"][name]
+    check(first == (seen[0] if seen else "none"),
+          f"O1 {name}: the warning hook's first site {seen[:1]} is not the "
+          f"error mode's {first}")
+    res["tk001"] = tk001_check(res["sync_probe"])
+    res["probe_s"]["all"] = time.perf_counter() - t_probe
+    print(f"O1 sync probe: 4 deployments {res['probe_s']}, the error-mode "
+          f"cross-check and the lint ({res['tk001']['seconds']:.2f} s) in "
+          f"{res['probe_s']['all']:.2f} s; on {smi_line()}")
     res["launches_B1"] = sum(res[n][k]["launches"] for n, e, _ in
                              O1_DEPLOYMENTS if not e.get("shared_pool")
                              for k in ("sync", "overlap"))
@@ -5072,14 +5182,14 @@ def mixtral_server_runs(cfg, params, control) -> dict:
                                           runs["shared"])
     # `moe` must leave the overlapped schedule's dispatch free of host
     # reads, as O1's probe holds the stripe pool's
-    site = sync_probe(KVNANDServer(mixtral_server_config(
+    sites = sync_probe(KVNANDServer(mixtral_server_config(
         mixtral_engine_config(), overlap=True), cfg=cfg, params=params,
         rt=mixtral_runtime(1.25)))
     print(f"E1 stripe: decode-only dispatch under "
-          f"set_sync_debug_mode('error'): first host sync {site}")
-    check(site == "none", "E1: a decode-only dispatch through `moe` "
-          f"synchronizes: {site}")
-    res["sync_probe"] = site
+          f"set_sync_debug_mode('warn'): host syncs {sites or 'none'}")
+    check(sites == [], "E1: a decode-only dispatch through `moe` "
+          f"synchronizes: {sites}")
+    res["sync_probe"] = sites
     return res
 
 

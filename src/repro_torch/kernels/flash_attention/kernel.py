@@ -174,14 +174,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(H <= 65535 and B <= 65535
            and _cdiv(Sq, BLOCK_Q) * plan.split < 2 ** 31,
            "grid past the launch limits")
-    rc = entry("kvnand_flash_attention")(
+    _raise_on(entry("kvnand_flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         B, Sq, Sk, H, K, dh, int(causal), 0 if window is None else window,
         q_offset, int(q.dtype == torch.bfloat16), dh ** -0.5, plan.split,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        torch.cuda.current_stream(q.device).cuda_stream))
+    launches.value += 1
+    return out
+
+
+def _raise_on(rc: int):
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    launches.value += 1
-    return out

@@ -76,14 +76,17 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scratch = [torch.empty(shape, dtype=torch.float32, device=r.device)
                    for shape in ((B, H, n, chunk, dh), (B, H, n, dh, dh),
                                  (B, H, n, dh))]
-    rc = entry("kvnand_wkv6")(
+    _raise_on(entry("kvnand_wkv6")(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
         u.data_ptr(), state.data_ptr(), out.data_ptr(), sT.data_ptr(),
         *([t.data_ptr() for t in scratch] or [None] * 3),
         *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *logw.stride()[:3], B, S, H, dh, chunk,
-        torch.cuda.current_stream(r.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {rc}")
+        torch.cuda.current_stream(r.device).cuda_stream))
     launches.value += 1
     return out, sT
+
+
+def _raise_on(rc: int):
+    if rc != 0:
+        raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {rc}")
